@@ -1,0 +1,67 @@
+"""Carry precomputed tables across to the port: the counterpart of
+converting a model's weights.
+
+The skimmer has no trained weights; what the JAX package precomputes on
+the host instead are tables: the channelizer's filter segments and NCO
+tone basis, the decoder's DFT matrix and analysis window, Gray bitmaps,
+CRC matrix, data-symbol index, AP mask and values, BP index tables,
+systematic generator, payload-hash weights and OSD flip patterns.
+
+:func:`tables_to_torch` takes such tables as NumPy arrays — read off the
+JAX objects, or built by the port's own constructors — checks each against
+the schema below, and returns tensors on ``device``.  The port's decoder
+moves its own tables with it; the tests feed it the JAX package's tables
+and require them bit for bit equal to the port's, so the machine with the
+card never needs JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+# table name -> dtype it must already have (no silent casts)
+TABLE_DTYPES: dict[str, np.dtype] = {
+    # channelizer (dsp/channelizer.py)
+    "segs": np.dtype(np.float32),        # [BS, NWS] filter segments
+    "tone_re": np.dtype(np.float32),     # [C, SUB] NCO tone basis
+    "tone_im": np.dtype(np.float32),
+    # FT8 decoder (modes/gfsk_engine.py, modes/ldpc.py, modes/osd.py)
+    "dft_mat": np.dtype(np.float32),     # [sps, 4*n_bins] DFT columns
+    "window": np.dtype(np.float32),      # [sps] Hann window
+    "bitmaps": np.dtype(np.float32),     # [bits_per_sym, n_tones]
+    "crc_mat": np.dtype(np.float32),     # [77, 14]
+    "data_syms": np.dtype(np.int32),     # [58]
+    "ap_mask": np.dtype(np.float32),     # [H, 174]
+    "ap_vals": np.dtype(np.float32),     # [H, 174]
+    "row_cols": np.dtype(np.int32),      # [83, max_row] BP tables
+    "row_mask": np.dtype(np.float32),
+    "col_slots": np.dtype(np.int32),     # [174, max_col]
+    "col_mask": np.dtype(np.float32),
+    "gen": np.dtype(np.uint8),           # [91, 174] systematic generator
+    "gen_parity": np.dtype(np.float32),  # [91, 83]
+    "hash_w": np.dtype(np.int32),        # [91] payload-hash weights
+    "patterns": np.dtype(np.float32),    # [268, 91] OSD flip patterns
+}
+
+
+def tables_to_torch(tables: Mapping[str, np.ndarray],
+                    device: torch.device | str = "cpu"
+                    ) -> dict[str, torch.Tensor]:
+    """NumPy tables -> tensors on ``device``, each checked by name and
+    dtype; raises on an unknown name or a dtype that differs."""
+    out = {}
+    for name, arr in tables.items():
+        want = TABLE_DTYPES.get(name)
+        if want is None:
+            raise KeyError(f"unknown table {name!r}")
+        a = np.asarray(arr)
+        if a.dtype != want:
+            raise ValueError(f"table {name!r}: dtype {a.dtype}, expected {want}")
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:       # e.g. a view of a JAX array
+            a = a.copy()
+        out[name] = torch.from_numpy(a).to(device)
+    return out

@@ -1,0 +1,1 @@
+"""dsp layer of the PyTorch port (see cwsl_digi_tpu/dsp)."""

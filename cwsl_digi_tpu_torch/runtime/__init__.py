@@ -1,0 +1,1 @@
+"""runtime layer of the PyTorch port (see cwsl_digi_tpu/runtime)."""

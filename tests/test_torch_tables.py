@@ -1,0 +1,105 @@
+"""Tables carried across: the JAX package's precomputed tables, read off its
+objects as NumPy arrays and passed through ``convert.tables_to_torch``,
+equal the port's own constructors' tables bit for bit."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from cwsl_digi_tpu.dsp import lowpass as jlowpass
+from cwsl_digi_tpu.dsp.channelizer import BatchChannelizer as JaxChannelizer
+from cwsl_digi_tpu.modes import ft8 as jft8
+from cwsl_digi_tpu.modes import ldpc as jldpc
+from cwsl_digi_tpu.modes import osd as josd
+from cwsl_digi_tpu_torch import convert
+from cwsl_digi_tpu_torch.dsp import lowpass
+from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
+from cwsl_digi_tpu_torch.modes import ft8, ldpc, osd
+
+
+def _assert_bitwise(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
+    assert a.dtype == b.dtype, name
+    assert a.shape == b.shape, name
+    assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("fs,usb", [(48_000, True), (192_000, False)])
+def test_channelizer_tables_bitwise(fs, usb):
+    freqs = np.linspace(-0.4 * fs, 0.4 * fs - 6000, 6)
+    jb = JaxChannelizer(fs, freqs, is_usb=usb)
+    tb = BatchChannelizer(fs, freqs, is_usb=usb)
+    jax_np = {"tone_re": np.asarray(jb.tone_re),
+              "tone_im": np.asarray(jb.tone_im),
+              "segs": np.asarray(jb.segs)}
+    carried = convert.tables_to_torch(jax_np, "cpu")
+    mine = tb.tables()
+    for name in jax_np:
+        _assert_bitwise(carried[name], mine[name], name)
+    assert tb._sub == jb._sub
+
+
+def test_filter_taps_bitwise():
+    for fs in (48_000, 96_000, 192_000):
+        np.testing.assert_array_equal(lowpass.build_ssb_filter(fs, 6000),
+                                      jlowpass.build_ssb_filter(fs, 6000))
+    np.testing.assert_array_equal(lowpass.build_lowpass(64, 0.1),
+                                  jlowpass.build_lowpass(64, 0.1))
+
+
+def test_ft8_decoder_tables_bitwise():
+    """DFT matrix, window, bitmaps, CRC matrix, data symbols, AP mask and
+    values, BP index tables, generator, hash weights, flip patterns."""
+    jd = jft8.FT8Decoder(my_call="W2AXR", depth=3)
+    td = ft8.FT8Decoder(my_call="W2AXR", depth=3)
+    spec = jd.spec
+    bt = jd.bp.t
+    jax_np = {
+        "dft_mat": jd._dft_mat,
+        "window": jd._window,
+        "bitmaps": jd._bitmaps,
+        "crc_mat": jd._crc_mat,
+        "data_syms": jd._data_syms,
+        "ap_mask": jd._ap_mask,
+        "ap_vals": jd._ap_vals,
+        "row_cols": bt.row_cols,
+        "row_mask": bt.row_mask,
+        "col_slots": bt.col_slots,
+        "col_mask": bt.col_mask,
+        "gen": np.concatenate([np.eye(jd.bp.code.k, dtype=np.uint8),
+                               jd.bp.code.gen_parity], axis=1),
+        "gen_parity": jd._gen_parity_f32,
+        "hash_w": np.asarray(jd._hash_w),
+        "patterns": josd.flip_patterns(jd.bp.code.k, spec.osd_singles,
+                                       spec.osd_tail2,
+                                       spec.osd_tail3).astype(np.float32),
+    }
+    carried = convert.tables_to_torch(jax_np, "cpu")
+    mine = td.tables()
+    assert set(carried) == set(mine)
+    for name in jax_np:
+        _assert_bitwise(carried[name], mine[name], name)
+    assert carried["patterns"].shape == (268, 91)
+    assert td.max_device_batch == jd.max_device_batch
+
+
+def test_codes_and_flip_patterns_identical():
+    jc, tc = jldpc.ft8_code(), ldpc.ft8_code()
+    np.testing.assert_array_equal(jc.h, tc.h)
+    np.testing.assert_array_equal(jc.gen_parity, tc.gen_parity)
+    for args in [(91, 91, 16, 8), (91, 40, 10, 0), (101, 101, 16, 8)]:
+        np.testing.assert_array_equal(osd.flip_patterns(*args),
+                                      josd.flip_patterns(*args))
+    np.testing.assert_array_equal(ft8.ap_hypotheses("K1ABC", "W9XYZ"),
+                                  jft8.ap_hypotheses("K1ABC", "W9XYZ"))
+    np.testing.assert_array_equal(ft8.encode_message("CQ W2AXR FN13"),
+                                  jft8.encode_message("CQ W2AXR FN13"))
+    assert ft8.SPEC.__dict__ == jft8.SPEC.__dict__
+
+
+def test_convert_refuses_unknown_names_and_dtypes():
+    with pytest.raises(KeyError):
+        convert.tables_to_torch({"weights": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="dtype"):
+        convert.tables_to_torch({"segs": np.zeros((2, 2), np.float64)})
