@@ -7,7 +7,10 @@
 3. holds the kernel against its plain PyTorch version on the card, at the
    main path's 64 dials and at the bench's 256 channels (192 kHz, 15 s of
    seeded IQ in the receiver's 0.25 s chunks, plus one whole-window call),
-   and times both; the ``kernels`` line gives the 256-channel times;
+   and times one chunk in turns through the kernel, the plain version and
+   one library call (a cuBLAS complex GEMM of the same taps and IQ), beside
+   the bound of the function's arithmetic; the ``kernels`` line gives the
+   main path's 64-channel numbers, the line before it the 256-channel ones;
 4. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
@@ -35,8 +38,15 @@ import torch
 FS = 192_000
 LO = 14_100_000
 SEED = 20261016
-CHAN_TOL = 1e-4          # kernel vs plain, max abs (float32 FIR sums of
-                         # 512 taps in another order; output rms ~0.2)
+CHAN_TOL = 1e-4          # kernel vs plain, max abs (split-bf16 products,
+                         # ~16 bits, against float32 FIR sums of 512 taps;
+                         # output rms ~0.2)
+# published H100 SXM peaks at 700 W (dense): HBM bytes/s, bf16, TF32 and FP32
+# FLOP/s
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+FP32_FLOPS = 67e12
 SPOT_TOL_HZ = 2
 
 
@@ -49,7 +59,37 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median device time of fn() over reps calls, after a warm-up."""
+    """Device time of one fn() call: ``reps`` calls captured in a CUDA
+    graph, the graph replayed five times between CUDA events, the median
+    replay over ``reps``.  Replaying leaves out the host's launch work, so
+    this is the work on the card (inputs stay warm in L2 between calls)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up outside the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Median time of one fn() call issued from the host, between CUDA
+    events after a warm-up: the device time plus any wait for the host."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -65,7 +105,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_phase(dev, freqs) -> dict:
-    """CUDA channelizer vs its plain version at 192 kHz on ``freqs``."""
+    """CUDA channelizer vs its plain version at 192 kHz on ``freqs``:
+    the error over 15 s of chunks and one window, then the times of one
+    receiver chunk: kernel, plain version and the library yardstick, in
+    turns, with the bound of the function's arithmetic."""
     from cwsl_digi_tpu_torch.dsp import _kernels
     from cwsl_digi_tpu_torch.dsp.channelizer import (BatchChannelizer,
                                                      channelize_block_ref)
@@ -102,26 +145,65 @@ def kernel_phase(dev, freqs) -> dict:
     if not err <= CHAN_TOL:
         raise AssertionError(f"channelizer kernel disagrees: {err}")
 
-    # time one receiver chunk: kernel vs plain on the same device inputs
+    # one receiver chunk on the same device inputs
     st = kern.state
+    bs, fo = kern.spec.block_size, kern.spec.filt_order
     x = iq_dev[:g_iq]
     iq_ext = torch.cat([st["tail"], x])
     a0 = st["abs_sample"] - st["tail"].shape[0]
-    n_out = g_iq // kern.spec.block_size
-    n_tiles = -(-n_out // _kernels.TILE_OUT)
-    rot_k = kern._rotations(a0, _kernels.TILE_OUT * kern.spec.block_size,
-                            n_tiles)
+    n_out = g_iq // bs
+    rot_k = kern.tile_rotations(a0, n_out)
     rot_p = kern._rotations(a0, kern._sub, -(-iq_ext.shape[0] // kern._sub))
-    ms = cuda_ms(lambda: _kernels.channelize(
-        iq_ext, kern._coarse, kern._fine, rot_k, kern._filt, n_out,
-        st["out_phase"], kern.spec.sign), 20)
-    plain_ms = cuda_ms(lambda: channelize_block_ref(
-        kern.spec, iq_ext, kern._tone_sub, rot_p, kern._segs,
-        st["out_phase"]), 20)
-    audio_s = g_iq / FS
-    print(f"channelizer chunk ({n_ch} ch x {audio_s:.3f} s @ {FS} Hz): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # yardstick: one complex64 GEMM of the modulated taps with the Hankel
+    # matrix of iq_ext (cuBLAS CGEMM, FP32: TF32 is off), without the
+    # per-output rotation and real-part selection; the port never calls it
+    g_taps = kern.taps.to(torch.complex64).to(dev)
+    hankel = iq_ext.unfold(0, fo, bs)[:n_out].T.contiguous()
+    runs = {
+        "kernel": lambda: _kernels.channelize(
+            iq_ext, kern._taps_packed, kern._coarse, rot_k, n_out, bs,
+            st["out_phase"], kern.spec.sign),
+        "plain": lambda: channelize_block_ref(
+            kern.spec, iq_ext, kern._tone_sub, rot_p, kern._segs,
+            st["out_phase"]),
+        "library": lambda: torch.matmul(g_taps, hankel),
+    }
+    times = {k: [] for k in runs}
+    for name in ["kernel", "plain", "library", "library", "plain", "kernel"]:
+        times[name].append(cuda_ms(runs[name], 20))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    eager = {k: eager_ms(f, 20) for k, f in runs.items()}
+    # least time for the same work: the bytes each input and output must
+    # move once, and the function's arithmetic, real taps times the mixed
+    # complex IQ, 4*C*FO*n_out FLOP, as split-bf16 (three bf16 products per
+    # pair) on bf16 tensor cores (the mix, ~6*C*n_ext FLOP on the CUDA
+    # cores, is a fraction of it and could overlap).  Beside it: the
+    # kernel's own GEMM form, complex modulated taps times complex IQ,
+    # which does twice the function's products, as split-bf16 and as
+    # 3xTF32; and the direct form on FP32 CUDA cores
+    n_bytes = (iq_ext.numel() * 8 + kern._taps_packed.numel() * 2
+               + kern._coarse.numel() * 8 + rot_k.numel() * 8
+               + n_ch * n_out * 4)
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    fn_flop = 4 * n_ch * fo * n_out
+    ops_ms = 3 * fn_flop / BF16_FLOPS * 1e3
+    gemm_ms = 3 * 2 * fn_flop / BF16_FLOPS * 1e3
+    tf32_ms = 3 * 2 * fn_flop / TF32_FLOPS * 1e3
+    fp32_ms = fn_flop / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"channelizer chunk ({n_ch} ch x {g_iq / FS:.3f} s @ {FS} Hz): "
+          f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+          f"library CGEMM (no rotation/selection) {ms['library']:.4f} ms; "
+          f"bound {bound_ms:.5f} ms (split-bf16 ops {ops_ms:.5f}, bytes "
+          f"{bytes_ms:.5f}); kernel at "
+          f"{100 * bound_ms / ms['kernel']:.1f} % of bound; its complex-tap "
+          f"GEMM form's own bound {gemm_ms:.5f} (as 3xTF32 {tf32_ms:.5f}); "
+          f"FP32 direct form {fp32_ms:.5f}; device times (CUDA graph) "
+          f"{times}; issued from the host one at a time {eager}")
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "gemm_form_bound_ms": gemm_ms}
 
 
 def _plan():
@@ -164,10 +246,10 @@ def _write_replay(path: Path, dials, bursts) -> list[tuple[str, int]]:
     """16 s of seeded 192 kHz IQ with the bursts; returns the expected
     (callsign, RF Hz) spots, each on every dial whose 200-3000 Hz search
     range holds the burst's tone 0."""
-    from cwsl_digi_tpu.modes.gfsk import gfsk_modulate_iq
-    from cwsl_digi_tpu.report.spot import extract_spot
     from cwsl_digi_tpu_torch.modes import ft8
     from cwsl_digi_tpu_torch.modes.base import DecodeResult
+    from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate_iq
+    from cwsl_digi_tpu_torch.report.spot import extract_spot
 
     rng = np.random.default_rng(SEED + 1)
     n = 16 * FS
@@ -194,7 +276,7 @@ def _write_replay(path: Path, dials, bursts) -> list[tuple[str, int]]:
 
 def main_path_phase(dev, workdir: Path) -> dict:
     """The port's App end to end on a 64-channel FT8 replay."""
-    from cwsl_digi_tpu.config import load_config
+    from cwsl_digi_tpu_torch.config import load_config
     from cwsl_digi_tpu_torch.dsp import _kernels
     from cwsl_digi_tpu_torch.runtime.app import App
 
@@ -292,18 +374,22 @@ def main() -> int:
     # the main path's shape (its 64 dials), then the bench's 256 channels
     dials, _ = _plan()
     kmain = kernel_phase(dev, np.asarray(dials, np.float64) - LO)
-    kstats = kernel_phase(dev, np.linspace(-FS / 2, FS / 2 - 6000, 256))
+    kwide = kernel_phase(dev, np.linspace(-FS / 2, FS / 2 - 6000, 256))
     with tempfile.TemporaryDirectory() as tmp:
         mstats = main_path_phase(dev, Path(tmp))
+    print(json.dumps({"channelize_256ch": kwide}))
     print(json.dumps({"kernels": [{
         "name": "channelize",
         "route": "cuda",
         "source": "cwsl_digi_tpu_torch/dsp/csrc/channelizer.cu",
         "replaces": "cwsl_digi_tpu/dsp/pallas_channelizer.py:61",
         "launches": mstats["launches"],
-        "max_abs_err": max(kmain["max_abs_err"], kstats["max_abs_err"]),
-        "ms": kstats["ms"],
-        "plain_ms": kstats["plain_ms"],
+        "max_abs_err": max(kmain["max_abs_err"], kwide["max_abs_err"]),
+        "ms": kmain["ms"],
+        "plain_ms": kmain["plain_ms"],
+        "bound_ms": kmain["bound_ms"],
+        "bound_by": kmain["bound_by"],
+        "library_ms": kmain["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

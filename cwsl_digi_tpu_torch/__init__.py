@@ -3,10 +3,12 @@ NVIDIA Hopper GPU.
 
 The JAX package ``cwsl_digi_tpu`` stays the reference: every module here has
 a counterpart of the same name there and is tested against it on the same
-NumPy input.  This package imports ``torch`` and never ``jax``; the
-JAX-free host modules of the reference (config, message packing, CRC, GFSK
-synthesis, reporters, sources, scheduler, decoder pool) are imported from
-it rather than copied.
+NumPy input.  This package imports ``torch`` and nothing of ``jax`` or of
+the JAX package: the reference's host modules that it needs (constants,
+config, message packing, CRC, GFSK synthesis, reporters, sources,
+scheduler, decoder pool, utilities) are kept here as copies, which
+``tests/test_torch_host_copies.py`` holds equal to their originals.  Every
+entry point runs on the card unless the caller passes ``device="cpu"``.
 
 - ``dsp/``     — the batched channelizer; on CUDA tensors it runs the
                  hand-written kernel in ``dsp/csrc/channelizer.cu``.
@@ -17,6 +19,6 @@ it rather than copied.
 - ``convert``  — carries the reference's precomputed tables across.
 """
 
-from cwsl_digi_tpu.version import PROGRAM_NAME, __version__
+from cwsl_digi_tpu_torch.version import PROGRAM_NAME, __version__
 
 __all__ = ["__version__", "PROGRAM_NAME"]

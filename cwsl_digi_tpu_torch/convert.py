@@ -22,6 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from cwsl_digi_tpu_torch.device import as_device
+
 # table name -> dtype it must already have (no silent casts)
 TABLE_DTYPES: dict[str, np.dtype] = {
     # channelizer (dsp/channelizer.py)
@@ -48,10 +50,12 @@ TABLE_DTYPES: dict[str, np.dtype] = {
 
 
 def tables_to_torch(tables: Mapping[str, np.ndarray],
-                    device: torch.device | str = "cpu"
+                    device: torch.device | str | None = None
                     ) -> dict[str, torch.Tensor]:
-    """NumPy tables -> tensors on ``device``, each checked by name and
-    dtype; raises on an unknown name or a dtype that differs."""
+    """NumPy tables -> tensors on ``device`` (default: the card), each
+    checked by name and dtype; raises on an unknown name or a dtype that
+    differs."""
+    device = as_device(device)
     out = {}
     for name, arr in tables.items():
         want = TABLE_DTYPES.get(name)

@@ -1,9 +1,10 @@
-"""Explicit device selection for the port.
+"""Device selection for the port.
 
 Nothing in the package keeps a global device: every object that owns
-tensors takes a ``device`` argument.  :func:`cuda_device` is what the
-runtime passes when it runs on the card; it raises instead of falling back
-to the CPU.
+tensors takes a ``device`` argument, and ``None`` means the card
+(:func:`cuda_device`), which raises where there is none instead of falling
+back to the CPU.  The CPU runs only when the caller asks for it
+(``device="cpu"``, as the tests do).
 """
 
 from __future__ import annotations
@@ -26,5 +27,5 @@ def cuda_device() -> torch.device:
 
 
 def as_device(device: torch.device | str | None) -> torch.device:
-    """Normalise a device argument; ``None`` means the CPU."""
-    return torch.device("cpu") if device is None else torch.device(device)
+    """Normalise a device argument; ``None`` means :func:`cuda_device`."""
+    return cuda_device() if device is None else torch.device(device)

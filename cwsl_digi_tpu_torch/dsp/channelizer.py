@@ -16,6 +16,16 @@ phase of every sample comes from float64 host arithmetic (a per-call
 rotation times f64-built tables), so float32 phase error never grows with
 stream length.
 
+Folding the mix into the taps makes all channels one complex GEMM, which
+is the form the kernel computes::
+
+    G[c, k]     = filt[k] * exp(j*pd_c*k)                     (modulated taps)
+    y[c, t]     = R[c, t] * sum_k G[c, k] * iq_ext[t*BS + k]
+    R[c, t]     = exp(j*pd_c*(A0 + t*BS)) = rot[tile, c] * coarse[c, t - t0]
+
+with ``G`` built once from float64 angles (:func:`modulated_taps`) and
+``R`` from float64 host rotations per call (:func:`output_rotations`).
+
 On a CUDA tensor :class:`BatchChannelizer` launches the hand-written kernel
 (``dsp/_kernels.py``, ``dsp/csrc/channelizer.cu``); on a CPU tensor it runs
 :func:`channelize_block_ref`, the plain PyTorch version that follows the
@@ -29,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.constants import SSB_BW
+from cwsl_digi_tpu_torch.constants import SSB_BW
 from cwsl_digi_tpu_torch.device import as_device
 from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.lowpass import build_ssb_filter
@@ -83,6 +93,24 @@ def _unit_phasor(ang: np.ndarray) -> np.ndarray:
     """exp(j*ang) as complex64, the angle wrapped to [-pi, pi) in float64."""
     ang = np.angle(np.exp(1j * ang))
     return (np.cos(ang) + 1j * np.sin(ang)).astype(np.complex64)
+
+
+def modulated_taps(filt: np.ndarray, pd: np.ndarray) -> torch.Tensor:
+    """G[c, k] = filt[k] * exp(j*pd_c*k) for k < FO, complex128 [C, FO],
+    the angle wrapped to [-pi, pi) in float64 as :func:`_unit_phasor`."""
+    filt = torch.as_tensor(np.asarray(filt, np.float64))
+    pd = torch.as_tensor(np.asarray(pd, np.float64))
+    ang = pd[:, None] * torch.arange(filt.shape[0], dtype=torch.float64)
+    ang = torch.remainder(ang + np.pi, 2 * np.pi) - np.pi
+    return torch.polar(filt.expand_as(ang).contiguous(), ang)
+
+
+def output_rotations(rot: torch.Tensor, coarse: torch.Tensor) -> torch.Tensor:
+    """R[c, t] = rot[t // N, c] * coarse[c, t % N]: the per-output
+    rotation exp(j*pd_c*(A0 + t*BS)) of the GEMM form, [C, n_tiles*N]
+    complex64, as the kernel's epilogue forms it (N = tile outputs)."""
+    c, n = coarse.shape
+    return (rot.T[:, :, None] * coarse[:, None, :]).reshape(c, -1)
 
 
 def select_output(y: torch.Tensor, out_phase: int, sign: float) -> torch.Tensor:
@@ -154,13 +182,14 @@ class BatchChannelizer:
         self._tone_sub = torch.complex(torch.from_numpy(self.tone_re),
                                        torch.from_numpy(self.tone_im)).to(dev)
         self._segs = torch.from_numpy(np.ascontiguousarray(self.segs)).to(dev)
-        # kernel tables: exp(j*pd*BS*b) over one tile's blocks, exp(j*pd*r)
-        nb = _kernels.TILE_OUT + self.spec.num_ws - 1
+        # GEMM-form tables: the modulated taps (in the kernel's layout where
+        # the kernel runs) and exp(j*pd*BS*u) over one kernel tile's outputs
+        self.taps = modulated_taps(filt, self._pd)
+        self._taps_packed = None if dev.type == "cpu" else \
+            _kernels.pack_taps(self.taps).to(dev)
         self._coarse = torch.from_numpy(_unit_phasor(
-            self._pd[:, None] * bs * np.arange(nb)[None, :])).to(dev)
-        self._fine = torch.from_numpy(_unit_phasor(
-            self._pd[:, None] * np.arange(bs)[None, :])).to(dev)
-        self._filt = torch.from_numpy(filt.astype(np.float32)).to(dev)
+            self._pd[:, None] * bs * np.arange(_kernels.N_TILE)[None, :])
+        ).to(dev)
         self.state = self.init_state()
 
     def tables(self) -> dict[str, torch.Tensor]:
@@ -205,6 +234,13 @@ class BatchChannelizer:
         return torch.from_numpy(
             _unit_phasor(off[:, None] * self._pd[None, :])).to(self.device)
 
+    def tile_rotations(self, a0: int, n_out: int) -> torch.Tensor:
+        """[n_tiles, C] exp(j*pd*(a0 + t0*BS)) at each kernel tile's first
+        output t0, for a block whose ``iq_ext`` starts at sample a0."""
+        n_tiles = -(-n_out // _kernels.N_TILE)
+        return self._rotations(a0, _kernels.N_TILE * self.spec.block_size,
+                               n_tiles)
+
     def process(self, iq) -> torch.Tensor:
         """Stream one IQ block -> ``[channels, T//BS]`` float32 audio.
 
@@ -234,13 +270,12 @@ class BatchChannelizer:
                 self._rotations(a0, self._sub, n_sub), self._segs,
                 st["out_phase"])
         else:
-            n_out = t // self.spec.block_size
-            n_tiles = -(-n_out // _kernels.TILE_OUT)
+            bs = self.spec.block_size
+            n_out = t // bs
             audio = _kernels.channelize(
-                iq_ext, self._coarse, self._fine,
-                self._rotations(a0, _kernels.TILE_OUT * self.spec.block_size,
-                                n_tiles),
-                self._filt, n_out, st["out_phase"], self.spec.sign)
+                iq_ext, self._taps_packed, self._coarse,
+                self.tile_rotations(a0, n_out), n_out, bs,
+                st["out_phase"], self.spec.sign)
         self.state = {
             "tail": iq_ext[t:].clone(),
             "abs_sample": st["abs_sample"] + t,

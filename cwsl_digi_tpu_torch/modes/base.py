@@ -1,28 +1,56 @@
-"""Mode decoder registry of the port (counterpart of
+"""Mode decoder protocol and registry of the port (counterpart of
 ``cwsl_digi_tpu/modes/base.py``).
 
-``DecodeResult`` and the ``ModeDecoder`` protocol are the reference's own
-(that module imports JAX only inside ``get_decoder``/``warmup_window``).
-Only FT8 is ported so far; every other mode raises ``NotImplementedError``.
+``DecodeResult`` and the ``ModeDecoder`` protocol are copied from the
+reference as they are.  Only FT8 is ported so far; every other mode raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
+from typing import Protocol
 
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.constants import Mode
-from cwsl_digi_tpu.modes.base import DecodeResult, ModeDecoder  # noqa: F401
+from cwsl_digi_tpu_torch.constants import Mode
+from cwsl_digi_tpu_torch.device import as_device
+
+
+@dataclasses.dataclass
+class DecodeResult:
+    """One decoded signal in one capture window.
+
+    Mirrors the information the reference parses out of jt9 stdout lines
+    (source/OutputHandler.cpp:505-621): SNR, dt, audio frequency, message.
+    """
+
+    message: str
+    snr_db: float
+    dt_s: float
+    freq_hz: float        # audio frequency within the channel passband
+    score: float = 0.0    # sync/decoder confidence metric
+    mode: Mode = Mode.FT8
+    payload_bits: np.ndarray | None = None
+    drift_hz: float = 0.0  # linear drift over the burst (WSPR/FST4W)
+
+
+class ModeDecoder(Protocol):
+    mode: Mode
+
+    def decode(self, audio: np.ndarray) -> list[list[DecodeResult]]:
+        """audio: [batch, n_samples] at 12 kHz -> per-window decode lists."""
+        ...
 
 
 class DecoderRegistry:
     """Lazily constructed decoders on one device, cached by mode and
     construction kwargs (differently configured decoders coexist)."""
 
-    def __init__(self, device: torch.device | str = "cpu") -> None:
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str | None = None) -> None:
+        self.device = as_device(device)
         self._cache: dict[tuple, ModeDecoder] = {}
         self._lock = threading.Lock()
 
@@ -35,10 +63,10 @@ class DecoderRegistry:
             return self._cache[key]
 
 
-def get_decoder(mode: Mode | str, device: torch.device | str = "cpu",
+def get_decoder(mode: Mode | str, device: torch.device | str | None = None,
                 **kwargs) -> ModeDecoder:
-    """A new decoder for ``mode`` on ``device``."""
-    return _construct(Mode(mode), torch.device(device), **kwargs)
+    """A new decoder for ``mode`` on ``device`` (default: the card)."""
+    return _construct(Mode(mode), as_device(device), **kwargs)
 
 
 def warmup_window(mode: Mode | str) -> np.ndarray:

@@ -4,8 +4,8 @@ Counterpart of ``cwsl_digi_tpu/modes/ft8.py``.  Protocol structure (public
 FT8 parameters): 79 symbols of 1920 samples at 12 kHz (6.25 baud, tone
 spacing 6.25 Hz, BT 2.0); 7x7 Costas arrays at symbol offsets 0, 36, 72;
 58 data symbols carry the 174 codeword bits, 3 per symbol, Gray-mapped.
-Message packing, CRC and GFSK synthesis are the reference's JAX-free host
-modules.
+Message packing, CRC and GFSK synthesis are the port's copies of the
+reference's host modules.
 """
 
 from __future__ import annotations
@@ -15,11 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.constants import Mode, WAVE_SR
-from cwsl_digi_tpu.modes import message77
-from cwsl_digi_tpu.modes.base import DecodeResult
-from cwsl_digi_tpu.modes.crc import ft8_crc, ft8_crc_matrix
-from cwsl_digi_tpu.modes.gfsk import gfsk_modulate, place_burst
+from cwsl_digi_tpu_torch.constants import Mode, WAVE_SR
+from cwsl_digi_tpu_torch.modes import message77
+from cwsl_digi_tpu_torch.modes.base import DecodeResult
+from cwsl_digi_tpu_torch.modes.crc import ft8_crc, ft8_crc_matrix
+from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate, place_burst
 from cwsl_digi_tpu_torch.modes.gfsk_engine import GFSKDecoder, ModeSpec
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder, ft8_code
 
@@ -115,7 +115,7 @@ class FT8Decoder(GFSKDecoder):
                  ap: np.ndarray | bool | None = None,
                  my_call: str = "", depth: int | None = None,
                  fmax_hz: float | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         s = spec or SPEC
         if top_k or bp_iters or depth or fmax_hz:
             s = dataclasses.replace(s, top_k=top_k or s.top_k,

@@ -30,8 +30,10 @@ import functools
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.constants import WAVE_SR
+from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
+from cwsl_digi_tpu_torch.device import as_device
+from cwsl_digi_tpu_torch.modes.base import DecodeResult
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
 from cwsl_digi_tpu_torch.modes.osd import flip_patterns, osd_decode
 from cwsl_digi_tpu_torch.modes.subtract import subtract_known
@@ -579,7 +581,7 @@ class GFSKDecoder:
 
     def __init__(self, spec: ModeSpec, bp: BPDecoder, crc_matrix: np.ndarray,
                  mode, unpack, ap_hypotheses: np.ndarray | None = None,
-                 device: torch.device | str = "cpu") -> None:
+                 device: torch.device | str | None = None) -> None:
         if spec.depth <= 1 and spec.osd_j:
             spec = dataclasses.replace(spec, osd_j=0)   # jt9 -d 1: no OSD
         if not spec.refine:
@@ -589,7 +591,7 @@ class GFSKDecoder:
         self.bp = bp
         self.mode = mode
         self.unpack = unpack
-        self.device = torch.device(device)
+        self.device = as_device(device)
         code = bp.code
         n_info = crc_matrix.shape[0] + crc_matrix.shape[1]
         self._host = {
@@ -715,8 +717,6 @@ class GFSKDecoder:
 
     def decode(self, audio, depth: int | None = None):
         """Decode [n, N] (or [N]) windows with multi-pass subtraction."""
-        from cwsl_digi_tpu.modes.base import DecodeResult
-
         if isinstance(audio, torch.Tensor):
             audio_dev = self._to_device_audio(audio)
         else:

@@ -19,6 +19,9 @@ import functools
 import numpy as np
 import torch
 
+from cwsl_digi_tpu_torch.device import as_device
+from cwsl_digi_tpu_torch.modes import tables
+
 
 def gf2_row_reduce(mat: np.ndarray) -> tuple[np.ndarray, list[int]]:
     """Row-reduce over GF(2); returns (reduced matrix, pivot column list)."""
@@ -124,12 +127,12 @@ class BPDecoder:
     """Batched normalized min-sum BP for one code, tables on ``device``."""
 
     def __init__(self, code: Code, iters: int = 30, alpha: float = 0.8,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.code = code
         self.iters = iters
         self.alpha = alpha
         self.t = build_bp_tables(code.h)
-        dev = torch.device(device)
+        dev = as_device(device)
         self.device = dev
         self._row_cols = torch.from_numpy(self.t.row_cols.astype(np.int64)).to(dev)
         self._row_mask = torch.from_numpy(self.t.row_mask).to(dev)
@@ -181,14 +184,6 @@ class BPDecoder:
 @functools.lru_cache(maxsize=None)
 def ft8_code() -> Code:
     """The published WSJT-X LDPC(174,91) code (FT8 & FT4), built from the
-    parity table in ``cwsl_digi_tpu.modes.tables`` and cross-checked
-    against the published generator rows."""
-    from cwsl_digi_tpu.modes import tables
-
-    code = Code.from_parity_matrix(tables.ft8_parity_matrix())
-    head = tables.generator_hex_rows(code.gen_parity)[
-        : len(tables.FT8_GENERATOR_HEX_HEAD)]
-    if tuple(head) != tables.FT8_GENERATOR_HEX_HEAD:
-        raise RuntimeError(
-            "derived generator disagrees with published ldpc_174_91_c_generator")
-    return code
+    parity table in :mod:`cwsl_digi_tpu_torch.modes.tables` (its generator
+    is checked against the published rows in ``tests/test_torch_tables.py``)."""
+    return Code.from_parity_matrix(tables.ft8_parity_matrix())

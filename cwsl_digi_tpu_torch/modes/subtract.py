@@ -19,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.constants import WAVE_SR
-from cwsl_digi_tpu.modes.gfsk import gaussian_frequency_pulse
+from cwsl_digi_tpu_torch.constants import WAVE_SR
+from cwsl_digi_tpu_torch.modes.gfsk import gaussian_frequency_pulse
 
 # moving-average window (symbols) of the time-varying complex gain
 GAIN_SMOOTH_SYMS = 7

@@ -24,22 +24,22 @@ import time
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.config import Config, load_config
-from cwsl_digi_tpu.constants import WAVE_SR, Mode, get_rx_period
-from cwsl_digi_tpu.report.pskreporter import PSKReporter
-from cwsl_digi_tpu.report.rbn import DecoderEntry, RBNHandler
-from cwsl_digi_tpu.report.spot import SpotHandler
-from cwsl_digi_tpu.report.wsprnet import WSPRNet
-from cwsl_digi_tpu.runtime.scheduler import CadenceScheduler
-from cwsl_digi_tpu.sdr.source import open_source
-from cwsl_digi_tpu.stats import Stats
-from cwsl_digi_tpu.utils.logging import LogLevel, ScreenPrinter
-from cwsl_digi_tpu.utils.timeutils import next_period_boundary
-from cwsl_digi_tpu.version import PROGRAM_NAME, __version__
-from cwsl_digi_tpu_torch.device import as_device, cuda_device
+from cwsl_digi_tpu_torch.config import Config, load_config
+from cwsl_digi_tpu_torch.constants import WAVE_SR, Mode, get_rx_period
+from cwsl_digi_tpu_torch.device import as_device
 from cwsl_digi_tpu_torch.modes.base import DecoderRegistry, warmup_window
+from cwsl_digi_tpu_torch.report.pskreporter import PSKReporter
+from cwsl_digi_tpu_torch.report.rbn import DecoderEntry, RBNHandler
+from cwsl_digi_tpu_torch.report.spot import SpotHandler
+from cwsl_digi_tpu_torch.report.wsprnet import WSPRNet
 from cwsl_digi_tpu_torch.runtime.decoderpool import DecoderPool
 from cwsl_digi_tpu_torch.runtime.receiver import Receiver, Status
+from cwsl_digi_tpu_torch.runtime.scheduler import CadenceScheduler
+from cwsl_digi_tpu_torch.sdr.source import open_source
+from cwsl_digi_tpu_torch.stats import Stats
+from cwsl_digi_tpu_torch.utils.logging import LogLevel, ScreenPrinter
+from cwsl_digi_tpu_torch.utils.timeutils import next_period_boundary
+from cwsl_digi_tpu_torch.version import PROGRAM_NAME, __version__
 
 PORTED_MODES = (Mode.FT8,)
 
@@ -54,7 +54,7 @@ class App:
                              f"{', '.join(unported)}")
         self.cfg = cfg
         self.max_runtime_s = max_runtime_s
-        self.device = cuda_device() if device is None else as_device(device)
+        self.device = as_device(device)
         self.printer = ScreenPrinter(
             level=LogLevel(int(cfg.get("logging", "loglevel"))),
             logfile=cfg.get("logging", "logfile") or None,
@@ -133,7 +133,7 @@ class App:
 
     def _on_result(self, job, ci, res):
         if self.cfg.get("logging", "printjt9output"):
-            from cwsl_digi_tpu.report import jt9format
+            from cwsl_digi_tpu_torch.report import jt9format
 
             self.printer.info(jt9format.format_jt9(res, job.epoch_time))
         wspr_call = job.wspr_callsigns[ci] if job.wspr_callsigns else ""
@@ -160,7 +160,7 @@ class App:
         for i, line in enumerate(self.cfg.decoders):
             spec = self._source_spec_for(line.smnum)
             if spec is None:
-                from cwsl_digi_tpu.sdr.shm import find_band
+                from cwsl_digi_tpu_torch.sdr.shm import find_band
 
                 name = find_band(line.calibrated_freq, line.smnum)
                 if name is None:

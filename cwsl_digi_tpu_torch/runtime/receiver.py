@@ -27,12 +27,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cwsl_digi_tpu.config import DecoderLine
-from cwsl_digi_tpu.constants import WAVE_SR, Mode, get_rx_period
-from cwsl_digi_tpu.runtime.decoderpool import DecodeJob, DecoderPool
-from cwsl_digi_tpu.sdr.source import IQSource
+from cwsl_digi_tpu_torch.config import DecoderLine
+from cwsl_digi_tpu_torch.constants import WAVE_SR, Mode, get_rx_period
 from cwsl_digi_tpu_torch.device import as_device
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
+from cwsl_digi_tpu_torch.runtime.decoderpool import DecodeJob, DecoderPool
+from cwsl_digi_tpu_torch.sdr.source import IQSource
 
 
 class Status(enum.Enum):
@@ -243,7 +243,7 @@ class Receiver:
     def init(self) -> None:
         self.status = Status.RUNNING
         try:
-            from cwsl_digi_tpu.native import (NativePump, NativeRing,
+            from cwsl_digi_tpu_torch.native import (NativePump, NativeRing,
                                               NativeShmSource)
 
             if isinstance(self.source, NativeShmSource):
@@ -293,7 +293,7 @@ class Receiver:
 
     def _ingest_loop(self) -> None:
         """Source -> ring; never blocks on the device."""
-        from cwsl_digi_tpu.utils import qos
+        from cwsl_digi_tpu_torch.utils import qos
 
         qos.set_current_thread_nice(qos.INGEST)
         try:

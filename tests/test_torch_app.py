@@ -25,11 +25,11 @@ import numpy as np
 import pytest
 import torch
 
-from cwsl_digi_tpu.config import load_config
 from cwsl_digi_tpu.dsp.channelizer import BatchChannelizer as JaxChannelizer
 from cwsl_digi_tpu.modes import ft8 as jft8
 from cwsl_digi_tpu.modes.gfsk import gfsk_modulate_iq
 from cwsl_digi_tpu.report.spot import extract_spot
+from cwsl_digi_tpu_torch.config import load_config
 from cwsl_digi_tpu_torch.modes import ft8
 from cwsl_digi_tpu_torch.runtime.app import App
 from test_torch_parity import assert_same_decodes
@@ -82,7 +82,8 @@ def reference():
 
 def test_full_spec_decode_list_matches_jax(reference):
     _, audio, want = reference
-    got = ft8.FT8Decoder(**DECODER_KW).decode(torch.from_numpy(audio))[0]
+    got = ft8.FT8Decoder(**DECODER_KW, device="cpu").decode(
+        torch.from_numpy(audio))[0]
     assert_same_decodes(got, want)
 
 

@@ -52,14 +52,14 @@ def test_reduced_decode_lists_match_jax():
     ref = jft8.FT8Decoder(top_k=64, bp_iters=25)
     ref.max_device_batch = len(wins)    # unpadded, as in test_torch_app.py
     want = ref.decode(wins)
-    got = ft8.FT8Decoder(top_k=64, bp_iters=25).decode(wins)
+    got = ft8.FT8Decoder(top_k=64, bp_iters=25, device="cpu").decode(wins)
     assert sum(len(w) for w in want) >= 5
     assert_same_batch_decodes(got, want)
 
 
 @pytest.fixture(scope="module")
 def default_decoder():
-    return get_decoder("FT8")
+    return get_decoder("FT8", device="cpu")
 
 
 @pytest.mark.parametrize("entry", MANIFEST, ids=[e["file"] for e in MANIFEST])
@@ -83,4 +83,4 @@ def test_tensor_audio_is_not_rescaled(default_decoder):
     assert [r.message for r in dev] == [r.message for r in host] \
         == ["K1ABC W9XYZ EN37"]
     with pytest.raises(NotImplementedError):
-        get_decoder("FT4")
+        get_decoder("FT4", device="cpu")

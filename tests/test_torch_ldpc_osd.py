@@ -36,7 +36,7 @@ def test_bp_decode_full_matches_jax(iters):
     min-sum, sums of <= 3 check messages in another order)."""
     llr = _noisy_llrs(96, seed=iters)
     jd = jldpc.BPDecoder(jldpc.ft8_code(), iters=iters)
-    td = ldpc.BPDecoder(ldpc.ft8_code(), iters=iters)
+    td = ldpc.BPDecoder(ldpc.ft8_code(), iters=iters, device="cpu")
     jh, jok, jpost = (np.asarray(x) for x in jd.decode_full(jnp.asarray(llr)))
     th, tok, tpost = td.decode_full(torch.from_numpy(llr))
     np.testing.assert_array_equal(th.numpy(), jh)

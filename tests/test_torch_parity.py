@@ -15,8 +15,8 @@ import dataclasses
 
 import pytest
 
-from cwsl_digi_tpu.constants import Mode
-from cwsl_digi_tpu.modes.base import DecodeResult
+from cwsl_digi_tpu_torch.constants import Mode
+from cwsl_digi_tpu_torch.modes.base import DecodeResult
 from cwsl_digi_tpu_torch.modes import ft8
 
 SNR_DB = 0.5

@@ -17,6 +17,7 @@ from cwsl_digi_tpu_torch import convert
 from cwsl_digi_tpu_torch.dsp import lowpass
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.modes import ft8, ldpc, osd
+from cwsl_digi_tpu_torch.modes import tables as ptables
 
 
 def _assert_bitwise(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
@@ -29,7 +30,7 @@ def _assert_bitwise(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
 def test_channelizer_tables_bitwise(fs, usb):
     freqs = np.linspace(-0.4 * fs, 0.4 * fs - 6000, 6)
     jb = JaxChannelizer(fs, freqs, is_usb=usb)
-    tb = BatchChannelizer(fs, freqs, is_usb=usb)
+    tb = BatchChannelizer(fs, freqs, is_usb=usb, device="cpu")
     jax_np = {"tone_re": np.asarray(jb.tone_re),
               "tone_im": np.asarray(jb.tone_im),
               "segs": np.asarray(jb.segs)}
@@ -52,7 +53,7 @@ def test_ft8_decoder_tables_bitwise():
     """DFT matrix, window, bitmaps, CRC matrix, data symbols, AP mask and
     values, BP index tables, generator, hash weights, flip patterns."""
     jd = jft8.FT8Decoder(my_call="W2AXR", depth=3)
-    td = ft8.FT8Decoder(my_call="W2AXR", depth=3)
+    td = ft8.FT8Decoder(my_call="W2AXR", depth=3, device="cpu")
     spec = jd.spec
     bt = jd.bp.t
     jax_np = {
@@ -98,8 +99,20 @@ def test_codes_and_flip_patterns_identical():
     assert ft8.SPEC.__dict__ == jft8.SPEC.__dict__
 
 
+def test_ft8_generator_matches_published_rows():
+    """The generator derived from the port's parity table starts with the
+    published ldpc_174_91_c_generator rows."""
+    code = ldpc.ft8_code()
+    head = ptables.generator_hex_rows(code.gen_parity)
+    assert tuple(head[: len(ptables.FT8_GENERATOR_HEX_HEAD)]) == \
+        ptables.FT8_GENERATOR_HEX_HEAD
+    assert len(ptables.FT8_GENERATOR_HEX_HEAD) > 0
+
+
 def test_convert_refuses_unknown_names_and_dtypes():
     with pytest.raises(KeyError):
-        convert.tables_to_torch({"weights": np.zeros(3, np.float32)})
+        convert.tables_to_torch({"weights": np.zeros(3, np.float32)},
+                                "cpu")
     with pytest.raises(ValueError, match="dtype"):
-        convert.tables_to_torch({"segs": np.zeros((2, 2), np.float64)})
+        convert.tables_to_torch({"segs": np.zeros((2, 2), np.float64)},
+                                "cpu")
