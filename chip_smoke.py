@@ -5,7 +5,8 @@
 1. prints the card's name and power limit, and fails without CUDA;
 2. builds the hand-written channelizer kernel from ``cwsl_digi_tpu_torch``;
 3. holds the kernel against its plain PyTorch version on the card, at the
-   main path's 64 dials and at the bench's 256 channels (192 kHz, 15 s of
+   FT8 path's 64 dials, the mixed-mode path's 5 lines and the bench's 256
+   channels (192 kHz, 15 s of
    seeded IQ in the receiver's 0.25 s chunks, plus one whole-window call),
    and times one chunk in turns through the kernel, the plain version and
    one library call (a cuBLAS complex GEMM of the same taps and IQ), beside
@@ -16,7 +17,22 @@
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
    every expected spot must appear within 2 Hz and no other, through the
    kernel, with CUDA tensors reaching the decoder;
-5. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+5. runs the App on seeded 192 kHz IQ with the lines a 20 m skimmer runs
+   on one receiver: FT8, JS8, FT4, FST4-60 and FST4W-120.  The replay
+   starts on the App's own anchor (the next UTC 15 s boundary) with noise
+   up to the next 2-minute boundary, then 122 s with bursts in several
+   windows of each (SNR -5 dB down to about 3 dB above each mode's
+   threshold); every window must close on its own UTC boundary from the
+   anchor on, and every expected spot (JS8's by its sender grammar) appear
+   within 2 Hz, and no other, through the kernel;
+6. decodes one synthesized window of each long period (FST4-300/900/1800,
+   FST4W-300/900/1800) through ``get_decoder`` on the card, printing the
+   spectrogram branch, the decode wall and the peak device memory;
+7. times the decode of one window and of a 64-window batch for FT4, JS8
+   and FST4-60;
+8. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+
+Each phase prints its wall time.
 
 Any failed phase raises; nothing is caught.
 """
@@ -242,6 +258,16 @@ def _plan():
     return dials, bursts
 
 
+def _iq_noise(n: int, sigma: float, seed: int) -> np.ndarray:
+    """n samples of complex64 white noise of total power sigma**2."""
+    rng = np.random.default_rng(seed)
+    iq = np.empty(n, np.complex64)
+    iq.real = rng.standard_normal(n, dtype=np.float32)
+    iq.imag = rng.standard_normal(n, dtype=np.float32)
+    iq *= np.float32(sigma / np.sqrt(2))
+    return iq
+
+
 def _write_replay(path: Path, dials, bursts) -> list[tuple[str, int]]:
     """16 s of seeded 192 kHz IQ with the bursts; returns the expected
     (callsign, RF Hz) spots, each on every dial whose 200-3000 Hz search
@@ -274,12 +300,93 @@ def _write_replay(path: Path, dials, bursts) -> list[tuple[str, int]]:
     return expected
 
 
-def main_path_phase(dev, workdir: Path) -> dict:
-    """The port's App end to end on a 64-channel FT8 replay."""
+def _run_app(dev, ini: Path, n_windows, timeout_s: float,
+             on_anchor=None) -> dict:
+    """Run the port's App on ``ini`` until ``n_windows()`` channel-windows
+    are decoded: its spots, the jobs handed to the pool and the
+    channelizer launches of the run.  The App starts the replay on its own
+    anchor, the next UTC 15 s boundary; ``on_anchor(utc_anchor)``, if
+    given, runs once with that anchor just before the receiver opens the
+    file (to write a replay that fits it)."""
     from cwsl_digi_tpu_torch.config import load_config
     from cwsl_digi_tpu_torch.dsp import _kernels
     from cwsl_digi_tpu_torch.runtime.app import App
 
+    app = App(load_config(ini), max_runtime_s=timeout_s + 60, device=dev)
+    spots, jobs = [], []
+    orig_handle, orig_push = app.spots.handle, app.pool.push
+    orig_setup = app.setup_receivers
+    anchors = []
+
+    def capture(res, **kw):
+        s = orig_handle(res, **kw)
+        if s:
+            spots.append(s)
+        return s
+
+    def push(job):
+        jobs.append((job.mode.value, job.epoch_time, job.audio.device.type,
+                     tuple(job.audio.shape)))
+        orig_push(job)
+
+    def setup(utc_anchor):
+        if not anchors:
+            anchors.append(utc_anchor)
+            if on_anchor is not None:
+                on_anchor(utc_anchor)
+        orig_setup(utc_anchor)
+
+    app.spots.handle = capture
+    app.pool.push = push
+    app.setup_receivers = setup
+
+    # App.run warms the decoders up (one strong window through every pass)
+    # before it starts the receiver
+    _kernels.launches["channelize"] = 0
+    t0 = time.monotonic()
+    runner = threading.Thread(target=app.run, daemon=True)
+    try:
+        runner.start()
+        deadline = time.monotonic() + timeout_s
+        while app.pool.count_decoded_windows < n_windows() \
+                and time.monotonic() < deadline and runner.is_alive():
+            time.sleep(0.2)
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+        launches = _kernels.launches["channelize"]
+    finally:
+        app._terminate = True
+        runner.join(timeout=60)
+    if runner.is_alive():
+        raise RuntimeError("app did not shut down")
+    rx_stage = [rx.stage for rx in app.receivers.values()]
+    if rx_stage:
+        print(f"channelize host wall {rx_stage[0]['channelize_wall_s']:.3f} s"
+              f" for {rx_stage[0]['channelized_audio_s']:.2f} s of audio")
+    return {"spots": spots, "jobs": jobs, "launches": launches,
+            "run_s": run_s, "decoded": app.pool.count_decoded_windows,
+            "stage_log": list(app.pool.stage_log),
+            "anchor": anchors[0] if anchors else None}
+
+
+def _check_spots(spots, expected) -> None:
+    """Every expected (callsign, RF Hz) spot within SPOT_TOL_HZ, no other."""
+    got = [(s.callsign, s.freq_hz) for s in spots]
+    for s in sorted(spots, key=lambda s: s.freq_hz):
+        print(f"  spot {s.mode.value:>9} {s.freq_hz} {s.snr_db:+d} dB "
+              f"{s.dt_s:+.2f} s {s.message}")
+    missing = [e for e in expected if not any(
+        c == e[0] and abs(f - e[1]) <= SPOT_TOL_HZ for c, f in got)]
+    extra = [g for g in got if not any(
+        c == g[0] and abs(f - g[1]) <= SPOT_TOL_HZ for c, f in expected)]
+    print(f"spots: {len(got)} found, {len(expected)} expected, "
+          f"missing {missing}, extra {extra}")
+    if missing or extra:
+        raise AssertionError("decoded spots differ from the injected bursts")
+
+
+def main_path_phase(dev, workdir: Path) -> dict:
+    """The port's App end to end on a 64-channel FT8 replay."""
     dials, bursts = _plan()
     iq_path = workdir / "band.npy"
     expected = _write_replay(iq_path, dials, bursts)
@@ -289,69 +396,255 @@ def main_path_phase(dev, workdir: Path) -> dict:
          "[operator]", "callsign=W2AXR", "gridsquare=FN13",
          "[decoders]"] + [f"decoder={d} FT8" for d in dials]
         + ["[logging]", "loglevel=2", "logimmediately=true"]) + "\n")
-    app = App(load_config(ini), max_runtime_s=600, device=dev)
-    spots = []
-    devices = []
-    orig_handle, orig_push = app.spots.handle, app.pool.push
-
-    def capture(res, **kw):
-        s = orig_handle(res, **kw)
-        if s:
-            spots.append(s)
-        return s
-
-    def push(job):
-        devices.append(job.audio.device.type)
-        orig_push(job)
-
-    app.spots.handle = capture
-    app.pool.push = push
-
-    # App.run warms the decoder up (one strong window through every pass)
-    # before it starts the receiver
-    _kernels.launches["channelize"] = 0
-    t0 = time.monotonic()
-    runner = threading.Thread(target=app.run, daemon=True)
-    runner.start()
-    deadline = time.monotonic() + 240
-    while app.pool.count_decoded_windows < len(dials) \
-            and time.monotonic() < deadline and runner.is_alive():
-        time.sleep(0.2)
-    torch.cuda.synchronize()
-    run_s = time.monotonic() - t0
-    launches = _kernels.launches["channelize"]
-    app._terminate = True
-    runner.join(timeout=60)
-    if runner.is_alive():
-        raise RuntimeError("app did not shut down")
-    rx_stage = [rx.stage for rx in app.receivers.values()]
-    decode_s = [e["decode_s"] for e in app.pool.stage_log]
+    run = _run_app(dev, ini, lambda: len(dials), 240)
+    decode_s = [e["decode_s"] for e in run["stage_log"]]
     print(f"main path: {len(dials)} FT8 channels, warmup+replay+decode "
-          f"{run_s:.1f} s, decode batches {decode_s} s, "
-          f"windows decoded {app.pool.count_decoded_windows}")
-    if rx_stage:
-        print(f"channelize host wall {rx_stage[0]['channelize_wall_s']:.3f} s"
-              f" for {rx_stage[0]['channelized_audio_s']:.2f} s of audio")
-
-    got = [(s.callsign, s.freq_hz) for s in spots]
-    for s in sorted(spots, key=lambda s: s.freq_hz):
-        print(f"  spot {s.freq_hz} {s.snr_db:+d} dB {s.dt_s:+.2f} s "
-              f"{s.message}")
-    missing = [e for e in expected if not any(
-        c == e[0] and abs(f - e[1]) <= SPOT_TOL_HZ for c, f in got)]
-    extra = [g for g in got if not any(
-        c == g[0] and abs(f - g[1]) <= SPOT_TOL_HZ for c, f in expected)]
-    print(f"spots: {len(got)} found, {len(expected)} expected, "
-          f"missing {missing}, extra {extra}")
-    if app.pool.count_decoded_windows != len(dials):
+          f"{run['run_s']:.1f} s, decode batches {decode_s} s, "
+          f"windows decoded {run['decoded']}")
+    if run["decoded"] != len(dials):
         raise AssertionError("not every channel's window was decoded")
-    if missing or extra:
-        raise AssertionError("decoded spots differ from the injected bursts")
-    if launches <= 0:
+    _check_spots(run["spots"], expected)
+    if run["launches"] <= 0:
         raise AssertionError("main path did not launch the channelizer kernel")
+    devices = [j[2] for j in run["jobs"]]
     if not devices or any(d != "cuda" for d in devices):
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
-    return {"launches": launches, "decode_s": decode_s, "run_s": run_s}
+    return {"launches": run["launches"], "decode_s": decode_s,
+            "run_s": run["run_s"]}
+
+
+# the lines a 20 m skimmer runs on one 192 kHz receiver at LO 14.100 MHz
+MIXED_LINES = [("FT8", 14_074_000), ("JS8", 14_078_000), ("FT4", 14_080_000),
+               ("FST4-60", 14_095_600), ("FST4W-120", 14_095_600)]
+MIXED_S = 122
+
+
+def _mixed_plan():
+    """Bursts of the mixed replay: (mode, window index, message, audio Hz,
+    SNR dB in 2.5 kHz, dt s).  The weakest sit about 3 dB above each
+    mode's 50 % decode threshold in the reference's parity sweep
+    (``PARITY_REPORT.json``: FT8 -21.9, FT4 -18.0, JS8 -21.0, FST4-60
+    -25.0, FST4W-120 -29.6 dB).  JS8 bursts stay below 2 kHz and FT4 bursts
+    above 1.1 kHz, so neither lands in the other's channel."""
+    return [
+        ("FT8", 0, "CQ K1ABC FN42", 1500.0, -5.0, 0.0),
+        ("FT8", 2, "K1ABC W9XYZ EN37", 800.0, -12.0, 0.2),
+        ("FT8", 2, "W9XYZ K1ABC -11", 2200.0, -19.0, -0.1),
+        ("FT8", 5, "CQ DL7ACA JO40", 1250.0, -16.0, 0.4),
+        ("FT4", 1, "CQ VE3XYZ EN93", 1200.0, -5.0, 0.0),
+        ("FT4", 4, "VE3XYZ G4ABC IO91", 2000.0, -10.0, 0.1),
+        ("FT4", 9, "G4ABC VE3XYZ R-15", 1600.0, -15.0, -0.1),
+        ("FT4", 14, "CQ JA1XYZ PM95", 2500.0, -12.0, 0.2),
+        ("JS8", 0, "KN4CRD: HB EN50", 1000.0, -8.0, 0.1),
+        ("JS8", 3, "W2AXR: K1ABC SNR -12", 1500.0, -18.0, 0.3),
+        ("JS8", 6, "CQCQ N0XYZ", 700.0, -12.0, 0.0),
+        ("FST4-60", 0, "CQ F5ABC JN18", 1000.0, -12.0, 0.0),
+        ("FST4-60", 1, "F5ABC OH2ABC KP20", 1050.0, -22.0, 0.5),
+        ("FST4W-120", 0, "K1ABC FN42 30", 1500.0, -26.0, 0.0),
+    ]
+
+
+def _mode_burst(mode: str, text: str):
+    """(tones, samples per symbol at 12 kHz, tone spacing, BT, signal start
+    s) of one burst of ``mode``."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8
+
+    if mode in ("FT8", "FT4", "JS8"):
+        mod = {"FT8": ft8, "FT4": ft4, "JS8": js8}[mode]
+        spec = mod.SPEC
+        tones = mod.encode_message(text)
+    else:
+        spec = fst4.make_spec(Mode(mode))
+        tones = fst4.encode_message(text, Mode(mode))
+    return tones, spec.sps, spec.tone_spacing, spec.bt, spec.signal_start_s
+
+
+def _mixed_windows(utc_anchor: float) -> tuple[float, dict[str, list[float]]]:
+    """The mixed replay's lead-in and its windows for a replay that starts
+    at ``utc_anchor`` (a UTC multiple of 15 s): the lead-in runs to the
+    next 2-minute boundary, where every mode's windows begin and the bursts
+    start, and MIXED_S s follow it.  Returns the lead-in in seconds and, per
+    line, the UTC starts of the windows the receiver must close: each
+    mode's consecutive periods from its own first boundary at or after the
+    anchor, up to the end of the file."""
+    from cwsl_digi_tpu_torch.constants import get_rx_period
+
+    lead = -utc_anchor % 120.0
+    end = utc_anchor + lead + MIXED_S
+    starts = {}
+    for m, _ in MIXED_LINES:
+        trp = get_rx_period(m)
+        first = -(-utc_anchor // trp) * trp
+        starts[m] = [first + k * trp
+                     for k in range(int((end - first) // trp))]
+    return lead, starts
+
+
+def _write_mixed_replay(path: Path, lead_s: float) -> list[tuple[str, int]]:
+    """``lead_s`` s of seeded noise, then MIXED_S s of seeded 192 kHz IQ
+    with the mixed bursts (the same samples whatever the lead-in); returns
+    the expected (callsign, RF Hz) spots by each mode's spot grammar."""
+    from cwsl_digi_tpu_torch.constants import Mode, get_rx_period
+    from cwsl_digi_tpu_torch.modes.base import DecodeResult
+    from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate_iq
+    from cwsl_digi_tpu_torch.report.spot import extract_spot
+
+    sigma = 0.05
+    iq = _iq_noise(MIXED_S * FS, sigma, SEED + 2)
+    dial_of = dict(MIXED_LINES)
+    expected = []
+    for mode, wi, text, off, snr, dt in _mixed_plan():
+        tones, sps, spacing, bt, start_s = _mode_burst(mode, text)
+        rf = dial_of[mode] + off
+        amp = sigma * np.sqrt(10 ** (snr / 10) * 2500.0 / FS)
+        b = amp * gfsk_modulate_iq(tones, rf - LO, sps * FS // 12_000, FS,
+                                   spacing, bt=bt)
+        s = int((wi * get_rx_period(mode) + start_s + dt) * FS)
+        iq[s : s + len(b)] += b.astype(np.complex64)
+        spot = extract_spot(DecodeResult(text, snr, dt, off, mode=Mode(mode)),
+                            dial_of[mode])
+        expected.append((spot.callsign, spot.freq_hz))
+    np.save(path, np.concatenate(
+        [_iq_noise(int(round(lead_s * FS)), sigma, SEED + 4), iq]))
+    return expected
+
+
+def mixed_mode_phase(dev, workdir: Path) -> dict:
+    """The port's App on the mixed-mode replay, written once the App has
+    taken its anchor."""
+    iq_path = workdir / "mixed.npy"
+    ini = workdir / "mixed.ini"
+    ini.write_text("\n".join(
+        ["[radio]", f"source=file:{iq_path}?sr={FS}&lo={LO}",
+         "[operator]", "callsign=W2AXR", "gridsquare=FN13",
+         "[decoders]"] + [f"decoder={d} {m}" for m, d in MIXED_LINES]
+        + ["[logging]", "loglevel=2", "logimmediately=true"]) + "\n")
+    plan = {}
+
+    def write(utc_anchor):
+        lead, plan["starts"] = _mixed_windows(utc_anchor)
+        plan["n"] = sum(len(v) for v in plan["starts"].values())
+        plan["lead"] = lead
+        plan["expected"] = _write_mixed_replay(iq_path, lead)
+
+    run = _run_app(dev, ini, lambda: plan.get("n", 1 << 30), 480, write)
+    batches = [(e["mode"], e["decode_s"]) for e in run["stage_log"]]
+    print(f"mixed-mode path: {len(MIXED_LINES)} lines, replay from UTC "
+          f"{run['anchor']:g} with a {plan['lead']:g} s lead-in to the "
+          f"2-minute boundary, warmup+replay+decode {run['run_s']:.1f} s, "
+          f"windows decoded {run['decoded']} of {plan['n']}, decode batches "
+          f"(mode, s) {batches}")
+    if run["decoded"] != plan["n"]:
+        raise AssertionError("not every line's windows were decoded")
+    # each mode's windows close on its own UTC boundaries, the first at or
+    # after the App's anchor
+    epochs = {m: sorted(j[1] for j in run["jobs"] if j[0] == m)
+              for m, _ in MIXED_LINES}
+    for m, _ in MIXED_LINES:
+        if epochs[m] != plan["starts"][m]:
+            raise AssertionError(f"{m} windows at {epochs[m]}, want "
+                                 f"{plan['starts'][m]}")
+    print(f"window epochs from the anchor {run['anchor']:g}: " + ", ".join(
+        f"{m} {[e - run['anchor'] for e in v]}" for m, v in epochs.items()))
+    _check_spots(run["spots"], plan["expected"])
+    if run["launches"] <= 0:
+        raise AssertionError("mixed path did not launch the channelizer "
+                             "kernel")
+    devices = {j[2] for j in run["jobs"]}
+    if devices != {"cuda"}:
+        raise AssertionError(f"decoder got non-CUDA audio: {devices}")
+    return {"launches": run["launches"], "decode_batches": batches,
+            "run_s": run["run_s"]}
+
+
+# (mode, message, audio Hz, SNR dB, seed): the reference's long-period
+# round trips (tests/test_fst4_js8.py), FST4W-900 as a strong burst at the
+# int16 scale of host-fed audio
+LONG_WINDOWS = [("FST4-300", "K1ABC W9XYZ EN37", 1000.0, -20.0, 0),
+                ("FST4-900", "K1ABC W9XYZ EN37", 1000.0, -24.0, 0),
+                ("FST4-1800", "K1ABC W9XYZ EN37", 1000.0, -26.0, 0),
+                ("FST4W-300", "K1ABC FN42 30", 1500.0, -24.0, 0),
+                ("FST4W-900", "K1ABC FN42 30", 1500.0, 25.0, 3),
+                ("FST4W-1800", "K1ABC FN42 30", 1500.0, -28.0, 0)]
+
+
+def long_period_phase(dev) -> dict:
+    """One synthesized window of each long period through get_decoder on
+    the card (host audio, int16 peak scaling): the message must decode."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import fst4
+    from cwsl_digi_tpu_torch.modes.base import get_decoder
+    from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
+
+    out = {}
+    for mode, text, f0, snr, seed in LONG_WINDOWS:
+        clean = fst4.synthesize(text, Mode(mode), f0, start_s=1.0)
+        win = add_noise_at_snr(clean, snr, 12_000,
+                               np.random.default_rng(seed)).astype(np.float32)
+        dec = get_decoder(mode, device=dev)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.monotonic()
+            res = dec.decode(win[None])[0]
+            walls.append(time.monotonic() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        msgs = [r.message for r in res]
+        print(f"{mode}: {dec.spectrogram_branch} spectrograms, decode wall "
+              f"{walls[0]:.3f} s first / {walls[1]:.3f} s second, peak "
+              f"device memory {peak / 2**30:.3f} GiB, decodes {msgs}")
+        if text not in msgs:
+            raise AssertionError(f"{mode}: {text!r} not decoded: {msgs}")
+        out[mode] = {"branch": dec.spectrogram_branch, "wall_s": walls,
+                     "peak_bytes": peak}
+        del dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_walls_phase(dev) -> dict:
+    """Decode wall of one window and of a 64-window batch (device-resident
+    audio, as the receiver hands it over) for FT4, JS8 and FST4-60 at
+    their published specs: one burst per window at -5 to -15 dB."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, js8
+    from cwsl_digi_tpu_torch.modes.base import get_decoder
+    from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
+
+    clean = {"FT4": ft4.synthesize("CQ VE3XYZ EN93", 1200.0),
+             "JS8": js8.synthesize("KN4CRD: HB EN50", 1000.0),
+             "FST4-60": fst4.synthesize("CQ F5ABC JN18", Mode.FST4_60,
+                                        1000.0)}
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for mode, c in clean.items():
+        wins = np.stack([add_noise_at_snr(c, rng.uniform(-15, -5), 12_000, rng)
+                         for _ in range(64)]).astype(np.float32)
+        audio = torch.from_numpy(wins).to(dev)
+        dec = get_decoder(mode, device=dev)
+        dec.decode(audio[:1])                       # warm-up
+        walls = {}
+        for n, reps in ((1, 5), (64, 3)):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                res = dec.decode(audio[:n])
+                times.append(time.monotonic() - t0)
+            walls[n] = times
+            n_dec = sum(len(r) for r in res)
+            if n_dec < n:
+                raise AssertionError(f"{mode}: {n_dec} decodes in {n} "
+                                     "windows")
+        print(f"{mode} ({dec.spectrogram_branch}, max_device_batch "
+              f"{dec.max_device_batch}): decode wall 1 window median "
+              f"{statistics.median(walls[1]):.4f} s {walls[1]}, 64 windows "
+              f"median {statistics.median(walls[64]):.3f} s {walls[64]}")
+        out[mode] = {"wall_1_s": statistics.median(walls[1]),
+                     "wall_64_s": statistics.median(walls[64])}
+    return out
 
 
 def main() -> int:
@@ -371,20 +664,45 @@ def main() -> int:
     print(f"build: channelizer library in {time.monotonic() - t0:.1f} s")
     print(_kernels.build_log.strip())
 
-    # the main path's shape (its 64 dials), then the bench's 256 channels
+    walls = {}
+
+    def phase(name, fn, *args):
+        t = time.monotonic()
+        r = fn(*args)
+        walls[name] = time.monotonic() - t
+        print(f"phase {name}: {walls[name]:.1f} s")
+        return r
+
+    # the shapes of both App paths (the FT8 path's 64 dials, the mixed
+    # path's 5 lines, one channel each), then the bench's 256 channels
     dials, _ = _plan()
-    kmain = kernel_phase(dev, np.asarray(dials, np.float64) - LO)
-    kwide = kernel_phase(dev, np.linspace(-FS / 2, FS / 2 - 6000, 256))
+    kmain = phase("kernel_64ch", kernel_phase, dev,
+                  np.asarray(dials, np.float64) - LO)
+    kmixed = phase("kernel_mixed_5ch", kernel_phase, dev,
+                   np.asarray([d for _, d in MIXED_LINES], np.float64) - LO)
+    kwide = phase("kernel_256ch", kernel_phase, dev,
+                  np.linspace(-FS / 2, FS / 2 - 6000, 256))
     with tempfile.TemporaryDirectory() as tmp:
-        mstats = main_path_phase(dev, Path(tmp))
-    print(json.dumps({"channelize_256ch": kwide}))
+        mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        xstats = phase("mixed_mode_app", mixed_mode_phase, dev, Path(tmp))
+    lstats = phase("long_periods", long_period_phase, dev)
+    dstats = phase("decode_walls", decode_walls_phase, dev)
+    print(json.dumps({"channelize_mixed_5ch": kmixed,
+                      "channelize_256ch": kwide}))
+    print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
+                      "mixed_decode_batches": xstats["decode_batches"],
+                      "phase_walls_s": walls}))
     print(json.dumps({"kernels": [{
         "name": "channelize",
         "route": "cuda",
         "source": "cwsl_digi_tpu_torch/dsp/csrc/channelizer.cu",
         "replaces": "cwsl_digi_tpu/dsp/pallas_channelizer.py:61",
-        "launches": mstats["launches"],
-        "max_abs_err": max(kmain["max_abs_err"], kwide["max_abs_err"]),
+        "launches": mstats["launches"] + xstats["launches"],
+        "launches_by_phase": {"ft8_64ch_app": mstats["launches"],
+                              "mixed_mode_app": xstats["launches"]},
+        "max_abs_err": max(kmain["max_abs_err"], kmixed["max_abs_err"],
+                           kwide["max_abs_err"]),
         "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"],
         "bound_ms": kmain["bound_ms"],

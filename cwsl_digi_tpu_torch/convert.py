@@ -30,8 +30,11 @@ TABLE_DTYPES: dict[str, np.dtype] = {
     "segs": np.dtype(np.float32),        # [BS, NWS] filter segments
     "tone_re": np.dtype(np.float32),     # [C, SUB] NCO tone basis
     "tone_im": np.dtype(np.float32),
-    # FT8 decoder (modes/gfsk_engine.py, modes/ldpc.py, modes/osd.py)
+    # GFSK decoders (modes/gfsk_engine.py, modes/ldpc.py, modes/osd.py);
+    # shapes for FT8, whose code is LDPC(174,91) with 77 + 14 info bits
+    # (JS8: LDPC(174,87), 75 + 12; FST4/FST4W: LDPC(240,101), 77 + 24)
     "dft_mat": np.dtype(np.float32),     # [sps, 4*n_bins] DFT columns
+                                         # (absent on the rfft branch)
     "window": np.dtype(np.float32),      # [sps] Hann window
     "bitmaps": np.dtype(np.float32),     # [bits_per_sym, n_tones]
     "crc_mat": np.dtype(np.float32),     # [77, 14]

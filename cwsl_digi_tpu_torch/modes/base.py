@@ -2,8 +2,8 @@
 ``cwsl_digi_tpu/modes/base.py``).
 
 ``DecodeResult`` and the ``ModeDecoder`` protocol are copied from the
-reference as they are.  Only FT8 is ported so far; every other mode raises
-``NotImplementedError``.
+reference as they are.  The GFSK modes are ported (FT8, FT4, JS8, FST4 and
+FST4W at every period); WSPR, JT65 and Q65 raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Protocol
 import numpy as np
 import torch
 
-from cwsl_digi_tpu_torch.constants import Mode
+from cwsl_digi_tpu_torch.constants import Mode, is_mode_fst4, is_mode_fst4w
 from cwsl_digi_tpu_torch.device import as_device
 
 
@@ -73,10 +73,24 @@ def warmup_window(mode: Mode | str) -> np.ndarray:
     """One capture window holding a strong protocol-exact signal: decoding
     it runs every pass, the subtraction and OSD once."""
     mode = Mode(mode)
+    text = "K1ABC W9XYZ EN37"
     if mode == Mode.FT8:
         from cwsl_digi_tpu_torch.modes import ft8
 
-        return ft8.synthesize("K1ABC W9XYZ EN37")
+        return ft8.synthesize(text)
+    if mode == Mode.FT4:
+        from cwsl_digi_tpu_torch.modes import ft4
+
+        return ft4.synthesize(text)
+    if mode == Mode.JS8:
+        from cwsl_digi_tpu_torch.modes import js8
+
+        return js8.synthesize("HELLO WORLD")
+    if is_mode_fst4(mode) or is_mode_fst4w(mode):
+        from cwsl_digi_tpu_torch.modes import fst4
+
+        return fst4.synthesize(
+            "K1ABC FN42 30" if is_mode_fst4w(mode) else text, mode)
     raise NotImplementedError(f"{mode.value} is not ported yet")
 
 
@@ -85,4 +99,16 @@ def _construct(mode: Mode, device: torch.device, **kwargs) -> ModeDecoder:
         from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
 
         return FT8Decoder(device=device, **kwargs)
+    if mode == Mode.FT4:
+        from cwsl_digi_tpu_torch.modes.ft4 import FT4Decoder
+
+        return FT4Decoder(device=device, **kwargs)
+    if mode == Mode.JS8:
+        from cwsl_digi_tpu_torch.modes.js8 import JS8Decoder
+
+        return JS8Decoder(device=device, **kwargs)
+    if is_mode_fst4(mode) or is_mode_fst4w(mode):
+        from cwsl_digi_tpu_torch.modes.fst4 import FST4Decoder
+
+        return FST4Decoder(mode, device=device, **kwargs)
     raise NotImplementedError(f"{mode.value} is not ported yet")

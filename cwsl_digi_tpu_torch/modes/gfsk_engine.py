@@ -1,18 +1,22 @@
 """Batched decoder engine for the GFSK sync-array modes (PyTorch).
 
-Counterpart of ``cwsl_digi_tpu/modes/gfsk_engine.py``, ported for the FT8
-slice: the DFT-matmul ``refine`` branch of :func:`decode_program` (the one
-FT8 takes), coherent 1/2/3-symbol LLRs, a-priori hypotheses, BP + CRC, OSD
-and the SNR estimate; then the multi-pass host wrapper
-:class:`GFSKDecoder` with on-device subtraction between passes.
+Counterpart of ``cwsl_digi_tpu/modes/gfsk_engine.py``: every branch of
+:func:`decode_program` (the split DFT-matmul ``refine`` branch of FT8, FT4
+and JS8; the fused DFT-matmul and the rfft spectrograms of FST4/FST4W with
+the sync-pair frequency correction), coherent 1/2/3- and 4-symbol LLRs,
+a-priori hypotheses, BP + CRC, OSD and the SNR estimate; then the
+multi-pass host wrapper :class:`GFSKDecoder` with on-device subtraction
+between passes.
 
 Stages per batch of windows:
 
-  1. Hann sync spectrogram at the coarse hop and complex boxcar
-     spectrogram at half the hop, both as bf16-input DFT matmuls;
+  1. Hann sync spectrogram and complex boxcar demod spectrogram: bf16-input
+     DFT matmuls (the boxcar at half the hop on the refine branch), or two
+     rffts where the DFT matrix would be too large;
   2. sync correlation: one shifted-slice add per known sync cell;
   3. hybrid top-K over (start hop, base bin): half after NMS, half raw;
-  4. sub-grid refinement, strided block gather, coherent LLRs;
+  4. sub-grid refinement (refine branch), strided block gather, sync-pair
+     frequency correction, coherent LLRs;
   5. AP hypotheses, min-sum LDPC, CRC and validity gates; OSD fallback.
 
 Where JAX and PyTorch differ, the port follows JAX: ``jnp.median``
@@ -169,19 +173,18 @@ def _neighbor_allowed(spec: ModeSpec, idx: np.ndarray) -> np.ndarray:
 
 def _multisym_llrs(spec: ModeSpec, csym: torch.Tensor, rot: torch.Tensor,
                    bitmaps: torch.Tensor) -> torch.Tensor:
-    """Coherent 1/2/3-symbol max-log LLRs.
+    """Coherent 1/2/3-symbol (and, with ``spec.coh4``, 4-symbol) max-log
+    LLRs.
 
     csym [M, n_sym, n_tones] complex64 symbol DFT values, rot [M] complex64
     inter-symbol reference rotation, bitmaps [bits_per_sym, n_tones].
     Returns [M, n_bits] LLRs, normalized per candidate to std 3.  Per data
     symbol: E1 = |C_s|^2, E2p/E2n = best coherent pair with the previous/
-    next symbol, E3 = best coherent triple, neighbors restricted to the
-    known tone at sync cells; |a+b|^2 is expanded so only [T, T(, T)] cross
-    tensors exist, in candidate chunks of bounded size.
+    next symbol, E3 = best coherent triple, and with coh4 the best coherent
+    4-symbol windows [s-1..s+2] and [s-2..s+1]; neighbors restricted to the
+    known tone at sync cells.  |a+b|^2 is expanded so only [T, T(, T(, T))]
+    cross tensors exist, in candidate chunks of bounded size.
     """
-    if spec.coh4:
-        raise NotImplementedError("4-symbol coherent metrics (FST4) are not "
-                                  "ported yet")
     m_all, n_sym, n_tones = csym.shape
     dev = csym.device
     data = torch.as_tensor(np.asarray(spec.data_syms, np.int64), device=dev)
@@ -190,8 +193,10 @@ def _multisym_llrs(spec: ModeSpec, csym: torch.Tensor, rot: torch.Tensor,
     dnp = np.asarray(spec.data_syms, np.int64)
     allow_prev = torch.as_tensor(_neighbor_allowed(spec, dnp - 1), device=dev)
     allow_next = torch.as_tensor(_neighbor_allowed(spec, dnp + 1), device=dev)
+    allow_prev2 = torch.as_tensor(_neighbor_allowed(spec, dnp - 2), device=dev)
+    allow_next2 = torch.as_tensor(_neighbor_allowed(spec, dnp + 2), device=dev)
     bit0 = bitmaps < 0.5                                     # [nb, T]
-    tri_bytes = n_data * n_tones ** 3 * 4
+    tri_bytes = n_data * n_tones ** (4 if spec.coh4 else 3) * 4
     chunk = int(max(1, min(m_all, LLR_CHUNK_BYTES // max(tri_bytes, 1))))
 
     def bit_llrs(f):                       # [m, D, T] -> [m, D, nb]
@@ -231,6 +236,59 @@ def _multisym_llrs(spec: ModeSpec, csym: torch.Tensor, rot: torch.Tensor,
         tri = torch.where(allow_next[None, :, None, None, :], tri, -big)
         e3 = tri.amax(dim=(2, 4))
         l = bit_llrs(e1s) + bit_llrs(e2p) + bit_llrs(e2n) + bit_llrs(e3)
+        if spec.coh4:
+            cpad2 = torch.nn.functional.pad(c, (0, 0, 2, 2))
+            cprev2 = cpad2[:, data]                         # real index s-2
+            cnext2 = cpad2[:, data + 4]                     # real index s+2
+            e1p2 = cprev2.abs() ** 2
+            e1n2 = cnext2.abs() ** 2
+            r2_ = r_ * r_
+            r3_ = r2_ * r_
+            x_p_nn = cross(cprev, cnext2, r3_)              # (s-1, s+2)
+            x_s_nn = cross(cs, cnext2, r2_)                 # (s,   s+2)
+            x_n_nn = cross(cnext, cnext2, r_)               # (s+1, s+2)
+            x_pp_p = cross(cprev2, cprev, r_)               # (s-2, s-1)
+            x_pp_s = cross(cprev2, cs, r2_)                 # (s-2, s)
+            x_pp_n = cross(cprev2, cnext, r3_)              # (s-2, s+1)
+            # window [s-1, s, s+1, s+2]: axes (p, self, n, q)
+            w4n = (e1p[:, :, :, None, None, None]
+                   + e1s[:, :, None, :, None, None]
+                   + e1n[:, :, None, None, :, None]
+                   + e1n2[:, :, None, None, None, :]
+                   + x_ps[:, :, :, :, None, None]
+                   + x_pn[:, :, :, None, :, None]
+                   + x_p_nn[:, :, :, None, None, :]
+                   + x_sn[:, :, None, :, :, None]
+                   + x_s_nn[:, :, None, :, None, :]
+                   + x_n_nn[:, :, None, None, :, :])
+            w4n = torch.where(allow_prev[None, :, :, None, None, None],
+                              w4n, -big)
+            w4n = torch.where(allow_next[None, :, None, None, :, None],
+                              w4n, -big)
+            w4n = torch.where(allow_next2[None, :, None, None, None, :],
+                              w4n, -big)
+            e4n = w4n.amax(dim=(2, 4, 5))
+            del w4n
+            # window [s-2, s-1, s, s+1]: axes (q2, p, self, n)
+            w4p = (e1p2[:, :, :, None, None, None]
+                   + e1p[:, :, None, :, None, None]
+                   + e1s[:, :, None, None, :, None]
+                   + e1n[:, :, None, None, None, :]
+                   + x_pp_p[:, :, :, :, None, None]
+                   + x_pp_s[:, :, :, None, :, None]
+                   + x_pp_n[:, :, :, None, None, :]
+                   + x_ps[:, :, None, :, :, None]
+                   + x_pn[:, :, None, :, None, :]
+                   + x_sn[:, :, None, None, :, :])
+            w4p = torch.where(allow_prev2[None, :, :, None, None, None],
+                              w4p, -big)
+            w4p = torch.where(allow_prev[None, :, None, :, None, None],
+                              w4p, -big)
+            w4p = torch.where(allow_next[None, :, None, None, None, :],
+                              w4p, -big)
+            e4p = w4p.amax(dim=(2, 3, 5))
+            del w4p
+            l = l + bit_llrs(e4n) + bit_llrs(e4p)
         out.append(l.reshape(l.shape[0], -1))
     llr = torch.cat(out) if len(out) > 1 else out[0]
     # prescale by the peak before the variance (float32 overflow guard)
@@ -278,44 +336,99 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def spectrograms(spec: ModeSpec, audio: torch.Tensor, tabs: dict
+                 ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """Stage 1 of :func:`decode_program`: the bf16 Hann sync power map
+    [B, ph + hops + ph, n_bins] and the complex boxcar demod spectrogram,
+    and whether the refine branch made them.
+
+    - refine branch (``spec.refine`` with a DFT matrix): Hann columns at the
+      hop, boxcar columns at half the hop ([B, 2ph + 2hops-1 + 2ph,
+      n_bins]), both bf16-input matmuls over the kept bins;
+    - fused branch (a DFT matrix, no refine): boxcar re/im and Hann re/im in
+      one bf16-input matmul, both at the hop;
+    - rfft branch (no DFT matrix: it would exceed ``DFT_MAT_BYTES_MAX``):
+      ``rfft(frames * w, n=nfft)`` for each window, then the bin slice.
+    """
+    b, n_samples = audio.shape
+    sps, hop = spec.sps, spec.hop
+    n_hops = (n_samples - sps) // hop + 1
+    fmin_bin, _, n_bins = spec.bin_range
+    ph = spec.pad_hops
+    dft_mat = tabs.get("dft_mat")
+    frames = audio.unfold(1, sps, hop)                         # [B, hops, sps]
+
+    def pad_hops(x, p):
+        return torch.nn.functional.pad(x, (0, 0, p, p))
+
+    if dft_mat is None:
+        def spectrum(w):
+            x = torch.fft.rfft(frames * w, n=spec.nfft, dim=-1)
+            return pad_hops(x[:, :, fmin_bin : fmin_bin + n_bins], ph)
+
+        power_sync = (spectrum(tabs["window"]).abs() ** 2).to(torch.bfloat16)
+        return power_sync, spectrum(torch.ones_like(tabs["window"])), False
+    if not spec.refine:
+        four = _bf16_matmul(frames.reshape(b * n_hops, sps), dft_mat)
+        four = four.reshape(b, n_hops, 4, n_bins)
+        power_sync = pad_hops(four[:, :, 2] ** 2 + four[:, :, 3] ** 2,
+                              ph).to(torch.bfloat16)
+        return (power_sync,
+                pad_hops(torch.complex(four[:, :, 0], four[:, :, 1]), ph),
+                False)
+    n_bins_k = dft_mat.shape[1] // 4
+    four = _bf16_matmul(frames.reshape(b * n_hops, sps),
+                        dft_mat[:, 2 * n_bins_k:])
+    four = four.reshape(b, n_hops, 2, n_bins_k)
+    power_sync = pad_hops(four[:, :, 0] ** 2 + four[:, :, 1] ** 2,
+                          ph).to(torch.bfloat16)
+    del four
+    n_hops_f = 2 * n_hops - 1
+    fd = _bf16_matmul(audio.unfold(1, sps, hop // 2)[:, :n_hops_f]
+                      .reshape(b * n_hops_f, sps), dft_mat[:, : 2 * n_bins_k])
+    fd = fd.reshape(b, n_hops_f, 2, n_bins_k)
+    return (power_sync,
+            pad_hops(torch.complex(fd[:, :, 0], fd[:, :, 1]), 2 * ph), True)
+
+
+def sync_pair_rotation(spec: ModeSpec, csym: torch.Tensor,
+                       rot: torch.Tensor) -> torch.Tensor:
+    """Fold the sub-bin frequency residual into the combiner's rotation
+    ``rot`` [B, K]: the arg of the summed products of consecutive sync-cell
+    pairs (known tones) of csym [B, K, n_sym, n_tones]."""
+    by_sym = {int(s): int(t) for s, t in spec.sync_cells}
+    pairs = [(s, by_sym[s + 1], by_sym[s]) for s in sorted(by_sym)
+             if s + 1 in by_sym]
+    if not pairs:
+        return rot
+    dev = csym.device
+    p_sym = torch.as_tensor([x[0] for x in pairs], device=dev)
+    p_tn = torch.as_tensor([x[2] for x in pairs], device=dev)
+    p_tn1 = torch.as_tensor([x[1] for x in pairs], device=dev)
+    cs = csym[:, :, p_sym, p_tn]
+    cn = csym[:, :, p_sym + 1, p_tn1]
+    z = (cs.conj() * cn).sum(dim=-1) * rot
+    return rot * torch.exp(-1j * z.angle())
+
+
 def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
                    bp: BPDecoder) -> dict[str, torch.Tensor]:
     """One decode pass over a batch of windows ([B, N] float32 audio).
 
     ``tabs`` holds the decoder's device tables (see GFSKDecoder): crc_mat
-    [77, 14], bitmaps, dft_mat [sps, 4*n_bins], optional ap_mask/ap_vals
-    [H, n_code].  Returns per-candidate valid/payload/t0_hop/f0_bin/score/
-    snr, as the reference.
+    [n_payload, n_crc], bitmaps, window, dft_mat [sps, 4*n_bins] (absent
+    where the rfft branch runs), optional ap_mask/ap_vals [H, n_code].
+    Returns per-candidate valid/payload/t0_hop/f0_bin/score/snr, as the
+    reference.
     """
-    if not spec.refine:
-        raise NotImplementedError("only the refine (DFT-matmul) branch used "
-                                  "by FT8 is ported")
     b, n_samples = audio.shape
     dev = audio.device
-    sps, hop = spec.sps, spec.hop
-    n_hops = (n_samples - sps) // hop + 1
+    n_hops = (n_samples - spec.sps) // spec.hop + 1
     fmin_bin, fmax_bin, _ = spec.bin_range
-    dft_mat = tabs["dft_mat"]
-    n_bins_k = dft_mat.shape[1] // 4
     ph = spec.pad_hops
 
-    # --- 1. spectrograms: Hann at the hop (sync), boxcar at half the hop ---
-    frames = audio.unfold(1, sps, hop)                         # [B, hops, sps]
-    four = _bf16_matmul(frames.reshape(b * n_hops, sps),
-                        dft_mat[:, 2 * n_bins_k:])
-    four = four.reshape(b, n_hops, 2, n_bins_k)
-    power_sync = torch.nn.functional.pad(
-        four[:, :, 0] ** 2 + four[:, :, 1] ** 2, (0, 0, ph, ph)
-    ).to(torch.bfloat16)
-    del four
-    hop_f = hop // 2
-    n_hops_f = 2 * n_hops - 1
-    fd = _bf16_matmul(audio.unfold(1, sps, hop_f)[:, :n_hops_f]
-                      .reshape(b * n_hops_f, sps), dft_mat[:, : 2 * n_bins_k])
-    fd = fd.reshape(b, n_hops_f, 2, n_bins_k)
-    stft_f = torch.nn.functional.pad(
-        torch.complex(fd[:, :, 0], fd[:, :, 1]), (0, 0, 2 * ph, 2 * ph))
-    del fd
+    # --- 1. spectrograms ----------------------------------------------------
+    power_sync, demod, refine = spectrograms(spec, audio, tabs)
 
     # --- 2. sync correlation ----------------------------------------------
     n_t0 = spec.max_hops
@@ -339,51 +452,46 @@ def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
     t0 = top_idx // n_f0
     f0 = top_idx % n_f0
 
-    # --- 4a. decision-directed half-hop refinement -------------------------
-    powf = torch.nn.functional.pad(
-        (stft_f.abs() ** 2).to(torch.bfloat16), (0, 0, 1, 1))
-    n_tf = 2 * n_t0 + 1
-    accf = _shifted_sum(powf, spec.sync_cells, n_tf, n_f0,
-                        2 * spec.os_t, spec.os_f).reshape(b, n_tf * n_f0)
-    del powf
-    idx3 = ((2 * t0[:, :, None] + torch.arange(3, device=dev)) * n_f0
-            + f0[:, :, None])
-    e3 = torch.gather(accf, 1, idx3.reshape(b, -1)).reshape(b, spec.top_k, 3)
-    delta = e3.argmax(dim=-1) - 1
-    n_hops_src = stft_f.shape[1]
-    tt_ref = (2 * t0 + delta).clamp(0, n_hops_src - 1)
+    n_hops_src = demod.shape[1]
+    if refine:
+        # --- 4a. decision-directed half-hop refinement ---------------------
+        powf = torch.nn.functional.pad(
+            (demod.abs() ** 2).to(torch.bfloat16), (0, 0, 1, 1))
+        n_tf = 2 * n_t0 + 1
+        accf = _shifted_sum(powf, spec.sync_cells, n_tf, n_f0,
+                            2 * spec.os_t, spec.os_f).reshape(b, n_tf * n_f0)
+        del powf
+        idx3 = ((2 * t0[:, :, None] + torch.arange(3, device=dev)) * n_f0
+                + f0[:, :, None])
+        e3 = torch.gather(accf, 1, idx3.reshape(b, -1)).reshape(
+            b, spec.top_k, 3)
+        delta = e3.argmax(dim=-1) - 1
+        tt = (2 * t0 + delta).clamp(0, n_hops_src - 1)
+        os_t_eff = 2 * spec.os_t
+    else:
+        tt = t0
+        os_t_eff = spec.os_t
 
     # --- 4b. strided block gather (dynamic_slice semantics) ----------------
-    os_t_eff = 2 * spec.os_t
     hq = -(-n_hops_src // os_t_eff)
-    fq = -(-stft_f.shape[2] // spec.os_f)
+    fq = -(-demod.shape[2] // spec.os_f)
     src = torch.nn.functional.pad(
-        stft_f, (0, fq * spec.os_f - stft_f.shape[2],
-                 0, hq * os_t_eff - n_hops_src))
-    q = (tt_ref // os_t_eff).clamp(0, hq - spec.n_sym)
+        demod, (0, fq * spec.os_f - demod.shape[2],
+                0, hq * os_t_eff - n_hops_src))
+    q = (tt // os_t_eff).clamp(0, hq - spec.n_sym)
     p = (f0 // spec.os_f).clamp(0, fq - spec.n_tones)
-    hop_idx = (q * os_t_eff + tt_ref % os_t_eff)[:, :, None, None] \
+    hop_idx = (q * os_t_eff + tt % os_t_eff)[:, :, None, None] \
         + os_t_eff * torch.arange(spec.n_sym, device=dev)[:, None]
     bin_idx = (p * spec.os_f + f0 % spec.os_f)[:, :, None, None] \
         + spec.os_f * torch.arange(spec.n_tones, device=dev)
     bidx = torch.arange(b, device=dev)[:, None, None, None]
     csym = src[bidx, hop_idx, bin_idx]                    # [B, K, S, T]
-    del src, stft_f
+    del src, demod
 
     abs_bin = (f0 + fmin_bin).to(torch.float32)
     rot = torch.exp(-2j * np.pi * abs_bin / spec.os_f)
-    # sub-bin frequency residual from consecutive sync-cell pairs
-    by_sym = {int(s): int(t) for s, t in spec.sync_cells}
-    pairs = [(s, by_sym[s + 1], by_sym[s]) for s in sorted(by_sym)
-             if s + 1 in by_sym]
-    if pairs:
-        p_sym = torch.as_tensor([x[0] for x in pairs], device=dev)
-        p_tn = torch.as_tensor([x[2] for x in pairs], device=dev)
-        p_tn1 = torch.as_tensor([x[1] for x in pairs], device=dev)
-        cs = csym[:, :, p_sym, p_tn]
-        cn = csym[:, :, p_sym + 1, p_tn1]
-        z = (cs.conj() * cn).sum(dim=-1) * rot
-        rot = rot * torch.exp(-1j * z.angle())
+    if refine or spec.refine_freq:
+        rot = sync_pair_rotation(spec, csym, rot)
     llr = _multisym_llrs(
         spec, csym.reshape(b * spec.top_k, spec.n_sym, spec.n_tones),
         rot.reshape(-1), tabs["bitmaps"]).reshape(b, spec.top_k, spec.n_bits)
@@ -578,15 +686,15 @@ class GFSKDecoder:
     MAX_DEVICE_BATCH = 64
     # known bursts subtracted per window at most
     SUB_MAX = 16
+    # largest DFT matrix (float32 bytes) worth building; above it (the long
+    # FST4/FST4W periods) the spectrograms are rffts
+    DFT_MAT_BYTES_MAX = 128 << 20
 
     def __init__(self, spec: ModeSpec, bp: BPDecoder, crc_matrix: np.ndarray,
                  mode, unpack, ap_hypotheses: np.ndarray | None = None,
                  device: torch.device | str | None = None) -> None:
         if spec.depth <= 1 and spec.osd_j:
             spec = dataclasses.replace(spec, osd_j=0)   # jt9 -d 1: no OSD
-        if not spec.refine:
-            raise NotImplementedError(f"{spec.name}: only the refine branch "
-                                      "is ported")
         self.spec = spec
         self.bp = bp
         self.mode = mode
@@ -608,7 +716,9 @@ class GFSKDecoder:
             "hash_w": np.random.default_rng(0x5D1F).integers(
                 1, 2**31 - 1, size=n_info, dtype=np.int32),
         }
-        self._host["dft_mat"] = self._make_dft_mat(self._host["window"])
+        dft_mat = self._make_dft_mat(self._host["window"])
+        if dft_mat is not None:
+            self._host["dft_mat"] = dft_mat
         if ap_hypotheses is not None and len(ap_hypotheses):
             hyp = np.asarray(ap_hypotheses)
             mask = np.zeros((hyp.shape[0], code.n), np.float32)
@@ -620,21 +730,35 @@ class GFSKDecoder:
         self._tabs = tables_to_torch(self._host, self.device)
         self._tabs["hash_w"] = self._tabs["hash_w"].to(torch.int64)
         n_samples = int(round(spec.trperiod * WAVE_SR))
-        if spec.hop % 2:
+        refine = spec.refine and dft_mat is not None
+        if refine and spec.hop % 2:
             raise ValueError(f"{spec.name}: refine needs an even hop")
         n_hops = (n_samples - spec.sps) // spec.hop + 1 + 2 * spec.pad_hops
         if spec.max_hops + spec.os_t * (spec.n_sym - 1) > n_hops:
             raise ValueError(f"{spec.name}: sync search grid exceeds the "
                              "spectrogram; reduce max_hops/pad_hops")
         cand_bytes = spec.top_k * spec.n_sym * spec.n_tones * 8 * 3
+        # the refine branch keeps a half-hop demod spectrogram: 2x the hops
         self.max_device_batch = device_batch_for(
-            2 * n_hops, spec.nfft, self.MAX_DEVICE_BATCH, cand_bytes)
+            2 * n_hops if refine else n_hops, spec.nfft,
+            self.MAX_DEVICE_BATCH, cand_bytes)
 
-    def _make_dft_mat(self, window: np.ndarray) -> np.ndarray:
+    @property
+    def spectrogram_branch(self) -> str:
+        """Which stage-1 branch decode_program takes: "refine" (split DFT
+        matmuls), "dft" (fused DFT matmul) or "rfft"."""
+        if "dft_mat" not in self._host:
+            return "rfft"
+        return "refine" if self.spec.refine else "dft"
+
+    def _make_dft_mat(self, window: np.ndarray) -> np.ndarray | None:
         """[sps, 4*n_bins]: boxcar re/im then Hann re/im DFT columns over
-        the kept bins (float64 host trig, cast once)."""
+        the kept bins (float64 host trig, cast once); None where the matrix
+        would exceed ``DFT_MAT_BYTES_MAX`` (the rfft branch then runs)."""
         spec = self.spec
         fmin_bin, _, n_bins = spec.bin_range
+        if spec.sps * 4 * n_bins * 4 > self.DFT_MAT_BYTES_MAX:
+            return None
         k = fmin_bin + np.arange(n_bins)
         ang = -2.0 * np.pi * np.outer(np.arange(spec.sps), k) / spec.nfft
         dre, dim = np.cos(ang), np.sin(ang)

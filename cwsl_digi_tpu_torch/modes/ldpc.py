@@ -1,9 +1,16 @@
-"""LDPC(174,91) code tables (NumPy) and a batched min-sum BP decoder (torch).
+"""LDPC codes (NumPy) and a batched min-sum BP decoder (torch).
 
 Counterpart of ``cwsl_digi_tpu/modes/ldpc.py``.  The host half (GF(2)
-row reduction, :class:`Code`, the BP index tables, the published FT8 code)
-is copied because the reference module imports jax at the top; the
-decoder is :meth:`BPDecoder.decode_full` in PyTorch.
+row reduction, :class:`Code`, the stand-in code constructor, the BP index
+tables, the published FT8 code and the FST4 code) is copied because the
+reference module imports jax at the top; the decoder is
+:meth:`BPDecoder.decode_full` in PyTorch.
+
+Codes: the published LDPC(174,91) of FT8/FT4; LDPC(240,101) for
+FST4/FST4W and LDPC(174,87) for JS8 (``modes/js8.py``), each the published
+table when ``CWSL_DIGI_TPU_TABLES_DIR`` supplies it (``modes/tables_ext.py``)
+and otherwise the documented same-profile stand-in of
+:func:`make_ldpc_code`, whose check rows have irregular weights.
 
 Normalized min-sum with a fixed iteration count: check->variable messages
 live in a dense ``[batch, n_checks, max_row]`` tensor (padded slots
@@ -81,6 +88,42 @@ class Code:
         info = np.asarray(info, dtype=np.uint8)
         parity = (info @ self.gen_parity) % 2
         return np.concatenate([info, parity.astype(np.uint8)], axis=-1)
+
+    def syndrome(self, word: np.ndarray) -> np.ndarray:
+        return (np.asarray(word, np.uint8) @ self.h.T) % 2
+
+
+def make_ldpc_code(n: int, k: int, seed: int = 1, col_weight: int = 3) -> Code:
+    """Deterministic pseudo-random regular-ish LDPC code with (n, k).
+
+    Column weight 3 (the degree profile of the WSJT-X codes); row weights
+    near-uniform.  Columns are permuted so the last n-k form an invertible
+    square, giving a systematic encoder.  Deterministic in (n, k, seed).
+    """
+    n_checks = n - k
+    rng = np.random.default_rng(seed)
+    for attempt in range(64):
+        h = np.zeros((n_checks, n), dtype=np.uint8)
+        # distribute col_weight ones per column, balancing row weights
+        row_fill = np.zeros(n_checks, dtype=np.int64)
+        for c in rng.permutation(n):
+            # choose the col_weight least-filled rows with random tie-break
+            noise = rng.random(n_checks)
+            chosen = np.lexsort((noise, row_fill))[:col_weight]
+            h[chosen, c] = 1
+            row_fill[chosen] += 1
+        # arrange columns: find an information set via row reduction
+        _, pivots = gf2_row_reduce(h)
+        if len(pivots) == n_checks:
+            pivot_set = set(pivots)
+            non_pivots = [c for c in range(n) if c not in pivot_set]
+            try:
+                # info columns first, the invertible block last
+                return Code.from_parity_matrix(h[:, non_pivots + pivots])
+            except ValueError:
+                pass
+        rng = np.random.default_rng(seed + 1000 + attempt)
+    raise RuntimeError("failed to construct LDPC code")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,3 +230,23 @@ def ft8_code() -> Code:
     parity table in :mod:`cwsl_digi_tpu_torch.modes.tables` (its generator
     is checked against the published rows in ``tests/test_torch_tables.py``)."""
     return Code.from_parity_matrix(tables.ft8_parity_matrix())
+
+
+@functools.lru_cache(maxsize=None)
+def fst4_code() -> Code:
+    """LDPC(240,101): the FST4/FST4W inner code, from
+    ``CWSL_DIGI_TPU_TABLES_DIR/fst4_ldpc_240_101.txt`` when supplied
+    (info columns first), else the same-profile stand-in."""
+    from cwsl_digi_tpu_torch.modes import tables_ext
+
+    h = tables_ext.fst4_parity()
+    if h is not None:
+        return Code.from_parity_matrix(h)
+    return make_ldpc_code(240, 101, seed=240)
+
+
+def get_bp_decoder(which: str, iters: int = 30,
+                   device: torch.device | str | None = None) -> BPDecoder:
+    """BP decoder of the named code ("ft8" or "fst4") on ``device``."""
+    code = {"ft8": ft8_code, "fst4": fst4_code}[which]()
+    return BPDecoder(code, iters=iters, device=device)

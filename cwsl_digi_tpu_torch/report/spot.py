@@ -123,7 +123,12 @@ def _spot_from_words(words, text, result, base_freq_hz, decoder_index,
     if result.mode == Mode.JS8:
         # JS8 sender is the "FROM:" station (reference classifies via
         # js8call DecodedText, OutputHandler.cpp:403-503)
-        raise NotImplementedError("JS8 is not ported yet")
+        from cwsl_digi_tpu_torch.modes.js8 import classify
+
+        c = classify(text)
+        sender, locator = c.from_call, c.grid
+        if c.kind == "DIRECTED" and c.arg is not None:
+            report = str(c.arg)
     elif result.mode == Mode.WSPR or is_mode_fst4w(result.mode):
         # beacon grammar: 'CALL GRID PWR' (the reference parses wsprd's
         # 8-field lines instead, OutputHandler.cpp:314-401)

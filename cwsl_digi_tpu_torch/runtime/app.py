@@ -9,8 +9,8 @@ channelize on ``device`` and the decoders are the port's.  Run with::
 
 It runs on ``cuda:0`` and stops with an error where there is no CUDA
 device (tests construct ``App(cfg, device="cpu")``, which runs the plain
-PyTorch versions).  Only FT8 decoder lines are ported; a config naming
-another mode is refused.
+PyTorch versions).  The GFSK modes are ported (``PORTED_MODES``: FT8, FT4,
+JS8, FST4 and FST4W); a config naming WSPR, JT65 or Q65 is refused.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from cwsl_digi_tpu_torch.config import Config, load_config
-from cwsl_digi_tpu_torch.constants import WAVE_SR, Mode, get_rx_period
+from cwsl_digi_tpu_torch.constants import (WAVE_SR, Mode, get_rx_period,
+                                           is_mode_fst4, is_mode_fst4w)
 from cwsl_digi_tpu_torch.device import as_device
 from cwsl_digi_tpu_torch.modes.base import DecoderRegistry, warmup_window
 from cwsl_digi_tpu_torch.report.pskreporter import PSKReporter
@@ -41,7 +42,8 @@ from cwsl_digi_tpu_torch.utils.logging import LogLevel, ScreenPrinter
 from cwsl_digi_tpu_torch.utils.timeutils import next_period_boundary
 from cwsl_digi_tpu_torch.version import PROGRAM_NAME, __version__
 
-PORTED_MODES = (Mode.FT8,)
+PORTED_MODES = tuple(m for m in Mode if m in (Mode.FT8, Mode.FT4, Mode.JS8)
+                     or is_mode_fst4(m) or is_mode_fst4w(m))
 
 
 class App:
@@ -100,7 +102,8 @@ class App:
             keep_wav_dir = cfg.get("wsjtx", "temppath") or "keepwav"
 
         # decodedepth (jt9 -d) and highestdecodefreq (jt9 -H) map to the
-        # decoder's knobs; FT8 gets AP hypotheses seeded with the operator
+        # decoders' knobs as in the reference (cwsl_digi_tpu/runtime/app.py
+        # decoder_factory); FT8 gets AP hypotheses seeded with the operator
         # callsign (source/DecoderPool.hpp:466-469)
         depth = max(1, min(3, int(cfg.get("wsjtx", "decodedepth"))))
         fmax = float(cfg.get("wsjtx", "highestdecodefreq"))
@@ -111,7 +114,12 @@ class App:
                 return self.decoders.get(
                     mode, my_call=cfg.get("operator", "callsign"),
                     depth=depth, fmax_hz=fmax)
-            raise NotImplementedError(f"{mode.value} is not ported yet")
+            if mode == Mode.FT4:
+                return self.decoders.get(mode, depth=depth, fmax_hz=fmax)
+            if mode == Mode.JS8 or is_mode_fst4(mode):
+                return self.decoders.get(mode, fmax_hz=fmax)
+            # FST4W keeps the fixed 1400-1600 Hz band (jt9 -L/-H override)
+            return self.decoders.get(mode)
 
         self.pool = DecoderPool(
             num_workers=min(cfg.num_decode_slots(), 4),

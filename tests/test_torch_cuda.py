@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA channelizer kernel against
-its plain version, and the FT8 decoder on CUDA tensors against the same
-decoder on CPU tensors.
+its plain version, and the FT8, FT4, JS8 and FST4-60 decoders on CUDA
+tensors against the same decoders on CPU tensors.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -18,7 +18,9 @@ import torch
 
 from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
-from cwsl_digi_tpu_torch.modes import ft8
+from cwsl_digi_tpu_torch.constants import Mode
+from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8
+from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
 from test_torch_parity import assert_same_batch_decodes
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +86,29 @@ def test_ft8_decoder_on_card_matches_cpu(dev):
     want = ft8.FT8Decoder(device="cpu", **kw).decode(torch.from_numpy(wins))
     assert sum(len(w) for w in want) >= 3
     assert_same_batch_decodes(got, want)
+
+
+def test_gfsk_modes_on_card_match_cpu(dev):
+    """FT4 (refine branch), JS8 (its own LDPC(174,87)) and FST4-60 (fused
+    DFT branch, coh4, sync-pair correction) on CUDA and on CPU tensors:
+    the same decode lists within the tolerances above."""
+    rng = np.random.default_rng(9)
+    cases = [
+        (lambda d: ft4.FT4Decoder(depth=3, device=d),
+         ft4.synthesize("CQ W2AXR FN13", 900.0)
+         + 0.5 * ft4.synthesize("K1ABC W9XYZ EN37", 1800.0, start_s=0.8),
+         -12.0),
+        (lambda d: js8.JS8Decoder(device=d),
+         js8.synthesize("KN4CRD: HB EN50", 1100.0)
+         + 0.6 * js8.synthesize("HELLO WORLD", 2000.0, start_s=1.0), -14.0),
+        (lambda d: fst4.FST4Decoder(Mode.FST4_60, device=d),
+         fst4.synthesize("K1ABC W9XYZ -15", Mode.FST4_60, 1000.0), -18.0),
+    ]
+    for make, clean, snr in cases:
+        wins = np.stack([add_noise_at_snr(clean, snr, 12_000, rng)
+                         for _ in range(2)]).astype(np.float32)
+        card, host = make(dev), make("cpu")
+        got = card.decode(torch.from_numpy(wins).to(dev))
+        want = host.decode(torch.from_numpy(wins))
+        assert sum(len(w) for w in want) >= 2, card.spec.name
+        assert_same_batch_decodes(got, want, card.spec)

@@ -83,4 +83,4 @@ def test_tensor_audio_is_not_rescaled(default_decoder):
     assert [r.message for r in dev] == [r.message for r in host] \
         == ["K1ABC W9XYZ EN37"]
     with pytest.raises(NotImplementedError):
-        get_decoder("FT4", device="cpu")
+        get_decoder("WSPR", device="cpu")

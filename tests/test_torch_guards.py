@@ -200,8 +200,10 @@ def test_app_refuses_unported_modes():
     from cwsl_digi_tpu_torch.runtime.app import App
 
     cfg = load_config(None, ["decoders.decoder=14074000 FT8",
-                             "decoders.decoder=14080000 FT4"])
-    with pytest.raises(ValueError, match="FT4"):
+                             "decoders.decoder=14080000 FT4",
+                             "decoders.decoder=14095600 WSPR",
+                             "decoders.decoder=14076000 JT65"])
+    with pytest.raises(ValueError, match="JT65, WSPR"):
         App(cfg, device="cpu")
 
 
@@ -221,7 +223,8 @@ def _entry_points():
     from cwsl_digi_tpu_torch.config import load_config
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.device import as_device
-    from cwsl_digi_tpu_torch.modes import base, ft8, gfsk_engine, ldpc
+    from cwsl_digi_tpu_torch.modes import (base, fst4, ft4, ft8, gfsk_engine,
+                                           js8, ldpc)
     from cwsl_digi_tpu_torch.modes.crc import ft8_crc_matrix
     from cwsl_digi_tpu_torch.runtime.app import App
     from cwsl_digi_tpu_torch.runtime.decoderpool import DecoderPool
@@ -236,6 +239,9 @@ def _entry_points():
             open_source("synthetic:?sr=48000&lo=14070000"), cfg.decoders,
             DecoderPool(decoder_factory=lambda mode: None)),
         "FT8Decoder": lambda: ft8.FT8Decoder(),
+        "FT4Decoder": lambda: ft4.FT4Decoder(),
+        "JS8Decoder": lambda: js8.JS8Decoder(),
+        "FST4Decoder": lambda: fst4.FST4Decoder("FST4-60"),
         "GFSKDecoder": lambda: gfsk_engine.GFSKDecoder(
             ft8.SPEC, ldpc.BPDecoder(ldpc.ft8_code(), device="cpu"),
             ft8_crc_matrix(), Mode.FT8, unpack=str),
@@ -249,7 +255,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["as_device", "BatchChannelizer", "Receiver",
-                                  "FT8Decoder", "GFSKDecoder", "BPDecoder",
+                                  "FT8Decoder", "FT4Decoder", "JS8Decoder",
+                                  "FST4Decoder", "GFSKDecoder", "BPDecoder",
                                   "DecoderRegistry", "get_decoder",
                                   "tables_to_torch", "App"])
 def test_entry_points_default_to_the_card(monkeypatch, name):

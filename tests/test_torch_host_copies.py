@@ -2,8 +2,10 @@
 
 The port imports nothing of the JAX package, so it keeps its own copy of
 every host module it needs.  Each copy must equal its original once the
-``cwsl_digi_tpu.`` import prefix is rewritten to ``cwsl_digi_tpu_torch.``;
-the few lines that differ on purpose are listed below with their reason.
+``cwsl_digi_tpu.`` import prefix is rewritten to ``cwsl_digi_tpu_torch.``
+(a citation of the reference's sources may leave out the directory that
+held the reference tree); the few lines that differ on purpose are listed
+below with their reason.
 Then both packages' functions run on the same seeded inputs and must
 agree field by field (the two packages' ``DecodeResult`` and ``Spot``
 classes are different classes).
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import difflib
+import inspect
 import re
 from pathlib import Path
 
@@ -23,14 +26,20 @@ from cwsl_digi_tpu import config as jconfig
 from cwsl_digi_tpu.modes import base as jbase
 from cwsl_digi_tpu.modes import crc as jcrc
 from cwsl_digi_tpu.modes import gfsk as jgfsk
+from cwsl_digi_tpu.modes import js8_varicode as jvc
 from cwsl_digi_tpu.modes import message77 as jm77
+from cwsl_digi_tpu.modes import tables_ext as jtx
+from cwsl_digi_tpu.modes import wspr as jwspr
 from cwsl_digi_tpu.report import spot as jspot
 from cwsl_digi_tpu_torch import config as pconfig
 from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes import base as pbase
 from cwsl_digi_tpu_torch.modes import crc as pcrc
 from cwsl_digi_tpu_torch.modes import gfsk as pgfsk
+from cwsl_digi_tpu_torch.modes import js8_varicode as pvc
 from cwsl_digi_tpu_torch.modes import message77 as pm77
+from cwsl_digi_tpu_torch.modes import tables_ext as ptx
+from cwsl_digi_tpu_torch.modes import wspr as pwspr
 from cwsl_digi_tpu_torch.report import spot as pspot
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,6 +47,7 @@ REPO = Path(__file__).resolve().parents[1]
 COPIES = [
     "constants.py", "version.py", "config.py", "stats.py", "native.py",
     "modes/message77.py", "modes/tables.py", "modes/crc.py", "modes/gfsk.py",
+    "modes/tables_ext.py", "modes/js8_varicode.py", "modes/legacy72.py",
     "report/spot.py", "report/pskreporter.py", "report/rbn.py",
     "report/wsprnet.py", "report/jt9format.py", "runtime/scheduler.py",
     "runtime/decoderpool.py", "sdr/source.py", "sdr/shm.py",
@@ -47,15 +57,6 @@ COPIES = [
 
 # module -> (lines only the original has, lines only the copy has, reason)
 DIFFERS = {
-    "report/spot.py": (
-        ["        from cwsl_digi_tpu_torch.modes.js8 import classify",
-         "",
-         "        c = classify(text)",
-         "        sender, locator = c.from_call, c.grid",
-         '        if c.kind == "DIRECTED" and c.arg is not None:',
-         "            report = str(c.arg)"],
-        ['        raise NotImplementedError("JS8 is not ported yet")'],
-        "JS8 is not ported: its classifier lives in the JAX mode module"),
     "runtime/decoderpool.py": (
         ["        audio = np.asarray(job.audio)   # device windows fetched on "
          "demand"],
@@ -68,15 +69,22 @@ DIFFERS = {
 }
 
 
+def _cited(text: str) -> str:
+    """Citations of the reference's sources by relative path: the
+    directory that held the reference tree is left out on both sides."""
+    return re.sub(r"/\w+/reference/", "", text)
+
+
 def _rewritten(text: str) -> list[str]:
-    return re.sub(r"\bcwsl_digi_tpu\.", "cwsl_digi_tpu_torch.",
-                  text).splitlines()
+    return _cited(re.sub(r"\bcwsl_digi_tpu\.", "cwsl_digi_tpu_torch.",
+                         text)).splitlines()
 
 
 @pytest.mark.parametrize("module", COPIES)
 def test_copy_equals_original(module):
     orig = _rewritten((REPO / "cwsl_digi_tpu" / module).read_text())
-    copy = (REPO / "cwsl_digi_tpu_torch" / module).read_text().splitlines()
+    copy = _cited((REPO / "cwsl_digi_tpu_torch" / module).read_text()
+                  ).splitlines()
     removed, added = [], []
     for line in difflib.unified_diff(orig, copy, lineterm="", n=0):
         if line.startswith(("---", "+++", "@@")):
@@ -199,3 +207,112 @@ def test_extract_spot_agrees():
         n_spots += 1
         assert dataclasses.asdict(got) == dataclasses.asdict(want), text
     assert n_spots >= 12
+
+
+# the host part of modes/wspr.py that FST4W's payload needs; the decode
+# program, the beam search and WSPRDecoder come with the WSPR slice
+WSPR_HOST = ["interleave_map", "_parity32", "conv_encode", "_code_matrices",
+             "pack_message", "unpack_message", "encode", "synthesize"]
+WSPR_CONSTANTS = ["NSYM", "SPS", "BAUD", "TONE_SPACING", "T_R",
+                  "SIGNAL_START_S", "N_MSG_BITS", "N_TAIL", "POLY1", "POLY2",
+                  "HOP", "NFFT", "BIN_HZ", "FMIN_HZ", "FMAX_HZ", "PAD_HOPS",
+                  "SYNC", "INTERLEAVE"]
+
+
+def test_wspr_host_part_equals_original():
+    """Each host function's source equals the original's (import prefix
+    rewritten), the constants are equal, and the module has nothing of
+    the decoder."""
+    for name in WSPR_HOST:
+        want = _rewritten(inspect.getsource(getattr(jwspr, name)))
+        assert inspect.getsource(getattr(pwspr, name)).splitlines() == want
+    for name in WSPR_CONSTANTS:
+        np.testing.assert_array_equal(getattr(pwspr, name),
+                                      getattr(jwspr, name), err_msg=name)
+    public = {n for n in vars(pwspr) if not n.startswith("__")}
+    assert not public & {"WSPRDecoder", "_decode_program", "_beam_decode"}
+
+
+def test_wspr_host_part_agrees():
+    rng = np.random.default_rng(50)
+    for call, grid, dbm in [("K1ABC", "FN42", 37), ("W2AXR", "FN13", 30),
+                            ("G4ABC", "IO91", 0), ("VE3XYZ", "EN93", 60)]:
+        bits = pwspr.pack_message(call, grid, dbm)
+        np.testing.assert_array_equal(bits, jwspr.pack_message(call, grid, dbm))
+        assert pwspr.unpack_message(bits) == jwspr.unpack_message(bits) \
+            == (call, grid, dbm)
+        np.testing.assert_array_equal(pwspr.encode(call, grid, dbm),
+                                      jwspr.encode(call, grid, dbm))
+    for bits in rng.integers(0, 2, (16, 50), dtype=np.uint8):
+        np.testing.assert_array_equal(pwspr.conv_encode(bits),
+                                      jwspr.conv_encode(bits))
+    for a, b in zip(pwspr._code_matrices(), jwspr._code_matrices()):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        pwspr.synthesize("K1ABC", "FN42", 37, window_len=200_000),
+        jwspr.synthesize("K1ABC", "FN42", 37, window_len=200_000))
+
+
+def test_js8_varicode_agrees():
+    assert pvc.default_table() == jvc.default_table()
+    for text in ["HELLO", "73 DE K1ABC", "SO? YES!", "", "TO THE SEA AT TEN"]:
+        bits = pvc.encode(text, budget=72)
+        assert bits == jvc.encode(text, budget=72)
+        assert pvc.decode(bits) == jvc.decode(bits) == text
+    assert pvc.encode("CQ CQ DE K1ABC K1ABC", budget=72) is None
+
+
+def test_tables_ext_overrides_agree(tmp_path, monkeypatch):
+    """Both packages read the same published-table directory and return
+    the same tables."""
+    rng = np.random.default_rng(7)
+    (tmp_path / "js8_costas.txt").write_text("2 5 6 0 4 1 3\n")
+    h = rng.integers(0, 2, (87, 174))
+    h[:, 87:] = np.eye(87, dtype=np.int64)          # full row rank
+    (tmp_path / "js8_ldpc_174_87.txt").write_text(
+        "\n".join(" ".join(map(str, r)) for r in h))
+    monkeypatch.setenv(jtx.ENV_VAR, str(tmp_path))
+    assert ptx.ENV_VAR == jtx.ENV_VAR
+    loaders = ["js8_costas", "js8_parity", "fst4_parity", "js8_varicode",
+               "jt65_sync", "q65_qra"]
+    try:
+        for name in loaders:
+            getattr(ptx, name).cache_clear()
+            getattr(jtx, name).cache_clear()
+            got, want = getattr(ptx, name)(), getattr(jtx, name)()
+            if want is None:
+                assert got is None, name
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=name)
+        assert ptx.js8_costas().shape == (3, 7)
+        np.testing.assert_array_equal(ptx.js8_parity(), h)
+    finally:
+        monkeypatch.delenv(jtx.ENV_VAR)
+        for name in loaders:
+            getattr(ptx, name).cache_clear()
+            getattr(jtx, name).cache_clear()
+
+
+JS8_CORPUS = ["KN4CRD: HB EN50", "KN4CRD: CQ EN50", "KN4CRD: J1Y SNR -12",
+              "KN4CRD: J1Y QUERY MSGS", "W2AXR: K1ABC 73", "CQCQ K1ABC",
+              "CQ CQ CQ K1ABC EN50", "KN4CRD> VE3ABC> HELLO", "HELLO WORLD",
+              "VE3/KN4CRD: HB", "W2AXR:", ""]
+
+
+def test_js8_spots_agree():
+    """The JS8 branch of the spot grammar (sender from classify) gives the
+    reference's spots."""
+    n_spots = 0
+    for i, text in enumerate(JS8_CORPUS):
+        args = (text, -12.0 + i, 0.1 * i, 500.0 + 100 * i)
+        want = jspot.extract_spot(
+            jbase.DecodeResult(*args, mode=jspot.Mode.JS8),
+            7_078_000, 1, 1_760_000_000.0)
+        got = pspot.extract_spot(pbase.DecodeResult(*args, mode=Mode.JS8),
+                                 7_078_000, 1, 1_760_000_000.0)
+        if want is None:
+            assert got is None, text
+            continue
+        n_spots += 1
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), text
+    assert n_spots >= 6

@@ -2,8 +2,8 @@
 
 Candidate order may differ where bf16 sync scores tie, so two decoders are
 compared on the decode list of each window: the same messages and modes,
-SNR within 0.5 dB, frequency within one bin (1.5625 Hz), dt within one hop
-(20 ms).
+SNR within 0.5 dB, frequency within one bin and dt within one hop of the
+mode's spec (FT8 by default: 1.5625 Hz and 20 ms).
 
 This file imports no JAX, so ``test_torch_cuda.py`` can use it on the
 machine with the card.
@@ -18,6 +18,7 @@ import pytest
 from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes.base import DecodeResult
 from cwsl_digi_tpu_torch.modes import ft8
+from cwsl_digi_tpu_torch.modes.gfsk_engine import ModeSpec
 
 SNR_DB = 0.5
 FREQ_HZ = ft8.SPEC.bin_hz
@@ -25,24 +26,29 @@ DT_S = ft8.SPEC.hop / 12_000
 
 
 def assert_same_decodes(got: list[DecodeResult],
-                        want: list[DecodeResult]) -> None:
-    """One window's decode lists agree within the stated tolerances."""
+                        want: list[DecodeResult],
+                        spec: ModeSpec = ft8.SPEC) -> None:
+    """One window's decode lists agree within the stated tolerances (the
+    frequency bin and hop of ``spec``)."""
+    freq_hz = spec.bin_hz
+    dt_s = spec.hop / 12_000
     g = {r.message: r for r in got}
     w = {r.message: r for r in want}
     assert set(g) == set(w), (sorted(g), sorted(w))
     for msg, r in w.items():
         assert abs(g[msg].snr_db - r.snr_db) <= SNR_DB, msg
-        assert abs(g[msg].freq_hz - r.freq_hz) <= FREQ_HZ, msg
-        assert abs(g[msg].dt_s - r.dt_s) <= DT_S + 1e-9, msg
+        assert abs(g[msg].freq_hz - r.freq_hz) <= freq_hz + 1e-9, msg
+        assert abs(g[msg].dt_s - r.dt_s) <= dt_s + 1e-9, msg
         assert g[msg].mode == r.mode, msg
 
 
 def assert_same_batch_decodes(got: list[list[DecodeResult]],
-                              want: list[list[DecodeResult]]) -> None:
+                              want: list[list[DecodeResult]],
+                              spec: ModeSpec = ft8.SPEC) -> None:
     """Every window of a batch agrees, and the batches are equally long."""
     assert len(got) == len(want)
     for g_win, w_win in zip(got, want):
-        assert_same_decodes(g_win, w_win)
+        assert_same_decodes(g_win, w_win, spec)
 
 
 _REF = [DecodeResult("CQ W2AXR FN13", -12.0, 0.50, 1500.0),

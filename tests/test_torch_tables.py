@@ -10,13 +10,16 @@ import torch
 
 from cwsl_digi_tpu.dsp import lowpass as jlowpass
 from cwsl_digi_tpu.dsp.channelizer import BatchChannelizer as JaxChannelizer
+from cwsl_digi_tpu.modes import fst4 as jfst4
+from cwsl_digi_tpu.modes import ft4 as jft4
 from cwsl_digi_tpu.modes import ft8 as jft8
+from cwsl_digi_tpu.modes import js8 as jjs8
 from cwsl_digi_tpu.modes import ldpc as jldpc
 from cwsl_digi_tpu.modes import osd as josd
 from cwsl_digi_tpu_torch import convert
 from cwsl_digi_tpu_torch.dsp import lowpass
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
-from cwsl_digi_tpu_torch.modes import ft8, ldpc, osd
+from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8, ldpc, osd
 from cwsl_digi_tpu_torch.modes import tables as ptables
 
 
@@ -82,6 +85,54 @@ def test_ft8_decoder_tables_bitwise():
     for name in jax_np:
         _assert_bitwise(carried[name], mine[name], name)
     assert carried["patterns"].shape == (268, 91)
+    assert td.max_device_batch == jd.max_device_batch
+
+
+def _jax_tables(jd) -> dict[str, np.ndarray]:
+    """The tables a JAX GFSKDecoder builds, read off it as NumPy arrays."""
+    spec, bt = jd.spec, jd.bp.t
+    out = {
+        "window": jd._window,
+        "bitmaps": jd._bitmaps,
+        "crc_mat": jd._crc_mat,
+        "data_syms": jd._data_syms,
+        "row_cols": bt.row_cols,
+        "row_mask": bt.row_mask,
+        "col_slots": bt.col_slots,
+        "col_mask": bt.col_mask,
+        "gen": np.concatenate([np.eye(jd.bp.code.k, dtype=np.uint8),
+                               jd.bp.code.gen_parity], axis=1),
+        "gen_parity": jd._gen_parity_f32,
+        "hash_w": np.asarray(jd._hash_w),
+        "patterns": josd.flip_patterns(jd.bp.code.k, spec.osd_singles,
+                                       spec.osd_tail2,
+                                       spec.osd_tail3).astype(np.float32),
+    }
+    if jd._dft_mat is not None:
+        out["dft_mat"] = jd._dft_mat
+    return out
+
+
+@pytest.mark.parametrize("mode", ["FT4", "JS8", "FST4-60", "FST4W-120",
+                                  "FST4-1800"])
+def test_gfsk_mode_decoder_tables_bitwise(mode):
+    """FT4, JS8 (LDPC(174,87)) and FST4/FST4W (LDPC(240,101)): BP index
+    tables, generators, CRC matrices, DFT matrices (none for FST4-1800,
+    whose spectrograms are rffts) carried across bit for bit."""
+    if mode == "FT4":
+        jd, td = jft4.FT4Decoder(), ft4.FT4Decoder(device="cpu")
+    elif mode == "JS8":
+        jd, td = jjs8.JS8Decoder(), js8.JS8Decoder(device="cpu")
+    else:
+        jd = jfst4.FST4Decoder(jfst4.Mode(mode))
+        td = fst4.FST4Decoder(mode, device="cpu")
+    jax_np = _jax_tables(jd)
+    carried = convert.tables_to_torch(jax_np, "cpu")
+    mine = td.tables()
+    assert set(carried) == set(mine)
+    for name in jax_np:
+        _assert_bitwise(carried[name], mine[name], name)
+    assert ("dft_mat" in mine) == (mode != "FST4-1800")
     assert td.max_device_batch == jd.max_device_batch
 
 
