@@ -5,8 +5,8 @@
 1. prints the card's name and power limit, and fails without CUDA;
 2. builds the hand-written channelizer kernel from ``cwsl_digi_tpu_torch``;
 3. holds the kernel against its plain PyTorch version on the card, at the
-   FT8 path's 64 dials, the mixed-mode path's 5 lines and the bench's 256
-   channels (192 kHz, 15 s of
+   FT8 path's 64 dials, the mixed-mode path's 5 lines, the weak-mode
+   path's 3 lines and the bench's 256 channels (192 kHz, 15 s of
    seeded IQ in the receiver's 0.25 s chunks, plus one whole-window call),
    and times one chunk in turns through the kernel, the plain version and
    one library call (a cuBLAS complex GEMM of the same taps and IQ), beside
@@ -25,12 +25,20 @@
    threshold); every window must close on its own UTC boundary from the
    anchor on, and every expected spot (JS8's by its sender grammar) appear
    within 2 Hz, and no other, through the kernel;
-6. decodes one synthesized window of each long period (FST4-300/900/1800,
+6. runs the App on seeded 192 kHz IQ with the weak-signal lines of the
+   same receiver: WSPR (14.0956 MHz), JT65 (14.076 MHz) and Q65-30
+   (14.0795 MHz), written for the App's anchor as in 5: one WSPR window,
+   two JT65 windows and four Q65-30 windows after the 2-minute boundary,
+   8 bursts (SNR -8 dB down to about 3 dB above each mode's threshold);
+   every window on its own boundary, every expected spot within 2 Hz and
+   no other, through the kernel;
+7. decodes one synthesized window of each long period (FST4-300/900/1800,
    FST4W-300/900/1800) through ``get_decoder`` on the card, printing the
    spectrogram branch, the decode wall and the peak device memory;
-7. times the decode of one window and of a 64-window batch for FT4, JS8
-   and FST4-60;
-8. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+8. times the decode of one window and of a 64-window batch for FT4, JS8,
+   FST4-60, WSPR, JT65 and Q65-30 (and the peak device memory of the
+   64-window WSPR batch);
+9. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -448,8 +456,16 @@ def _mode_burst(mode: str, text: str):
     """(tones, samples per symbol at 12 kHz, tone spacing, BT, signal start
     s) of one burst of ``mode``."""
     from cwsl_digi_tpu_torch.constants import Mode
-    from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8, jt65, q65, wspr
 
+    if mode == "WSPR":
+        call, grid, dbm = text.split()
+        return (wspr.encode(call, grid, int(dbm)), wspr.SPS,
+                wspr.TONE_SPACING, 2.0, wspr.SIGNAL_START_S)
+    if mode in ("JT65", "Q65-30"):
+        mod = jt65 if mode == "JT65" else q65
+        return (mod.encode_message(text), mod.SPS, mod.TONE_SPACING, 2.0,
+                mod.SPEC.signal_start_s)
     if mode in ("FT8", "FT4", "JS8"):
         mod = {"FT8": ft8, "FT4": ft4, "JS8": js8}[mode]
         spec = mod.SPEC
@@ -460,20 +476,21 @@ def _mode_burst(mode: str, text: str):
     return tones, spec.sps, spec.tone_spacing, spec.bt, spec.signal_start_s
 
 
-def _mixed_windows(utc_anchor: float) -> tuple[float, dict[str, list[float]]]:
-    """The mixed replay's lead-in and its windows for a replay that starts
-    at ``utc_anchor`` (a UTC multiple of 15 s): the lead-in runs to the
-    next 2-minute boundary, where every mode's windows begin and the bursts
-    start, and MIXED_S s follow it.  Returns the lead-in in seconds and, per
-    line, the UTC starts of the windows the receiver must close: each
-    mode's consecutive periods from its own first boundary at or after the
-    anchor, up to the end of the file."""
+def _line_windows(utc_anchor: float, lines
+                  ) -> tuple[float, dict[str, list[float]]]:
+    """The lead-in and the windows of a replay of ``lines`` that starts at
+    ``utc_anchor`` (a UTC multiple of 15 s): the lead-in
+    runs to the next 2-minute boundary, where every mode's windows begin
+    and the bursts start, and MIXED_S s follow it.  Returns the lead-in in
+    seconds and, per line, the UTC starts of the windows the receiver must
+    close: each mode's consecutive periods from its own first boundary at
+    or after the anchor, up to the end of the file."""
     from cwsl_digi_tpu_torch.constants import get_rx_period
 
     lead = -utc_anchor % 120.0
     end = utc_anchor + lead + MIXED_S
     starts = {}
-    for m, _ in MIXED_LINES:
+    for m, _ in lines:
         trp = get_rx_period(m)
         first = -(-utc_anchor // trp) * trp
         starts[m] = [first + k * trp
@@ -481,20 +498,22 @@ def _mixed_windows(utc_anchor: float) -> tuple[float, dict[str, list[float]]]:
     return lead, starts
 
 
-def _write_mixed_replay(path: Path, lead_s: float) -> list[tuple[str, int]]:
+def _write_lines_replay(path: Path, lead_s: float, lines, plan, seed: int
+                        ) -> list[tuple[str, int]]:
     """``lead_s`` s of seeded noise, then MIXED_S s of seeded 192 kHz IQ
-    with the mixed bursts (the same samples whatever the lead-in); returns
-    the expected (callsign, RF Hz) spots by each mode's spot grammar."""
+    with the bursts of ``plan`` on ``lines`` (the same samples whatever the
+    lead-in); returns the expected (callsign, RF Hz) spots by each mode's
+    spot grammar."""
     from cwsl_digi_tpu_torch.constants import Mode, get_rx_period
     from cwsl_digi_tpu_torch.modes.base import DecodeResult
     from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate_iq
     from cwsl_digi_tpu_torch.report.spot import extract_spot
 
     sigma = 0.05
-    iq = _iq_noise(MIXED_S * FS, sigma, SEED + 2)
-    dial_of = dict(MIXED_LINES)
+    iq = _iq_noise(MIXED_S * FS, sigma, seed)
+    dial_of = dict(lines)
     expected = []
-    for mode, wi, text, off, snr, dt in _mixed_plan():
+    for mode, wi, text, off, snr, dt in plan:
         tones, sps, spacing, bt, start_s = _mode_burst(mode, text)
         rf = dial_of[mode] + off
         amp = sigma * np.sqrt(10 ** (snr / 10) * 2500.0 / FS)
@@ -506,56 +525,102 @@ def _write_mixed_replay(path: Path, lead_s: float) -> list[tuple[str, int]]:
                             dial_of[mode])
         expected.append((spot.callsign, spot.freq_hz))
     np.save(path, np.concatenate(
-        [_iq_noise(int(round(lead_s * FS)), sigma, SEED + 4), iq]))
+        [_iq_noise(int(round(lead_s * FS)), sigma, seed + 2), iq]))
     return expected
 
 
-def mixed_mode_phase(dev, workdir: Path) -> dict:
-    """The port's App on the mixed-mode replay, written once the App has
-    taken its anchor."""
-    iq_path = workdir / "mixed.npy"
-    ini = workdir / "mixed.ini"
+def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int
+                  ) -> dict:
+    """The port's App on a replay of ``lines`` with the bursts of ``plan``,
+    written once the App has taken its anchor (noise to the next 2-minute
+    boundary, then MIXED_S s): every line's windows on their own UTC
+    boundaries, the expected spots and no other, through the kernel, with
+    CUDA tensors reaching the decoders."""
+    iq_path = workdir / f"{name}.npy"
+    ini = workdir / f"{name}.ini"
     ini.write_text("\n".join(
         ["[radio]", f"source=file:{iq_path}?sr={FS}&lo={LO}",
          "[operator]", "callsign=W2AXR", "gridsquare=FN13",
-         "[decoders]"] + [f"decoder={d} {m}" for m, d in MIXED_LINES]
+         "[decoders]"] + [f"decoder={d} {m}" for m, d in lines]
         + ["[logging]", "loglevel=2", "logimmediately=true"]) + "\n")
-    plan = {}
+    state = {}
 
     def write(utc_anchor):
-        lead, plan["starts"] = _mixed_windows(utc_anchor)
-        plan["n"] = sum(len(v) for v in plan["starts"].values())
-        plan["lead"] = lead
-        plan["expected"] = _write_mixed_replay(iq_path, lead)
+        lead, state["starts"] = _line_windows(utc_anchor, lines)
+        state["n"] = sum(len(v) for v in state["starts"].values())
+        state["lead"] = lead
+        state["expected"] = _write_lines_replay(iq_path, lead, lines, plan,
+                                                 seed)
 
-    run = _run_app(dev, ini, lambda: plan.get("n", 1 << 30), 480, write)
+    run = _run_app(dev, ini, lambda: state.get("n", 1 << 30), 480, write)
     batches = [(e["mode"], e["decode_s"]) for e in run["stage_log"]]
-    print(f"mixed-mode path: {len(MIXED_LINES)} lines, replay from UTC "
-          f"{run['anchor']:g} with a {plan['lead']:g} s lead-in to the "
+    print(f"{name} path: {len(lines)} lines, replay from UTC "
+          f"{run['anchor']:g} with a {state['lead']:g} s lead-in to the "
           f"2-minute boundary, warmup+replay+decode {run['run_s']:.1f} s, "
-          f"windows decoded {run['decoded']} of {plan['n']}, decode batches "
+          f"windows decoded {run['decoded']} of {state['n']}, decode batches "
           f"(mode, s) {batches}")
-    if run["decoded"] != plan["n"]:
+    if run["decoded"] != state["n"]:
         raise AssertionError("not every line's windows were decoded")
     # each mode's windows close on its own UTC boundaries, the first at or
     # after the App's anchor
     epochs = {m: sorted(j[1] for j in run["jobs"] if j[0] == m)
-              for m, _ in MIXED_LINES}
-    for m, _ in MIXED_LINES:
-        if epochs[m] != plan["starts"][m]:
+              for m, _ in lines}
+    for m, _ in lines:
+        if epochs[m] != state["starts"][m]:
             raise AssertionError(f"{m} windows at {epochs[m]}, want "
-                                 f"{plan['starts'][m]}")
+                                 f"{state['starts'][m]}")
     print(f"window epochs from the anchor {run['anchor']:g}: " + ", ".join(
         f"{m} {[e - run['anchor'] for e in v]}" for m, v in epochs.items()))
-    _check_spots(run["spots"], plan["expected"])
+    _check_spots(run["spots"], state["expected"])
     if run["launches"] <= 0:
-        raise AssertionError("mixed path did not launch the channelizer "
+        raise AssertionError(f"{name} path did not launch the channelizer "
                              "kernel")
     devices = {j[2] for j in run["jobs"]}
     if devices != {"cuda"}:
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
     return {"launches": run["launches"], "decode_batches": batches,
-            "run_s": run["run_s"]}
+            "run_s": run["run_s"], "windows": run["decoded"],
+            "lead_s": state["lead"]}
+
+
+def mixed_mode_phase(dev, workdir: Path) -> dict:
+    """The port's App on the mixed-mode replay."""
+    return _replay_phase(dev, workdir, "mixed-mode", MIXED_LINES,
+                         _mixed_plan(), SEED + 2)
+
+
+# the weak-signal lines of the same 20 m receiver: WSPR beside FST4W on
+# 14.0956 MHz, JT65 on 14.076 MHz, and Q65-30 on a dial of its own in the
+# span (the reference's config names no 20 m Q65 dial)
+WEAK_LINES = [("WSPR", 14_095_600), ("JT65", 14_076_000),
+              ("Q65-30", 14_079_500)]
+
+
+def _weak_plan():
+    """Bursts of the weak-mode replay: (mode, window index, message, audio
+    Hz, SNR dB in 2.5 kHz, dt s).  The weakest sit at least about 3 dB above
+    each mode's 50 % decode threshold in the reference's parity sweep
+    (``PARITY_REPORT.json``: WSPR -31, JT65 -24, Q65-30 -24.6 dB).  The two
+    WSPR bursts share a window 2 dB apart: WSPR's top-K has no
+    non-maximum suppression, so a burst 6 dB above another fills the 24
+    candidates with its own time and drift neighbours and the weaker one
+    is never tried (the reference does the same)."""
+    return [
+        ("WSPR", 0, "K1ABC FN42 37", 1460.0, -24.0, 0.0),
+        ("WSPR", 0, "W2AXR FN13 30", 1540.0, -26.0, 0.0),
+        ("JT65", 0, "CQ DL7ACA JO40", 1270.0, -10.0, 0.0),
+        ("JT65", 1, "DL7ACA K1ABC FN42", 1500.0, -21.0, 0.2),
+        ("Q65-30", 0, "CQ VE3XYZ EN93", 1000.0, -8.0, 0.0),
+        ("Q65-30", 1, "VE3XYZ G4ABC IO91", 1200.0, -13.0, 0.1),
+        ("Q65-30", 2, "G4ABC VE3XYZ R-15", 1400.0, -17.0, 0.0),
+        ("Q65-30", 3, "CQ JA1XYZ PM95", 1600.0, -21.0, 0.2),
+    ]
+
+
+def weak_modes_phase(dev, workdir: Path) -> dict:
+    """The port's App on the weak-mode replay (WSPR, JT65, Q65-30)."""
+    return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
+                         _weak_plan(), SEED + 5)
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -606,23 +671,28 @@ def long_period_phase(dev) -> dict:
 
 def decode_walls_phase(dev) -> dict:
     """Decode wall of one window and of a 64-window batch (device-resident
-    audio, as the receiver hands it over) for FT4, JS8 and FST4-60 at
-    their published specs: one burst per window at -5 to -15 dB."""
+    audio, as the receiver hands it over) for FT4, JS8, FST4-60, WSPR, JT65
+    and Q65-30 at their published specs: one burst per window at -5 to
+    -15 dB; with the peak device memory of the 64-window WSPR batch."""
     from cwsl_digi_tpu_torch.constants import Mode
-    from cwsl_digi_tpu_torch.modes import fst4, ft4, js8
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, js8, jt65, q65, wspr
     from cwsl_digi_tpu_torch.modes.base import get_decoder
     from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
 
     clean = {"FT4": ft4.synthesize("CQ VE3XYZ EN93", 1200.0),
              "JS8": js8.synthesize("KN4CRD: HB EN50", 1000.0),
              "FST4-60": fst4.synthesize("CQ F5ABC JN18", Mode.FST4_60,
-                                        1000.0)}
+                                        1000.0),
+             "WSPR": wspr.synthesize("K1ABC", "FN42", 37, 1500.0),
+             "JT65": jt65.synthesize("CQ F5ABC JN18", 1270.0),
+             "Q65-30": q65.synthesize("CQ F5ABC JN18", 1000.0)}
     rng = np.random.default_rng(SEED + 3)
     out = {}
     for mode, c in clean.items():
         wins = np.stack([add_noise_at_snr(c, rng.uniform(-15, -5), 12_000, rng)
                          for _ in range(64)]).astype(np.float32)
         audio = torch.from_numpy(wins).to(dev)
+        del wins
         dec = get_decoder(mode, device=dev)
         dec.decode(audio[:1])                       # warm-up
         walls = {}
@@ -630,6 +700,7 @@ def decode_walls_phase(dev) -> dict:
             times = []
             for _ in range(reps):
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.monotonic()
                 res = dec.decode(audio[:n])
                 times.append(time.monotonic() - t0)
@@ -638,12 +709,20 @@ def decode_walls_phase(dev) -> dict:
             if n_dec < n:
                 raise AssertionError(f"{mode}: {n_dec} decodes in {n} "
                                      "windows")
+        peak = torch.cuda.max_memory_allocated(dev)
         print(f"{mode} ({dec.spectrogram_branch}, max_device_batch "
               f"{dec.max_device_batch}): decode wall 1 window median "
               f"{statistics.median(walls[1]):.4f} s {walls[1]}, 64 windows "
-              f"median {statistics.median(walls[64]):.3f} s {walls[64]}")
+              f"median {statistics.median(walls[64]):.3f} s {walls[64]}, "
+              f"peak device memory of the 64-window batch "
+              f"{peak / 2**30:.3f} GiB")
         out[mode] = {"wall_1_s": statistics.median(walls[1]),
-                     "wall_64_s": statistics.median(walls[64])}
+                     "wall_64_s": statistics.median(walls[64]),
+                     "branch": dec.spectrogram_branch,
+                     "max_device_batch": dec.max_device_batch,
+                     "peak_bytes_64": peak}
+        del dec, audio
+        torch.cuda.empty_cache()
     return out
 
 
@@ -673,36 +752,45 @@ def main() -> int:
         print(f"phase {name}: {walls[name]:.1f} s")
         return r
 
-    # the shapes of both App paths (the FT8 path's 64 dials, the mixed
-    # path's 5 lines, one channel each), then the bench's 256 channels
+    # the shapes of the three App paths (the FT8 path's 64 dials, the mixed
+    # path's 5 lines, the weak path's 3, one channel each), then the bench's
+    # 256 channels
     dials, _ = _plan()
     kmain = phase("kernel_64ch", kernel_phase, dev,
                   np.asarray(dials, np.float64) - LO)
     kmixed = phase("kernel_mixed_5ch", kernel_phase, dev,
                    np.asarray([d for _, d in MIXED_LINES], np.float64) - LO)
+    kweak = phase("kernel_weak_3ch", kernel_phase, dev,
+                  np.asarray([d for _, d in WEAK_LINES], np.float64) - LO)
     kwide = phase("kernel_256ch", kernel_phase, dev,
                   np.linspace(-FS / 2, FS / 2 - 6000, 256))
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         xstats = phase("mixed_mode_app", mixed_mode_phase, dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        wstats = phase("weak_modes_app", weak_modes_phase, dev, Path(tmp))
     lstats = phase("long_periods", long_period_phase, dev)
     dstats = phase("decode_walls", decode_walls_phase, dev)
     print(json.dumps({"channelize_mixed_5ch": kmixed,
+                      "channelize_weak_3ch": kweak,
                       "channelize_256ch": kwide}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
+                      "weak_decode_batches": wstats["decode_batches"],
                       "phase_walls_s": walls}))
     print(json.dumps({"kernels": [{
         "name": "channelize",
         "route": "cuda",
         "source": "cwsl_digi_tpu_torch/dsp/csrc/channelizer.cu",
         "replaces": "cwsl_digi_tpu/dsp/pallas_channelizer.py:61",
-        "launches": mstats["launches"] + xstats["launches"],
+        "launches": (mstats["launches"] + xstats["launches"]
+                     + wstats["launches"]),
         "launches_by_phase": {"ft8_64ch_app": mstats["launches"],
-                              "mixed_mode_app": xstats["launches"]},
+                              "mixed_mode_app": xstats["launches"],
+                              "weak_modes_app": wstats["launches"]},
         "max_abs_err": max(kmain["max_abs_err"], kmixed["max_abs_err"],
-                           kwide["max_abs_err"]),
+                           kweak["max_abs_err"], kwide["max_abs_err"]),
         "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"],
         "bound_ms": kmain["bound_ms"],

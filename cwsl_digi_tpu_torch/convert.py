@@ -5,7 +5,10 @@ The skimmer has no trained weights; what the JAX package precomputes on
 the host instead are tables: the channelizer's filter segments and NCO
 tone basis, the decoder's DFT matrix and analysis window, Gray bitmaps,
 CRC matrix, data-symbol index, AP mask and values, BP index tables,
-systematic generator, payload-hash weights and OSD flip patterns.
+systematic generator, payload-hash weights and OSD flip patterns; WSPR's
+block-code matrices, interleaver and sync vector; the q-ary modes' sync
+index, interleaver and Gray demap, the GF(64) and RS(63,12) tables, and
+the Q65 code's sum-product tables.
 
 :func:`tables_to_torch` takes such tables as NumPy arrays — read off the
 JAX objects, or built by the port's own constructors — checks each against
@@ -49,6 +52,30 @@ TABLE_DTYPES: dict[str, np.dtype] = {
     "gen_parity": np.dtype(np.float32),  # [91, 83]
     "hash_w": np.dtype(np.int32),        # [91] payload-hash weights
     "patterns": np.dtype(np.float32),    # [268, 91] OSD flip patterns
+                                         # (WSPR: [740, 50])
+    # WSPR (modes/wspr.py): the (162, 50) block view of the K=32 code
+    "wspr_gen": np.dtype(np.uint8),      # [50, 162] generator G
+    "wspr_inv": np.dtype(np.uint8),      # [162, 50] right inverse R
+    "interleave": np.dtype(np.int32),    # [162] coded bit -> symbol
+    "sync": np.dtype(np.int32),          # [162] sync vector
+    # q-ary modes (modes/qary_engine.py), shapes for JT65
+    "sync_syms": np.dtype(np.int32),     # [63] sync symbol indices
+    "symbol_perm": np.dtype(np.int64),   # [63] interleave63
+    "value_demap": np.dtype(np.int64),   # [64] inverse Gray code
+    # RS(63,12) over GF(64) (modes/rs_device.py)
+    "gf_mul": np.dtype(np.int64),        # [64, 64] multiplication table
+    "gf_inv": np.dtype(np.int64),        # [64] inverses
+    "rs_syn": np.dtype(np.int32),        # [51, 63] syndrome powers
+    "rs_xi": np.dtype(np.int32),         # [63] position powers
+    "rs_xi_inv": np.dtype(np.int32),     # [63]
+    "rs_ch": np.dtype(np.int32),         # [52, 63] Chien powers
+    "rs_xfcr": np.dtype(np.int32),       # [63] Forney factor
+    # Q65's GF(64) code and sum-product decoder (modes/qra.py)
+    "h_vars": np.dtype(np.int32),        # [50, max_row] variable per slot
+    "h_coeff": np.dtype(np.int32),       # [50, max_row] GF coefficient
+    "qra_fwd": np.dtype(np.int64),       # [50, max_row, 64] permutations
+    "qra_bwd": np.dtype(np.int64),
+    "wht": np.dtype(np.float32),         # [64, 64] Walsh-Hadamard matrix
 }
 
 

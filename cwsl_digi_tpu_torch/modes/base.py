@@ -2,8 +2,8 @@
 ``cwsl_digi_tpu/modes/base.py``).
 
 ``DecodeResult`` and the ``ModeDecoder`` protocol are copied from the
-reference as they are.  The GFSK modes are ported (FT8, FT4, JS8, FST4 and
-FST4W at every period); WSPR, JT65 and Q65 raise ``NotImplementedError``.
+reference as they are.  Every mode of the reference is ported: FT8, FT4,
+JS8, FST4 and FST4W at every period, WSPR, JT65 and Q65-30.
 """
 
 from __future__ import annotations
@@ -63,6 +63,20 @@ class DecoderRegistry:
             return self._cache[key]
 
 
+def window_batch(audio, device: torch.device) -> torch.Tensor:
+    """Capture windows as a float32 [n, N] tensor on ``device``: host audio
+    is copied there as it is (no rescaling); a tensor must already be on
+    ``device``."""
+    if isinstance(audio, torch.Tensor):
+        if audio.device != device:
+            raise ValueError(f"audio on {audio.device}, decoder on {device}")
+        audio = audio.to(torch.float32)
+    else:
+        audio = torch.from_numpy(
+            np.ascontiguousarray(audio, np.float32)).to(device)
+    return audio[None, :] if audio.ndim == 1 else audio
+
+
 def get_decoder(mode: Mode | str, device: torch.device | str | None = None,
                 **kwargs) -> ModeDecoder:
     """A new decoder for ``mode`` on ``device`` (default: the card)."""
@@ -86,12 +100,24 @@ def warmup_window(mode: Mode | str) -> np.ndarray:
         from cwsl_digi_tpu_torch.modes import js8
 
         return js8.synthesize("HELLO WORLD")
+    if mode == Mode.JT65:
+        from cwsl_digi_tpu_torch.modes import jt65
+
+        return jt65.synthesize(text)
+    if mode == Mode.Q65_30:
+        from cwsl_digi_tpu_torch.modes import q65
+
+        return q65.synthesize(text)
+    if mode == Mode.WSPR:
+        from cwsl_digi_tpu_torch.modes import wspr
+
+        return wspr.synthesize("K1ABC", "FN42", 37)
     if is_mode_fst4(mode) or is_mode_fst4w(mode):
         from cwsl_digi_tpu_torch.modes import fst4
 
         return fst4.synthesize(
             "K1ABC FN42 30" if is_mode_fst4w(mode) else text, mode)
-    raise NotImplementedError(f"{mode.value} is not ported yet")
+    raise NotImplementedError(f"no warmup signal for {mode}")
 
 
 def _construct(mode: Mode, device: torch.device, **kwargs) -> ModeDecoder:
@@ -107,8 +133,20 @@ def _construct(mode: Mode, device: torch.device, **kwargs) -> ModeDecoder:
         from cwsl_digi_tpu_torch.modes.js8 import JS8Decoder
 
         return JS8Decoder(device=device, **kwargs)
+    if mode == Mode.WSPR:
+        from cwsl_digi_tpu_torch.modes.wspr import WSPRDecoder
+
+        return WSPRDecoder(device=device, **kwargs)
+    if mode == Mode.JT65:
+        from cwsl_digi_tpu_torch.modes.jt65 import JT65Decoder
+
+        return JT65Decoder(device=device, **kwargs)
+    if mode == Mode.Q65_30:
+        from cwsl_digi_tpu_torch.modes.q65 import Q65Decoder
+
+        return Q65Decoder(device=device, **kwargs)
     if is_mode_fst4(mode) or is_mode_fst4w(mode):
         from cwsl_digi_tpu_torch.modes.fst4 import FST4Decoder
 
         return FST4Decoder(mode, device=device, **kwargs)
-    raise NotImplementedError(f"{mode.value} is not ported yet")
+    raise NotImplementedError(f"no decoder for {mode}")

@@ -37,7 +37,7 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes.base import DecodeResult
+from cwsl_digi_tpu_torch.modes.base import DecodeResult, window_batch
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
 from cwsl_digi_tpu_torch.modes.osd import flip_patterns, osd_decode
 from cwsl_digi_tpu_torch.modes.subtract import subtract_known
@@ -781,20 +781,13 @@ class GFSKDecoder:
             self.spec,
             top_k=min(self.spec.top_k, max(128, self.spec.top_k // 2)))
 
-    def _to_device_audio(self, audio: torch.Tensor) -> torch.Tensor:
-        if audio.device != self.device:
-            raise ValueError(f"audio on {audio.device}, decoder on "
-                             f"{self.device}")
-        audio = audio.to(torch.float32)
-        return audio[None, :] if audio.ndim == 1 else audio
-
     def decode_arrays_device(self, audio: torch.Tensor,
                              spec: ModeSpec | None = None
                              ) -> dict[str, torch.Tensor]:
         """Run decode_program over ``audio`` [n, N] on the device, in calls
         of at most ``max_device_batch`` windows."""
         spec = spec or self.spec
-        audio = self._to_device_audio(audio)
+        audio = window_batch(audio, self.device)
         chunks = [decode_program(spec, audio[i : i + self.max_device_batch],
                                  self._tabs, self.bp)
                   for i in range(0, audio.shape[0], self.max_device_batch)]
@@ -842,7 +835,7 @@ class GFSKDecoder:
     def decode(self, audio, depth: int | None = None):
         """Decode [n, N] (or [N]) windows with multi-pass subtraction."""
         if isinstance(audio, torch.Tensor):
-            audio_dev = self._to_device_audio(audio)
+            audio_dev = window_batch(audio, self.device)
         else:
             a = np.asarray(audio, dtype=np.float32)
             if a.ndim == 1:

@@ -1,0 +1,312 @@
+"""Batched Reed-Solomon errors-and-erasures decoding on the device
+(PyTorch).
+
+Counterpart of ``cwsl_digi_tpu/modes/rs_device.py``: one call decodes
+every (sync candidate x erasure pattern) trial of a JT65 decode in
+parallel, then scores each corrected word against the demodulated tone
+energies and keeps the best accepted trial per candidate.
+
+- GF(2^6) over x^6+x+1 (0x43).  The reference multiplies carry-less (the
+  TPU serializes gathers from tiny tables); here a product is one gather
+  from the 64x64 multiplication table, built once from the same
+  carry-less product, so every result is the same integer.
+- Everything is masked, nothing branches on the data: Berlekamp-Massey
+  runs all 2t rounds with per-trial active masks, and the reference's
+  ``fori_loop`` s are Python loops of batched ops.
+- Validity is "the corrected word's syndromes are all zero".
+- The stochastic erasure patterns are the reference's own draws
+  (``modes/threefry.py``), so the trial set, and with it the decode list,
+  is the reference's.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from cwsl_digi_tpu_torch.convert import tables_to_torch
+from cwsl_digi_tpu_torch.modes import threefry
+
+PRIM_POLY = 0x43      # x^6 + x + 1
+GF_M = 6
+GF_Q = 64
+
+# trials per rs_ee_decode call at most (bounds its [M, n] int64 temporaries)
+TRIALS_PER_CALL = 1 << 18
+
+
+@functools.lru_cache(maxsize=1)
+def gf_tables() -> tuple[np.ndarray, np.ndarray]:
+    """(mul [64, 64], inv [64]) int64: the carry-less product reduced by
+    the primitive polynomial, and a^62 (inv(0) = 0), as the reference's
+    ``gmul``/``ginv`` compute them."""
+    a = np.arange(GF_Q, dtype=np.int64)[:, None]
+    b = np.arange(GF_Q, dtype=np.int64)[None, :]
+    r = np.zeros((GF_Q, GF_Q), np.int64)
+    for j in range(GF_M):
+        r ^= np.where((b >> j) & 1 == 1, a << j, 0)
+    for j in range(2 * GF_M - 2, GF_M - 1, -1):
+        r ^= np.where((r >> j) & 1 == 1, PRIM_POLY << (j - GF_M), 0)
+    inv = np.zeros(GF_Q, np.int64)
+    for x in range(1, GF_Q):
+        inv[x] = int(np.nonzero(r[x] == 1)[0][0])
+    return r, inv
+
+
+@functools.lru_cache(maxsize=None)
+def _gf_device(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    mul, inv = gf_tables()
+    t = tables_to_torch({"gf_mul": mul, "gf_inv": inv}, device)
+    return t["gf_mul"].reshape(-1), t["gf_inv"]
+
+
+def gmul(a: torch.Tensor, b) -> torch.Tensor:
+    """Elementwise GF(64) multiply of int64 tensors (values 0..63)."""
+    mul, _ = _gf_device(a.device)
+    return torch.take(mul, (a << GF_M) | b)
+
+
+def ginv(a: torch.Tensor) -> torch.Tensor:
+    """GF(64) inverse (inv(0) returns 0)."""
+    _, inv = _gf_device(a.device)
+    return inv[a]
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(n: int, nroots: int, fcr: int):
+    """NumPy constant tables: alpha powers for syndromes and Chien."""
+    exp = np.zeros(2 * GF_Q, np.int32)
+    x = 1
+    for i in range(GF_Q - 1):
+        exp[i] = x
+        x <<= 1
+        if x & GF_Q:
+            x ^= PRIM_POLY
+    for i in range(GF_Q - 1, 2 * GF_Q):
+        exp[i] = exp[i - (GF_Q - 1)]
+
+    def apow(e: int) -> int:
+        return int(exp[e % (GF_Q - 1)])
+
+    # Position index i carries the x^(n-1-i) coefficient (rs64.py layout:
+    # word[0] is the HIGHEST degree — systematic info rides the top powers)
+    deg = [n - 1 - i for i in range(n)]
+    # syndrome matrix: S_j = sum_i r_i alpha^{deg_i (fcr+j)}
+    syn = np.zeros((nroots, n), np.int32)
+    for j in range(nroots):
+        for i in range(n):
+            syn[j, i] = apow(deg[i] * (fcr + j))
+    # position powers: X_i = alpha^{deg_i}; inverses for Chien/Forney
+    xi = np.asarray([apow(d) for d in deg], np.int32)
+    xi_inv = np.asarray([apow(-d % (GF_Q - 1)) for d in deg], np.int32)
+    # Chien: CH[d, i] = (X_i^{-1})^d, d = 0..nroots (locator degree)
+    ch = np.zeros((nroots + 1, n), np.int32)
+    for dd in range(nroots + 1):
+        for i in range(n):
+            ch[dd, i] = apow((-deg[i] * dd) % (GF_Q - 1))
+    # X_i^{1-fcr} factor for Forney
+    xfcr = np.asarray([apow((d * (1 - fcr)) % (GF_Q - 1)) for d in deg],
+                      np.int32)
+    return syn, xi, xi_inv, ch, xfcr
+
+
+RS_TABLES = ("rs_syn", "rs_xi", "rs_xi_inv", "rs_ch", "rs_xfcr")
+
+
+def host_tables(n: int, nroots: int, fcr: int) -> dict[str, np.ndarray]:
+    """The RS tables by name (see ``convert.py``)."""
+    return dict(zip(RS_TABLES, _tables(n, nroots, fcr)))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(n: int, nroots: int, fcr: int, device: torch.device):
+    t = tables_to_torch(host_tables(n, nroots, fcr), device)
+    return tuple(t[name].to(torch.int64) for name in RS_TABLES)
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR over the last axis (exact in any order), by halving."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        y = x[..., :h] ^ x[..., h : 2 * h]
+        if x.shape[-1] % 2:
+            y = torch.cat([y[..., :1] ^ x[..., -1:], y[..., 1:]], dim=-1)
+        x = y
+    return x[..., 0]
+
+
+def rs_ee_decode(nk_fcr: tuple, recv: torch.Tensor, era: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched errors-and-erasures RS decode.
+
+    nk_fcr = (n, k, fcr); recv [M, n] int64 received symbols; era [M, n]
+    bool erasure flags.  Returns (corrected [M, n] int64, ok [M]): ok =
+    the corrected word has all-zero syndromes.
+    """
+    n, k, fcr = nk_fcr
+    nroots = n - k
+    dev = recv.device
+    syn_t, xi_d, _xi_inv, ch_d, xfcr = _device_tables(n, nroots, fcr, dev)
+    m = recv.shape[0]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+    def syndromes(word):
+        s = zeros(m, nroots)
+        for i in range(n):
+            s = s ^ gmul(word[:, i : i + 1], syn_t[:, i][None, :])
+        return s
+
+    s = syndromes(recv)
+
+    # --- erasure locator Gamma(x) = prod_{era} (1 + X_l x) ----------------
+    lam = zeros(m, nroots + 1)
+    lam[:, 0] = 1
+    for i in range(n):
+        shifted = torch.cat([zeros(m, 1), gmul(lam[:, :-1], xi_d[i])], dim=1)
+        lam = torch.where(era[:, i : i + 1], lam ^ shifted, lam)
+    no_eras = era.sum(dim=1)                                 # [M]
+
+    # --- Berlekamp-Massey with erasures (Karn decode_rs recursion) --------
+    lam_len = nroots + 1
+    s_pad = torch.cat([zeros(m, lam_len), s], dim=1)
+    b, el = lam, no_eras
+    for r in range(1, nroots + 1):
+        active = r > no_eras                                 # [M]
+        # discrepancy = sum_i lam[i] * S[r-1-i]
+        d = _xor_reduce(gmul(lam.flip(1), s_pad[:, r : r + lam_len]))
+        d_nz = (d != 0) & active
+        b_shift = torch.cat([zeros(m, 1), b[:, :-1]], dim=1)
+        t = lam ^ gmul(d[:, None], b_shift)
+        deg_cond = d_nz & (2 * el <= (r - 1) + no_eras)
+        b_new = torch.where(deg_cond[:, None], gmul(lam, ginv(d)[:, None]),
+                            b_shift)
+        el = torch.where(deg_cond, r + no_eras - el, el)
+        lam = torch.where(active[:, None], t, lam)
+        b = torch.where(active[:, None], b_new, b)
+
+    # --- Chien search + Omega + Forney, one degree-indexed loop each ------
+    ev = zeros(m, n)
+    for d in range(nroots + 1):
+        ev = ev ^ gmul(lam[:, d : d + 1], ch_d[d][None, :])
+    is_err = ev == 0                                         # [M, n]
+
+    # Omega = S * Lambda mod x^nroots: omega_j ^= lam_d * S_{j-d}
+    s_lpad = torch.cat([zeros(m, nroots), s], dim=1)
+    omega = zeros(m, nroots)
+    for d in range(nroots + 1):
+        omega = omega ^ gmul(lam[:, d : d + 1],
+                             s_lpad[:, nroots - d : 2 * nroots - d])
+
+    # Omega(X_i^{-1}) and Lambda'(X_i^{-1}); derivative keeps odd degrees
+    om_ev = zeros(m, n)
+    for d in range(nroots):
+        om_ev = om_ev ^ gmul(omega[:, d : d + 1], ch_d[d][None, :])
+    dlam_ev = zeros(m, n)
+    for j in range((nroots + 1) // 2):
+        d = 2 * j + 1
+        dlam_ev = dlam_ev ^ gmul(lam[:, d : d + 1], ch_d[d - 1][None, :])
+    mag = gmul(gmul(om_ev, ginv(dlam_ev)), xfcr[None, :])
+    corrected = recv ^ torch.where(is_err, mag, 0)
+
+    # --- membership check: corrected syndromes must vanish ----------------
+    ok = (syndromes(corrected) == 0).all(dim=1)
+    return corrected, ok
+
+
+# deterministic erasure tiers (the reference's host ERASURE_SCHEDULE) + the
+# stochastic Chase tiers' target erasure depths
+DET_TIERS = (0, 8, 16, 24, 32, 40)
+
+
+def _linspace_f32(start: float, stop: float, num: int,
+                  device: torch.device) -> torch.Tensor:
+    """``jnp.linspace`` in float32: start*(1-step) + stop*step with step =
+    iota/(num-1), the last value exactly ``stop``."""
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / float(div)
+    start_t = torch.tensor(start, dtype=torch.float32, device=device)
+    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
+
+
+def rs_chase_program(nk_fcr: tuple, n_trials: int, n_det: int,
+                     accept: float, syms: torch.Tensor, margin: torch.Tensor,
+                     top_e: torch.Tensor, top_tone: torch.Tensor,
+                     e_sum: torch.Tensor, seed
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chase trial fan-out + decode + soft accept for a candidate batch.
+
+    syms [C, n] int64 (codeword-domain), margin [C, n] float32 (per-symbol
+    confidence), top_e [C, n, 4] / top_tone [C, n, 4] / e_sum [C, n] from
+    the demod stage; ``seed`` a 0-dim integer tensor (or int) folded into
+    the key of the stochastic patterns.  Returns (info [C, k], score [C],
+    ok [C]): the best accepted trial per candidate.  Candidates are
+    decoded in chunks of at most ``TRIALS_PER_CALL`` trials; each chunk
+    draws its slice of the reference's one ``[C, n_sto, n]`` draw.
+    """
+    n, k, _fcr = nk_fcr
+    nroots = n - k
+    c = syms.shape[0]
+    dev = syms.device
+    # confidence rank per symbol (0 = least confident)
+    order = torch.argsort(margin, dim=1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=dev).expand(c, n).contiguous())
+
+    # erasure patterns: det tiers erase the f least-confident symbols,
+    # stochastic tiers draw biased random patterns at increasing depth
+    tiers = list(DET_TIERS[:n_det])
+    det = torch.stack([rank < f for f in tiers], dim=1)      # [C, D, n]
+    n_sto = n_trials - det.shape[1]
+    key = threefry.fold_in(threefry.prng_key(17, dev), seed)
+    # erasure probability decreasing with confidence rank; depth ramps
+    # from ~nroots-11 to ~nroots-2 expected erasures across trials
+    depth = _linspace_f32(nroots - 14.0, nroots - 2.0, n_sto, dev)
+    p = (0.9 - 0.8 * rank.to(torch.float32) / (n - 1))[:, None, :]
+    p = p * (depth[None, :, None] / p.sum(dim=2, keepdim=True))
+
+    chunk = max(1, TRIALS_PER_CALL // n_trials)
+    infos, scores, oks = [], [], []
+    for c0 in range(0, c, chunk):
+        sl = slice(c0, min(c, c0 + chunk))
+        cc = sl.stop - c0
+        u = threefry.uniform(key, (cc, n_sto, n), offset=c0 * n_sto * n)
+        era = torch.cat([det[sl], u < p[sl]], dim=1)         # [cc, T, n]
+        recv = syms[sl, None, :].expand(cc, n_trials, n)
+        corrected, ok = rs_ee_decode(nk_fcr, recv.reshape(-1, n),
+                                     era.reshape(-1, n))
+        corrected = corrected.reshape(cc, n_trials, n)
+        ok = ok.reshape(cc, n_trials)
+
+        # soft re-encode score (the reference's host _soft_score, vectorized): mean
+        # log(E[cw tone] / mean symbol energy), top-4 else residual floor
+        hit = corrected[:, :, :, None] == top_tone[sl, None, :, :]
+        e_top = torch.where(hit, top_e[sl, None], 0.0).sum(dim=-1)
+        floor = (e_sum[sl] - top_e[sl].sum(dim=-1)) / (GF_Q - 4)
+        e_cw = torch.where(hit.any(dim=-1), e_top, floor[:, None, :])
+        mean_e = (e_sum[sl] / n)[:, None, :]
+        logr = torch.log((e_cw + 1e-30) / (mean_e + 1e-30))  # [cc, T, n]
+        score = logr.mean(dim=-1)
+        # erased positions are the independent verification: a true
+        # codeword still carries signal energy there, a noise-forced one
+        # scores ~0 (see the reference)
+        n_era = era.sum(dim=-1).to(torch.float32)            # [cc, T]
+        s_era = (logr * era).sum(dim=-1) / n_era.clamp(min=1.0)
+        ok = ok & ((n_era < 8) | (s_era >= 0.6 * accept))
+        score = torch.where(ok, score, -torch.inf)
+
+        best = score.argmax(dim=1)                           # [cc]
+        bidx = torch.arange(cc, device=dev)
+        best_score = score[bidx, best]
+        info = corrected[bidx, best, :k]
+        # the all-zero word is a codeword of every RS code and wins on dead
+        # air; require real content
+        infos.append(info)
+        scores.append(best_score)
+        oks.append(ok[bidx, best] & (best_score >= accept)
+                   & (info != 0).any(dim=1))
+    return torch.cat(infos), torch.cat(scores), torch.cat(oks)

@@ -9,8 +9,7 @@ channelize on ``device`` and the decoders are the port's.  Run with::
 
 It runs on ``cuda:0`` and stops with an error where there is no CUDA
 device (tests construct ``App(cfg, device="cpu")``, which runs the plain
-PyTorch versions).  The GFSK modes are ported (``PORTED_MODES``: FT8, FT4,
-JS8, FST4 and FST4W); a config naming WSPR, JT65 or Q65 is refused.
+PyTorch versions).  It takes every mode of the reference.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import torch
 
 from cwsl_digi_tpu_torch.config import Config, load_config
 from cwsl_digi_tpu_torch.constants import (WAVE_SR, Mode, get_rx_period,
-                                           is_mode_fst4, is_mode_fst4w)
+                                           is_mode_fst4)
 from cwsl_digi_tpu_torch.device import as_device
 from cwsl_digi_tpu_torch.modes.base import DecoderRegistry, warmup_window
 from cwsl_digi_tpu_torch.report.pskreporter import PSKReporter
@@ -42,18 +41,10 @@ from cwsl_digi_tpu_torch.utils.logging import LogLevel, ScreenPrinter
 from cwsl_digi_tpu_torch.utils.timeutils import next_period_boundary
 from cwsl_digi_tpu_torch.version import PROGRAM_NAME, __version__
 
-PORTED_MODES = tuple(m for m in Mode if m in (Mode.FT8, Mode.FT4, Mode.JS8)
-                     or is_mode_fst4(m) or is_mode_fst4w(m))
-
 
 class App:
     def __init__(self, cfg: Config, max_runtime_s: float | None = None,
                  device: torch.device | str | None = None) -> None:
-        unported = sorted({d.mode.value for d in cfg.decoders
-                           if d.mode not in PORTED_MODES})
-        if unported:
-            raise ValueError(f"modes not ported to the GPU yet: "
-                             f"{', '.join(unported)}")
         self.cfg = cfg
         self.max_runtime_s = max_runtime_s
         self.device = as_device(device)
@@ -101,11 +92,13 @@ class App:
         if cfg.get("wsjtx", "keepwav"):
             keep_wav_dir = cfg.get("wsjtx", "temppath") or "keepwav"
 
-        # decodedepth (jt9 -d) and highestdecodefreq (jt9 -H) map to the
-        # decoders' knobs as in the reference (cwsl_digi_tpu/runtime/app.py
-        # decoder_factory); FT8 gets AP hypotheses seeded with the operator
-        # callsign (source/DecoderPool.hpp:466-469)
+        # decodedepth (jt9 -d), wsprcycles (wsprd -C) and highestdecodefreq
+        # (jt9 -H) map to the decoders' knobs as in the reference
+        # (cwsl_digi_tpu/runtime/app.py decoder_factory); FT8 gets AP
+        # hypotheses seeded with the operator callsign
+        # (source/DecoderPool.hpp:466-469)
         depth = max(1, min(3, int(cfg.get("wsjtx", "decodedepth"))))
+        cycles = int(cfg.get("wsjtx", "wsprcycles"))
         fmax = float(cfg.get("wsjtx", "highestdecodefreq"))
         self.decoders = DecoderRegistry(self.device)
 
@@ -116,7 +109,11 @@ class App:
                     depth=depth, fmax_hz=fmax)
             if mode == Mode.FT4:
                 return self.decoders.get(mode, depth=depth, fmax_hz=fmax)
-            if mode == Mode.JS8 or is_mode_fst4(mode):
+            if mode == Mode.WSPR:
+                # wsprd takes no -H; its band is the WSPR sub-band
+                return self.decoders.get(mode, cycles=cycles)
+            if mode in (Mode.JS8, Mode.JT65, Mode.Q65_30) \
+                    or is_mode_fst4(mode):
                 return self.decoders.get(mode, fmax_hz=fmax)
             # FST4W keeps the fixed 1400-1600 Hz band (jt9 -L/-H override)
             return self.decoders.get(mode)
@@ -140,10 +137,18 @@ class App:
         return [str(c).upper() for c in raw]
 
     def _on_result(self, job, ci, res):
+        # `printjt9output`: echo decodes in jt9's text format, WSPR in
+        # wsprd's (dial frequency and drift), as the reference does
         if self.cfg.get("logging", "printjt9output"):
             from cwsl_digi_tpu_torch.report import jt9format
 
-            self.printer.info(jt9format.format_jt9(res, job.epoch_time))
+            if res.mode == Mode.WSPR:
+                line = jt9format.format_wsprd(res, job.epoch_time,
+                                              job.base_freqs[ci],
+                                              drift=int(round(res.drift_hz)))
+            else:
+                line = jt9format.format_jt9(res, job.epoch_time)
+            self.printer.info(line)
         wspr_call = job.wspr_callsigns[ci] if job.wspr_callsigns else ""
         self.spots.handle(
             res,
@@ -237,7 +242,9 @@ class App:
             m = min(len(w), n)
             batch[0, :m] = w[:m]
             dec.decode(batch)
-            dec.warm_passes(n_ch)
+            if hasattr(dec, "warm_passes"):
+                # every pass arity of the multi-pass GFSK decoders
+                dec.warm_passes(n_ch)
             self.printer.info(f"warmup: {mode.value} x{n_ch} decoded in "
                               f"{time.monotonic() - t0:.1f} s")
 

@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA channelizer kernel against
-its plain version, and the FT8, FT4, JS8 and FST4-60 decoders on CUDA
-tensors against the same decoders on CPU tensors.
+its plain version, and the FT8, FT4, JS8, FST4-60, WSPR, JT65 and Q65-30
+decoders on CUDA tensors against the same decoders on CPU tensors.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -19,9 +19,9 @@ import torch
 from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
-from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8
+from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8, jt65, q65, wspr
 from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
-from test_torch_parity import assert_same_batch_decodes
+from test_torch_parity import WSPRTolerance, assert_same_batch_decodes
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +112,33 @@ def test_gfsk_modes_on_card_match_cpu(dev):
         want = host.decode(torch.from_numpy(wins))
         assert sum(len(w) for w in want) >= 2, card.spec.name
         assert_same_batch_decodes(got, want, card.spec)
+
+
+def test_weak_modes_on_card_match_cpu(dev):
+    """WSPR (beam search, DD passes, OSD), JT65 (rfft branch and DFT
+    branch, RS Chase with the reference's random patterns) and Q65-30
+    (GF(64) message passing) on CUDA and on CPU tensors: the same decode
+    lists within the tolerances above."""
+    rng = np.random.default_rng(65)
+    cases = [
+        (lambda d: wspr.WSPRDecoder(device=d),
+         wspr.synthesize("K1ABC", "FN42", 37, 1460.0)
+         + wspr.synthesize("W2AXR", "FN13", 30, 1540.0), -24.0,
+         WSPRTolerance),
+        (lambda d: jt65.JT65Decoder(device=d),
+         jt65.synthesize("K1ABC W9XYZ EN37", 1270.5)
+         + jt65.synthesize("CQ W2AXR FN13", 800.0, start_s=1.5), -18.0,
+         jt65.SPEC),
+        (lambda d: jt65.JT65Decoder(fmax_hz=3000.0, device=d),
+         jt65.synthesize("CQ W2AXR FN13", 2400.0), -18.0, jt65.SPEC),
+        (lambda d: q65.Q65Decoder(device=d),
+         q65.synthesize("CQ W2AXR FN13", 1200.0), -20.0, q65.SPEC),
+    ]
+    for make, clean, snr, tol in cases:
+        wins = np.stack([add_noise_at_snr(clean, snr, 12_000, rng)
+                         for _ in range(2)]).astype(np.float32)
+        card, host = make(dev), make("cpu")
+        got = card.decode(torch.from_numpy(wins).to(dev))
+        want = host.decode(torch.from_numpy(wins))
+        assert sum(len(w) for w in want) >= 2, type(card).__name__
+        assert_same_batch_decodes(got, want, tol)

@@ -82,5 +82,5 @@ def test_tensor_audio_is_not_rescaled(default_decoder):
     dev = default_decoder.decode(torch.from_numpy(0.01 * w[None]))[0]
     assert [r.message for r in dev] == [r.message for r in host] \
         == ["K1ABC W9XYZ EN37"]
-    with pytest.raises(NotImplementedError):
-        get_decoder("WSPR", device="cpu")
+    # every mode has a decoder now, WSPR among them
+    assert get_decoder("WSPR", device="cpu").mode.value == "WSPR"

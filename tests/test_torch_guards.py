@@ -33,6 +33,9 @@ def test_port_and_chip_smoke_import_without_jax():
     config and a receiver that starts and stops reach their lazy imports."""
     mods = _port_modules()
     assert "cwsl_digi_tpu_torch.runtime.app" in mods
+    assert {f"cwsl_digi_tpu_torch.modes.{m}" for m in (
+        "wspr", "jt65", "q65", "qra", "qary_engine", "rs64", "rs_device",
+        "threefry")} <= set(mods)
     code = (
         "import sys, importlib, time\n"
         "sys.modules['jax'] = None\n"
@@ -103,6 +106,15 @@ def _jax_package_imports(source: str) -> list[str]:
 @pytest.mark.parametrize("path", _PORT_FILES)
 def test_port_files_never_import_the_jax_package(path):
     assert _jax_package_imports((REPO / path).read_text()) == []
+
+
+def test_guard_accepts_a_docstring_that_names_jax():
+    """The threefry module names ``jax.random`` and the reference's module
+    in its docstring, which is no import."""
+    src = (REPO / "cwsl_digi_tpu_torch/modes/threefry.py").read_text()
+    assert "jax.random" in src and "cwsl_digi_tpu/modes/rs_device.py" in src
+    assert _jax_package_imports(src) == []
+    assert "import jax" not in src
 
 
 @pytest.mark.parametrize("source", [
@@ -196,15 +208,28 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 
 def test_app_refuses_unported_modes():
+    """No mode is refused any more: the App takes a config with all 15
+    modes, and builds WSPR with ``wsprcycles`` (no -H), JT65 and Q65-30
+    with ``highestdecodefreq``, as the reference's App does."""
     from cwsl_digi_tpu_torch.config import load_config
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.runtime import app as app_module
     from cwsl_digi_tpu_torch.runtime.app import App
 
-    cfg = load_config(None, ["decoders.decoder=14074000 FT8",
-                             "decoders.decoder=14080000 FT4",
-                             "decoders.decoder=14095600 WSPR",
-                             "decoders.decoder=14076000 JT65"])
-    with pytest.raises(ValueError, match="JT65, WSPR"):
-        App(cfg, device="cpu")
+    assert not hasattr(app_module, "PORTED_MODES")
+    cfg = load_config(None, [f"decoders.decoder={14_070_000 + 300 * i} "
+                             f"{m.value}" for i, m in enumerate(Mode)]
+                      + ["wsjtx.wsprcycles=300",
+                         "wsjtx.highestdecodefreq=2500"])
+    app = App(cfg, device="cpu")
+    assert sorted(d.mode.value for d in app.cfg.decoders) == \
+        sorted(m.value for m in Mode)
+    factory = app.pool._decoder_factory
+    ws = factory(Mode.WSPR)
+    assert (ws.cfg.beam_width, ws.cfg.dd_passes, ws.cfg.osd_j) == (256, 1, 4)
+    assert factory(Mode.JT65).spec.fmax_hz == 2500.0
+    assert factory(Mode.Q65_30).spec.fmax_hz == 2500.0
+    assert factory(Mode.Q65_30) is factory(Mode.Q65_30)
 
 
 def test_cuda_device_helper_raises_without_cuda(monkeypatch):
@@ -224,7 +249,7 @@ def _entry_points():
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.device import as_device
     from cwsl_digi_tpu_torch.modes import (base, fst4, ft4, ft8, gfsk_engine,
-                                           js8, ldpc)
+                                           js8, jt65, ldpc, q65, qra, wspr)
     from cwsl_digi_tpu_torch.modes.crc import ft8_crc_matrix
     from cwsl_digi_tpu_torch.runtime.app import App
     from cwsl_digi_tpu_torch.runtime.decoderpool import DecoderPool
@@ -246,8 +271,15 @@ def _entry_points():
             ft8.SPEC, ldpc.BPDecoder(ldpc.ft8_code(), device="cpu"),
             ft8_crc_matrix(), Mode.FT8, unpack=str),
         "BPDecoder": lambda: ldpc.BPDecoder(ldpc.ft8_code()),
+        "WSPRDecoder": lambda: wspr.WSPRDecoder(),
+        "JT65Decoder": lambda: jt65.JT65Decoder(),
+        "Q65Decoder": lambda: q65.Q65Decoder(),
+        "QaryMPDecoder": lambda: qra.QaryMPDecoder(q65._CODE),
         "DecoderRegistry": lambda: base.DecoderRegistry(),
         "get_decoder": lambda: base.get_decoder("FT8"),
+        "get_decoder_WSPR": lambda: base.get_decoder("WSPR"),
+        "get_decoder_JT65": lambda: base.get_decoder("JT65"),
+        "get_decoder_Q65": lambda: base.get_decoder("Q65-30"),
         "tables_to_torch": lambda: convert.tables_to_torch(
             {"segs": np.zeros((2, 2), np.float32)}),
         "App": lambda: App(cfg),
@@ -257,7 +289,10 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["as_device", "BatchChannelizer", "Receiver",
                                   "FT8Decoder", "FT4Decoder", "JS8Decoder",
                                   "FST4Decoder", "GFSKDecoder", "BPDecoder",
-                                  "DecoderRegistry", "get_decoder",
+                                  "WSPRDecoder", "JT65Decoder", "Q65Decoder",
+                                  "QaryMPDecoder", "DecoderRegistry",
+                                  "get_decoder", "get_decoder_WSPR",
+                                  "get_decoder_JT65", "get_decoder_Q65",
                                   "tables_to_torch", "App"])
 def test_entry_points_default_to_the_card(monkeypatch, name):
     """With no device given, every entry point asks for the card and raises

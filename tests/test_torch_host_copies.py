@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import difflib
+import importlib
 import inspect
 import re
 from pathlib import Path
@@ -48,6 +49,7 @@ COPIES = [
     "constants.py", "version.py", "config.py", "stats.py", "native.py",
     "modes/message77.py", "modes/tables.py", "modes/crc.py", "modes/gfsk.py",
     "modes/tables_ext.py", "modes/js8_varicode.py", "modes/legacy72.py",
+    "modes/rs64.py", "modes/jt65.py", "modes/q65.py",
     "report/spot.py", "report/pskreporter.py", "report/rbn.py",
     "report/wsprnet.py", "report/jt9format.py", "runtime/scheduler.py",
     "runtime/decoderpool.py", "sdr/source.py", "sdr/shm.py",
@@ -66,6 +68,26 @@ DIFFERS = {
          "torch.Tensor) \\",
          "            else np.asarray(audio)"],
         "keepwav reads jobs whose audio is a CUDA tensor"),
+    "modes/jt65.py": (
+        ["                 fmax_hz: float | None = None):",
+         "                         symbol_perm=ILV, value_demap=UNGRAY)"],
+        ["                 fmax_hz: float | None = None, device=None):",
+         "                         symbol_perm=ILV, value_demap=UNGRAY, "
+         "device=device)"],
+        "the decoder takes the port's device argument"),
+    "modes/q65.py": (
+        ["@functools.lru_cache(maxsize=1)",
+         "def _mp() -> QaryMPDecoder:",
+         "    return QaryMPDecoder(_CODE, iters=60)",
+         "                 fmax_hz: float | None = None):",
+         "                         mp=_mp())"],
+        ["from cwsl_digi_tpu_torch.device import as_device",
+         "@functools.lru_cache(maxsize=None)",
+         "def _mp(device) -> QaryMPDecoder:",
+         "    return QaryMPDecoder(_CODE, iters=60, device=device)",
+         "                 fmax_hz: float | None = None, device=None):",
+         "                         mp=_mp(as_device(device)), device=device)"],
+        "the decoder and its message-passing tables live on a device"),
 }
 
 
@@ -80,18 +102,73 @@ def _rewritten(text: str) -> list[str]:
                          text)).splitlines()
 
 
-@pytest.mark.parametrize("module", COPIES)
-def test_copy_equals_original(module):
-    orig = _rewritten((REPO / "cwsl_digi_tpu" / module).read_text())
-    copy = _cited((REPO / "cwsl_digi_tpu_torch" / module).read_text()
-                  ).splitlines()
+def _line_diff(orig: list[str], copy: list[str]
+               ) -> tuple[list[str], list[str]]:
+    """(lines only the original has, lines only the copy has)."""
     removed, added = [], []
     for line in difflib.unified_diff(orig, copy, lineterm="", n=0):
         if line.startswith(("---", "+++", "@@")):
             continue
         (removed if line[0] == "-" else added).append(line[1:])
+    return removed, added
+
+
+@pytest.mark.parametrize("module", COPIES)
+def test_copy_equals_original(module):
+    orig = _rewritten((REPO / "cwsl_digi_tpu" / module).read_text())
+    copy = _cited((REPO / "cwsl_digi_tpu_torch" / module).read_text()
+                  ).splitlines()
     want_removed, want_added, _reason = DIFFERS.get(module, ([], [], ""))
-    assert (removed, added) == (want_removed, want_added)
+    assert _line_diff(orig, copy) == (want_removed, want_added)
+
+
+# host code copied into modules that also hold ported device code:
+# (module, object) -> (lines only the original has, lines only the copy
+# has, reason)
+HOST_PARTS = {
+    ("modes/wspr.py", "WSPRConfig"): None,
+    ("modes/wspr.py", "_drift_offsets"): None,
+    ("modes/wspr.py", "WSPRDecoder.decode"): (
+        ["    def decode(self, audio: np.ndarray) -> list[list[DecodeResult]]:",
+         "        audio = np.asarray(audio, np.float32)"],
+        ["    def decode(self, audio) -> list[list[DecodeResult]]:",
+         "        if not isinstance(audio, torch.Tensor):",
+         "            audio = np.asarray(audio, np.float32)"],
+        "a tensor already on the decoder's device is taken as it is"),
+    ("modes/qra.py", "_mul_table"): None,
+    ("modes/qra.py", "gf_mul"): None,
+    ("modes/qra.py", "gf_inv"): None,
+    ("modes/qra.py", "_wht64"): None,
+    ("modes/qra.py", "QRACode"): None,
+    ("modes/qra.py", "_gf_solve"): None,
+    ("modes/qra.py", "build_qra_code"): None,
+    ("modes/qra.py", "code_from_dense"): None,
+    ("modes/qary_engine.py", "QarySpec"): None,
+    ("modes/rs_device.py", "_tables"): None,
+}
+
+
+def _module_object(package: str, module: str, name: str):
+    mod = importlib.import_module(
+        f"{package}.{module[:-3].replace('/', '.')}")
+    obj = mod
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+@pytest.mark.parametrize("module,name", list(HOST_PARTS),
+                         ids=[f"{m}:{n}" for m, n in HOST_PARTS])
+def test_host_part_equals_original(module, name):
+    """Each host function or class copied beside ported device code equals
+    its original (import prefix rewritten), but for the lines listed."""
+    orig = _rewritten(inspect.getsource(
+        _module_object("cwsl_digi_tpu", module, name)))
+    copy = inspect.getsource(
+        _module_object("cwsl_digi_tpu_torch", module, name)).splitlines()
+    want_removed, want_added, _reason = HOST_PARTS[(module, name)] or (
+        [], [], "")
+    assert _line_diff(orig, copy) == (want_removed, want_added)
 
 
 def test_decode_result_matches_the_reference():
@@ -209,10 +286,11 @@ def test_extract_spot_agrees():
     assert n_spots >= 12
 
 
-# the host part of modes/wspr.py that FST4W's payload needs; the decode
-# program, the beam search and WSPRDecoder come with the WSPR slice
+# the host part of modes/wspr.py (FST4W's payload needs it too); the
+# decode program, the beam search and WSPRDecoder's device calls are ported
 WSPR_HOST = ["interleave_map", "_parity32", "conv_encode", "_code_matrices",
-             "pack_message", "unpack_message", "encode", "synthesize"]
+             "pack_message", "unpack_message", "encode", "synthesize",
+             "WSPRConfig", "_drift_offsets"]
 WSPR_CONSTANTS = ["NSYM", "SPS", "BAUD", "TONE_SPACING", "T_R",
                   "SIGNAL_START_S", "N_MSG_BITS", "N_TAIL", "POLY1", "POLY2",
                   "HOP", "NFFT", "BIN_HZ", "FMIN_HZ", "FMAX_HZ", "PAD_HOPS",
@@ -221,8 +299,8 @@ WSPR_CONSTANTS = ["NSYM", "SPS", "BAUD", "TONE_SPACING", "T_R",
 
 def test_wspr_host_part_equals_original():
     """Each host function's source equals the original's (import prefix
-    rewritten), the constants are equal, and the module has nothing of
-    the decoder."""
+    rewritten), the constants are equal, and the module holds the ported
+    decoder beside them."""
     for name in WSPR_HOST:
         want = _rewritten(inspect.getsource(getattr(jwspr, name)))
         assert inspect.getsource(getattr(pwspr, name)).splitlines() == want
@@ -230,7 +308,7 @@ def test_wspr_host_part_equals_original():
         np.testing.assert_array_equal(getattr(pwspr, name),
                                       getattr(jwspr, name), err_msg=name)
     public = {n for n in vars(pwspr) if not n.startswith("__")}
-    assert not public & {"WSPRDecoder", "_decode_program", "_beam_decode"}
+    assert {"WSPRDecoder", "_decode_program", "_beam_decode"} <= public
 
 
 def test_wspr_host_part_agrees():

@@ -17,12 +17,18 @@ import pytest
 
 from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes.base import DecodeResult
-from cwsl_digi_tpu_torch.modes import ft8
+from cwsl_digi_tpu_torch.modes import ft8, wspr
 from cwsl_digi_tpu_torch.modes.gfsk_engine import ModeSpec
 
 SNR_DB = 0.5
 FREQ_HZ = ft8.SPEC.bin_hz
 DT_S = ft8.SPEC.hop / 12_000
+
+
+class WSPRTolerance:
+    """WSPR's tolerances for ``spec``: one 0.73 Hz bin, one 0.17 s hop."""
+    bin_hz = wspr.BIN_HZ
+    hop = wspr.HOP
 
 
 def assert_same_decodes(got: list[DecodeResult],

@@ -14,12 +14,18 @@ from cwsl_digi_tpu.modes import fst4 as jfst4
 from cwsl_digi_tpu.modes import ft4 as jft4
 from cwsl_digi_tpu.modes import ft8 as jft8
 from cwsl_digi_tpu.modes import js8 as jjs8
+from cwsl_digi_tpu.modes import jt65 as jjt65
 from cwsl_digi_tpu.modes import ldpc as jldpc
 from cwsl_digi_tpu.modes import osd as josd
+from cwsl_digi_tpu.modes import q65 as jq65
+from cwsl_digi_tpu.modes import qra as jqra
+from cwsl_digi_tpu.modes import rs_device as jrs
+from cwsl_digi_tpu.modes import wspr as jwspr
 from cwsl_digi_tpu_torch import convert
 from cwsl_digi_tpu_torch.dsp import lowpass
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
-from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8, ldpc, osd
+from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, js8, jt65, ldpc, osd,
+                                       q65, rs_device, wspr)
 from cwsl_digi_tpu_torch.modes import tables as ptables
 
 
@@ -134,6 +140,61 @@ def test_gfsk_mode_decoder_tables_bitwise(mode):
         _assert_bitwise(carried[name], mine[name], name)
     assert ("dft_mat" in mine) == (mode != "FST4-1800")
     assert td.max_device_batch == jd.max_device_batch
+
+
+def test_qary_tables_bitwise():
+    """The q-ary modes' tables (sync and data indices, interleaver, Gray
+    demap, DFT matrices, RS tables, the Q65 code's sum-product tables)
+    carried across from the JAX objects equal the port's bit for bit."""
+    for jd, pd in [(jjt65.JT65Decoder(), jt65.JT65Decoder(device="cpu")),
+                   (jq65.Q65Decoder(), q65.Q65Decoder(device="cpu"))]:
+        jax_np = {"window": jd._window, "data_syms": jd._data_syms,
+                  "sync_syms": jd._sync_syms, "dft_mat": jd._dft_mat}
+        if jd.symbol_perm is not None:
+            jax_np["symbol_perm"] = jd.symbol_perm
+            jax_np["value_demap"] = jd.value_demap
+        carried = convert.tables_to_torch(jax_np, "cpu")
+        mine = pd.tables()
+        assert set(carried) == set(mine)
+        for name in carried:
+            assert torch.equal(carried[name], mine[name]), name
+        assert pd.spectrogram_branch == "dft"
+    rs_j = dict(zip(rs_device.RS_TABLES, jrs._tables(63, 51, 3)))
+    mine = convert.tables_to_torch(rs_device.host_tables(63, 51, 3), "cpu")
+    for name, arr in convert.tables_to_torch(rs_j, "cpu").items():
+        assert torch.equal(arr, mine[name]), name
+    jm, pm = jq65._mp(), q65._mp(torch.device("cpu"))
+    jax_np = {"h_vars": jm._h_vars, "h_coeff": jm.code.h_coeff,
+              "row_mask": jm._row_mask, "qra_fwd": jm._fwd,
+              "qra_bwd": jm._bwd, "col_slots": jm._col_slots,
+              "col_mask": jm._col_mask, "wht": jqra._wht64(),
+              "gf_mul": jqra._mul_table()}
+    carried = convert.tables_to_torch(jax_np, "cpu")
+    mine = pm.tables()
+    assert set(carried) == set(mine)
+    for name in carried:
+        assert torch.equal(carried[name], mine[name]), name
+    np.testing.assert_array_equal(q65._CODE.gen, jq65._CODE.gen)
+
+
+@pytest.mark.parametrize("cycles", [None, 300, 20_000])
+def test_wspr_decoder_tables_bitwise(cycles):
+    """WSPR's sync vector, interleaver, Hann window, (162, 50) block-code
+    matrices and OSD flip patterns (their count set by ``wsprcycles``)."""
+    jd = jwspr.WSPRDecoder(cycles=cycles)
+    g, r = jwspr._code_matrices()
+    cfg = jd.cfg
+    jax_np = {"sync": jd._sync, "interleave": jd._deinter,
+              "window": jd._window, "wspr_gen": g, "wspr_inv": r,
+              "patterns": josd.flip_patterns(
+                  50, cfg.osd_singles, cfg.osd_tail2,
+                  cfg.osd_tail3).astype(np.float32)}
+    carried = convert.tables_to_torch(jax_np, "cpu")
+    mine = wspr.WSPRDecoder(cycles=cycles, device="cpu").tables()
+    assert set(carried) == set(mine)
+    for name in jax_np:
+        _assert_bitwise(carried[name], mine[name], name)
+    assert carried["patterns"].shape == (1 + 50 + 325 + 364, 50)
 
 
 def test_codes_and_flip_patterns_identical():

@@ -1,10 +1,13 @@
-"""Stage breakdown of the port's FT8 decode on one GPU.
+"""Stage breakdown of the port's decodes on one GPU.
 
-    python3 tools/torch_decode_profile.py
+    python3 tools/torch_decode_profile.py [FT8|WSPR|JT65|Q65-30 ...]
 
-Decodes a seeded batch of busy FT8 windows (``WINDOWS`` windows of
-``SIGNALS`` signals each) with the port's FT8Decoder at full SPEC (AP
-from an operator call, decodedepth 3) on ``cuda:0`` and prints
+For each mode named (default FT8) it decodes a seeded batch of
+``WINDOWS`` windows on ``cuda:0``: busy FT8 windows (``SIGNALS`` signals
+each) with the FT8Decoder at full SPEC (AP from an operator call,
+decodedepth 3); WSPR windows with two bursts 80 Hz apart; JT65 windows
+with two bursts and Q65-30 windows with one, at the App's
+``highestdecodefreq`` of 3000 Hz (JT65 on its rfft branch).  It prints
 
 - the median wall of a whole decode (3 runs after a warm-up),
 - the time inside each labelled stage, measured in a separate run with a
@@ -13,8 +16,10 @@ from an operator call, decodedepth 3) on ``cuda:0`` and prints
 - the device's busy share during one decode under ``torch.profiler``, with
   the kernels that take the most device time.
 
-Stages are labelled by wrapping the engine's stage functions in this
-process only; the decoder's code is unchanged.  Without CUDA it exits 1.
+Stages are labelled by wrapping the decoders' stage functions in this
+process only; the decoders' code is unchanged.  A stage marked "(in ...)"
+runs inside another labelled stage, whose time includes it.  Without CUDA
+it exits 1.
 """
 
 from __future__ import annotations
@@ -93,19 +98,81 @@ def device_busy(dec, audio: torch.Tensor, plain_wall: float) -> None:
                                     row_limit=12, max_name_column_width=60))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip())
-    from cwsl_digi_tpu_torch.modes import gfsk_engine, ldpc
-    from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
+def _weak_windows(mode: str, n: int, seed: int) -> np.ndarray:
+    """``n`` seeded windows of WSPR (two bursts 80 Hz apart), JT65 (two
+    bursts) or Q65-30 (one burst), -20 to -12 dB each."""
+    from cwsl_digi_tpu_torch.modes import jt65, q65, wspr
+    from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
 
-    dev = torch.device("cuda", 0)
-    dec = FT8Decoder(my_call="W2AXR", depth=3, device=dev)
-    audio = torch.from_numpy(_windows(WINDOWS, SIGNALS, 7)).to(dev)
+    rng = np.random.default_rng(seed)
+    if mode == "WSPR":
+        clean = (wspr.synthesize("K1ABC", "FN42", 37, 1460.0)
+                 + wspr.synthesize("W2AXR", "FN13", 30, 1540.0))
+    elif mode == "JT65":
+        clean = (jt65.synthesize("K1ABC W9XYZ EN37", 1270.0)
+                 + jt65.synthesize("CQ W2AXR FN13", 2100.0, start_s=1.5))
+    else:
+        clean = q65.synthesize("CQ W2AXR FN13", 1200.0)
+    return np.stack([add_noise_at_snr(clean, rng.uniform(-20, -12), 12_000,
+                                      rng) for _ in range(n)]
+                    ).astype(np.float32)
+
+
+def _setup(mode: str, dev):
+    """(decoder, device audio, [(owner, attribute, label)]) of one mode."""
+    from cwsl_digi_tpu_torch.modes import (gfsk_engine, ldpc, qary_engine,
+                                           qra, rs_device, wspr)
+    from cwsl_digi_tpu_torch.modes.base import get_decoder
+
+    if mode == "FT8":
+        from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
+
+        dec = FT8Decoder(my_call="W2AXR", depth=3, device=dev)
+        audio = _windows(WINDOWS, SIGNALS, 7)
+        stages = [(gfsk_engine, name, label) for name, label in [
+            ("_bf16_matmul", "spectrogram matmuls"),
+            ("_shifted_sum", "sync accumulation (coarse+fine)"),
+            ("_top_k", "top-K sorts (candidates, OSD pick)"),
+            ("_multisym_llrs", "coherent LLRs"),
+            ("osd_decode", "OSD"),
+            ("subtract_known", "subtraction"),
+            ("select_subtract_params", "subtraction pick"),
+            ("_median_rows", "SNR median"),
+            ("_pack_outputs", "output pack")]]
+        stages.append((ldpc.BPDecoder, "decode_full", "BP (min-sum)"))
+        return dec, audio, stages
+    audio = _weak_windows(mode, WINDOWS, 7)
+    if mode == "WSPR":
+        dec = get_decoder(mode, device=dev)
+        stages = [
+            (wspr.WSPRDecoder, "decode_arrays", "device program"),
+            (torch.fft, "rfft", "spectrogram rffts (in device program)"),
+            (wspr, "_beam_decode", "beam search, all passes (in device "
+             "program)"),
+            (wspr, "osd_decode", "OSD (in device program)"),
+            (wspr, "_median_rows", "SNR median (in device program)")]
+        return dec, audio, stages
+    dec = get_decoder(mode, device=dev, fmax_hz=3000.0)
+    stages = [(qary_engine, "qary_decode_program", "demod")]
+    if mode == "JT65":
+        stages += [(qary_engine, "_median_rows", "SNR median (in demod)"),
+                   (qary_engine, "rs_chase_program", "RS Chase"),
+                   (rs_device, "rs_ee_decode", "RS decode (in RS Chase)"),
+                   (torch.fft, "rfft", "spectrogram rffts (in demod)")]
+    else:
+        stages += [(qary_engine, "_median_rows",
+                    "medians (in demod and priors)"),
+                   (qary_engine, "_mp_priors", "priors"),
+                   (qra.QaryMPDecoder, "decode", "message passing"),
+                   (qary_engine, "_mp_score_pack", "score + pack"),
+                   (qary_engine, "_bf16_matmul",
+                    "spectrogram matmul (in demod)")]
+    return dec, audio, stages
+
+
+def profile_mode(mode: str, dev) -> None:
+    dec, audio_np, stages = _setup(mode, dev)
+    audio = torch.from_numpy(audio_np).to(dev)
     res = dec.decode(audio)                   # warm-up
     n_dec = sum(len(r) for r in res)
     walls = []
@@ -114,8 +181,8 @@ def main() -> int:
         t0 = time.perf_counter()
         dec.decode(audio)
         walls.append(time.perf_counter() - t0)
-    print(f"decode {WINDOWS} windows x {SIGNALS} signals: "
-          f"{n_dec} decodes, wall median {statistics.median(walls):.3f} s "
+    print(f"{mode}: decode {len(audio)} windows: {n_dec} decodes, wall "
+          f"median {statistics.median(walls):.3f} s "
           f"(runs {', '.join(f'{w:.3f}' for w in walls)})")
 
     spent = collections.defaultdict(float)
@@ -133,42 +200,46 @@ def main() -> int:
             return out
         return wrapper
 
-    stages = [("_bf16_matmul", "spectrogram matmuls"),
-              ("_shifted_sum", "sync accumulation (coarse+fine)"),
-              ("_top_k", "top-K sorts (candidates, OSD pick)"),
-              ("_multisym_llrs", "coherent LLRs"),
-              ("osd_decode", "OSD"),
-              ("subtract_known", "subtraction"),
-              ("select_subtract_params", "subtraction pick"),
-              ("_median_rows", "SNR median"),
-              ("_pack_outputs", "output pack")]
-    originals = {name: getattr(gfsk_engine, name) for name, _ in stages}
-    bp_original = ldpc.BPDecoder.decode_full
-    for name, label in stages:
-        setattr(gfsk_engine, name, timed(label, originals[name]))
-    ldpc.BPDecoder.decode_full = timed("BP (min-sum)", bp_original)
+    originals = [(owner, name, getattr(owner, name))
+                 for owner, name, _ in stages]
+    for owner, name, label in stages:
+        setattr(owner, name, timed(label, getattr(owner, name)))
+    torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dec.decode(audio)
+    try:
+        dec.decode(audio)
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
     total = time.perf_counter() - t0
     print(f"instrumented decode wall {total:.3f} s; stages:")
     for label, s in sorted(spent.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:34s} {s * 1e3:9.1f} ms  ({calls[label]} calls, "
+        print(f"  {label:46s} {s * 1e3:9.1f} ms  ({calls[label]} calls, "
               f"{100 * s / total:5.1f} %)")
-    rest = total - sum(spent.values())
-    print(f"  {'other (gather, glue, host)':34s} {rest * 1e3:9.1f} ms  "
+    rest = total - sum(s for label, s in spent.items() if "(in " not in label)
+    print(f"  {'other (gather, glue, host)':46s} {rest * 1e3:9.1f} ms  "
           f"({100 * rest / total:5.1f} %)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
-
     # last, on the unwrapped stages: on the H100 a decode timed after a
     # profiler session ran ~1.6x slower than one timed before it
-    for name, fn in originals.items():
-        setattr(gfsk_engine, name, fn)
-    ldpc.BPDecoder.decode_full = bp_original
     device_busy(dec, audio, statistics.median(walls))
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    dev = torch.device("cuda", 0)
+    for mode in argv or ["FT8"]:
+        profile_mode(mode, dev)
+        torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))
