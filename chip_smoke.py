@@ -38,7 +38,14 @@
 8. times the decode of one window and of a 64-window batch for FT4, JS8,
    FST4-60, WSPR, JT65 and Q65-30 (and the peak device memory of the
    64-window WSPR batch);
-9. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+9. runs the parallel layer on ``cuda:0``: the channel-sharded skim of the
+   64 dials (bursts in 8) on a virtual 4-entry mesh against a 1-entry
+   mesh, a 900 s 192 kHz window time-sharded 4 ways (4 channels) against
+   one device's whole window and the plain version with its FST4W-900
+   burst decoded, the kernel against the plain version at the shards'
+   offsets, ``entry()``, ``dryrun_multichip`` on a virtual 4-entry mesh
+   and the skim through a one-rank NCCL process group;
+10. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -128,6 +135,18 @@ def eager_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _launch_bound(chan, iq_ext, rot, n_out: int) -> tuple[float, float]:
+    """(bytes ms, ops ms) of one kernel launch: each input read and the
+    output written once at the HBM rate, and the function's 4*C*FO*n_out
+    FLOP as split-bf16 (three bf16 products) at the bf16 peak."""
+    n_ch, fo = chan.spec.num_channels, chan.spec.filt_order
+    n_bytes = (iq_ext.numel() * 8 + chan._taps_packed.numel() * 2
+               + chan._coarse.numel() * 8 + rot.numel() * 8
+               + n_ch * n_out * 4)
+    return (n_bytes / HBM_BYTES_S * 1e3,
+            3 * 4 * n_ch * fo * n_out / BF16_FLOPS * 1e3)
+
+
 def kernel_phase(dev, freqs) -> dict:
     """CUDA channelizer vs its plain version at 192 kHz on ``freqs``:
     the error over 15 s of chunks and one window, then the times of one
@@ -205,12 +224,8 @@ def kernel_phase(dev, freqs) -> dict:
     # kernel's own GEMM form, complex modulated taps times complex IQ,
     # which does twice the function's products, as split-bf16 and as
     # 3xTF32; and the direct form on FP32 CUDA cores
-    n_bytes = (iq_ext.numel() * 8 + kern._taps_packed.numel() * 2
-               + kern._coarse.numel() * 8 + rot_k.numel() * 8
-               + n_ch * n_out * 4)
-    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    bytes_ms, ops_ms = _launch_bound(kern, iq_ext, rot_k, n_out)
     fn_flop = 4 * n_ch * fo * n_out
-    ops_ms = 3 * fn_flop / BF16_FLOPS * 1e3
     gemm_ms = 3 * 2 * fn_flop / BF16_FLOPS * 1e3
     tf32_ms = 3 * 2 * fn_flop / TF32_FLOPS * 1e3
     fp32_ms = fn_flop / FP32_FLOPS * 1e3
@@ -726,6 +741,269 @@ def decode_walls_phase(dev) -> dict:
     return out
 
 
+# FT8 bursts of the skim part: (dial index, message, audio Hz, SNR dB in
+# 2.5 kHz), two in each 16-channel shard of the 64 dials
+SKIM_BURSTS = [(2, "CQ K1ABC FN42", 1500.0, -6.0),
+               (13, "K1ABC W9XYZ EN37", 900.0, -10.0),
+               (21, "CQ DL7ACA JO40", 2100.0, -8.0),
+               (30, "G4ABC VE3XYZ RR73", 1250.0, -12.0),
+               (37, "CQ JA1XYZ PM95", 700.0, -9.0),
+               (45, "W1AW K9ABC EN52", 1800.0, -14.0),
+               (52, "CQ VK2ABC QF56", 2500.0, -7.0),
+               (60, "OH2ABC SM5DEF JO89", 1100.0, -11.0)]
+# (a0, n_out) of blocks the time shards give the kernel, and ragged ones:
+# starts that are no multiple of the 4096-sample sub-block, n_out no
+# multiple of the kernel's 48-output tile, a0 up to 900 s x 192 kHz
+SHARD_BLOCKS = [(3 * 43_200_000 - 496, 1001), (43_200_000 - 496, 4097),
+                (172_800_000 - 496 - 16 * 333, 333), (12_345 * 16 - 496, 47)]
+
+
+def skim_window() -> tuple[np.ndarray, np.ndarray, dict]:
+    """The skim part's window: the 64 dials' offsets from LO, 15 s of
+    seeded 192 kHz noise with the bursts of SKIM_BURSTS, and the expected
+    decodes by channel (each burst on every channel whose 200-3000 Hz
+    search range holds its tone 0: at 192 kHz its own channel only)."""
+    from cwsl_digi_tpu_torch.modes import ft8
+    from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate_iq
+
+    dials, _ = _plan()
+    freqs = np.asarray(dials, np.float64) - LO
+    sigma = 0.05
+    iq = _iq_noise(15 * FS, sigma, SEED + 7)
+    want: dict[int, list[str]] = {}
+    for di, text, off, snr in SKIM_BURSTS:
+        amp = sigma * np.sqrt(10 ** (snr / 10) * 2500.0 / FS)
+        b = amp * gfsk_modulate_iq(ft8.encode_message(text), freqs[di] + off,
+                                   ft8.SPS * FS // 12_000, FS,
+                                   ft8.TONE_SPACING)
+        s = int(ft8.SIGNAL_START_S * FS)
+        iq[s : s + len(b)] += b.astype(np.complex64)
+        for c, f in enumerate(freqs):
+            if 200.0 <= freqs[di] + off - f <= 3000.0:
+                want.setdefault(c, []).append(text)
+    return freqs, iq, {c: sorted(m) for c, m in want.items()}
+
+
+def skim_decodes(step, out: dict) -> dict[int, list[str]]:
+    """The messages a skim step decoded, by channel (channels with any)."""
+    from cwsl_digi_tpu_torch.modes import ft8
+
+    return {c: sorted(r.message for r in rl)
+            for c, rl in zip(step.local_channels,
+                             ft8.results_from_arrays(out)) if rl}
+
+
+def _plain_block(chan, iq_ext, a0: int, out_phase: int):
+    """The plain version of ``chan.channelize_block`` on the same device."""
+    from cwsl_digi_tpu_torch.dsp.channelizer import channelize_block_ref
+
+    n_sub = -(-iq_ext.shape[0] // chan._sub)
+    return channelize_block_ref(chan.spec, iq_ext, chan._tone_sub,
+                                chan._rotations(a0, chan._sub, n_sub),
+                                chan._segs, out_phase)
+
+
+def same_decodes(a: dict, b: dict) -> bool:
+    """Two skim outputs decode alike on every channel: the same valid
+    candidates and payloads, SNR within 0.5 dB, f within one bin, dt
+    within one hop (PERF.md section 2)."""
+    if not np.array_equal(a["valid"], b["valid"]):
+        return False
+    v = a["valid"]
+    return (np.array_equal(a["payload"][v], b["payload"][v])
+            and np.all(np.abs(a["snr"][v] - b["snr"][v]) <= 0.5)
+            and np.all(np.abs(a["f0_bin"][v] - b["f0_bin"][v]) <= 1)
+            and np.all(np.abs(a["t0_hop"][v] - b["t0_hop"][v]) <= 1))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(dev) -> dict:
+    """The parallel layer on ``cuda:0``: the channel-sharded skim of the
+    64 FT8 dials on a virtual 4-entry mesh (16 channels a shard) against a
+    1-entry mesh; a 900 s window at 192 kHz time-sharded 4 ways over 4
+    channels against one device's ``process_window`` and the plain
+    version, its FST4W-900 burst decoded through ``get_decoder``; the
+    kernel against the plain version at the shards' blocks; ``entry()``
+    once; ``dryrun_multichip`` on a virtual 4-entry mesh; the skim through
+    a one-rank NCCL process group.  Each part's kernel launches are counted
+    from 0 just before it and read just after, its comparisons outside."""
+    import torch.distributed as dist
+
+    from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
+    from cwsl_digi_tpu_torch.entry import (dryrun_multichip, entry,
+                                           long_window_iq)
+    from cwsl_digi_tpu_torch.modes.base import get_decoder
+    from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
+    from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
+    from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
+
+    launches, walls, errs = {}, {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        _kernels.launches["channelize"] = 0
+        t = time.monotonic()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.monotonic() - t
+        launches[name] = _kernels.launches["channelize"]
+        print(f"parallel {name}: {walls[name]:.3f} s, "
+              f"{launches[name]} kernel launches")
+        return r
+
+    # --- channel-sharded skim: 64 dials, 16 a shard, FT8 bursts in 8
+    freqs, iq, want = skim_window()
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    step4 = ShardedSkimStep(FS, freqs, mesh4)
+    run("skim_4x16_first", lambda: step4.step(iq))
+    out4 = run("skim_4x16", lambda: step4.step(iq))
+    step1 = ShardedSkimStep(FS, freqs, make_mesh(1, devices=[dev]))
+    out1 = step1.step(iq)
+    got = skim_decodes(step4, out4)
+    print(f"skim decodes: {got}")
+    if got != want:
+        raise AssertionError(f"skim decodes {got}, want {want}")
+    if not same_decodes(out4, out1):
+        raise AssertionError("4-entry skim disagrees with the 1-entry mesh")
+    print("skim: valid/payload equal to the 1-entry mesh's, bitwise "
+          f"{all(np.array_equal(out4[k], out1[k]) for k in out4)}")
+    x = torch.from_numpy(iq).to(dev)
+    err = 0.0
+    for blk in mesh4.blocks("ch", 64):
+        chan = BatchChannelizer(FS, freqs[blk], device=dev)
+        h = chan.spec.filt_order - chan.spec.block_size
+        a = chan.process_window(x)
+        b = _plain_block(chan, torch.cat([x.new_zeros(h), x]), -h, 0)
+        err = max(err, float((a - b).abs().max()))
+    errs["skim_shards"] = err
+
+    # --- time shards: 900 s at 192 kHz, 4 channels, 4 shards
+    tfreqs = freqs[[8, 24, 40, 56]]
+    sigma = 0.05                         # the skim window's noise
+    w_text = "K1ABC FN42 30"
+    n_t = 900 * FS
+    t0 = time.monotonic()
+    iq_long = long_window_iq(FS, n_t, "FST4W-900", w_text, tfreqs[1] + 1500,
+                             sigma * np.sqrt(10 ** (-15 / 10) * 2500.0 / FS),
+                             sigma / np.sqrt(2), np.random.default_rng(SEED))
+    print(f"900 s window built in {time.monotonic() - t0:.1f} s")
+    tsc = TimeShardedChannelizer(FS, tfreqs, make_mesh(4, axes=("t",),
+                                                       devices=[dev] * 4))
+    audio = run("timeshard_900s", lambda: tsc.channelize(iq_long))
+    chan = BatchChannelizer(FS, tfreqs, device=dev)
+    whole = chan.process_window(torch.from_numpy(iq_long).to(dev))
+    errs["timeshard_vs_window"] = float((audio - whole).abs().max())
+    del whole
+    bs, h = chan.spec.block_size, chan.spec.filt_order - chan.spec.block_size
+    t_loc = n_t // 4
+    err = 0.0
+    for s in range(4):
+        a0 = s * t_loc - h
+        xs = torch.from_numpy(iq_long[max(a0, 0) : (s + 1) * t_loc]).to(dev)
+        if s == 0:
+            xs = torch.cat([xs.new_zeros(h), xs])
+        b = _plain_block(chan, xs, a0, (s * t_loc // bs) % 4)
+        err = max(err, float(
+            (audio[:, s * t_loc // bs : (s + 1) * t_loc // bs] - b).abs()
+            .max()))
+        del xs, b
+        torch.cuda.empty_cache()
+    errs["timeshard_vs_plain"] = err
+    n_win = 900 * 12_000
+    ch_audio = audio[1, :n_win].cpu().numpy()
+    del audio
+    res = run("fst4w900_decode", lambda: get_decoder(
+        "FST4W-900", device=dev).decode(ch_audio[None, :])[0])
+    print(f"FST4W-900 time-sharded decodes: {[r.message for r in res]}")
+    if w_text not in [r.message for r in res]:
+        raise AssertionError("the time-sharded FST4W-900 burst did not "
+                             "decode")
+    # the kernel against the plain version at shard offsets and lengths
+    err = 0.0
+    for a0, n_out in SHARD_BLOCKS:
+        lo = max(a0, 0)
+        xs = torch.from_numpy(iq_long[lo : a0 + h + n_out * bs]).to(dev)
+        xs = torch.cat([xs.new_zeros(lo - a0), xs])
+        ph = ((a0 + h) // bs) % 4
+        err = max(err, float((chan.channelize_block(xs, a0, ph)
+                              - _plain_block(chan, xs, a0, ph)).abs().max()))
+    errs["shard_blocks"] = err
+
+    # device time of one launch at each shard shape, beside its bound
+    shard_ms = {}
+    for name, sc, a0, n_out in [
+            ("skim_shard_16ch_15s", BatchChannelizer(FS, freqs[:16],
+                                                     device=dev),
+             -h, 15 * FS // bs),
+            ("time_shard_4ch_225s", chan, 3 * t_loc - h, t_loc // bs)]:
+        lo = max(a0, 0)
+        xs = torch.from_numpy(iq_long[lo : a0 + h + n_out * bs]).to(dev)
+        xs = torch.cat([xs.new_zeros(lo - a0), xs])
+        rot = sc.tile_rotations(a0, n_out)
+        ph = ((a0 + h) // bs) % 4
+        ms = cuda_ms(lambda: _kernels.channelize(
+            xs, sc._taps_packed, sc._coarse, rot, n_out, bs, ph,
+            sc.spec.sign), 3)
+        bytes_ms, ops_ms = _launch_bound(sc, xs, rot, n_out)
+        shard_ms[name] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+                          "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+        print(f"kernel launch {name}: {ms:.4f} ms device time; bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+              f"split-bf16 ops {ops_ms:.4f}), "
+              f"{100 * max(bytes_ms, ops_ms) / ms:.1f} % of it")
+        del xs
+    del iq_long
+
+    # --- entry(): the FT8 forward step at the reference's shapes
+    fn, args = entry()
+    out = run("entry", lambda: fn(*args))
+    if not all(bool(torch.isfinite(v.float()).all()) for v in out.values()) \
+            or tuple(out["valid"].shape) != (4, 32):
+        raise AssertionError("entry() outputs")
+
+    # --- the reference's dry run on a virtual 4-entry mesh
+    run("dryrun_multichip", lambda: dryrun_multichip(4, devices=[dev] * 4))
+
+    # --- the skim through a one-rank NCCL process group
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        step_pg = ShardedSkimStep(FS, freqs, make_mesh(axes=("ch",)))
+        out_pg = run("skim_nccl_1rank", lambda: step_pg.step(iq))
+        if step_pg.local_channels != list(range(64)) \
+                or not same_decodes(out_pg, out1):
+            raise AssertionError("one-rank NCCL skim disagrees")
+    finally:
+        dist.destroy_process_group()
+
+    print(f"parallel kernel vs plain / one-device window, max abs err: "
+          f"{errs} (tolerance {CHAN_TOL:g})")
+    if not max(errs.values()) <= CHAN_TOL:
+        raise AssertionError(f"parallel channelizer disagrees: {errs}")
+    want_launches = {"skim_4x16_first": 4, "skim_4x16": 4,
+                     "timeshard_900s": 4,
+                     "fst4w900_decode": 0, "entry": 0,
+                     "skim_nccl_1rank": 1}
+    for name, n in want_launches.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name}: {launches[name]} launches, "
+                                 f"want {n}")
+    if launches["dryrun_multichip"] < 10:
+        raise AssertionError("dryrun_multichip launched the kernel "
+                             f"{launches['dryrun_multichip']} times")
+    return {"launches": sum(launches.values()), "by_part": launches,
+            "walls_s": walls, "max_abs_err": max(errs.values()),
+            "errs": errs, "shard_launch": shard_ms}
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -772,6 +1050,8 @@ def main() -> int:
         wstats = phase("weak_modes_app", weak_modes_phase, dev, Path(tmp))
     lstats = phase("long_periods", long_period_phase, dev)
     dstats = phase("decode_walls", decode_walls_phase, dev)
+    pstats = phase("parallel", parallel_phase, dev)
+    print(json.dumps({"parallel": pstats}))
     print(json.dumps({"channelize_mixed_5ch": kmixed,
                       "channelize_weak_3ch": kweak,
                       "channelize_256ch": kwide}))
@@ -785,12 +1065,14 @@ def main() -> int:
         "source": "cwsl_digi_tpu_torch/dsp/csrc/channelizer.cu",
         "replaces": "cwsl_digi_tpu/dsp/pallas_channelizer.py:61",
         "launches": (mstats["launches"] + xstats["launches"]
-                     + wstats["launches"]),
+                     + wstats["launches"] + pstats["launches"]),
         "launches_by_phase": {"ft8_64ch_app": mstats["launches"],
                               "mixed_mode_app": xstats["launches"],
-                              "weak_modes_app": wstats["launches"]},
+                              "weak_modes_app": wstats["launches"],
+                              "parallel": pstats["launches"]},
         "max_abs_err": max(kmain["max_abs_err"], kmixed["max_abs_err"],
-                           kweak["max_abs_err"], kwide["max_abs_err"]),
+                           kweak["max_abs_err"], kwide["max_abs_err"],
+                           pstats["max_abs_err"]),
         "ms": kmain["ms"],
         "plain_ms": kmain["plain_ms"],
         "bound_ms": kmain["bound_ms"],

@@ -12,10 +12,14 @@ entry point runs on the card unless the caller passes ``device="cpu"``.
 
 - ``dsp/``     — the batched channelizer; on CUDA tensors it runs the
                  hand-written kernel in ``dsp/csrc/channelizer.cu``.
-- ``modes/``   — the FT8 decoder (sync search, coherent LLRs, BP, OSD,
-                 multi-pass subtraction) as PyTorch tensor code.
+- ``modes/``   — every mode's decoder (FT8, FT4, JS8, FST4/FST4W, WSPR,
+                 JT65, Q65-30) as PyTorch tensor code.
 - ``runtime/`` — receiver framing, decoder pool and the app entry point
                  (``python -m cwsl_digi_tpu_torch.runtime.app``).
+- ``parallel/`` — device meshes, the channel-sharded skim, the
+                 time-sharded channelizer and the TCP window/spot cluster;
+                 ``entry`` drives them (``entry()``,
+                 ``dryrun_multichip()``).
 - ``convert``  — carries the reference's precomputed tables across.
 """
 

@@ -256,6 +256,35 @@ class BatchChannelizer:
         what the kernel is held against on the card."""
         return self._step(self._to_tensor(iq), plain=True)
 
+    def channelize_block(self, iq_ext, a0: int, out_phase: int
+                         ) -> torch.Tensor:
+        """Channelize one block given its own raw tail: ``iq_ext`` is the
+        FO-BS raw IQ samples before the block, then the block (any multiple
+        of BlockSize), its first sample at absolute index ``a0``, and
+        ``out_phase`` the block's first output index mod 4.  Returns
+        ``[channels, block/BS]``; the streaming state is neither read nor
+        changed.  A time shard of one long window is such a block."""
+        x = self._to_tensor(iq_ext)
+        h = self.spec.filt_order - self.spec.block_size
+        if x.shape[0] < h or (x.shape[0] - h) % self.spec.block_size:
+            raise ValueError(f"iq_ext must be {h} tail samples plus a "
+                             f"multiple of {self.spec.block_size}")
+        return self._block(x, a0, out_phase, plain=x.device.type == "cpu")
+
+    def _block(self, iq_ext: torch.Tensor, a0: int, out_phase: int,
+               plain: bool) -> torch.Tensor:
+        if plain:
+            n_sub = -(-iq_ext.shape[0] // self._sub)
+            return channelize_block_ref(
+                self.spec, iq_ext, self._tone_sub,
+                self._rotations(a0, self._sub, n_sub), self._segs, out_phase)
+        bs = self.spec.block_size
+        n_out = (iq_ext.shape[0] - self.spec.filt_order + bs) // bs
+        return _kernels.channelize(
+            iq_ext, self._taps_packed, self._coarse,
+            self.tile_rotations(a0, n_out), n_out, bs, out_phase,
+            self.spec.sign)
+
     def _step(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         t = x.shape[0]
         if t % self._sub != 0:
@@ -263,19 +292,7 @@ class BatchChannelizer:
         st = self.state
         iq_ext = torch.cat([st["tail"], x])
         a0 = st["abs_sample"] - st["tail"].shape[0]
-        if plain:
-            n_sub = -(-iq_ext.shape[0] // self._sub)
-            audio = channelize_block_ref(
-                self.spec, iq_ext, self._tone_sub,
-                self._rotations(a0, self._sub, n_sub), self._segs,
-                st["out_phase"])
-        else:
-            bs = self.spec.block_size
-            n_out = t // bs
-            audio = _kernels.channelize(
-                iq_ext, self._taps_packed, self._coarse,
-                self.tile_rotations(a0, n_out), n_out, bs,
-                st["out_phase"], self.spec.sign)
+        audio = self._block(iq_ext, a0, st["out_phase"], plain)
         self.state = {
             "tail": iq_ext[t:].clone(),
             "abs_sample": st["abs_sample"] + t,

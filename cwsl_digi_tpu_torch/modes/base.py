@@ -77,10 +77,23 @@ def window_batch(audio, device: torch.device) -> torch.Tensor:
     return audio[None, :] if audio.ndim == 1 else audio
 
 
+_REGISTERED: dict[Mode, ModeDecoder] = {}
+
+
+def register_decoder(mode: Mode, decoder: ModeDecoder) -> None:
+    """Make ``decoder`` what ``get_decoder(mode)`` returns when it is given
+    no other argument."""
+    _REGISTERED[Mode(mode)] = decoder
+
+
 def get_decoder(mode: Mode | str, device: torch.device | str | None = None,
                 **kwargs) -> ModeDecoder:
-    """A new decoder for ``mode`` on ``device`` (default: the card)."""
-    return _construct(Mode(mode), as_device(device), **kwargs)
+    """The registered decoder for ``mode`` when no other argument is given,
+    else a new decoder for ``mode`` on ``device`` (default: the card)."""
+    mode = Mode(mode)
+    if device is None and not kwargs and mode in _REGISTERED:
+        return _REGISTERED[mode]
+    return _construct(mode, as_device(device), **kwargs)
 
 
 def warmup_window(mode: Mode | str) -> np.ndarray:

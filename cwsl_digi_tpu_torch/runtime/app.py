@@ -202,7 +202,9 @@ class App:
             try:
                 rx = Receiver(src, lines, self.pool, utc_anchor=utc_anchor,
                               log=self.printer.print, line_indices=idxs,
-                              align_live=live, device=self.device)
+                              align_live=live,
+                              channelizer=self.cfg.get("tpu", "channelizer"),
+                              device=self.device)
             except ValueError as e:
                 self.printer.err(f"cannot attach decoders to {spec}: {e}")
                 src.close()

@@ -139,6 +139,7 @@ class Receiver:
         decoder_index_base: int = 0,
         line_indices: list[int] | None = None,
         align_live: bool = False,
+        channelizer: str = "xla",
         wall_fn: Callable[[], float] | None = None,
         ring_seconds: float = 3.0,
         device: torch.device | str | None = None,
@@ -173,6 +174,13 @@ class Receiver:
             if abs(f) > fs / 2:
                 raise ValueError(
                     f"decoder {line.freq} {line.mode.value} outside source band")
+        # ``[tpu] channelizer``: the reference accepts only "xla", and so
+        # does the port, whose one channelizer is the CUDA kernel (the
+        # plain version on CPU tensors); the error is the reference's own
+        if channelizer != "xla":
+            raise ValueError(
+                f"unknown channelizer backend {channelizer!r} (only 'xla'; "
+                "the pallas kernel lost the bench-off and was demoted)")
         self.chan = BatchChannelizer(fs, freqs, device=self.device)
         self._sub_gran = self.chan._sub
 

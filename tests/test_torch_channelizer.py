@@ -289,3 +289,22 @@ def test_packed_taps_split_and_pad():
     lo = p[..., 8:].double().abs().max()
     assert 0 < lo < 2e-2 * np.abs(g).max()
     assert not p[1, :, 16:].any()                # channels 12..15: padding
+
+
+@pytest.mark.parametrize("a0,n_out", [(3 * 43_200_000 - 496, 101),
+                                      (172_800_000 - 496 - 16 * 50, 50)])
+def test_kernel_layout_emulation_at_time_shard_offsets(a0, n_out):
+    """A time shard's block as the kernel gets it (the raw halo, a start
+    ~1.3e8 samples into a 900 s window at 192 kHz and no multiple of the
+    4096-sample sub-block, n_out no multiple of the 48-output tile):
+    the emulated kernel against ``channelize_block``'s plain version,
+    atol 2e-5 (as above)."""
+    tb = BatchChannelizer(192_000, _freqs(192_000, 20), device="cpu")
+    bs, h = tb.spec.block_size, tb.spec.filt_order - tb.spec.block_size
+    x = _iq(h + n_out * bs, seed=n_out)
+    ph = ((a0 + h) // bs) % 4
+    want = tb.channelize_block(x, a0, ph).numpy()
+    tb.state = {"tail": torch.from_numpy(x[:h]), "abs_sample": a0 + h,
+                "out_phase": ph}
+    np.testing.assert_allclose(_emulate_kernel(tb, x[h:]), want, atol=2e-5)
+    np.testing.assert_allclose(_gemm_form(tb, x[h:]), want, atol=1e-5)

@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the CUDA channelizer kernel against
-its plain version, and the FT8, FT4, JS8, FST4-60, WSPR, JT65 and Q65-30
-decoders on CUDA tensors against the same decoders on CPU tensors.
+its plain version (streaming, and at the blocks time shards give it), the
+FT8, FT4, JS8, FST4-60, WSPR, JT65 and Q65-30 decoders on CUDA tensors
+against the same decoders on CPU tensors, and the parallel layer on a
+virtual mesh of the card against one on the CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -20,7 +22,10 @@ from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8, jt65, q65, wspr
-from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
+from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
+from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
+from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
+from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
 from test_torch_parity import WSPRTolerance, assert_same_batch_decodes
 
 pytestmark = pytest.mark.cuda
@@ -142,3 +147,114 @@ def test_weak_modes_on_card_match_cpu(dev):
         want = host.decode(torch.from_numpy(wins))
         assert sum(len(w) for w in want) >= 2, type(card).__name__
         assert_same_batch_decodes(got, want, tol)
+
+
+# (a0, n_out): blocks that start at no multiple of the 4096-sample
+# sub-block, lengths that are no multiple of the kernel's 48-output tile,
+# and starts up to 900 s x 192 kHz into a window
+SHARD_BLOCKS = [(3 * 43_200_000 - 496, 1001), (43_200_000 - 496, 4097),
+                (172_800_000 - 496 - 16 * 333, 333), (12_345 * 16 - 496, 47),
+                (-496, 96)]
+
+
+@pytest.mark.parametrize("n_ch", [4, 16])
+def test_cuda_kernel_at_time_shard_offsets(dev, n_ch):
+    """channelize_block at time-shard offsets and lengths, through the
+    kernel and through the plain version on the same CUDA inputs: atol
+    1e-4 (as above)."""
+    from cwsl_digi_tpu_torch.dsp.channelizer import channelize_block_ref
+
+    chan = BatchChannelizer(192_000, np.linspace(-90_000, 84_000, n_ch),
+                            device=dev)
+    bs = chan.spec.block_size
+    h = chan.spec.filt_order - bs
+    before = _kernels.launches["channelize"]
+    for i, (a0, n_out) in enumerate(SHARD_BLOCKS):
+        x = torch.from_numpy(_iq(h + n_out * bs, seed=i)).to(dev)
+        ph = ((a0 + h) // bs) % 4
+        n_sub = -(-x.shape[0] // chan._sub)
+        want = channelize_block_ref(chan.spec, x, chan._tone_sub,
+                                    chan._rotations(a0, chan._sub, n_sub),
+                                    chan._segs, ph)
+        torch.testing.assert_close(chan.channelize_block(x, a0, ph), want,
+                                   rtol=0, atol=1e-4)
+    torch.cuda.synchronize()
+    assert _kernels.launches["channelize"] == before + len(SHARD_BLOCKS)
+
+
+def test_time_shards_on_card_match_cpu(dev):
+    """A window time-sharded over a virtual 4-entry mesh of the card
+    equals the same shards on the CPU (atol 1e-4), one launch a shard."""
+    freqs = [5_000.0, -9_000.0, 12_000.0]
+    iq = _iq(4 * 4 * 3000, seed=11)
+    before = _kernels.launches["channelize"]
+    card = TimeShardedChannelizer(48_000, freqs, make_mesh(
+        4, axes=("t",), devices=[dev] * 4)).channelize(iq)
+    assert _kernels.launches["channelize"] == before + 4
+    host = TimeShardedChannelizer(48_000, freqs, make_mesh(
+        4, axes=("t",), devices=["cpu"] * 4)).channelize(iq)
+    torch.testing.assert_close(card.cpu(), host, rtol=0, atol=1e-4)
+
+
+def test_sharded_skim_on_card_matches_cpu(dev):
+    """The channel-sharded skim on a virtual 4-entry mesh of the card and
+    on one of the CPU (tests/test_parallel.py's window): the same decode
+    lists within the tolerances above, one launch an entry."""
+    fs = 48_000
+    freqs = np.linspace(-18_000, 10_000, 8)
+    burst = gfsk_modulate_iq(ft8.encode_message("CQ W2AXR FN13"),
+                             freqs[5] + 1500.0, ft8.SPS * fs // 12_000, fs,
+                             ft8.TONE_SPACING)
+    iq = np.zeros(15 * fs, np.complex128)
+    iq[fs // 2 : fs // 2 + len(burst)] = burst
+    rng = np.random.default_rng(3)
+    iq += 0.02 * (rng.standard_normal(len(iq))
+                  + 1j * rng.standard_normal(len(iq)))
+    iq = iq.astype(np.complex64)
+    results = {}
+    for d in (dev, "cpu"):
+        step = ShardedSkimStep(
+            fs, freqs, make_mesh(4, devices=[d] * 4),
+            decoder=ft8.FT8Decoder(top_k=16, bp_iters=20, device=d))
+        before = _kernels.launches["channelize"]
+        results[d] = step.decode_window(iq)
+        if d == dev:
+            assert _kernels.launches["channelize"] == before + 4
+    assert [r.message for r in results[dev][5]] == ["CQ W2AXR FN13"]
+    assert_same_batch_decodes(results[dev], results["cpu"])
+
+
+def test_window_client_sends_a_card_window(dev):
+    """WindowClient.send of a job whose audio is a CUDA tensor (as the
+    port's receiver hands windows to the pool): the server receives the
+    same samples as a host array."""
+    import time
+
+    from cwsl_digi_tpu_torch.parallel.cluster import WindowClient, WindowServer
+    from cwsl_digi_tpu_torch.runtime.decoderpool import DecodeJob
+
+    class Pool:
+        def __init__(self):
+            self.jobs = []
+
+        def push(self, job):
+            self.jobs.append(job)
+
+    audio = np.random.default_rng(2).standard_normal((2, 3000)).astype(
+        np.float32)
+    pool = Pool()
+    server = WindowServer(0, pool, host="127.0.0.1")
+    try:
+        client = WindowClient("127.0.0.1", server.port)
+        client.send(DecodeJob(mode=Mode.FT8,
+                              audio=torch.from_numpy(audio).to(dev),
+                              base_freqs=[14_074_000] * 2,
+                              decoder_indices=[0, 1], epoch_time=0))
+        deadline = time.monotonic() + 5
+        while not pool.jobs and time.monotonic() < deadline:
+            time.sleep(0.02)
+        client.close()
+    finally:
+        server.close()
+    assert len(pool.jobs) == 1
+    np.testing.assert_array_equal(pool.jobs[0].audio, audio)

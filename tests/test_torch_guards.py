@@ -36,6 +36,10 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {f"cwsl_digi_tpu_torch.modes.{m}" for m in (
         "wspr", "jt65", "q65", "qra", "qary_engine", "rs64", "rs_device",
         "threefry")} <= set(mods)
+    assert {"cwsl_digi_tpu_torch.entry", "cwsl_digi_tpu_torch.dsp.ssbd",
+            "cwsl_digi_tpu_torch.utils.stringutils"} | {
+        f"cwsl_digi_tpu_torch.parallel.{m}" for m in (
+            "mesh", "pipeline", "timeshard", "cluster")} <= set(mods)
     code = (
         "import sys, importlib, time\n"
         "sys.modules['jax'] = None\n"
@@ -75,7 +79,7 @@ _PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix()
      for p in (REPO / "cwsl_digi_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_decode_profile.py",
-       "tools/channelizer_ab.py",
+       "tools/channelizer_ab.py", "tools/parallel_cards.py",
        "tests/test_torch_cuda.py", "tests/test_torch_parity.py"])
 
 
@@ -248,8 +252,12 @@ def _entry_points():
     from cwsl_digi_tpu_torch.config import load_config
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.device import as_device
+    from cwsl_digi_tpu_torch.entry import dryrun_multichip, entry
     from cwsl_digi_tpu_torch.modes import (base, fst4, ft4, ft8, gfsk_engine,
                                            js8, jt65, ldpc, q65, qra, wspr)
+    from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
+    from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
+    from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
     from cwsl_digi_tpu_torch.modes.crc import ft8_crc_matrix
     from cwsl_digi_tpu_torch.runtime.app import App
     from cwsl_digi_tpu_torch.runtime.decoderpool import DecoderPool
@@ -283,6 +291,14 @@ def _entry_points():
         "tables_to_torch": lambda: convert.tables_to_torch(
             {"segs": np.zeros((2, 2), np.float32)}),
         "App": lambda: App(cfg),
+        "make_mesh": lambda: make_mesh(),
+        "make_mesh_cuda": lambda: make_mesh(devices=["cuda"]),
+        "ShardedSkimStep": lambda: ShardedSkimStep(48_000, [1000.0],
+                                                   make_mesh()),
+        "TimeShardedChannelizer": lambda: TimeShardedChannelizer(
+            48_000, [1000.0], make_mesh(axes=("t",))),
+        "entry": lambda: entry(),
+        "dryrun_multichip": lambda: dryrun_multichip(1),
     }
 
 
@@ -293,7 +309,10 @@ def _entry_points():
                                   "QaryMPDecoder", "DecoderRegistry",
                                   "get_decoder", "get_decoder_WSPR",
                                   "get_decoder_JT65", "get_decoder_Q65",
-                                  "tables_to_torch", "App"])
+                                  "tables_to_torch", "App", "make_mesh",
+                                  "make_mesh_cuda", "ShardedSkimStep",
+                                  "TimeShardedChannelizer", "entry",
+                                  "dryrun_multichip"])
 def test_entry_points_default_to_the_card(monkeypatch, name):
     """With no device given, every entry point asks for the card and raises
     where there is none; none falls back to the CPU."""

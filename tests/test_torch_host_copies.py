@@ -13,6 +13,7 @@ classes are different classes).
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import difflib
 import importlib
@@ -54,7 +55,8 @@ COPIES = [
     "report/wsprnet.py", "report/jt9format.py", "runtime/scheduler.py",
     "runtime/decoderpool.py", "sdr/source.py", "sdr/shm.py",
     "utils/hamutils.py", "utils/logging.py", "utils/qos.py",
-    "utils/timeutils.py", "utils/wav.py",
+    "utils/timeutils.py", "utils/wav.py", "utils/stringutils.py",
+    "dsp/ssbd.py", "parallel/cluster.py",
 ]
 
 # module -> (lines only the original has, lines only the copy has, reason)
@@ -68,6 +70,16 @@ DIFFERS = {
          "torch.Tensor) \\",
          "            else np.asarray(audio)"],
         "keepwav reads jobs whose audio is a CUDA tensor"),
+    "parallel/cluster.py": (
+        ["        audio = np.ascontiguousarray(job.audio, np.float32)"],
+        ["import torch",
+         "        audio = job.audio",
+         "        if isinstance(audio, torch.Tensor):     # device windows to "
+         "the host",
+         "            audio = audio.cpu().numpy()",
+         "        audio = np.ascontiguousarray(audio, np.float32)"],
+        "the port's receiver hands the pool windows that are CUDA tensors, "
+        "which NumPy cannot read"),
     "modes/jt65.py": (
         ["                 fmax_hz: float | None = None):",
          "                         symbol_perm=ILV, value_demap=UNGRAY)"],
@@ -169,6 +181,39 @@ def test_host_part_equals_original(module, name):
     want_removed, want_added, _reason = HOST_PARTS[(module, name)] or (
         [], [], "")
     assert _line_diff(orig, copy) == (want_removed, want_added)
+
+
+@pytest.mark.parametrize("package", ["dsp", "utils"])
+def test_package_exports_match_the_reference(package):
+    """The port's dsp/ and utils/ export every name the reference's
+    ``__init__.py`` imports, as objects of the same name."""
+    tree = ast.parse((REPO / "cwsl_digi_tpu" / package / "__init__.py")
+                     .read_text())
+    names = [a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert len(names) >= 4
+    jmod = importlib.import_module(f"cwsl_digi_tpu.{package}")
+    pmod = importlib.import_module(f"cwsl_digi_tpu_torch.{package}")
+    for name in names:
+        assert getattr(pmod, name).__name__.rsplit(".", 1)[-1] == \
+            getattr(jmod, name).__name__.rsplit(".", 1)[-1], name
+
+
+def test_register_decoder_as_the_reference(monkeypatch):
+    """A registered decoder is what get_decoder(mode) returns with no other
+    argument, in both packages; any argument builds a new decoder."""
+    monkeypatch.setattr(jbase, "_REGISTRY", {})
+    monkeypatch.setattr(pbase, "_REGISTERED", {})
+    mine = object()
+    jbase.register_decoder("FT8", mine)
+    pbase.register_decoder("FT8", mine)
+    assert jbase.get_decoder("FT8") is mine
+    assert pbase.get_decoder("FT8") is mine
+    assert pbase.get_decoder(Mode.FT8) is mine
+    got = pbase.get_decoder("FT8", device="cpu")
+    assert got is not mine and got.mode == Mode.FT8
+    assert pbase.get_decoder("FT8", device="cpu", top_k=8).spec.top_k == 8
+    assert pbase.get_decoder("FT4", device="cpu").mode == Mode.FT4
 
 
 def test_decode_result_matches_the_reference():
