@@ -45,7 +45,15 @@
    burst decoded, the kernel against the plain version at the shards'
    offsets, ``entry()``, ``dryrun_multichip`` on a virtual 4-entry mesh
    and the skim through a one-rank NCCL process group;
-10. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+10. runs the port's App live (``tools/torch_soak.py``) at 512 FT8 channels
+    as 8 synthetic real-time 192 kHz receivers of 64 dials, for 3 windows
+    with 6 bursts a window spread over the receivers, scheduled from the
+    App's anchor: every channel-window decoded, no stale drop or ingest
+    overrun, every burst found on its own receiver's dials and no spot on
+    another's, CUDA audio into the decoders, through the kernel; it prints
+    the latencies, deadline misses (a measurement, not a failure), stages,
+    busy fraction and peak device memory;
+11. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -1004,6 +1012,60 @@ def parallel_phase(dev) -> dict:
             "errs": errs, "shard_launch": shard_ms}
 
 
+# the live site: 8 receivers x 64 FT8 dials, 3 windows, 6 bursts a window
+SOAK = dict(channels=512, receivers=8, windows=3, bursts=6)
+
+
+def live_soak_phase(dev) -> dict:
+    """The port's App live at 512 FT8 channels on 8 synthetic real-time
+    receivers (``tools/torch_soak.run_soak``); its kernel launches are
+    counted from 0 at its start."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from torch_soak import run_soak
+
+    r = run_soak(device=dev, **SOAK)
+    st = r["stages"]
+    print(f"live soak: {r['channels']} FT8 channels on {r['receivers']} "
+          f"receivers x {r['windows']} windows ({r['pool_workers']} pool "
+          f"workers): {r['decoded_windows']} channel-windows decoded, "
+          f"{r['spots']} spots, bursts {r['bursts_found']}/{r['bursts_due']} "
+          f"found on their own receiver, misrouted {r['misrouted']}, false "
+          f"{r['false_spots']}, stale drops {r['stale_drops']}, ingest "
+          f"overruns {r['ingest_overruns']}; latency p50/p95/max "
+          f"{r['latency_s']['p50']}/{r['latency_s']['p95']}/"
+          f"{r['latency_s']['max']} s, deadline misses "
+          f"{r['deadline_misses']} (deadline {r['deadline_s']:g} s); "
+          f"window-close lag p50/p95/max {st['window_close_lag_s']['p50']}/"
+          f"{st['window_close_lag_s']['p95']}/{st['window_close_lag_s']['max']}"
+          f" s, queue wait p50/p95/max {st['queue_wait_s']['p50']}/"
+          f"{st['queue_wait_s']['p95']}/{st['queue_wait_s']['max']} s, "
+          f"decode_s per batch {st['decode_s_per_batch']['series']}, "
+          f"channelize dispatch {st['channelize_dispatch_s_per_audio_s']} s "
+          f"per audio-s; busy fraction {r['busy_fraction']}; peak device "
+          f"memory {(r['peak_device_bytes'] or 0) / 2**30:.3f} GiB; "
+          f"{r['channelize_launches']} kernel launches; warm-up "
+          f"{r['warmup_s']} s, wall {r['wall_s']} s")
+    want = r["channels"] * r["windows"]
+    if r["decoded_windows"] < want:
+        raise AssertionError(f"{r['decoded_windows']} channel-windows "
+                             f"decoded, want {want}")
+    if r["stale_drops"] or r["ingest_overruns"]:
+        raise AssertionError("live soak shed windows or overran its ring")
+    if r["missing"] or not r["bursts_due"]:
+        raise AssertionError(f"bursts not found on their own receiver: "
+                             f"{r['missing']}")
+    if r["misrouted"]:
+        raise AssertionError(f"{r['misrouted']} spots on another receiver")
+    if r["audio_devices"] != ["cuda"]:
+        raise AssertionError(f"decoder got non-CUDA audio: "
+                             f"{r['audio_devices']}")
+    if r["channelize_launches"] <= 0:
+        raise AssertionError("live soak did not launch the channelizer "
+                             "kernel")
+    return {"launches": r["channelize_launches"], "report": {
+        k: v for k, v in r.items() if k not in ("stages", "missing")}}
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -1051,7 +1113,9 @@ def main() -> int:
     lstats = phase("long_periods", long_period_phase, dev)
     dstats = phase("decode_walls", decode_walls_phase, dev)
     pstats = phase("parallel", parallel_phase, dev)
+    sstats = phase("live_soak", live_soak_phase, dev)
     print(json.dumps({"parallel": pstats}))
+    print(json.dumps({"live_soak": sstats["report"]}))
     print(json.dumps({"channelize_mixed_5ch": kmixed,
                       "channelize_weak_3ch": kweak,
                       "channelize_256ch": kwide}))
@@ -1065,11 +1129,13 @@ def main() -> int:
         "source": "cwsl_digi_tpu_torch/dsp/csrc/channelizer.cu",
         "replaces": "cwsl_digi_tpu/dsp/pallas_channelizer.py:61",
         "launches": (mstats["launches"] + xstats["launches"]
-                     + wstats["launches"] + pstats["launches"]),
+                     + wstats["launches"] + pstats["launches"]
+                     + sstats["launches"]),
         "launches_by_phase": {"ft8_64ch_app": mstats["launches"],
                               "mixed_mode_app": xstats["launches"],
                               "weak_modes_app": wstats["launches"],
-                              "parallel": pstats["launches"]},
+                              "parallel": pstats["launches"],
+                              "live_soak": sstats["launches"]},
         "max_abs_err": max(kmain["max_abs_err"], kmixed["max_abs_err"],
                            kweak["max_abs_err"], kwide["max_abs_err"],
                            pstats["max_abs_err"]),

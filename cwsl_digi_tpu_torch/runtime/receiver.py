@@ -103,6 +103,10 @@ class _IngestRing:
             self._cv.notify_all()
             return True
 
+    def full(self) -> bool:
+        with self._cv:
+            return len(self._dq) >= self.n_blocks
+
     def pop(self, timeout: float = 1.0):
         with self._cv:
             if not self._dq:
@@ -163,6 +167,7 @@ class Receiver:
         self._ring = _IngestRing(int(ring_seconds * source.sample_rate
                                      / blk) + 1)
         self._pump = None           # native shm->ring pump when applicable
+        self._full_arrivals = 0     # source blocks that found the ring full
         self.line_indices = line_indices or [
             decoder_index_base + i for i in range(len(lines))
         ]
@@ -291,10 +296,15 @@ class Receiver:
 
     @property
     def overruns(self) -> int:
-        """Source blocks lost to ring overrun (0 in healthy operation)."""
+        """Source blocks lost to ring overrun (0 in healthy operation); for
+        a live source read through the Python ring, the blocks that found
+        it full: the channelizer was a ring (~3 s) behind the stream, and a
+        live SDR's own buffer would lose them, as the native pump does."""
         n = int(getattr(self.source, "overruns", 0))
         if self._pump is not None:
             n += self._pump.dropped
+        elif getattr(self.source, "live", False):
+            n += self._full_arrivals
         return n
 
     # -- processing ---------------------------------------------------------
@@ -312,6 +322,8 @@ class Receiver:
                         continue
                     break
                 wall = self._wall()
+                if self._ring.full():
+                    self._full_arrivals += 1
                 while not self._terminate.is_set():
                     if self._ring.push(block, wall, timeout=0.5):
                         break

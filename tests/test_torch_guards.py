@@ -48,6 +48,9 @@ def test_port_and_chip_smoke_import_without_jax():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "chip_smoke._plan()\n"
+        # the port's tools, which run on the machine with the card
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_parity, torch_snr_check, torch_soak, torch_soak_merge\n"
         # the card-only tests run where there is no JAX
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_cuda\n"
@@ -73,22 +76,27 @@ def test_port_and_chip_smoke_import_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-# files that must not import the JAX package: the port, the smoke, the
-# decode profile and the test files that run on the machine with the card
+# files that must import neither JAX nor the JAX package: the port, the
+# smoke, the port's tools and the test files that run on the machine with
+# the card
 _PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix()
      for p in (REPO / "cwsl_digi_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "tools/torch_decode_profile.py",
        "tools/channelizer_ab.py", "tools/parallel_cards.py",
+       "tools/torch_parity.py", "tools/torch_snr_check.py",
+       "tools/torch_soak.py", "tools/torch_soak_merge.py",
        "tests/test_torch_cuda.py", "tests/test_torch_parity.py"])
 
 
 def _jax_package_imports(source: str) -> list[str]:
     """Every ``import cwsl_digi_tpu...``/``from cwsl_digi_tpu... import``
-    in ``source`` (at any depth, inside functions too), and every
-    ``importlib.import_module``/``__import__`` of such a name."""
+    (and the same of ``jax`` or ``jaxlib``) in ``source`` (at any depth,
+    inside functions too), and every ``importlib.import_module``/
+    ``__import__`` of such a name."""
     def banned(name: str | None) -> bool:
-        return bool(name) and name.split(".")[0] == "cwsl_digi_tpu"
+        return bool(name) and name.split(".")[0] in ("cwsl_digi_tpu", "jax",
+                                                    "jaxlib")
 
     found = []
     for node in ast.walk(ast.parse(source)):
@@ -132,6 +140,18 @@ def test_import_guard_catches_jax_package_imports(source):
     assert _jax_package_imports(source)
     assert not _jax_package_imports(
         source.replace("cwsl_digi_tpu", "cwsl_digi_tpu_torch"))
+
+
+@pytest.mark.parametrize("source", [
+    "import jax",
+    "import jax.numpy as jnp",
+    "from jax import random",
+    "def f():\n    from jaxlib import xla_client",
+    "import importlib\nimportlib.import_module('jax.numpy')",
+])
+def test_import_guard_catches_jax_imports(source):
+    assert _jax_package_imports(source)
+    assert not _jax_package_imports(source.replace("jax", "numpy"))
 
 
 def test_kernel_path_raises_without_library(monkeypatch, tmp_path):
