@@ -50,10 +50,20 @@
     with 6 bursts a window spread over the receivers, scheduled from the
     App's anchor: every channel-window decoded, no stale drop or ingest
     overrun, every burst found on its own receiver's dials and no spot on
-    another's, CUDA audio into the decoders, through the kernel; it prints
-    the latencies, deadline misses (a measurement, not a failure), stages,
-    busy fraction and peak device memory;
-11. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+    another's, CUDA audio into the decoders, through the kernel, with the
+    App's default pool (4 workers, one decode at a time on the card) and
+    no spot later than its 15 s deadline; it prints the pool size, the
+    latencies, the wait for the card's decode lock, stages, busy fraction
+    and peak device memory;
+11. decodes each committed live FT8 window that gave a false AP spot
+    (``tests/torch_fixtures/ap_false``) on the card, alone, with the live
+    decoder's kwargs: its decode list must equal the JAX package's, stored
+    beside it;
+12. runs each of the last ported tools once at a tiny size on the card
+    (``tools/torch_osd_calibrate.py``, ``torch_tune_topk.py``,
+    ``torch_wspr_calibrate.py``; ``torch_import_tables.py`` on a
+    synthesized ``varicode.cpp``) and prints what they print;
+13. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -1025,9 +1035,12 @@ def live_soak_phase(dev) -> dict:
 
     r = run_soak(device=dev, **SOAK)
     st = r["stages"]
+    lw = st["lock_wait_s"]
     print(f"live soak: {r['channels']} FT8 channels on {r['receivers']} "
           f"receivers x {r['windows']} windows ({r['pool_workers']} pool "
-          f"workers): {r['decoded_windows']} channel-windows decoded, "
+          f"workers, decode lock wait p50/p95/max/total {lw['p50']}/"
+          f"{lw['p95']}/{lw['max']}/{lw['total']} s): "
+          f"{r['decoded_windows']} channel-windows decoded, "
           f"{r['spots']} spots, bursts {r['bursts_found']}/{r['bursts_due']} "
           f"found on their own receiver, misrouted {r['misrouted']}, false "
           f"{r['false_spots']}, stale drops {r['stale_drops']}, ingest "
@@ -1056,6 +1069,9 @@ def live_soak_phase(dev) -> dict:
                              f"{r['missing']}")
     if r["misrouted"]:
         raise AssertionError(f"{r['misrouted']} spots on another receiver")
+    if r["deadline_misses"]:
+        raise AssertionError(f"{r['deadline_misses']} spots later than "
+                             f"{r['deadline_s']:g} s after their window")
     if r["audio_devices"] != ["cuda"]:
         raise AssertionError(f"decoder got non-CUDA audio: "
                              f"{r['audio_devices']}")
@@ -1064,6 +1080,75 @@ def live_soak_phase(dev) -> dict:
                              "kernel")
     return {"launches": r["channelize_launches"], "report": {
         k: v for k, v in r.items() if k not in ("stages", "missing")}}
+
+
+AP_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures" \
+    / "ap_false"
+
+
+def ap_fixtures_phase(dev) -> dict:
+    """Each committed live FT8 window with a false AP spot, decoded alone
+    on the card with the live decoder's kwargs (``tools/torch_ap_false``):
+    its messages must equal the JAX package's list stored beside it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from torch_ap_false import decode_window, fixtures
+
+    found = fixtures(AP_FIXTURES)
+    if not found:
+        raise AssertionError(f"no AP fixtures under {AP_FIXTURES}")
+    decoders: dict = {}
+    out = {}
+    for path, side in found:
+        t0 = time.monotonic()
+        got = decode_window(np.load(path), side, dev, decoders=decoders)
+        wall = time.monotonic() - t0
+        print(f"{path.name}: card {got}, JAX {side['jax']} ({wall:.2f} s)")
+        if got != side["jax"]:
+            raise AssertionError(f"{path.name}: the card decodes {got}, "
+                                 f"the JAX package {side['jax']}")
+        out[path.name] = got
+    return out
+
+
+def tools_phase(dev) -> dict:
+    """The last ported tools once each at a tiny size on the card; their
+    own lines are printed as they go."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_import_tables
+    import torch_osd_calibrate
+    import torch_tune_topk
+    import torch_wspr_calibrate
+
+    from cwsl_digi_tpu_torch.modes import js8_varicode
+
+    d = str(dev)
+    osd = torch_osd_calibrate.main(["--trials", "4", "--noise", "25",
+                                    "--device", d])
+    if osd["false_messages"]:
+        raise AssertionError(f"OSD calibrator: false decodes on noise "
+                             f"{osd['false_messages']}")
+    topk = torch_tune_topk.main(["8", "256", "--device", d])
+    if topk[0]["recall_-18"] < 0.75 or topk[0]["busy_decodes_per_window"] <= 0:
+        raise AssertionError(f"top-K screen: {topk}")
+    ws = torch_wspr_calibrate.main(["--trials", "2", "--noise", "12",
+                                    "--snrs", "-29", "--device", d])
+    if ws["near_gate_offenders"] or not ws["true_osd"]["-29.0"]:
+        raise AssertionError(f"WSPR calibrator: {ws}")
+
+    def tok(ch):     # a C string literal of varicode.cpp
+        if ch == js8_varicode.EOT:
+            return "\\x04"
+        return ch.replace("\\", "\\\\").replace('"', '\\"')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "varicode.cpp"
+        src.write_text("".join(f'{{"{tok(c)}", "{b}"}},\n' for c, b
+                               in js8_varicode.default_table().items()))
+        emitted = torch_import_tables.import_tree(src, Path(tmp) / "tables")
+        if emitted != ["js8_varicode.txt"]:
+            raise AssertionError(f"table import emitted {emitted}")
+    return {"osd_calibrate": osd, "tune_topk": topk,
+            "wspr_calibrate": ws, "import_tables": emitted}
 
 
 def main() -> int:
@@ -1114,8 +1199,11 @@ def main() -> int:
     dstats = phase("decode_walls", decode_walls_phase, dev)
     pstats = phase("parallel", parallel_phase, dev)
     sstats = phase("live_soak", live_soak_phase, dev)
+    astats = phase("ap_fixtures", ap_fixtures_phase, dev)
+    tstats = phase("tools", tools_phase, dev)
     print(json.dumps({"parallel": pstats}))
     print(json.dumps({"live_soak": sstats["report"]}))
+    print(json.dumps({"ap_fixtures": astats, "tools": tstats}))
     print(json.dumps({"channelize_mixed_5ch": kmixed,
                       "channelize_weak_3ch": kweak,
                       "channelize_256ch": kwide}))

@@ -9,7 +9,9 @@ JS8, FST4 and FST4W at every period, WSPR, JT65 and Q65-30.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
+import time
 from typing import Protocol
 
 import numpy as np
@@ -61,6 +63,65 @@ class DecoderRegistry:
             if key not in self._cache:
                 self._cache[key] = _construct(mode, self.device, **kwargs)
             return self._cache[key]
+
+
+class DeviceLock:
+    """One decode at a time on one device.
+
+    A decode is a long sequence of small launches and a few host syncs.
+    Threads that issue such sequences at once on one device share one
+    interpreter lock and one stream, and slow each other more than they
+    overlap (four pool workers took 16x as long a batch as one).  So every
+    decoder's public entry holds its device's lock; the lock is reentrant,
+    since one entry may call another (WSPR's ``decode`` calls
+    ``decode_arrays``).  ``wait_s`` is the time callers spent waiting for
+    it, all threads together; :meth:`thread_wait_s` that of the calling
+    thread.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._local = threading.local()
+        self.wait_s = 0.0
+
+    def thread_wait_s(self) -> float:
+        return getattr(self._local, "wait_s", 0.0)
+
+    def __enter__(self) -> "DeviceLock":
+        t0 = time.monotonic()
+        self._lock.acquire()
+        waited = time.monotonic() - t0
+        self.wait_s += waited          # under the lock: no lost update
+        self._local.wait_s = self.thread_wait_s() + waited
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
+
+
+# one lock per device of the process: a device is shared by every decoder
+# on it, whoever built them
+_DEVICE_LOCKS: dict[torch.device, DeviceLock] = {}
+_DEVICE_LOCKS_LOCK = threading.Lock()
+
+
+def device_lock(device: torch.device | str) -> DeviceLock:
+    """The lock of ``device`` (equal devices, one lock; ``cuda`` means the
+    current CUDA device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _DEVICE_LOCKS_LOCK:
+        return _DEVICE_LOCKS.setdefault(device, DeviceLock())
+
+
+def on_device_lock(method):
+    """Run a decoder method under the lock of the decoder's ``device``."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with device_lock(self.device):
+            return method(self, *args, **kwargs)
+    return locked
 
 
 def window_batch(audio, device: torch.device) -> torch.Tensor:

@@ -37,7 +37,8 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes.base import DecodeResult, window_batch
+from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
+                                            window_batch)
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
 from cwsl_digi_tpu_torch.modes.osd import flip_patterns, osd_decode
 from cwsl_digi_tpu_torch.modes.subtract import subtract_known
@@ -781,6 +782,7 @@ class GFSKDecoder:
             self.spec,
             top_k=min(self.spec.top_k, max(128, self.spec.top_k // 2)))
 
+    @on_device_lock
     def decode_arrays_device(self, audio: torch.Tensor,
                              spec: ModeSpec | None = None
                              ) -> dict[str, torch.Tensor]:
@@ -814,6 +816,7 @@ class GFSKDecoder:
         return _pack_outputs(m["valid"], m["payload"], m["t0_hop"],
                              m["f0_bin"], m["score"], m["snr"]).cpu().numpy()
 
+    @on_device_lock
     def warm_passes(self, n_windows: int, depth: int | None = None) -> None:
         """Run every pass arity :meth:`decode` can reach once on silence
         (allocator pools, library handles), as the reference pre-compiles
@@ -832,6 +835,7 @@ class GFSKDecoder:
         _pack_outputs(m["valid"], m["payload"], m["t0_hop"], m["f0_bin"],
                       m["score"], m["snr"]).cpu()
 
+    @on_device_lock
     def decode(self, audio, depth: int | None = None):
         """Decode [n, N] (or [N]) windows with multi-pass subtraction."""
         if isinstance(audio, torch.Tensor):

@@ -27,7 +27,8 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes.base import DecodeResult, window_batch
+from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
+                                            window_batch)
 from cwsl_digi_tpu_torch.modes.gfsk_engine import (DEVICE_BYTES_BUDGET,
                                                    _bf16_matmul, _median_rows,
                                                    _top_k, device_batch_for)
@@ -275,6 +276,7 @@ class QaryDecoder:
         """Host tables the reference also builds (see ``convert.py``)."""
         return {k: torch.from_numpy(v) for k, v in self._host.items()}
 
+    @on_device_lock
     def decode_arrays_device(self, audio) -> dict[str, torch.Tensor]:
         """Device demod in calls of at most ``_max_device_batch`` windows;
         returns device-resident output tensors.  (The reference pads the
@@ -289,6 +291,7 @@ class QaryDecoder:
             return chunks[0]
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
+    @on_device_lock
     def decode_arrays(self, audio) -> dict[str, np.ndarray]:
         return {k: v.cpu().numpy()
                 for k, v in self.decode_arrays_device(audio).items()}
@@ -329,6 +332,7 @@ class QaryDecoder:
                   + 2 * self.spec.pad_hops)
         return max(1, device_batch_for(n_hops, self.spec.nfft, 64))
 
+    @on_device_lock
     def decode(self, audio):
         audio = window_batch(audio, self.device)
         if self.mp is not None:

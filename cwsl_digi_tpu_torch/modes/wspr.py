@@ -39,7 +39,8 @@ import torch
 from cwsl_digi_tpu_torch.constants import Mode, WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes.base import DecodeResult, window_batch
+from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
+                                            window_batch)
 from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate
 from cwsl_digi_tpu_torch.modes.gfsk_engine import (_median_rows, _top_k,
                                                    device_batch_for)
@@ -651,6 +652,7 @@ class WSPRDecoder:
         """Host tables the reference also builds (see ``convert.py``)."""
         return {k: torch.from_numpy(v) for k, v in self._host.items()}
 
+    @on_device_lock
     def decode_arrays_device(self, audio) -> dict[str, torch.Tensor]:
         """The device program over ``audio`` [n, N] (host array or tensor
         on ``device``), in calls of at most ``max_device_batch`` windows.
@@ -664,10 +666,12 @@ class WSPRDecoder:
             return chunks[0]
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
+    @on_device_lock
     def decode_arrays(self, audio) -> dict[str, np.ndarray]:
         return {k: v.cpu().numpy()
                 for k, v in self.decode_arrays_device(audio).items()}
 
+    @on_device_lock
     def decode(self, audio) -> list[list[DecodeResult]]:
         if not isinstance(audio, torch.Tensor):
             audio = np.asarray(audio, np.float32)

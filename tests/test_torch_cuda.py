@@ -14,6 +14,9 @@ Elsewhere every test skips.
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +29,13 @@ from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
 from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
 from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
 from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
+from test_torch_device_lock import pool_run
 from test_torch_parity import WSPRTolerance, assert_same_batch_decodes
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+from torch_ap_false import decode_window, fixtures  # noqa: E402
+
+AP_FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "ap_false"
 
 pytestmark = pytest.mark.cuda
 
@@ -70,6 +79,27 @@ def test_cuda_kernel_matches_plain_on_card(dev, fs, usb):
                                rtol=0, atol=1e-4)
     torch.cuda.synchronize()
     assert _kernels.launches["channelize"] == before + 4
+
+
+def test_one_decode_at_a_time_on_the_card(dev):
+    """4 pool workers, 8 FT8 jobs on ``cuda:0``: never two decodes in the
+    decoder's device call at once, every job decoded with its message."""
+    got = pool_run(dev)
+    assert got["decoded"] == 8 and got["calls"] == 8 and got["most"] == 1
+    assert got["found"] == ["K1ABC W9XYZ EN37"] * 8
+    assert got["lock_wait_s"] > 0.1
+
+
+@pytest.mark.parametrize("path", [p.name for p, _ in fixtures(AP_FIXTURES)])
+def test_ap_fixture_on_card_matches_cpu(dev, path):
+    """A live FT8 window that gave a false AP spot, decoded alone with the
+    live decoder's kwargs: the same messages on the card as on the CPU,
+    and the JAX package's (stored beside it)."""
+    side = dict(fixtures(AP_FIXTURES))[AP_FIXTURES / path]
+    audio = np.load(AP_FIXTURES / path)
+    got = decode_window(audio, side, dev)
+    assert got == decode_window(audio, side, torch.device("cpu"))
+    assert got == side["jax"]
 
 
 def test_ft8_decoder_on_card_matches_cpu(dev):

@@ -86,7 +86,11 @@ _PORT_FILES = sorted(
        "tools/channelizer_ab.py", "tools/parallel_cards.py",
        "tools/torch_parity.py", "tools/torch_snr_check.py",
        "tools/torch_soak.py", "tools/torch_soak_merge.py",
-       "tests/test_torch_cuda.py", "tests/test_torch_parity.py"])
+       "tools/torch_ap_false.py", "tools/torch_import_tables.py",
+       "tools/torch_osd_calibrate.py", "tools/torch_tune_topk.py",
+       "tools/torch_wspr_calibrate.py",
+       "tests/test_torch_cuda.py", "tests/test_torch_parity.py",
+       "tests/test_torch_device_lock.py"])
 
 
 def _jax_package_imports(source: str) -> list[str]:

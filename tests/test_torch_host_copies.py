@@ -143,10 +143,12 @@ HOST_PARTS = {
     ("modes/wspr.py", "WSPRDecoder.decode"): (
         ["    def decode(self, audio: np.ndarray) -> list[list[DecodeResult]]:",
          "        audio = np.asarray(audio, np.float32)"],
-        ["    def decode(self, audio) -> list[list[DecodeResult]]:",
+        ["    @on_device_lock",
+         "    def decode(self, audio) -> list[list[DecodeResult]]:",
          "        if not isinstance(audio, torch.Tensor):",
          "            audio = np.asarray(audio, np.float32)"],
-        "a tensor already on the decoder's device is taken as it is"),
+        "a tensor already on the decoder's device is taken as it is; one "
+        "decode at a time runs on a device"),
     ("modes/qra.py", "_mul_table"): None,
     ("modes/qra.py", "gf_mul"): None,
     ("modes/qra.py", "gf_inv"): None,

@@ -174,3 +174,38 @@ def test_tools_default_to_the_card(monkeypatch, tool, argv, tmp_path):
     assert not (tmp_path / "x.json").exists()
     assert torch_parity.tool_device("cpu") == torch.device("cpu")
     assert torch_parity.device_line(torch.device("cpu")) == "cpu"
+
+
+def test_keep_false_saves_what_the_decoder_got(tmp_path):
+    """``torch_soak.keep_false`` writes one channel of a job as the float32
+    window the decoder was given (no rescaling) with its sidecar, and
+    ``torch_ap_false`` decodes it again alone with the sidecar's kwargs."""
+    import torch_ap_false
+
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes.base import warmup_window
+    from cwsl_digi_tpu_torch.runtime.decoderpool import DecodeJob
+
+    audio = torch.from_numpy(np.stack(
+        [np.zeros(180_000, np.float32),
+         1e-3 * warmup_window("FT8").astype(np.float32)]))
+    job = DecodeJob(Mode.FT8, audio, [14_074_000, 14_077_000], [0, 1],
+                    epoch_time=1_792_219_500.0)
+    kwargs = {"my_call": "W2AXR", "depth": 1, "fmax_hz": 3000.0}
+    stem = torch_soak.keep_false(tmp_path, job, 1, ["K1ABC W9XYZ EN37", "X"],
+                                 ["X"], 3, kwargs)
+    assert stem == "FT8_1792219500_14077000"
+    saved = np.load(tmp_path / f"{stem}.npy")
+    assert saved.dtype == np.float32
+    np.testing.assert_array_equal(saved, audio[1].numpy())
+    (path, side), = torch_ap_false.fixtures(tmp_path)
+    assert path == tmp_path / f"{stem}.npy"
+    assert side == {"mode": "FT8", "dial": 14_077_000, "receiver": 3,
+                    "epoch": 1_792_219_500.0, "false": ["X"],
+                    "messages": ["K1ABC W9XYZ EN37", "X"],
+                    "batch_channels": 2, "channel_index": 1,
+                    "decoder": kwargs}
+    got = torch_ap_false.decode_window(saved, side, torch.device("cpu"))
+    assert got == ["K1ABC W9XYZ EN37"]
+    assert torch_ap_false.decode_window(saved, side, torch.device("cpu"),
+                                        companion=True) == got

@@ -13,7 +13,9 @@ at N channels, on the card.  The report records what the scheduler did:
   - latency per spot: spot time - (window epoch + T/R period), against a
     deadline of one period;
   - the stages: channelize dispatch per audio-second, window-close lag,
-    queue wait and decode wall per batch;
+    queue wait (for a pool worker), the wait for the device's decode lock
+    (``modes/base.py:DeviceLock``) and the decode wall per batch without
+    that wait;
   - the injected bursts found, each on its own receiver's dials, and
     ``misrouted``: spots of a burst on another receiver's dials.
 
@@ -33,8 +35,16 @@ bursts once, at its first read).  The run stops once the App has decoded
 Usage (the card by default)::
 
     python tools/torch_soak.py --channels 512 --receivers 8 --windows 10
+    python tools/torch_soak.py --channels 512 --keep-false chiprun_out/ap
     python tools/torch_soak.py --channels 4 --receivers 2 --windows 1 \\
         --device cpu --fs 48000          # rehearsal on the CPU
+
+``--keep-false DIR`` saves, for each channel-window with a decode whose
+message was never injected, what the decoder was given: the float32
+window as ``.npy`` (the CUDA tensor as it reached the decoder, not the
+peak-scaled WAV of the pool's ``keepwav``) and a JSON sidecar with the
+mode, dial, window epoch, the false messages, every message of that
+channel's decode and the decoder's construction kwargs.
 
 Merge several runs with ``tools/torch_soak_merge.py``.
 """
@@ -186,20 +196,41 @@ def judge_spots(spots: list[dict], bursts: list[Burst],
             "off_range_spots": off_range, "false_spots": false}
 
 
+def keep_false(out_dir: Path, job, ci: int, messages: list[str],
+               false: list[str], receiver: int, decoder_kwargs: dict) -> str:
+    """Write channel ``ci`` of ``job`` as float32 ``.npy`` and its JSON
+    sidecar into ``out_dir``; returns the file stem."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dial = int(job.base_freqs[ci])
+    stem = f"{job.mode.value}_{job.epoch_time:.0f}_{dial}"
+    audio = job.audio[ci]
+    audio = audio.cpu().numpy() if hasattr(audio, "cpu") else audio
+    np.save(out_dir / f"{stem}.npy", np.asarray(audio, np.float32))
+    (out_dir / f"{stem}.json").write_text(json.dumps({
+        "mode": job.mode.value, "dial": dial, "receiver": receiver,
+        "epoch": job.epoch_time, "false": false, "messages": messages,
+        "batch_channels": int(job.audio.shape[0]), "channel_index": ci,
+        "decoder": decoder_kwargs}, indent=1))
+    return stem
+
+
 def run_soak(channels: int, windows: int, bursts: int, receivers: int,
              device=None, fs: int = FS, lo: int = LO, seed: int = 9,
              timeout_s: float | None = None, loglevel: int = 2,
-             workers: int | None = None) -> dict:
+             workers: int | None = None,
+             keep_false_dir: str | Path | None = None) -> dict:
     """Run the port's App live at ``channels`` FT8 dials over
     ``receivers`` synthetic sources (``workers`` decode slots, see
     ``build_config``) until ``channels x windows`` channel-windows are
     decoded (or ``timeout_s``, default the windows plus four periods and
-    180 s); returns the report."""
+    180 s); returns the report.  With ``keep_false_dir``, every channel
+    window with a decode never injected is saved there (``keep_false``)."""
     import torch
 
     from torch_parity import device_line, tool_device
 
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes.base import device_lock
     from cwsl_digi_tpu_torch.runtime import app as app_mod
 
     dev = tool_device(device)
@@ -216,9 +247,17 @@ def run_soak(channels: int, windows: int, bursts: int, receivers: int,
 
     app = app_mod.App(cfg, max_runtime_s=timeout_s + 60, device=dev)
     spots, jobs, decoded, anchor = [], [], set(), {}
+    batches, kept, results = [], [], {}
     orig_handle, orig_push = app.spots.handle, app.pool.push
     orig_decode, orig_setup = app.pool._decode, app.setup_receivers
+    orig_result = app.pool.on_result
     rx_of = {d: r for r, ds in enumerate(dials) for d in ds}
+    lock = device_lock(dev)
+    injected = {b.text for b in plan}
+    decoder_kwargs = {
+        "my_call": cfg.get("operator", "callsign"),
+        "depth": max(1, min(3, int(cfg.get("wsjtx", "decodedepth")))),
+        "fmax_hz": float(cfg.get("wsjtx", "highestdecodefreq"))}
 
     def capture(res, **kw):
         s = orig_handle(res, **kw)
@@ -232,10 +271,27 @@ def run_soak(channels: int, windows: int, bursts: int, receivers: int,
         jobs.append(job.audio.device.type)
         orig_push(job)
 
+    def on_result(job, ci, res):
+        results.setdefault((id(job), ci), []).append(res.message)
+        orig_result(job, ci, res)
+
     def decode(job):
+        # the pool's decode wall holds the wait for the device lock; the
+        # batch's own decode is the wall without it
+        waited0, t = lock.thread_wait_s(), time.monotonic()
         orig_decode(job)
-        decoded.add((rx_of[job.base_freqs[0]],
-                     int(round((job.epoch_time - anchor["utc"]) / T_R))))
+        wall = time.monotonic() - t
+        waited = lock.thread_wait_s() - waited0
+        batches.append({"lock_wait_s": round(waited, 3),
+                        "decode_s": round(wall - waited, 3)})
+        rx = rx_of[job.base_freqs[0]]
+        decoded.add((rx, int(round((job.epoch_time - anchor["utc"]) / T_R))))
+        for ci in range(job.audio.shape[0]):
+            msgs = results.pop((id(job), ci), [])
+            false = [m for m in msgs if m not in injected]
+            if false and keep_false_dir is not None:
+                kept.append(keep_false(Path(keep_false_dir), job, ci, msgs,
+                                       false, rx, decoder_kwargs))
 
     def setup(utc_anchor):
         if anchor:
@@ -258,6 +314,7 @@ def run_soak(channels: int, windows: int, bursts: int, receivers: int,
     app.spots.handle = capture
     app.pool.push = push
     app.pool._decode = decode
+    app.pool.on_result = on_result
     app.setup_receivers = setup
 
     print(f"soak: {channels} channels on {receivers} receiver(s) x "
@@ -269,6 +326,7 @@ def run_soak(channels: int, windows: int, bursts: int, receivers: int,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     _kernels.launches["channelize"] = 0
+    lock_wait0 = lock.wait_s
     run_started = time.time()
     t_run = time.monotonic()
     runner = threading.Thread(target=app.run, daemon=True)
@@ -284,6 +342,8 @@ def run_soak(channels: int, windows: int, bursts: int, receivers: int,
         n_decoded = app.pool.count_decoded_windows
         got, done = list(spots), set(decoded)
         stage_log = list(app.pool.stage_log)
+        batch_log = list(batches)
+        lock_wait = lock.wait_s - lock_wait0
         rxs = list(app.receivers.values())
         overruns = sum(rx.overruns for rx in rxs)
         ch_wall = sum(rx.stage["channelize_wall_s"] for rx in rxs)
@@ -329,11 +389,17 @@ def run_soak(channels: int, windows: int, bursts: int, receivers: int,
                 "p50": _pct([j["queue_wait_s"] for j in stage_log], 50),
                 "p95": _pct([j["queue_wait_s"] for j in stage_log], 95),
                 "max": _pct([j["queue_wait_s"] for j in stage_log], 100)},
+            "lock_wait_s": {
+                "p50": _pct([j["lock_wait_s"] for j in batch_log], 50),
+                "p95": _pct([j["lock_wait_s"] for j in batch_log], 95),
+                "max": _pct([j["lock_wait_s"] for j in batch_log], 100),
+                "total": round(lock_wait, 3)},
             "decode_s_per_batch": {
-                "p50": _pct([j["decode_s"] for j in stage_log], 50),
-                "p95": _pct([j["decode_s"] for j in stage_log], 95),
-                "series": [j["decode_s"] for j in stage_log]},
+                "p50": _pct([j["decode_s"] for j in batch_log], 50),
+                "p95": _pct([j["decode_s"] for j in batch_log], 95),
+                "series": [j["decode_s"] for j in batch_log]},
         },
+        "kept_false": list(kept),
         "audio_devices": sorted(set(jobs)),
         "channelize_launches": launches,
         "peak_device_bytes": peak,
@@ -363,11 +429,15 @@ def main(argv: list[str] | None = None) -> dict:
                     help="default chiprun_out/torch_soak_<N>x<R>.json")
     ap.add_argument("--loglevel", type=int, default=2)
     ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--keep-false", default=None, metavar="DIR",
+                    help="save each channel-window with a decode never "
+                         "injected (float32 .npy + JSON sidecar) in DIR")
     args = ap.parse_args(argv)
 
     report = run_soak(args.channels, args.windows, args.bursts,
                       args.receivers, args.device, fs=args.fs,
-                      loglevel=args.loglevel, workers=args.workers)
+                      loglevel=args.loglevel, workers=args.workers,
+                      keep_false_dir=args.keep_false)
     out = Path(args.out or REPO / "chiprun_out" / (
         f"torch_soak_{args.channels}x{args.receivers}"
         f"w{report['pool_workers']}.json"))
