@@ -55,15 +55,21 @@
     no spot later than its 15 s deadline; it prints the pool size, the
     latencies, the wait for the card's decode lock, stages, busy fraction
     and peak device memory;
-11. decodes each committed live FT8 window that gave a false AP spot
-    (``tests/torch_fixtures/ap_false``) on the card, alone, with the live
-    decoder's kwargs: its decode list must equal the JAX package's, stored
-    beside it;
+11. decodes each committed live FT8 window that gave a false spot
+    (``tests/torch_fixtures/ap_false``, ``tests/torch_fixtures/false_spots``)
+    on the card, alone, with the live decoder's kwargs: its decode list
+    must equal the JAX package's, stored beside it;
 12. runs each of the last ported tools once at a tiny size on the card
     (``tools/torch_osd_calibrate.py``, ``torch_tune_topk.py``,
     ``torch_wspr_calibrate.py``; ``torch_import_tables.py`` on a
     synthesized ``varicode.cpp``) and prints what they print;
-13. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+13. runs every section of the port's bench (``tools/torch_bench_sections.py``)
+    on the card at a small size: the channelizer at 256 channels, the
+    busy-band FT8 decode at batch 8 with one timed run (no decoded message
+    may be one never injected), the decode of each of the 15 modes at
+    batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
+    share at batch 2, and prints each section's line;
+14. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -1084,18 +1090,22 @@ def live_soak_phase(dev) -> dict:
 
 AP_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures" \
     / "ap_false"
+FALSE_SPOTS = AP_FIXTURES.parent / "false_spots"
 
 
 def ap_fixtures_phase(dev) -> dict:
-    """Each committed live FT8 window with a false AP spot, decoded alone
-    on the card with the live decoder's kwargs (``tools/torch_ap_false``):
-    its messages must equal the JAX package's list stored beside it."""
+    """Each committed live FT8 window with a false spot (the operator-call
+    AP form, the CQ form, neither), decoded alone on the card with the
+    live decoder's kwargs (``tools/torch_ap_false``): its messages must
+    equal the JAX package's list stored beside it."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     from torch_ap_false import decode_window, fixtures
 
-    found = fixtures(AP_FIXTURES)
-    if not found:
-        raise AssertionError(f"no AP fixtures under {AP_FIXTURES}")
+    ap, other = fixtures(AP_FIXTURES), fixtures(FALSE_SPOTS)
+    if not ap or not other:
+        raise AssertionError(f"no fixtures under {AP_FIXTURES} or "
+                             f"{FALSE_SPOTS}")
+    found = ap + other
     decoders: dict = {}
     out = {}
     for path, side in found:
@@ -1151,6 +1161,48 @@ def tools_phase(dev) -> dict:
             "wspr_calibrate": ws, "import_tables": emitted}
 
 
+def bench_phase(dev) -> dict:
+    """Every section of the port's bench once on the card, small: each must
+    return a result, and the busy-band decode no message never injected.
+    The channelizer section counts its own launches (the warm-up and the
+    timed calls of ``BatchChannelizer.process``, not the launches captured
+    to time the kernel alone)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_bench_sections
+
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.dsp import _kernels
+
+    # (name, section, args) at a small size
+    sections = [("channelizer", "section_channelizer", (256,)),
+                ("decode_production", "section_decode_production", (8, 1))]
+    sections += [(f"mode_decode:{m.value}", "section_mode_decode",
+                  (m.value, 1, 1)) for m in Mode]
+    sections += [("recall", "section_recall", (8,))]
+    sections += [(f"qary_host_fraction:{m}", "section_qary_host_fraction",
+                  (m, 2)) for m in ("JT65", "Q65-30")]
+    out = {}
+    _kernels.launches["channelize"] = 0
+    for name, fn, args in sections:
+        r = getattr(torch_bench_sections, fn)(*args, device=dev)
+        if not r:
+            raise AssertionError(f"bench section {name} returned nothing")
+        r.pop("decodes", None)
+        print(f"bench {name}: {json.dumps(r)}")
+        out[name] = r
+    chan, prod = out["channelizer"], out["decode_production"]
+    if prod["false_messages"]:
+        raise AssertionError(f"busy-band decode: {prod['false_messages']}")
+    if not 0 < chan["kernel_launches"] <= _kernels.launches["channelize"] \
+            or chan["backend"] != "cuda":
+        raise AssertionError(f"bench channelizer: {chan['kernel_launches']} "
+                             "kernel launches")
+    missing = [k for k, r in out.items() if r.get("found_share", 1.0) <= 0]
+    if missing:
+        raise AssertionError(f"bench sections decoded nothing: {missing}")
+    return {"launches": chan["kernel_launches"], "sections": out}
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -1201,6 +1253,7 @@ def main() -> int:
     sstats = phase("live_soak", live_soak_phase, dev)
     astats = phase("ap_fixtures", ap_fixtures_phase, dev)
     tstats = phase("tools", tools_phase, dev)
+    bstats = phase("bench", bench_phase, dev)
     print(json.dumps({"parallel": pstats}))
     print(json.dumps({"live_soak": sstats["report"]}))
     print(json.dumps({"ap_fixtures": astats, "tools": tstats}))
@@ -1218,12 +1271,13 @@ def main() -> int:
         "replaces": "cwsl_digi_tpu/dsp/pallas_channelizer.py:61",
         "launches": (mstats["launches"] + xstats["launches"]
                      + wstats["launches"] + pstats["launches"]
-                     + sstats["launches"]),
+                     + sstats["launches"] + bstats["launches"]),
         "launches_by_phase": {"ft8_64ch_app": mstats["launches"],
                               "mixed_mode_app": xstats["launches"],
                               "weak_modes_app": wstats["launches"],
                               "parallel": pstats["launches"],
-                              "live_soak": sstats["launches"]},
+                              "live_soak": sstats["launches"],
+                              "bench": bstats["launches"]},
         "max_abs_err": max(kmain["max_abs_err"], kmixed["max_abs_err"],
                            kweak["max_abs_err"], kwide["max_abs_err"],
                            pstats["max_abs_err"]),

@@ -36,6 +36,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 from torch_ap_false import decode_window, fixtures  # noqa: E402
 
 AP_FIXTURES = Path(__file__).resolve().parent / "torch_fixtures" / "ap_false"
+FALSE_SPOTS = AP_FIXTURES.parent / "false_spots"
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +101,17 @@ def test_ap_fixture_on_card_matches_cpu(dev, path):
     got = decode_window(audio, side, dev)
     assert got == decode_window(audio, side, torch.device("cpu"))
     assert got == side["jax"]
+
+
+@pytest.mark.parametrize("path", [p.name for p, _ in fixtures(FALSE_SPOTS)])
+def test_false_spot_fixture_on_card_matches_cpu(dev, path):
+    """A live FT8 window with a CQ-form or no-AP-form false spot: the same
+    messages on the card as on the CPU and in the JAX package."""
+    side = dict(fixtures(FALSE_SPOTS))[FALSE_SPOTS / path]
+    audio = np.load(FALSE_SPOTS / path)
+    got = decode_window(audio, side, dev)
+    assert got == decode_window(audio, side, torch.device("cpu"))
+    assert got == side["jax"] == side["false"]
 
 
 def test_ft8_decoder_on_card_matches_cpu(dev):

@@ -51,6 +51,7 @@ def test_port_and_chip_smoke_import_without_jax():
         # the port's tools, which run on the machine with the card
         "sys.path.insert(0, 'tools')\n"
         "import torch_parity, torch_snr_check, torch_soak, torch_soak_merge\n"
+        "import torch_bench_sections, bench_cuda\n"
         # the card-only tests run where there is no JAX
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_cuda\n"
@@ -82,7 +83,8 @@ def test_port_and_chip_smoke_import_without_jax():
 _PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix()
      for p in (REPO / "cwsl_digi_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "tools/torch_decode_profile.py",
+    + ["chip_smoke.py", "bench_cuda.py", "tools/torch_bench_sections.py",
+       "tools/torch_decode_profile.py",
        "tools/channelizer_ab.py", "tools/parallel_cards.py",
        "tools/torch_parity.py", "tools/torch_snr_check.py",
        "tools/torch_soak.py", "tools/torch_soak_merge.py",

@@ -15,10 +15,13 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "tools"))
 
+import bench_cuda  # noqa: E402
 import osd_calibrate as jtool  # noqa: E402  (the JAX tool)
 import torch_ap_false  # noqa: E402
+import torch_bench_sections  # noqa: E402
 import torch_osd_calibrate  # noqa: E402
 import torch_tune_topk  # noqa: E402
 import torch_wspr_calibrate  # noqa: E402
@@ -47,6 +50,9 @@ def test_same_trials_and_result_lines(capsys, monkeypatch):
     (torch_wspr_calibrate.main, ["--beam-sweep"]),
     (torch_tune_topk.main, ["2", "64"]),
     (torch_ap_false.main, ["chiprun_out/ap_false"]),
+    (torch_bench_sections.main, ["channelizer"]),
+    (torch_bench_sections.main, ["mode_decode", "FT4"]),
+    (bench_cuda.main, []),
 ])
 def test_tools_default_to_the_card(monkeypatch, tool, argv):
     """``--device`` defaults to ``cuda:0``, which raises "no CUDA device"
