@@ -25,7 +25,7 @@ It prints ONE JSON line on stdout (progress goes to stderr)::
 -18 to -22 dB, the decode wall per window of every mode of the reference's
 72-line config and the mixed-mode capacity over that mix, the q-ary modes'
 host share, each section's wall and peak device memory, and the kernel
-library's load or build time.
+libraries' load or build time (the channelizer's and the LDPC kernels').
 
 Every section runs in this one process (``tools/torch_bench_sections.py``).
 A section that raises or returns nothing ends the run with a non-zero exit
@@ -110,11 +110,14 @@ def device_info(dev: torch.device) -> dict:
 
 
 def load_kernels() -> float:
-    """Load (or build with nvcc) the kernel library; seconds taken."""
+    """Load (or build with nvcc) the kernel libraries, the channelizer's
+    and the LDPC kernels'; seconds taken."""
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     t0 = time.perf_counter()
     _kernels.load_library()
+    ldpc_kernels.load_library()
     return time.perf_counter() - t0
 
 

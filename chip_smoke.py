@@ -3,73 +3,95 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and fails without CUDA;
-2. builds the hand-written channelizer kernel from ``cwsl_digi_tpu_torch``;
-3. holds the kernel against its plain PyTorch version on the card, at the
-   FT8 path's 64 dials, the mixed-mode path's 5 lines, the weak-mode
-   path's 3 lines and the bench's 256 channels (192 kHz, 15 s of
-   seeded IQ in the receiver's 0.25 s chunks, plus one whole-window call),
-   and times one chunk in turns through the kernel, the plain version and
-   one library call (a cuBLAS complex GEMM of the same taps and IQ), beside
-   the bound of the function's arithmetic; the ``kernels`` line gives the
-   main path's 64-channel numbers, the line before it the 256-channel ones;
-4. runs the port's App on a seeded 192 kHz file replay with 64 FT8
+2. builds the port's two kernel libraries from ``cwsl_digi_tpu_torch``,
+   one nvcc each, started together: the channelizer
+   (``dsp/csrc/channelizer.cu``) and the LDPC kernels ``bp_minsum`` and
+   ``osd`` (``modes/csrc/ldpc.cu``), printing each ptxas report;
+3. holds the channelizer kernel against its plain PyTorch version on the
+   card, at the FT8 path's 64 dials, the mixed-mode path's 5 lines, the
+   weak-mode path's 3 lines and the bench's 256 channels (192 kHz, 15 s
+   of seeded IQ in the receiver's 0.25 s chunks, plus one whole-window
+   call), and times one chunk in turns through the kernel, the plain
+   version and one library call (a cuBLAS complex GEMM of the same taps
+   and IQ), beside the bound of the function's arithmetic; the
+   ``kernels`` line gives the main path's 64-channel numbers, the line
+   before it the 256-channel ones;
+4. holds ``bp_minsum`` and ``osd`` against their plain versions (phase
+   ``ldpc_kernels``): at the FT8 main path's first-pass shapes on the
+   inputs its decode hands them (24 busy windows with 3 AP hypotheses:
+   36,864 BP words, 384 OSD words), the same rounded to whole numbers
+   (ties), and on seeded noisy codewords of FT4, JS8 (174,87), FST4-60
+   (240,101) and WSPR's (162,50) OSD with 740 patterns.  BP against the
+   plain version on CPU copies of the inputs (its slot-order sums, as the
+   kernel's): hard bits and parity flags equal, posterior totals within
+   1e-4; OSD against the plain version on the card: codewords and hard
+   errors equal (near-ties counted apart), distances within 1e-5
+   relative.  Then each kernel's device time at the main path's shape
+   beside the plain version's on the card and the bound;
+5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
    every expected spot must appear within 2 Hz and no other, through the
-   kernel, with CUDA tensors reaching the decoder;
-5. runs the App on seeded 192 kHz IQ with the lines a 20 m skimmer runs
+   channelizer, ``bp_minsum`` and ``osd`` kernels, with CUDA tensors
+   reaching the decoder;
+6. runs the App on seeded 192 kHz IQ with the lines a 20 m skimmer runs
    on one receiver: FT8, JS8, FT4, FST4-60 and FST4W-120.  The replay
    starts on the App's own anchor (the next UTC 15 s boundary) with noise
    up to the next 2-minute boundary, then 122 s with bursts in several
    windows of each (SNR -5 dB down to about 3 dB above each mode's
    threshold); every window must close on its own UTC boundary from the
    anchor on, and every expected spot (JS8's by its sender grammar) appear
-   within 2 Hz, and no other, through the kernel;
-6. runs the App on seeded 192 kHz IQ with the weak-signal lines of the
+   within 2 Hz, and no other, through the three kernels;
+7. runs the App on seeded 192 kHz IQ with the weak-signal lines of the
    same receiver: WSPR (14.0956 MHz), JT65 (14.076 MHz) and Q65-30
-   (14.0795 MHz), written for the App's anchor as in 5: one WSPR window,
+   (14.0795 MHz), written for the App's anchor as in 6: one WSPR window,
    two JT65 windows and four Q65-30 windows after the 2-minute boundary,
    8 bursts (SNR -8 dB down to about 3 dB above each mode's threshold);
    every window on its own boundary, every expected spot within 2 Hz and
-   no other, through the kernel;
-7. decodes one synthesized window of each long period (FST4-300/900/1800,
+   no other, through the channelizer and WSPR's OSD through ``osd`` (none
+   of the three modes has an LDPC code);
+8. decodes one synthesized window of each long period (FST4-300/900/1800,
    FST4W-300/900/1800) through ``get_decoder`` on the card, printing the
    spectrogram branch, the decode wall and the peak device memory;
-8. times the decode of one window and of a 64-window batch for FT4, JS8,
+9. times the decode of one window and of a 64-window batch for FT4, JS8,
    FST4-60, WSPR, JT65 and Q65-30 (and the peak device memory of the
    64-window WSPR batch);
-9. runs the parallel layer on ``cuda:0``: the channel-sharded skim of the
-   64 dials (bursts in 8) on a virtual 4-entry mesh against a 1-entry
-   mesh, a 900 s 192 kHz window time-sharded 4 ways (4 channels) against
-   one device's whole window and the plain version with its FST4W-900
-   burst decoded, the kernel against the plain version at the shards'
-   offsets, ``entry()``, ``dryrun_multichip`` on a virtual 4-entry mesh
-   and the skim through a one-rank NCCL process group;
-10. runs the port's App live (``tools/torch_soak.py``) at 512 FT8 channels
+10. runs the parallel layer on ``cuda:0``: the channel-sharded skim of the
+    64 dials (bursts in 8) on a virtual 4-entry mesh against a 1-entry
+    mesh, a 900 s 192 kHz window time-sharded 4 ways (4 channels) against
+    one device's whole window and the plain version with its FST4W-900
+    burst decoded, the kernel against the plain version at the shards'
+    offsets, ``entry()``, ``dryrun_multichip`` on a virtual 4-entry mesh
+    and the skim through a one-rank NCCL process group;
+11. runs the port's App live (``tools/torch_soak.py``) at 512 FT8 channels
     as 8 synthetic real-time 192 kHz receivers of 64 dials, for 3 windows
     with 6 bursts a window spread over the receivers, scheduled from the
     App's anchor: every channel-window decoded, no stale drop or ingest
     overrun, every burst found on its own receiver's dials and no spot on
-    another's, CUDA audio into the decoders, through the kernel, with the
-    App's default pool (4 workers, one decode at a time on the card) and
-    no spot later than its 15 s deadline; it prints the pool size, the
-    latencies, the wait for the card's decode lock, stages, busy fraction
-    and peak device memory;
-11. decodes each committed live FT8 window that gave a false spot
+    another's, CUDA audio into the decoders, through the three kernels,
+    with the App's default pool (4 workers, one decode at a time on the
+    card) and no spot later than its 15 s deadline; it prints the pool
+    size, the latencies, the wait for the card's decode lock, stages, busy
+    fraction and peak device memory;
+12. decodes each committed live FT8 window that gave a false spot
     (``tests/torch_fixtures/ap_false``, ``tests/torch_fixtures/false_spots``)
     on the card, alone, with the live decoder's kwargs: its decode list
     must equal the JAX package's, stored beside it;
-12. runs each of the last ported tools once at a tiny size on the card
+13. runs each of the last ported tools once at a tiny size on the card
     (``tools/torch_osd_calibrate.py``, ``torch_tune_topk.py``,
     ``torch_wspr_calibrate.py``; ``torch_import_tables.py`` on a
     synthesized ``varicode.cpp``) and prints what they print;
-13. runs every section of the port's bench (``tools/torch_bench_sections.py``)
+14. runs every section of the port's bench (``tools/torch_bench_sections.py``)
     on the card at a small size: the channelizer at 256 channels, the
     busy-band FT8 decode at batch 8 with one timed run (no decoded message
     may be one never injected), the decode of each of the 15 modes at
     batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
-    share at batch 2, and prints each section's line;
-14. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+    share at batch 2, and prints each section's line; it must launch all
+    three kernels;
+15. prints a ``{"kernels": [...]}`` line (``channelize``, ``bp_minsum``,
+    ``osd``, each with its launches in the App phases 5-7, 11 and 14, which
+    set every count to 0 before they start and read it after), then
+    ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -103,6 +125,16 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 SPOT_TOL_HZ = 2
+LDPC_KERNELS = ("bp_minsum", "osd")
+# the XLA programs of the JAX package that the LDPC kernels replace
+LDPC_REPLACES = {"bp_minsum": "cwsl_digi_tpu/modes/ldpc.py:238",
+                 "osd": "cwsl_digi_tpu/modes/osd.py:68"}
+BP_POST_TOL = 1e-4       # bp_minsum vs the plain version on the CPU (the
+                         # same slot-order sums), posterior totals max abs;
+                         # hard bits and parity flags exact
+OSD_DIST_RTOL = 1e-5     # osd vs plain, soft distance (sums of the
+                         # mismatched weights in another order); codeword
+                         # and hard errors exact outside near-ties
 
 
 def card_line() -> str:
@@ -111,6 +143,33 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def build_libraries(mods: dict) -> None:
+    """Build (or load) each kernel library, one nvcc each, all started
+    together; print the wall and each build's ptxas report.  Raises the
+    first build's error."""
+    errors = {}
+
+    def build(name, mod):
+        try:
+            mod.load_library()
+        except BaseException as e:       # re-raised below
+            errors[name] = e
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=build, args=item)
+               for item in mods.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise next(iter(errors.values()))
+    print(f"build: {', '.join(mods)} libraries in "
+          f"{time.monotonic() - t0:.1f} s")
+    for name, mod in mods.items():
+        print(f"{name}: {mod.build_log.strip()}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -269,6 +328,250 @@ def kernel_phase(dev, freqs) -> dict:
             "gemm_form_bound_ms": gemm_ms}
 
 
+def noisy_llrs(gen: np.ndarray, n_words: int, seed: int,
+               ties: int = 0) -> np.ndarray:
+    """LLRs [n_words, n] of random codewords of the code ``gen`` [k, n]
+    generates, over BPSK and white noise at Eb/N0 0 to 4 dB, scaled to the
+    decoders' std-3 range (positive = bit 0); the first ``ties`` words are
+    rounded to whole numbers, so |LLR| ties (the OSD's stable sort) and
+    duplicated minima (min-sum) occur."""
+    k, n = gen.shape
+    rng = np.random.default_rng(seed)
+    info = rng.integers(0, 2, size=(n_words, k))
+    cw = (info @ gen.astype(np.int64)) % 2
+    snr = 10 ** (np.linspace(0.0, 4.0, n_words) / 10)[:, None]
+    sigma = np.sqrt(1.0 / (2 * snr * k / n))
+    y = (1.0 - 2.0 * cw) + sigma * rng.standard_normal(cw.shape)
+    llr = 2 * y / sigma ** 2
+    llr = llr / llr.std(axis=1, keepdims=True) * 3.0
+    llr[:ties] = np.round(llr[:ties])
+    return llr.astype(np.float32)
+
+
+def bp_vs_plain(bp, llrs: torch.Tensor) -> dict:
+    """``bp.decode_full`` (the ``bp_minsum`` kernel on a CUDA tensor)
+    against ``decode_full_plain`` on CPU copies of the same LLRs, where the
+    plain version sums each variable's incoming messages in column-slot
+    order, as the kernel does: hard bits and parity flags must be equal
+    and the posterior totals within BP_POST_TOL.  Beside it, the plain
+    version on the card (``on_card_plain``), whose 3-term sums torch may
+    take in another order: min-sum carries that rounding into totals that
+    differ by whole units in words that do not converge, so it is reported,
+    not held to a tolerance."""
+    from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
+
+    kh, kok, kpost = bp.decode_full(llrs)
+    host = BPDecoder(bp.code, iters=bp.iters, alpha=bp.alpha, device="cpu")
+    ph, pok, ppost = host.decode_full_plain(llrs.cpu())
+    ch, cok, cpost = bp.decode_full_plain(llrs)
+
+    def diff(h, ok, post):
+        err = (kpost.cpu() - post.to("cpu")).abs()
+        return {"hard_differ": int(((kh.cpu() != h.cpu()).any(dim=1)
+                                    | (kok.cpu() != ok.cpu())).sum()),
+                "max_abs_err": float(err.max()),
+                "words_above_tol": int((err.max(dim=1).values
+                                        > BP_POST_TOL).sum())}
+
+    got = diff(ph, pok, ppost)
+    return {"ok": got["hard_differ"] == 0
+            and got["max_abs_err"] <= BP_POST_TOL,
+            "words": llrs.shape[0], **got, "parity_ok": int(pok.sum()),
+            "on_card_plain": diff(ch, cok, cpost)}
+
+
+def osd_vs_plain(gen, llrs: torch.Tensor, patterns, pattern_idx) -> dict:
+    """``osd_decode`` (the ``osd`` kernel on a CUDA tensor) against
+    ``osd_decode_plain`` on the same LLRs.  Where the codewords differ and
+    the two distances are within OSD_DIST_RTOL of each other, the best two
+    patterns were a near-tie that sums in another order may split
+    (``near_ties``); any other differing codeword is a fault
+    (``codeword_differ``).  Where they agree, the hard-error counts must be
+    equal and the distances within OSD_DIST_RTOL."""
+    from cwsl_digi_tpu_torch.modes import osd
+
+    kc, kd, kn = osd.osd_decode(gen, llrs, patterns, pattern_idx)
+    pc, pd, pn = osd.osd_decode_plain(gen, llrs, patterns)
+    same = (kc == pc).all(dim=1)
+    rel = (kd - pd).abs() / pd.abs().clamp(min=1e-30)
+    near = ~same & (rel <= OSD_DIST_RTOL)
+    got = {"words": llrs.shape[0],
+           "codeword_differ": int((~same & ~near).sum()),
+           "near_ties": int(near.sum()),
+           "nhard_differ": int((same & (kn != pn)).sum()),
+           "dist_rel_err": float(rel[same].max()) if bool(same.any())
+           else 0.0,
+           "max_abs_err": float((kd - pd)[same].abs().max())
+           if bool(same.any()) else 0.0}
+    return {"ok": got["codeword_differ"] == 0 and got["nhard_differ"] == 0
+            and got["dist_rel_err"] <= OSD_DIST_RTOL, **got}
+
+
+def main_path_ldpc_inputs(dev):
+    """The FT8 main path's first-pass BP and OSD inputs as the decode
+    hands them over: ``FT8Decoder`` with the operator's call (3 AP
+    hypotheses) on one device batch of the bench's busy windows (6
+    signals a window at -20 to -5 dB).  Returns (decoder, BP LLRs, OSD
+    LLRs)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from torch_bench_sections import make_busy_windows
+
+    from cwsl_digi_tpu_torch.modes import gfsk_engine, ldpc
+    from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
+
+    dec = FT8Decoder(my_call="W2AXR", depth=3, device=dev)
+    wins, _ = make_busy_windows(dec.max_device_batch)
+    bp_in, osd_in = [], []
+    orig_bp, orig_osd = ldpc.BPDecoder.decode_full, gfsk_engine.osd_decode
+
+    def bp_rec(self, llrs):
+        bp_in.append(llrs.clone())
+        return orig_bp(self, llrs)
+
+    def osd_rec(gen, llrs, patterns, pattern_idx=None):
+        osd_in.append(llrs.clone())
+        return orig_osd(gen, llrs, patterns, pattern_idx)
+
+    ldpc.BPDecoder.decode_full = bp_rec
+    gfsk_engine.osd_decode = osd_rec
+    try:
+        dec.decode(torch.from_numpy(wins).to(dev))
+    finally:
+        ldpc.BPDecoder.decode_full = orig_bp
+        gfsk_engine.osd_decode = orig_osd
+    return dec, bp_in[0], osd_in[0]
+
+
+def bp_bound_ms(bp, m: int) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of min-sum BP over ``m`` words: the LLRs
+    read and hard bits, parity flags and totals written once at the HBM
+    rate, and per word and iteration 5 float operations an edge (the
+    variable->check difference, the two minima, the scaling, the sum into
+    the variable) and one a variable (the channel LLR), plus the last
+    totals and the syndrome, at the FP32 rate."""
+    t = bp.t
+    edges = int(t.row_mask.sum())
+    ops = m * (bp.iters * (5 * edges + t.n) + 2 * edges + t.n)
+    n_bytes = m * t.n * (4 + 1 + 4) + m + 2 * (t.row_cols.size
+                                               + t.col_slots.size)
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
+            {"edges": edges, "ops": ops, "bytes": n_bytes})
+
+
+def osd_bound_ms(k: int, n: int, n_pat: int, m: int
+                 ) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of OSD over ``m`` words: the LLRs,
+    generator and pattern lists read and codewords, distances and counts
+    written once at the HBM rate; per word the sort's n*ceil(log2 n)
+    comparisons, the elimination's k pivots XORed into k rows of
+    ceil(n/32) words, each pattern's re-encoding (5 word operations a row
+    word: 3 flips, the mismatch, the count) and its soft distance (a
+    multiply and an add a bit), at the FP32 rate (integer and float
+    operations alike)."""
+    w = -(-n // 32)
+    per_word = (n * int(np.ceil(np.log2(n))) + k * k * w + n_pat * 5 * w
+                + n_pat * 2 * n)
+    ops = m * per_word
+    n_bytes = m * n * 4 + k * n + n_pat * 3 * 2 + m * n + m * 8
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
+            {"ops_per_word": per_word, "ops": ops, "bytes": n_bytes})
+
+
+def ldpc_kernels_phase(dev) -> dict:
+    """The ``bp_minsum`` and ``osd`` kernels against their plain versions
+    on the card: at the FT8 main path's first-pass shapes on its own
+    inputs (36,864 BP words with 3 AP hypotheses, 384 OSD words), the same
+    rounded (ties), and on seeded noisy codewords of every other code and
+    OSD shape the decoders run (FT4, JS8 (174,87), FST4-60 (240,101),
+    WSPR's (162,50) with 740 patterns); then the device time of each
+    kernel at the main path's shape beside the plain version's and the
+    bound."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import _kernels as mk
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, js8, osd, wspr
+
+    dec, bp_llr, osd_llr = main_path_ldpc_inputs(dev)
+    bp, tabs = dec.bp, dec._tabs
+    pats = (tabs["patterns"], tabs["pattern_idx"])
+    checks = {
+        "bp ft8 pass 1": bp_vs_plain(bp, bp_llr),
+        "bp ft8 pass 1 rounded": bp_vs_plain(bp, bp_llr[:4096].round()),
+        "osd ft8 pass 1": osd_vs_plain(tabs["gen"], osd_llr, *pats),
+        "osd ft8 pass 1 rounded": osd_vs_plain(tabs["gen"], osd_llr.round(),
+                                               *pats),
+    }
+    others = [("ft4", ft4.FT4Decoder(depth=3, device=dev)),
+              ("js8", js8.JS8Decoder(device=dev)),
+              ("fst4-60", fst4.FST4Decoder(Mode.FST4_60, device=dev))]
+    for i, (name, d) in enumerate(others):
+        g = d._host["gen"]
+        m_bp = d.max_device_batch * d.spec.top_k
+        llr = torch.from_numpy(noisy_llrs(g, m_bp, SEED + 10 + i,
+                                          ties=m_bp // 8)).to(dev)
+        checks[f"bp {name}"] = bp_vs_plain(d.bp, llr)
+        m_osd = d.max_device_batch * d.spec.osd_j
+        llr = torch.from_numpy(noisy_llrs(g, m_osd, SEED + 20 + i,
+                                          ties=m_osd // 8)).to(dev)
+        checks[f"osd {name}"] = osd_vs_plain(
+            d._tabs["gen"], llr, d._tabs["patterns"], d._tabs["pattern_idx"])
+    wd = wspr.WSPRDecoder(device=dev)
+    m_w = wd.max_device_batch * wd.cfg.osd_j
+    llr = torch.from_numpy(noisy_llrs(wd._host["wspr_gen"], m_w, SEED + 30,
+                                      ties=m_w // 8)).to(dev)
+    checks["osd wspr"] = osd_vs_plain(wd._tabs["wspr_gen"], llr,
+                                      wd._tabs["patterns"],
+                                      wd._tabs["pattern_idx"])
+    torch.cuda.synchronize()
+    for name, c in checks.items():
+        print(f"ldpc kernel vs plain, {name}: {json.dumps(c)}")
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"LDPC kernels disagree with the plain "
+                             f"versions: {bad}")
+
+    # device time at the main path's shapes: the kernels in a CUDA graph,
+    # in turns around the plain versions issued from the host (the plain
+    # OSD syncs with the host, so it cannot be captured)
+    runs = {
+        "bp_minsum": (lambda: mk.bp_minsum(
+            bp_llr, bp._k_row_cols, bp._k_col_slots, bp.iters, bp.alpha),
+                      lambda: bp.decode_full_plain(bp_llr), 10),
+        "osd": (lambda: mk.osd(tabs["gen"], osd_llr, tabs["pattern_idx"]),
+                lambda: osd.osd_decode_plain(tabs["gen"], osd_llr,
+                                             tabs["patterns"]), 20),
+    }
+    k_gen, n_gen = tabs["gen"].shape
+    bounds = {"bp_minsum": bp_bound_ms(bp, bp_llr.shape[0]),
+              "osd": osd_bound_ms(k_gen, n_gen, tabs["patterns"].shape[0],
+                                  osd_llr.shape[0])}
+    out = {}
+    for name, (kern, plain, reps) in runs.items():
+        ms = [cuda_ms(kern, reps)]
+        plain_ms = eager_ms(plain, 5)
+        ms.append(cuda_ms(kern, reps))
+        kern_eager = eager_ms(kern, reps)
+        bytes_ms, ops_ms, counts = bounds[name]
+        bound = max(bytes_ms, ops_ms)
+        err = max(c["max_abs_err"] for cn, c in checks.items()
+                  if cn.startswith("bp" if name == "bp_minsum" else "osd"))
+        out[name] = {"ms": statistics.median(ms), "ms_turns": ms,
+                     "plain_ms": plain_ms, "eager_ms": kern_eager,
+                     "bound_ms": bound,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                     "counts": counts, "library_ms": None,
+                     "max_abs_err": err,
+                     "shape": list((bp_llr if name == "bp_minsum"
+                                    else osd_llr).shape)}
+        print(f"{name} at {out[name]['shape']}: kernel {out[name]['ms']:.4f}"
+              f" ms device time (turns {ms}), {kern_eager:.4f} ms issued "
+              f"from the host; plain {plain_ms:.3f} ms from the host; bound "
+              f"{bound:.5f} ms (bytes {bytes_ms:.5f}, ops {ops_ms:.5f}; "
+              f"{counts}), kernel at {100 * bound / out[name]['ms']:.1f} % "
+              "of it; no single library call computes it")
+    return {"kernels": out, "checks": checks}
+
+
 def _plan():
     """64 dials across the band and the bursts: (dial index, message,
     audio offset Hz, SNR dB in 2.5 kHz, dt s)."""
@@ -351,12 +654,13 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
              on_anchor=None) -> dict:
     """Run the port's App on ``ini`` until ``n_windows()`` channel-windows
     are decoded: its spots, the jobs handed to the pool and the
-    channelizer launches of the run.  The App starts the replay on its own
-    anchor, the next UTC 15 s boundary; ``on_anchor(utc_anchor)``, if
-    given, runs once with that anchor just before the receiver opens the
-    file (to write a replay that fits it)."""
+    channelizer and LDPC kernel launches of the run.  The App starts the
+    replay on its own anchor, the next UTC 15 s boundary;
+    ``on_anchor(utc_anchor)``, if given, runs once with that anchor just
+    before the receiver opens the file (to write a replay that fits it)."""
     from cwsl_digi_tpu_torch.config import load_config
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
     from cwsl_digi_tpu_torch.runtime.app import App
 
     app = App(load_config(ini), max_runtime_s=timeout_s + 60, device=dev)
@@ -390,6 +694,7 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
     # App.run warms the decoders up (one strong window through every pass)
     # before it starts the receiver
     _kernels.launches["channelize"] = 0
+    _reset(ldpc_kernels.launches)
     t0 = time.monotonic()
     runner = threading.Thread(target=app.run, daemon=True)
     try:
@@ -401,6 +706,7 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
         torch.cuda.synchronize()
         run_s = time.monotonic() - t0
         launches = _kernels.launches["channelize"]
+        ldpc_launches = dict(ldpc_kernels.launches)
     finally:
         app._terminate = True
         runner.join(timeout=60)
@@ -411,9 +717,22 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
         print(f"channelize host wall {rx_stage[0]['channelize_wall_s']:.3f} s"
               f" for {rx_stage[0]['channelized_audio_s']:.2f} s of audio")
     return {"spots": spots, "jobs": jobs, "launches": launches,
-            "run_s": run_s, "decoded": app.pool.count_decoded_windows,
+            "ldpc_launches": ldpc_launches, "run_s": run_s, "decoded": app.pool.count_decoded_windows,
             "stage_log": list(app.pool.stage_log),
             "anchor": anchors[0] if anchors else None}
+
+
+def _reset(counts: dict) -> None:
+    for name in counts:
+        counts[name] = 0
+
+
+def _require_launches(where: str, counts: dict, names) -> None:
+    """Fail unless each kernel of ``names`` was launched in ``where``."""
+    print(f"{where}: LDPC kernel launches {counts}")
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{where} did not launch {missing}")
 
 
 def _check_spots(spots, expected) -> None:
@@ -453,11 +772,12 @@ def main_path_phase(dev, workdir: Path) -> dict:
     _check_spots(run["spots"], expected)
     if run["launches"] <= 0:
         raise AssertionError("main path did not launch the channelizer kernel")
+    _require_launches("main path", run["ldpc_launches"], LDPC_KERNELS)
     devices = [j[2] for j in run["jobs"]]
     if not devices or any(d != "cuda" for d in devices):
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
     return {"launches": run["launches"], "decode_s": decode_s,
-            "run_s": run["run_s"]}
+            "ldpc_launches": run["ldpc_launches"], "run_s": run["run_s"]}
 
 
 # the lines a 20 m skimmer runs on one 192 kHz receiver at LO 14.100 MHz
@@ -568,13 +888,14 @@ def _write_lines_replay(path: Path, lead_s: float, lines, plan, seed: int
     return expected
 
 
-def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int
-                  ) -> dict:
+def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
+                  ldpc_used) -> dict:
     """The port's App on a replay of ``lines`` with the bursts of ``plan``,
     written once the App has taken its anchor (noise to the next 2-minute
     boundary, then MIXED_S s): every line's windows on their own UTC
-    boundaries, the expected spots and no other, through the kernel, with
-    CUDA tensors reaching the decoders."""
+    boundaries, the expected spots and no other, through the channelizer
+    kernel and the LDPC kernels of ``ldpc_used``, with CUDA tensors
+    reaching the decoders."""
     iq_path = workdir / f"{name}.npy"
     ini = workdir / f"{name}.ini"
     ini.write_text("\n".join(
@@ -614,10 +935,12 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int
     if run["launches"] <= 0:
         raise AssertionError(f"{name} path did not launch the channelizer "
                              "kernel")
+    _require_launches(f"{name} path", run["ldpc_launches"], ldpc_used)
     devices = {j[2] for j in run["jobs"]}
     if devices != {"cuda"}:
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
-    return {"launches": run["launches"], "decode_batches": batches,
+    return {"launches": run["launches"],
+            "ldpc_launches": run["ldpc_launches"], "decode_batches": batches,
             "run_s": run["run_s"], "windows": run["decoded"],
             "lead_s": state["lead"]}
 
@@ -625,7 +948,7 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int
 def mixed_mode_phase(dev, workdir: Path) -> dict:
     """The port's App on the mixed-mode replay."""
     return _replay_phase(dev, workdir, "mixed-mode", MIXED_LINES,
-                         _mixed_plan(), SEED + 2)
+                         _mixed_plan(), SEED + 2, LDPC_KERNELS)
 
 
 # the weak-signal lines of the same 20 m receiver: WSPR beside FST4W on
@@ -657,9 +980,11 @@ def _weak_plan():
 
 
 def weak_modes_phase(dev, workdir: Path) -> dict:
-    """The port's App on the weak-mode replay (WSPR, JT65, Q65-30)."""
+    """The port's App on the weak-mode replay (WSPR, JT65, Q65-30): WSPR's
+    OSD runs the ``osd`` kernel; none of the three has an LDPC code, so
+    ``bp_minsum`` has no launch here."""
     return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
-                         _weak_plan(), SEED + 5)
+                         _weak_plan(), SEED + 5, ("osd",))
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -1039,7 +1364,11 @@ def live_soak_phase(dev) -> dict:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     from torch_soak import run_soak
 
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+
+    _reset(ldpc_kernels.launches)
     r = run_soak(device=dev, **SOAK)
+    ldpc_launches = dict(ldpc_kernels.launches)
     st = r["stages"]
     lw = st["lock_wait_s"]
     print(f"live soak: {r['channels']} FT8 channels on {r['receivers']} "
@@ -1084,7 +1413,9 @@ def live_soak_phase(dev) -> dict:
     if r["channelize_launches"] <= 0:
         raise AssertionError("live soak did not launch the channelizer "
                              "kernel")
-    return {"launches": r["channelize_launches"], "report": {
+    _require_launches("live soak", ldpc_launches, LDPC_KERNELS)
+    return {"launches": r["channelize_launches"],
+            "ldpc_launches": ldpc_launches, "report": {
         k: v for k, v in r.items() if k not in ("stages", "missing")}}
 
 
@@ -1172,6 +1503,7 @@ def bench_phase(dev) -> dict:
 
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     # (name, section, args) at a small size
     sections = [("channelizer", "section_channelizer", (256,)),
@@ -1183,6 +1515,7 @@ def bench_phase(dev) -> dict:
                   (m, 2)) for m in ("JT65", "Q65-30")]
     out = {}
     _kernels.launches["channelize"] = 0
+    _reset(ldpc_kernels.launches)
     for name, fn, args in sections:
         r = getattr(torch_bench_sections, fn)(*args, device=dev)
         if not r:
@@ -1190,6 +1523,7 @@ def bench_phase(dev) -> dict:
         r.pop("decodes", None)
         print(f"bench {name}: {json.dumps(r)}")
         out[name] = r
+    ldpc_launches = dict(ldpc_kernels.launches)
     chan, prod = out["channelizer"], out["decode_production"]
     if prod["false_messages"]:
         raise AssertionError(f"busy-band decode: {prod['false_messages']}")
@@ -1200,7 +1534,9 @@ def bench_phase(dev) -> dict:
     missing = [k for k, r in out.items() if r.get("found_share", 1.0) <= 0]
     if missing:
         raise AssertionError(f"bench sections decoded nothing: {missing}")
-    return {"launches": chan["kernel_launches"], "sections": out}
+    _require_launches("bench", ldpc_launches, LDPC_KERNELS)
+    return {"launches": chan["kernel_launches"],
+            "ldpc_launches": ldpc_launches, "sections": out}
 
 
 def main() -> int:
@@ -1211,14 +1547,12 @@ def main() -> int:
     import cwsl_digi_tpu_torch  # noqa: F401  (fails outside the repo)
     from cwsl_digi_tpu_torch.device import cuda_device
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     dev = cuda_device()
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
-    t0 = time.monotonic()
-    _kernels.load_library()
-    print(f"build: channelizer library in {time.monotonic() - t0:.1f} s")
-    print(_kernels.build_log.strip())
+    build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels})
 
     walls = {}
 
@@ -1241,6 +1575,7 @@ def main() -> int:
                   np.asarray([d for _, d in WEAK_LINES], np.float64) - LO)
     kwide = phase("kernel_256ch", kernel_phase, dev,
                   np.linspace(-FS / 2, FS / 2 - 6000, 256))
+    kldpc = phase("ldpc_kernels", ldpc_kernels_phase, dev)
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1260,11 +1595,15 @@ def main() -> int:
     print(json.dumps({"channelize_mixed_5ch": kmixed,
                       "channelize_weak_3ch": kweak,
                       "channelize_256ch": kwide}))
+    print(json.dumps({"ldpc_kernels": kldpc}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
                       "weak_decode_batches": wstats["decode_batches"],
                       "phase_walls_s": walls}))
-    print(json.dumps({"kernels": [{
+    app_phases = {"ft8_64ch_app": mstats, "mixed_mode_app": xstats,
+                  "weak_modes_app": wstats, "live_soak": sstats,
+                  "bench": bstats}
+    kernels = [{
         "name": "channelize",
         "route": "cuda",
         "source": "cwsl_digi_tpu_torch/dsp/csrc/channelizer.cu",
@@ -1286,7 +1625,21 @@ def main() -> int:
         "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"],
         "library_ms": kmain["library_ms"],
-    }]}))
+    }]
+    for name, replaces in LDPC_REPLACES.items():
+        k = kldpc["kernels"][name]
+        by_phase = {ph: st["ldpc_launches"][name]
+                    for ph, st in app_phases.items()}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "cwsl_digi_tpu_torch/modes/csrc/ldpc.cu",
+            "replaces": replaces,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ its operands.
 ``csrc/channelizer.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into ``build/``
 beside this file (named by the source's hash, so an edited source
-rebuilds), and loaded with ctypes.  Importing this module builds nothing:
-the CPU tests import it on machines with no ``nvcc``.
+rebuilds; :mod:`cwsl_digi_tpu_torch.kernel_build`), and loaded with
+ctypes.  Importing this module builds nothing: the CPU tests import it on
+machines with no ``nvcc``.
 
 :func:`channelize` is the kernel's only wrapper.  It raises on anything the
 kernel does not take, and when the library cannot be built or the launch
@@ -15,14 +16,12 @@ is refused: no path here falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
+
+from cwsl_digi_tpu_torch import kernel_build
 
 N_TILE = 48         # outputs per block; must match channelizer.cu
 C_TILE = 16         # channels per block
@@ -30,8 +29,6 @@ WARPS = 4           # split of the taps inside a block
 
 SRC = Path(__file__).parent / "csrc" / "channelizer.cu"
 BUILD_DIR = Path(__file__).parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # launches of each kernel since the last reset (one per successful launch)
 launches = {"channelize": 0}
@@ -43,32 +40,12 @@ _smem_allowed: dict[int, int] = {}
 build_log = ""       # nvcc's output for the library in use (ptxas -v)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA channelizer cannot be built")
-
-
 def build_library() -> Path:
     """Compile the kernel library unless this source's build exists."""
     global build_log
-    tag = hashlib.sha256(SRC.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libchannelizer_{tag}.so"
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC)],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    out, log = kernel_build.build_library(SRC, BUILD_DIR, "channelizer")
+    if log is not None:
+        build_log = log
     return out
 
 

@@ -40,7 +40,8 @@ from cwsl_digi_tpu_torch.device import as_device
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
-from cwsl_digi_tpu_torch.modes.osd import flip_patterns, osd_decode
+from cwsl_digi_tpu_torch.modes.osd import (flip_patterns, osd_decode,
+                                          pattern_index_lists)
 from cwsl_digi_tpu_torch.modes.subtract import subtract_known
 
 # device-memory budget per decode_program call; the same budget, and hence
@@ -542,7 +543,8 @@ def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
         sel_chan = llr[bj, sel]
         osd_in = sel_post if spec.osd_post else sel_chan
         osd_cw, osd_dist, osd_nhard = osd_decode(
-            tabs["gen"], osd_in.reshape(b * j, n_code), tabs["patterns"])
+            tabs["gen"], osd_in.reshape(b * j, n_code), tabs["patterns"],
+            tabs["pattern_idx"])
         osd_cw = osd_cw.reshape(b, j, n_code)
         osd_dist = osd_dist.reshape(b, j)
         osd_nhard = osd_nhard.reshape(b, j)
@@ -730,6 +732,10 @@ class GFSKDecoder:
             self._host["ap_vals"] = vals
         self._tabs = tables_to_torch(self._host, self.device)
         self._tabs["hash_w"] = self._tabs["hash_w"].to(torch.int64)
+        # the flip patterns as the OSD kernel takes them (not a reference
+        # table, so not in tables())
+        self._tabs["pattern_idx"] = torch.from_numpy(pattern_index_lists(
+            self._host["patterns"])).to(self.device)
         n_samples = int(round(spec.trperiod * WAVE_SR))
         refine = spec.refine and dft_mat is not None
         if refine and spec.hop % 2:

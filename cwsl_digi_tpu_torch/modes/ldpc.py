@@ -4,7 +4,9 @@ Counterpart of ``cwsl_digi_tpu/modes/ldpc.py``.  The host half (GF(2)
 row reduction, :class:`Code`, the stand-in code constructor, the BP index
 tables, the published FT8 code and the FST4 code) is copied because the
 reference module imports jax at the top; the decoder is
-:meth:`BPDecoder.decode_full` in PyTorch.
+:meth:`BPDecoder.decode_full`: on a CUDA tensor the hand kernel
+``bp_minsum`` (``csrc/ldpc.cu``, all iterations in one launch), on a CPU
+tensor its plain PyTorch version :meth:`BPDecoder.decode_full_plain`.
 
 Codes: the published LDPC(174,91) of FT8/FT4; LDPC(240,101) for
 FST4/FST4W and LDPC(174,87) for JS8 (``modes/js8.py``), each the published
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes import tables
+from cwsl_digi_tpu_torch.modes import _kernels, tables
 
 
 def gf2_row_reduce(mat: np.ndarray) -> tuple[np.ndarray, list[int]]:
@@ -166,6 +168,16 @@ def build_bp_tables(h: np.ndarray) -> BPTables:
                     max_col, col_slots, col_mask)
 
 
+def kernel_tables(t: BPTables) -> tuple[np.ndarray, np.ndarray]:
+    """The BP tables as the ``bp_minsum`` kernel takes them: row_cols
+    [n_checks, max_row] int16 (n in a padded slot) and col_slots [n,
+    max_col] int16 (-1 in a padded slot)."""
+    if t.n > np.iinfo(np.int16).max or t.n_checks * t.max_row > 2**15:
+        raise ValueError(f"code too large for int16 tables: n={t.n}")
+    col_slots = np.where(t.col_mask > 0, t.col_slots, -1)
+    return t.row_cols.astype(np.int16), col_slots.astype(np.int16)
+
+
 class BPDecoder:
     """Batched normalized min-sum BP for one code, tables on ``device``."""
 
@@ -183,11 +195,26 @@ class BPDecoder:
             self.t.col_slots.reshape(-1).astype(np.int64)).to(dev)
         self._col_mask = torch.from_numpy(self.t.col_mask).to(dev)
         self._h_t = torch.from_numpy(code.h.T.astype(np.float32)).to(dev)
+        # the kernel's int16 tables, uploaded once
+        self._k_row_cols, self._k_col_slots = (
+            torch.from_numpy(a).to(dev) for a in kernel_tables(self.t))
 
     def decode_full(self, llrs: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """llrs [batch, n] (positive = bit 0) -> (hard [batch, n] int8,
-        parity_ok [batch] bool, posterior LLR totals [batch, n])."""
+        parity_ok [batch] bool, posterior LLR totals [batch, n]).
+
+        A CPU tensor runs :meth:`decode_full_plain`; any other launches the
+        ``bp_minsum`` kernel, which raises if it cannot (no fallback)."""
+        if llrs.device.type == "cpu":
+            return self.decode_full_plain(llrs)
+        return _kernels.bp_minsum(llrs.contiguous(), self._k_row_cols,
+                                  self._k_col_slots, self.iters, self.alpha)
+
+    def decode_full_plain(self, llrs: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The plain PyTorch version of :meth:`decode_full` (on any
+        device): the kernel's oracle."""
         b = llrs.shape[0]
         t = self.t
         n, nc, mr, mc = t.n, t.n_checks, t.max_row, t.max_col

@@ -11,6 +11,12 @@ codeword at minimum soft distance.  Batched over words:
   columns to a word, all words advancing one column per step;
 - the flip patterns re-encoded as one ``[T, k] @ [k, n]`` product per word,
   and the soft-distance arg-min.
+
+That is :func:`osd_decode_plain`.  :func:`osd_decode` runs it on CPU
+tensors; on a CUDA tensor it launches the hand kernel ``osd``
+(``csrc/ldpc.cu``, one block per word), which takes the flip patterns as
+index lists (:func:`pattern_index_lists`, built once beside the pattern
+table).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import itertools
 
 import numpy as np
 import torch
+
+from cwsl_digi_tpu_torch.modes import _kernels
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,14 +54,48 @@ def flip_patterns(k: int, n_singles: int, tail2: int, tail3: int) -> np.ndarray:
     return np.stack(pats)
 
 
-def osd_decode(gen: torch.Tensor, llrs: torch.Tensor, patterns: torch.Tensor
+def pattern_index_lists(patterns: np.ndarray) -> np.ndarray:
+    """A flip-pattern table [T, k] as the ``osd`` kernel takes it: [T, 3]
+    int16, each pattern's flipped coordinates in increasing order, -1
+    padded.  Raises on a pattern of more than 3 flips."""
+    pats = np.asarray(patterns)
+    weight = (pats != 0).sum(axis=1)
+    if weight.max(initial=0) > _kernels.OSD_MAX_FLIPS:
+        raise ValueError(f"a flip pattern of weight {weight.max()}: the OSD "
+                         f"kernel takes at most {_kernels.OSD_MAX_FLIPS}")
+    out = np.full((pats.shape[0], _kernels.OSD_MAX_FLIPS), -1, np.int16)
+    for t, row in enumerate(pats):
+        idx = np.flatnonzero(row)
+        out[t, : idx.size] = idx
+    return out
+
+
+def osd_decode(gen: torch.Tensor, llrs: torch.Tensor, patterns: torch.Tensor,
+               pattern_idx: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched OSD.
 
-    gen [k, n] 0/1 generator (any integer or float dtype), llrs [M, n]
-    float32 (positive = bit 0), patterns [T, k] float32.
+    gen [k, n] 0/1 generator, llrs [M, n] float32 (positive = bit 0),
+    patterns [T, k] float32, pattern_idx the same patterns as
+    :func:`pattern_index_lists` on ``llrs``' device.
     Returns (codewords [M, n] int8, soft distance [M], hard errors [M]).
-    """
+
+    A CPU tensor runs :func:`osd_decode_plain`; any other launches the
+    ``osd`` kernel on a contiguous copy of ``llrs`` (gen as uint8), which
+    needs ``pattern_idx`` and raises if it cannot launch (no fallback)."""
+    if llrs.device.type == "cpu":
+        return osd_decode_plain(gen, llrs, patterns)
+    if pattern_idx is None:
+        raise ValueError("the OSD kernel takes the flip patterns as index "
+                         "lists: pass pattern_idx (pattern_index_lists)")
+    return _kernels.osd(gen, llrs.contiguous(), pattern_idx)
+
+
+def osd_decode_plain(gen: torch.Tensor, llrs: torch.Tensor,
+                     patterns: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`osd_decode` (on any device):
+    the kernel's oracle.  gen may have any integer or float dtype."""
     m_words, n = llrs.shape
     k = gen.shape[0]
     dev = llrs.device

@@ -44,7 +44,8 @@ from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
 from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate
 from cwsl_digi_tpu_torch.modes.gfsk_engine import (_median_rows, _top_k,
                                                    device_batch_for)
-from cwsl_digi_tpu_torch.modes.osd import flip_patterns, osd_decode
+from cwsl_digi_tpu_torch.modes.osd import (flip_patterns, osd_decode,
+                                          pattern_index_lists)
 from cwsl_digi_tpu_torch.modes.subtract import _cumsum
 
 # ---------------------------------------------------------------------------
@@ -472,7 +473,8 @@ def _decode_program(cfg: WSPRConfig, audio: torch.Tensor, tabs: dict
         j = min(cfg.osd_j, cfg.top_k)
         llr_j = llr.reshape(b, cfg.top_k, NSYM)[:, :j]
         cw, dist, nhard = osd_decode(
-            tabs["wspr_gen"], llr_j.reshape(b * j, NSYM), tabs["patterns"])
+            tabs["wspr_gen"], llr_j.reshape(b * j, NSYM), tabs["patterns"],
+            tabs["pattern_idx"])
         osd_bits = torch.remainder(
             cw.to(torch.float32) @ tabs["wspr_inv"].to(torch.float32), 2.0)
         osd = {
@@ -632,6 +634,11 @@ class WSPRDecoder:
                 N_MSG_BITS, self.cfg.osd_singles, self.cfg.osd_tail2,
                 self.cfg.osd_tail3).astype(np.float32)
         self._tabs = tables_to_torch(self._host, self.device)
+        if self.cfg.osd_j > 0:
+            # the flip patterns as the OSD kernel takes them (not a
+            # reference table, so not in tables())
+            self._tabs["pattern_idx"] = torch.from_numpy(pattern_index_lists(
+                self._host["patterns"])).to(self.device)
 
     @property
     def spectrogram_branch(self) -> str:

@@ -1,8 +1,11 @@
 """Tests of the port that need the card: the CUDA channelizer kernel against
 its plain version (streaming, and at the blocks time shards give it), the
-FT8, FT4, JS8, FST4-60, WSPR, JT65 and Q65-30 decoders on CUDA tensors
-against the same decoders on CPU tensors, and the parallel layer on a
-virtual mesh of the card against one on the CPU.
+LDPC kernels ``bp_minsum`` and ``osd`` against their plain versions on
+every code and OSD shape the decoders run (and no fallback when their
+library cannot be built), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
+Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
+and the parallel layer on a virtual mesh of the card against one on the
+CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -21,10 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
-from cwsl_digi_tpu_torch.modes import fst4, ft4, ft8, js8, jt65, q65, wspr
+from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, js8, jt65, ldpc, osd,
+                                       q65, wspr)
 from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
 from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
 from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
@@ -80,6 +86,101 @@ def test_cuda_kernel_matches_plain_on_card(dev, fs, usb):
                                rtol=0, atol=1e-4)
     torch.cuda.synchronize()
     assert _kernels.launches["channelize"] == before + 4
+
+
+def _ldpc_decoder(name: str, dev):
+    """A decoder whose BP tables and OSD tables are those of ``name``."""
+    return {"ft8": lambda: ft8.FT8Decoder(my_call="W2AXR", depth=3,
+                                          device=dev),
+            "js8": lambda: js8.JS8Decoder(device=dev),
+            "fst4": lambda: fst4.FST4Decoder(Mode.FST4_60, device=dev),
+            "wspr": lambda: wspr.WSPRDecoder(device=dev)}[name]()
+
+
+@pytest.mark.parametrize("name,seed", [("ft8", 1), ("js8", 2), ("fst4", 3)])
+def test_bp_kernel_matches_plain_on_card(dev, name, seed):
+    """bp_minsum against decode_full_plain on CPU copies of the same LLRs
+    (the kernel's slot-order sums; chip_smoke.bp_vs_plain): 2048 seeded
+    noisy codewords of each LDPC code, (174,91), (174,87) and (240,101),
+    an eighth rounded to whole numbers (duplicated minima), at the
+    decoder's iteration count.  Hard bits and parity flags equal,
+    posterior totals within atol 1e-4; one launch."""
+    d = _ldpc_decoder(name, dev)
+    llr = torch.from_numpy(chip_smoke.noisy_llrs(
+        d._host["gen"], 2048, seed, ties=256)).to(dev)
+    before = ldpc_kernels.launches["bp_minsum"]
+    got = chip_smoke.bp_vs_plain(d.bp, llr)
+    torch.cuda.synchronize()
+    assert ldpc_kernels.launches["bp_minsum"] == before + 1
+    assert got["ok"], got
+    assert 0 < got["parity_ok"] < 2048
+
+
+@pytest.mark.parametrize("name,seed", [("ft8", 4), ("js8", 5), ("fst4", 6),
+                                       ("wspr", 7)])
+def test_osd_kernel_matches_plain_on_card(dev, name, seed):
+    """osd against osd_decode_plain on the same CUDA LLRs: 384 seeded
+    noisy codewords of each OSD shape, FT8 (91, 174, 268 patterns), JS8
+    (87, 174), FST4 (101, 240) and WSPR (50, 162, 740 patterns), an eighth
+    rounded (ties in |LLR|: the stable sort).  Codewords and hard errors
+    equal outside near-ties (the two picks' distances within 1e-5
+    relative), distances within rtol 1e-5; one launch."""
+    d = _ldpc_decoder(name, dev)
+    gen = d._tabs["wspr_gen" if name == "wspr" else "gen"]
+    llr = torch.from_numpy(chip_smoke.noisy_llrs(
+        gen.cpu().numpy(), 384, seed, ties=48)).to(dev)
+    before = ldpc_kernels.launches["osd"]
+    got = chip_smoke.osd_vs_plain(gen, llr, d._tabs["patterns"],
+                                  d._tabs["pattern_idx"])
+    torch.cuda.synchronize()
+    assert ldpc_kernels.launches["osd"] == before + 1
+    assert got["ok"], got
+
+
+def test_ldpc_kernels_raise_without_library_on_card(dev, monkeypatch,
+                                                    tmp_path):
+    """With no nvcc and no built library, decode_full and osd_decode on a
+    CUDA tensor raise; the plain versions never run and nothing counts."""
+    monkeypatch.setattr(ldpc_kernels, "_lib", None)
+    monkeypatch.setattr(ldpc_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(ldpc_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ldpc.BPDecoder, "decode_full_plain", plain)
+    monkeypatch.setattr(osd, "osd_decode_plain", plain)
+    d = ft8.FT8Decoder(device=dev)
+    llr = torch.ones((4, 174), device=dev)
+    before = dict(ldpc_kernels.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        d.bp.decode_full(llr)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        osd.osd_decode(d._tabs["gen"], llr, d._tabs["patterns"],
+                       d._tabs["pattern_idx"])
+    assert ldpc_kernels.launches == before
+
+
+def test_decoders_launch_the_ldpc_kernels_on_card(dev):
+    """An FT8 decode on the card runs bp_minsum and osd, a WSPR decode
+    runs osd."""
+    rng = np.random.default_rng(12)
+    win = add_noise_at_snr(ft8.synthesize("CQ W2AXR FN13", 1200.0), -12.0,
+                           12_000, rng).astype(np.float32)
+    before = dict(ldpc_kernels.launches)
+    ft8.FT8Decoder(device=dev).decode(torch.from_numpy(win[None]).to(dev))
+    torch.cuda.synchronize()
+    assert ldpc_kernels.launches["bp_minsum"] > before["bp_minsum"]
+    assert ldpc_kernels.launches["osd"] > before["osd"]
+    win = add_noise_at_snr(wspr.synthesize("K1ABC", "FN42", 37, 1500.0),
+                           -20.0, 12_000, rng).astype(np.float32)
+    before = dict(ldpc_kernels.launches)
+    wspr.WSPRDecoder(device=dev).decode(torch.from_numpy(win[None]).to(dev))
+    torch.cuda.synchronize()
+    assert ldpc_kernels.launches["osd"] > before["osd"]
+    assert ldpc_kernels.launches["bp_minsum"] == before["bp_minsum"]
 
 
 def test_one_decode_at_a_time_on_the_card(dev):

@@ -51,7 +51,7 @@ def test_port_and_chip_smoke_import_without_jax():
         # the port's tools, which run on the machine with the card
         "sys.path.insert(0, 'tools')\n"
         "import torch_parity, torch_snr_check, torch_soak, torch_soak_merge\n"
-        "import torch_bench_sections, bench_cuda\n"
+        "import torch_bench_sections, torch_bench_ab, bench_cuda\n"
         # the card-only tests run where there is no JAX
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_cuda\n"
@@ -84,7 +84,7 @@ _PORT_FILES = sorted(
     [p.relative_to(REPO).as_posix()
      for p in (REPO / "cwsl_digi_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "bench_cuda.py", "tools/torch_bench_sections.py",
-       "tools/torch_decode_profile.py",
+       "tools/torch_decode_profile.py", "tools/torch_bench_ab.py",
        "tools/channelizer_ab.py", "tools/parallel_cards.py",
        "tools/torch_parity.py", "tools/torch_snr_check.py",
        "tools/torch_soak.py", "tools/torch_soak_merge.py",
@@ -165,7 +165,8 @@ def test_kernel_path_raises_without_library(monkeypatch, tmp_path):
     library that raises instead of falling back to the plain version."""
     monkeypatch.setattr(_kernels, "_lib", None)
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     before = _kernels.launches["channelize"]
     bc = BatchChannelizer(48_000, [1000.0, 7000.0], device="meta")
