@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and fails without CUDA;
-2. builds the port's two kernel libraries from ``cwsl_digi_tpu_torch``,
+2. builds the port's three kernel libraries from ``cwsl_digi_tpu_torch``,
    one nvcc each, started together: the channelizer
-   (``dsp/csrc/channelizer.cu``) and the LDPC kernels ``bp_minsum`` and
-   ``osd`` (``modes/csrc/ldpc.cu``), printing each ptxas report;
+   (``dsp/csrc/channelizer.cu``), the LDPC kernels ``bp_minsum`` and
+   ``osd`` (``modes/csrc/ldpc.cu``) and the GFSK kernels
+   ``subtract_known`` and ``multisym_llrs`` (``modes/csrc/gfsk.cu``),
+   printing each ptxas report;
 3. holds the channelizer kernel against its plain PyTorch version on the
    card, at the FT8 path's 64 dials, the mixed-mode path's 5 lines, the
    weak-mode path's 3 lines and the bench's 256 channels (192 kHz, 15 s
@@ -28,12 +30,22 @@
    errors equal (near-ties counted apart), distances within 1e-5
    relative.  Then each kernel's device time at the main path's shape
    beside the plain version's on the card and the bound;
+4b. holds ``subtract_known`` and ``multisym_llrs`` against their plain
+   versions on CPU copies of the inputs the decoders hand them (phase
+   ``gfsk_kernels``): the FT8 main path's (FT8Decoder with AP at depth 3
+   on 64 busy windows: the pass-1 LLRs of its first 24-window call, 12,288
+   candidates, and its pass-1 subtraction of all 64 windows), FT4 at depth
+   3, JS8, FST4-60 (4-symbol windows) and FST4W-1800 at its device batch:
+   residual within 1e-3 of each window's peak and every fitted burst's
+   integer time shift counted against the plain version's, LLRs within
+   1e-3.  Then each kernel's device time at the main path's shape beside
+   the plain version's on the card and the bound;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
    every expected spot must appear within 2 Hz and no other, through the
-   channelizer, ``bp_minsum`` and ``osd`` kernels, with CUDA tensors
-   reaching the decoder;
+   channelizer, ``bp_minsum``, ``osd``, ``subtract_known`` and
+   ``multisym_llrs`` kernels, with CUDA tensors reaching the decoder;
 6. runs the App on seeded 192 kHz IQ with the lines a 20 m skimmer runs
    on one receiver: FT8, JS8, FT4, FST4-60 and FST4W-120.  The replay
    starts on the App's own anchor (the next UTC 15 s boundary) with noise
@@ -41,7 +53,7 @@
    windows of each (SNR -5 dB down to about 3 dB above each mode's
    threshold); every window must close on its own UTC boundary from the
    anchor on, and every expected spot (JS8's by its sender grammar) appear
-   within 2 Hz, and no other, through the three kernels;
+   within 2 Hz, and no other, through the five kernels;
 7. runs the App on seeded 192 kHz IQ with the weak-signal lines of the
    same receiver: WSPR (14.0956 MHz), JT65 (14.076 MHz) and Q65-30
    (14.0795 MHz), written for the App's anchor as in 6: one WSPR window,
@@ -49,7 +61,7 @@
    8 bursts (SNR -8 dB down to about 3 dB above each mode's threshold);
    every window on its own boundary, every expected spot within 2 Hz and
    no other, through the channelizer and WSPR's OSD through ``osd`` (none
-   of the three modes has an LDPC code);
+   of the three modes has an LDPC code or runs the GFSK engine);
 8. decodes one synthesized window of each long period (FST4-300/900/1800,
    FST4W-300/900/1800) through ``get_decoder`` on the card, printing the
    spectrogram branch, the decode wall and the peak device memory;
@@ -68,7 +80,7 @@
     with 6 bursts a window spread over the receivers, scheduled from the
     App's anchor: every channel-window decoded, no stale drop or ingest
     overrun, every burst found on its own receiver's dials and no spot on
-    another's, CUDA audio into the decoders, through the three kernels,
+    another's, CUDA audio into the decoders, through the five kernels,
     with the App's default pool (4 workers, one decode at a time on the
     card) and no spot later than its 15 s deadline; it prints the pool
     size, the latencies, the wait for the card's decode lock, stages, busy
@@ -87,11 +99,11 @@
     may be one never injected), the decode of each of the 15 modes at
     batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
     share at batch 2, and prints each section's line; it must launch all
-    three kernels;
+    five kernels;
 15. prints a ``{"kernels": [...]}`` line (``channelize``, ``bp_minsum``,
-    ``osd``, each with its launches in the App phases 5-7, 11 and 14, which
-    set every count to 0 before they start and read it after), then
-    ``{"ok": true, ...}`` last.
+    ``osd``, ``subtract_known``, ``multisym_llrs``, each with its launches
+    in the App phases 5-7, 11 and 14, which set every count to 0 before
+    they start and read it after), then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -135,6 +147,19 @@ BP_POST_TOL = 1e-4       # bp_minsum vs the plain version on the CPU (the
 OSD_DIST_RTOL = 1e-5     # osd vs plain, soft distance (sums of the
                          # mismatched weights in another order); codeword
                          # and hard errors exact outside near-ties
+GFSK_KERNELS = ("subtract_known", "multisym_llrs")
+# the XLA programs of the JAX package that the GFSK kernels replace
+GFSK_REPLACES = {"subtract_known": "cwsl_digi_tpu/modes/subtract.py:71",
+                 "multisym_llrs": "cwsl_digi_tpu/modes/gfsk_engine.py:161"}
+SUB_TOL_PEAK = 1e-3      # subtract_known vs the plain version on the CPU,
+                         # max |diff| over the window's peak |audio| (cos,
+                         # sin and atan2 an ulp apart between libraries at
+                         # phases of ~1e5 rad; the estimators' short sums
+                         # in another order)
+LLR_TOL = 1e-3           # multisym_llrs vs the plain version on the CPU,
+                         # max abs of the std-3 LLRs (max-log sums)
+TRIG_OPS = 20            # a range-reduced float32 sin or cos, counted as
+                         # this many operations in the bounds
 
 
 def card_line() -> str:
@@ -572,6 +597,343 @@ def ldpc_kernels_phase(dev) -> dict:
     return {"kernels": out, "checks": checks}
 
 
+def burst_case(spec, code, counts, seed: int, n_slots: int = 0
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Seeded windows of a GFSK mode with ``counts[w]`` known bursts in
+    window w: random info bits, GFSK at the mode's BT, SNRs (in 2500 Hz)
+    from -6 down to -14 dB in unit white noise (the decoder's range), starts
+    within +-0.3 s of the mode's signal start and off the hop grid, tones
+    off the bin grid.  Returns (audio [B, T] float32, params [B, M, k+3]
+    int32 with valid bursts first and M = max(max(counts), n_slots),
+    gen_parity [k, n-k] float32: the operands of ``subtract_known``; and
+    the bursts alone [B, T])."""
+    from cwsl_digi_tpu_torch.constants import WAVE_SR
+    from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate, place_burst
+
+    rng = np.random.default_rng(seed)
+    n = int(round(spec.trperiod * WAVE_SR))
+    k = code.k
+    n_m = max(max(counts), n_slots)
+    clean = np.zeros((len(counts), n))
+    params = np.zeros((len(counts), n_m, k + 3), np.int32)
+    span_hz = spec.fmax_hz - spec.fmin_hz - spec.n_tones * spec.tone_spacing
+    for w, cnt in enumerate(counts):
+        snrs = np.linspace(-6.0, -14.0, max(cnt, 2))
+        for j in range(cnt):
+            info = rng.integers(0, 2, size=k)
+            tones = spec.tones_from_codeword(code.encode(info))
+            f0 = spec.fmin_hz + span_hz * (j + rng.uniform(0.2, 0.8)) / cnt
+            start = spec.signal_start_s + rng.uniform(-0.3, 0.3)
+            amp = np.sqrt(2 * 10 ** (snrs[j] / 10) * 2500 / (WAVE_SR / 2))
+            burst = gfsk_modulate(tones, f0, spec.sps, WAVE_SR,
+                                  spec.tone_spacing, bt=spec.bt)
+            clean[w] += place_burst(burst, n, start, amp)
+            params[w, j, :k] = info
+            params[w, j, k] = int(round(start * WAVE_SR / spec.hop))
+            params[w, j, k + 1] = int(round(f0 / spec.bin_hz))
+            params[w, j, k + 2] = 1
+    audio = (clean + rng.standard_normal(clean.shape)).astype(np.float32)
+    return (audio, params,
+            np.ascontiguousarray(code.gen_parity, dtype=np.float32),
+            clean.astype(np.float32))
+
+
+def noisy_csym(spec, m: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded coherent-LLR operands of ``m`` candidates: csym [m, n_sym,
+    n_tones] complex64, unit noise plus a tone per symbol (the sync tone at
+    sync cells) at amplitudes 0.2 to 3 with random phases, and rot [m]
+    complex64 of random phase."""
+    rng = np.random.default_rng(seed)
+    t = spec.n_tones
+    tones = rng.integers(0, t, size=(m, spec.n_sym))
+    for s, tone in spec.sync_cells:
+        tones[:, s] = tone
+    amp = np.linspace(0.2, 3.0, m)[:, None, None]
+    c = (rng.standard_normal((m, spec.n_sym, t))
+         + 1j * rng.standard_normal((m, spec.n_sym, t)))
+    c += amp * np.exp(1j * rng.uniform(0, 2 * np.pi, (m, spec.n_sym, 1))) \
+        * (np.arange(t) == tones[:, :, None])
+    rot = np.exp(-1j * rng.uniform(-np.pi, np.pi, m))
+    return c.astype(np.complex64), rot.astype(np.complex64)
+
+
+def record_gfsk_inputs(dec, audio: torch.Tensor):
+    """The first coherent-LLR and subtraction operands that
+    ``dec.decode(audio)`` hands over: ((spec, csym, rot, bitmaps), (spec,
+    audio, params, gen_parity) or None)."""
+    from cwsl_digi_tpu_torch.modes import gfsk_engine
+
+    llr_in, sub_in = [], []
+    orig_llr, orig_sub = gfsk_engine._multisym_llrs, gfsk_engine.subtract_known
+
+    def llr_rec(spec, csym, rot, bitmaps):
+        if not llr_in:
+            llr_in.append((spec, csym.clone(), rot.clone(), bitmaps.clone()))
+        return orig_llr(spec, csym, rot, bitmaps)
+
+    def sub_rec(spec, audio, params, gen_parity):
+        if not sub_in:
+            sub_in.append((spec, audio.clone(), params.clone(),
+                           gen_parity.clone()))
+        return orig_sub(spec, audio, params, gen_parity)
+
+    gfsk_engine._multisym_llrs = llr_rec
+    gfsk_engine.subtract_known = sub_rec
+    try:
+        dec.decode(audio)
+    finally:
+        gfsk_engine._multisym_llrs = orig_llr
+        gfsk_engine.subtract_known = orig_sub
+    return llr_in[0], (sub_in[0] if sub_in else None)
+
+
+def fitted_steps(params: torch.Tensor) -> torch.Tensor:
+    """[B, M] bool: the (window, burst) steps the subtraction fits, each
+    window's bursts up to its first invalid one."""
+    return torch.cumprod((params[:, :, -1] != 0).to(torch.int32), dim=1) > 0
+
+
+def subtract_vs_plain(spec, audio, params, gen_parity) -> dict:
+    """``subtract_known`` (the kernel on CUDA tensors) against
+    ``subtract_known_plain`` on CPU copies: max |diff| within SUB_TOL_PEAK
+    of each window's peak |audio|; beside it the (window, burst) steps
+    whose integer time shift differs (the plain version's from its
+    ``torch.round``), which a half-sample tie may flip."""
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+    from cwsl_digi_tpu_torch.modes import subtract
+
+    shifts = torch.full(tuple(params.shape[:2]), -2 ** 31, dtype=torch.int32,
+                        device=audio.device)
+    got = gk.subtract_known(spec, audio, params, gen_parity, shifts=shifts)
+    rounds, orig_round = [], torch.round
+
+    def rec(x, *a, **k):
+        out = orig_round(x, *a, **k)
+        rounds.append(out.clone())
+        return out
+
+    torch.round = rec
+    try:
+        want = subtract.subtract_known_plain(spec, audio.cpu(), params.cpu(),
+                                             gen_parity.cpu())
+    finally:
+        torch.round = orig_round
+    peak = audio.abs().amax(dim=1).cpu()
+    err = (got.cpu() - want).abs().amax(dim=1)
+    rel = err / peak.clamp(min=1e-30)
+    fit = fitted_steps(params.cpu())
+    lim = spec.sps - 1
+    flips = []
+    for mi, r in enumerate(rounds):
+        plain = r.to(torch.int64).clamp(-lim, lim)
+        for w in torch.nonzero(fit[:, mi]).flatten().tolist():
+            if int(shifts[w, mi]) != int(plain[w]):
+                flips.append([w, mi, int(shifts[w, mi]), int(plain[w])])
+    return {"ok": float(rel.max()) <= SUB_TOL_PEAK and bool(torch.isfinite(
+        got).all()), "windows": audio.shape[0],
+            "steps": int(fit.sum()), "max_abs_err": float(err.max()),
+            "max_err_over_peak": float(rel.max()), "shift_flips": flips}
+
+
+def llr_vs_plain(spec, csym, rot, bitmaps) -> dict:
+    """``multisym_llrs`` (the kernel) against ``_multisym_llrs_plain`` on
+    CPU copies: max abs within LLR_TOL."""
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+    from cwsl_digi_tpu_torch.modes import gfsk_engine
+
+    got = gk.multisym_llrs(spec, csym, rot, bitmaps)
+    want = gfsk_engine._multisym_llrs_plain(spec, csym.cpu(), rot.cpu(),
+                                            bitmaps.cpu())
+    err = float((got.cpu() - want).abs().max())
+    return {"ok": err <= LLR_TOL, "candidates": csym.shape[0],
+            "max_abs_err": err}
+
+
+def subtract_bound_ms(spec, audio, params, gen_parity
+                      ) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the subtraction of this run's bursts:
+    the audio read, the residual written, params and generator read once
+    at the HBM rate; per sample of the (n_sym+1)*sps span and fitted
+    (window, burst) step, two syntheses (4 pulse taps of a multiply and an
+    add, the scale and carrier, the phase add, cos and sin, the mask: 53
+    with TRIG_OPS a trig call), two correlations (three products, two
+    cumsum adds: 10), the df2 twist (its angle, cos and sin, the rotation:
+    48) and the gain and subtraction (4): 168 at the FP32 rate."""
+    b, t = audio.shape
+    span = (spec.n_sym + 1) * spec.sps
+    steps = int(fitted_steps(params.cpu()).sum())
+    per = 2 * (4 * 2 + 2 + 1 + 2 * TRIG_OPS + 2) + 2 * 5 \
+        + (2 + 2 * TRIG_OPS + 6) + 4
+    ops = steps * span * per
+    n_bytes = 2 * b * t * 4 + params.numel() * 4 + gen_parity.numel() * 4
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
+            {"steps": steps, "span": span, "ops_per_sample_step": per,
+             "ops": ops, "bytes": n_bytes})
+
+
+def llr_bound_ms(spec, m: int) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the coherent LLRs of ``m``
+    candidates: csym and rot read and the LLRs written once at the HBM
+    rate; per data symbol the |C|^2 of its rows (3 ops a tone), each T x T
+    cross table (a complex product a column, 6, and 4 a cell), the pair
+    maxima (an add and a max a combination), the triples (5 adds and a
+    max), with coh4 the two 4-symbol windows (9 adds and a max), each
+    over the neighbour tones the sync cells allow, the bit maxima and the
+    scaling, at the FP32 rate."""
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+
+    t = spec.n_tones
+    allow = gk._spec_tables(spec, torch.device("cpu"))["allow"].numpy()
+    pop = np.vectorize(lambda v: bin(int(v)).count("1"))(allow)
+    ap, an, ap2, an2 = pop
+    rows = 5 if spec.coh4 else 3
+    tables = 9 if spec.coh4 else 3
+    metrics = 6 if spec.coh4 else 4
+    n_data = len(spec.data_syms)
+    per_sym = (rows * t * 3 + tables * (6 * t + 4 * t * t)
+               + metrics * spec.bits_per_sym * (t + 2)
+               + 8 * spec.bits_per_sym)
+    ops_sym = (n_data * per_sym + int((2 * t * (ap + an)).sum())
+               + int((6 * t * ap * an).sum()))
+    if spec.coh4:
+        ops_sym += int((10 * t * ap * an * an2).sum()
+                       + (10 * t * ap2 * ap * an).sum())
+    ops = m * ops_sym
+    n_bytes = m * (spec.n_sym * t * 8 + 8 + n_data * spec.bits_per_sym * 4)
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
+            {"ops_per_candidate": ops_sym, "ops": ops, "bytes": n_bytes})
+
+
+def _gfsk_mode_windows(mode: str, n: int, seed: int) -> np.ndarray:
+    """``n`` seeded windows of a GFSK mode with real messages (so that the
+    first pass decodes and the subtraction runs): FT4 three bursts a
+    window 2 dB apart at -4 to -10 dB, JS8, FST4-60 and FST4W-1800 one, at
+    -6 to -14 dB (FST4W-1800 -28 dB), in noise."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, js8
+    from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for w in range(n):
+        if mode == "FT4":
+            clean = sum(10 ** (-j * 0.1) * ft4.synthesize(
+                text, 700.0 + 700.0 * j + 40.0 * rng.uniform(),
+                start_s=0.3 + 0.3 * rng.uniform())
+                for j, text in enumerate(["CQ VE3XYZ EN93",
+                                          "K1ABC W9XYZ EN37",
+                                          "W9XYZ K1ABC -11"]))
+            snr = rng.uniform(-10, -4)
+        elif mode == "JS8":
+            clean = js8.synthesize("KN4CRD: HB EN50",
+                                   800.0 + 1400.0 * rng.uniform())
+            snr = rng.uniform(-14, -6)
+        elif mode == "FST4-60":
+            clean = fst4.synthesize("CQ F5ABC JN18", Mode.FST4_60,
+                                    950.0 + 100.0 * rng.uniform())
+            snr = rng.uniform(-14, -6)
+        else:
+            clean = fst4.synthesize("K1ABC FN42 30", Mode.FST4W_1800,
+                                    1500.0, start_s=1.0)
+            snr = -28.0
+        out.append(add_noise_at_snr(clean, snr, 12_000, rng
+                                    ).astype(np.float32))
+    return np.stack(out)
+
+
+def gfsk_kernels_phase(dev) -> dict:
+    """The ``subtract_known`` and ``multisym_llrs`` kernels against their
+    plain versions on CPU copies of the inputs the decoders hand them: the
+    FT8 main path's (FT8Decoder with the operator's call at depth 3 on 64
+    busy windows: the pass-1 LLRs of its first 24-window call, 12,288
+    candidates, and its pass-1 subtraction over all 64 windows), FT4 at
+    depth 3, JS8, FST4-60 (coh4) and FST4W-1800 at its device batch; then
+    each kernel's device time at the main path's shape beside the plain
+    version's on the card and the bound."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, gfsk_engine, js8, subtract
+    from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from torch_bench_sections import make_busy_windows
+
+    wins, _ = make_busy_windows(64)
+    dec = FT8Decoder(my_call="W2AXR", depth=3, device=dev)
+    main_llr, main_sub = record_gfsk_inputs(dec, torch.from_numpy(wins).to(dev))
+    del wins
+    cases = {"ft8 main path": (main_llr, main_sub)}
+    others = [("ft4 depth 3", ft4.FT4Decoder(depth=3, device=dev), "FT4", 16),
+              ("js8", js8.JS8Decoder(device=dev), "JS8", 16),
+              ("fst4-60", fst4.FST4Decoder(Mode.FST4_60, device=dev),
+               "FST4-60", 8),
+              ("fst4w-1800", fst4.FST4Decoder(Mode.FST4W_1800, device=dev),
+               "FST4W-1800", 0)]
+    for i, (name, d, mode, n) in enumerate(others):
+        n = n or d.max_device_batch
+        audio = torch.from_numpy(_gfsk_mode_windows(mode, n, SEED + 40 + i))
+        cases[name] = record_gfsk_inputs(d, audio.to(dev))
+        del audio, d
+    checks = {}
+    for name, (llr_in, sub_in) in cases.items():
+        checks[f"llr {name}"] = llr_vs_plain(*llr_in)
+        if sub_in is None:
+            raise AssertionError(f"{name}: the decode ran no subtraction")
+        checks[f"subtract {name}"] = subtract_vs_plain(*sub_in)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for name, c in checks.items():
+        print(f"gfsk kernel vs plain, {name}: {json.dumps(c)}")
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"GFSK kernels disagree with the plain "
+                             f"versions: {bad}")
+
+    # device time at the main path's shapes: the kernels in a CUDA graph,
+    # in turns around the plain versions on the card issued from the host
+    # (the plain subtraction syncs with the host once a burst)
+    spec_l, csym, rot, bm = main_llr
+    spec_s, audio, params, gp = main_sub
+    runs = {
+        "subtract_known": (
+            lambda: gk.subtract_known(spec_s, audio, params, gp),
+            lambda: subtract.subtract_known_plain(spec_s, audio, params, gp),
+            3),
+        "multisym_llrs": (
+            lambda: gk.multisym_llrs(spec_l, csym, rot, bm),
+            lambda: gfsk_engine._multisym_llrs_plain(spec_l, csym, rot, bm),
+            10)}
+    bounds = {"subtract_known": subtract_bound_ms(spec_s, audio, params, gp),
+              "multisym_llrs": llr_bound_ms(spec_l, csym.shape[0])}
+    shapes = {"subtract_known": list(params.shape),
+              "multisym_llrs": list(csym.shape)}
+    out = {}
+    for name, (kern, plain, reps) in runs.items():
+        ms = [cuda_ms(kern, reps)]
+        plain_ms = eager_ms(plain, 3)
+        ms.append(cuda_ms(kern, reps))
+        kern_eager = eager_ms(kern, reps)
+        bytes_ms, ops_ms, counts = bounds[name]
+        bound = max(bytes_ms, ops_ms)
+        err = max(c["max_abs_err"] for cn, c in checks.items()
+                  if cn.startswith("subtract" if name == "subtract_known"
+                                   else "llr"))
+        out[name] = {"ms": statistics.median(ms), "ms_turns": ms,
+                     "plain_ms": plain_ms, "eager_ms": kern_eager,
+                     "bound_ms": bound,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                     "counts": counts, "library_ms": None,
+                     "max_abs_err": err, "shape": shapes[name]}
+        print(f"{name} at {shapes[name]}: kernel {out[name]['ms']:.4f} ms "
+              f"device time (turns {ms}), {kern_eager:.4f} ms issued from "
+              f"the host; plain {plain_ms:.3f} ms from the host; bound "
+              f"{bound:.5f} ms (bytes {bytes_ms:.5f}, ops {ops_ms:.5f}; "
+              f"{counts}), kernel at {100 * bound / out[name]['ms']:.1f} % "
+              "of it; no single library call computes it")
+    return {"kernels": out, "checks": checks}
+
+
 def _plan():
     """64 dials across the band and the bursts: (dial index, message,
     audio offset Hz, SNR dB in 2.5 kHz, dt s)."""
@@ -654,12 +1016,13 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
              on_anchor=None) -> dict:
     """Run the port's App on ``ini`` until ``n_windows()`` channel-windows
     are decoded: its spots, the jobs handed to the pool and the
-    channelizer and LDPC kernel launches of the run.  The App starts the
+    channelizer, LDPC and GFSK kernel launches of the run.  The App starts the
     replay on its own anchor, the next UTC 15 s boundary;
     ``on_anchor(utc_anchor)``, if given, runs once with that anchor just
     before the receiver opens the file (to write a replay that fits it)."""
     from cwsl_digi_tpu_torch.config import load_config
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
     from cwsl_digi_tpu_torch.runtime.app import App
 
@@ -695,6 +1058,7 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
     # before it starts the receiver
     _kernels.launches["channelize"] = 0
     _reset(ldpc_kernels.launches)
+    _reset(gfsk_kernels.launches)
     t0 = time.monotonic()
     runner = threading.Thread(target=app.run, daemon=True)
     try:
@@ -707,6 +1071,7 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
         run_s = time.monotonic() - t0
         launches = _kernels.launches["channelize"]
         ldpc_launches = dict(ldpc_kernels.launches)
+        gfsk_launches = dict(gfsk_kernels.launches)
     finally:
         app._terminate = True
         runner.join(timeout=60)
@@ -717,7 +1082,8 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
         print(f"channelize host wall {rx_stage[0]['channelize_wall_s']:.3f} s"
               f" for {rx_stage[0]['channelized_audio_s']:.2f} s of audio")
     return {"spots": spots, "jobs": jobs, "launches": launches,
-            "ldpc_launches": ldpc_launches, "run_s": run_s, "decoded": app.pool.count_decoded_windows,
+            "ldpc_launches": ldpc_launches, "gfsk_launches": gfsk_launches,
+            "run_s": run_s, "decoded": app.pool.count_decoded_windows,
             "stage_log": list(app.pool.stage_log),
             "anchor": anchors[0] if anchors else None}
 
@@ -729,7 +1095,7 @@ def _reset(counts: dict) -> None:
 
 def _require_launches(where: str, counts: dict, names) -> None:
     """Fail unless each kernel of ``names`` was launched in ``where``."""
-    print(f"{where}: LDPC kernel launches {counts}")
+    print(f"{where}: kernel launches {counts}")
     missing = [k for k in names if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{where} did not launch {missing}")
@@ -773,11 +1139,13 @@ def main_path_phase(dev, workdir: Path) -> dict:
     if run["launches"] <= 0:
         raise AssertionError("main path did not launch the channelizer kernel")
     _require_launches("main path", run["ldpc_launches"], LDPC_KERNELS)
+    _require_launches("main path", run["gfsk_launches"], GFSK_KERNELS)
     devices = [j[2] for j in run["jobs"]]
     if not devices or any(d != "cuda" for d in devices):
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
     return {"launches": run["launches"], "decode_s": decode_s,
-            "ldpc_launches": run["ldpc_launches"], "run_s": run["run_s"]}
+            "ldpc_launches": run["ldpc_launches"],
+            "gfsk_launches": run["gfsk_launches"], "run_s": run["run_s"]}
 
 
 # the lines a 20 m skimmer runs on one 192 kHz receiver at LO 14.100 MHz
@@ -889,13 +1257,13 @@ def _write_lines_replay(path: Path, lead_s: float, lines, plan, seed: int
 
 
 def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
-                  ldpc_used) -> dict:
+                  ldpc_used, gfsk_used) -> dict:
     """The port's App on a replay of ``lines`` with the bursts of ``plan``,
     written once the App has taken its anchor (noise to the next 2-minute
     boundary, then MIXED_S s): every line's windows on their own UTC
     boundaries, the expected spots and no other, through the channelizer
-    kernel and the LDPC kernels of ``ldpc_used``, with CUDA tensors
-    reaching the decoders."""
+    kernel, the LDPC kernels of ``ldpc_used`` and the GFSK kernels of
+    ``gfsk_used``, with CUDA tensors reaching the decoders."""
     iq_path = workdir / f"{name}.npy"
     ini = workdir / f"{name}.ini"
     ini.write_text("\n".join(
@@ -936,11 +1304,13 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
         raise AssertionError(f"{name} path did not launch the channelizer "
                              "kernel")
     _require_launches(f"{name} path", run["ldpc_launches"], ldpc_used)
+    _require_launches(f"{name} path", run["gfsk_launches"], gfsk_used)
     devices = {j[2] for j in run["jobs"]}
     if devices != {"cuda"}:
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
     return {"launches": run["launches"],
-            "ldpc_launches": run["ldpc_launches"], "decode_batches": batches,
+            "ldpc_launches": run["ldpc_launches"],
+            "gfsk_launches": run["gfsk_launches"], "decode_batches": batches,
             "run_s": run["run_s"], "windows": run["decoded"],
             "lead_s": state["lead"]}
 
@@ -948,7 +1318,7 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
 def mixed_mode_phase(dev, workdir: Path) -> dict:
     """The port's App on the mixed-mode replay."""
     return _replay_phase(dev, workdir, "mixed-mode", MIXED_LINES,
-                         _mixed_plan(), SEED + 2, LDPC_KERNELS)
+                         _mixed_plan(), SEED + 2, LDPC_KERNELS, GFSK_KERNELS)
 
 
 # the weak-signal lines of the same 20 m receiver: WSPR beside FST4W on
@@ -981,10 +1351,11 @@ def _weak_plan():
 
 def weak_modes_phase(dev, workdir: Path) -> dict:
     """The port's App on the weak-mode replay (WSPR, JT65, Q65-30): WSPR's
-    OSD runs the ``osd`` kernel; none of the three has an LDPC code, so
-    ``bp_minsum`` has no launch here."""
+    OSD runs the ``osd`` kernel; none of the three has an LDPC code or
+    runs the GFSK engine, so ``bp_minsum``, ``subtract_known`` and
+    ``multisym_llrs`` have no launch here."""
     return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
-                         _weak_plan(), SEED + 5, ("osd",))
+                         _weak_plan(), SEED + 5, ("osd",), ())
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -1364,11 +1735,14 @@ def live_soak_phase(dev) -> dict:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     from torch_soak import run_soak
 
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     _reset(ldpc_kernels.launches)
+    _reset(gfsk_kernels.launches)
     r = run_soak(device=dev, **SOAK)
     ldpc_launches = dict(ldpc_kernels.launches)
+    gfsk_launches = dict(gfsk_kernels.launches)
     st = r["stages"]
     lw = st["lock_wait_s"]
     print(f"live soak: {r['channels']} FT8 channels on {r['receivers']} "
@@ -1414,8 +1788,10 @@ def live_soak_phase(dev) -> dict:
         raise AssertionError("live soak did not launch the channelizer "
                              "kernel")
     _require_launches("live soak", ldpc_launches, LDPC_KERNELS)
+    _require_launches("live soak", gfsk_launches, GFSK_KERNELS)
     return {"launches": r["channelize_launches"],
-            "ldpc_launches": ldpc_launches, "report": {
+            "ldpc_launches": ldpc_launches, "gfsk_launches": gfsk_launches,
+            "report": {
         k: v for k, v in r.items() if k not in ("stages", "missing")}}
 
 
@@ -1503,6 +1879,7 @@ def bench_phase(dev) -> dict:
 
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     # (name, section, args) at a small size
@@ -1516,6 +1893,7 @@ def bench_phase(dev) -> dict:
     out = {}
     _kernels.launches["channelize"] = 0
     _reset(ldpc_kernels.launches)
+    _reset(gfsk_kernels.launches)
     for name, fn, args in sections:
         r = getattr(torch_bench_sections, fn)(*args, device=dev)
         if not r:
@@ -1524,6 +1902,7 @@ def bench_phase(dev) -> dict:
         print(f"bench {name}: {json.dumps(r)}")
         out[name] = r
     ldpc_launches = dict(ldpc_kernels.launches)
+    gfsk_launches = dict(gfsk_kernels.launches)
     chan, prod = out["channelizer"], out["decode_production"]
     if prod["false_messages"]:
         raise AssertionError(f"busy-band decode: {prod['false_messages']}")
@@ -1535,8 +1914,10 @@ def bench_phase(dev) -> dict:
     if missing:
         raise AssertionError(f"bench sections decoded nothing: {missing}")
     _require_launches("bench", ldpc_launches, LDPC_KERNELS)
+    _require_launches("bench", gfsk_launches, GFSK_KERNELS)
     return {"launches": chan["kernel_launches"],
-            "ldpc_launches": ldpc_launches, "sections": out}
+            "ldpc_launches": ldpc_launches, "gfsk_launches": gfsk_launches,
+            "sections": out}
 
 
 def main() -> int:
@@ -1547,12 +1928,14 @@ def main() -> int:
     import cwsl_digi_tpu_torch  # noqa: F401  (fails outside the repo)
     from cwsl_digi_tpu_torch.device import cuda_device
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     dev = cuda_device()
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
-    build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels})
+    build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels,
+                     "gfsk": gfsk_kernels})
 
     walls = {}
 
@@ -1576,6 +1959,7 @@ def main() -> int:
     kwide = phase("kernel_256ch", kernel_phase, dev,
                   np.linspace(-FS / 2, FS / 2 - 6000, 256))
     kldpc = phase("ldpc_kernels", ldpc_kernels_phase, dev)
+    kgfsk = phase("gfsk_kernels", gfsk_kernels_phase, dev)
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1596,6 +1980,7 @@ def main() -> int:
                       "channelize_weak_3ch": kweak,
                       "channelize_256ch": kwide}))
     print(json.dumps({"ldpc_kernels": kldpc}))
+    print(json.dumps({"gfsk_kernels": kgfsk}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
                       "weak_decode_batches": wstats["decode_batches"],
@@ -1626,13 +2011,16 @@ def main() -> int:
         "bound_by": kmain["bound_by"],
         "library_ms": kmain["library_ms"],
     }]
-    for name, replaces in LDPC_REPLACES.items():
-        k = kldpc["kernels"][name]
-        by_phase = {ph: st["ldpc_launches"][name]
-                    for ph, st in app_phases.items()}
+    hand = [(name, replaces, kldpc, "ldpc_launches", "ldpc.cu")
+            for name, replaces in LDPC_REPLACES.items()]
+    hand += [(name, replaces, kgfsk, "gfsk_launches", "gfsk.cu")
+             for name, replaces in GFSK_REPLACES.items()]
+    for name, replaces, kphase, counts, src in hand:
+        k = kphase["kernels"][name]
+        by_phase = {ph: st[counts][name] for ph, st in app_phases.items()}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "cwsl_digi_tpu_torch/modes/csrc/ldpc.cu",
+            "source": f"cwsl_digi_tpu_torch/modes/csrc/{src}",
             "replaces": replaces,
             "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,

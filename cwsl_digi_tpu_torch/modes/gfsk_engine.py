@@ -37,6 +37,7 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
+from cwsl_digi_tpu_torch.modes import _gfsk_kernels
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
@@ -48,8 +49,8 @@ from cwsl_digi_tpu_torch.modes.subtract import subtract_known
 # the same windows-per-call split, as the reference
 DEVICE_BYTES_BUDGET = 4_000_000_000
 
-# bound on the largest per-chunk cross tensor in _multisym_llrs (bytes):
-# eager PyTorch materializes every intermediate of a chunk
+# bound on the largest per-chunk cross tensor in _multisym_llrs_plain
+# (bytes): eager PyTorch materializes every intermediate of a chunk
 LLR_CHUNK_BYTES = 64_000_000
 
 
@@ -176,7 +177,23 @@ def _neighbor_allowed(spec: ModeSpec, idx: np.ndarray) -> np.ndarray:
 def _multisym_llrs(spec: ModeSpec, csym: torch.Tensor, rot: torch.Tensor,
                    bitmaps: torch.Tensor) -> torch.Tensor:
     """Coherent 1/2/3-symbol (and, with ``spec.coh4``, 4-symbol) max-log
-    LLRs.
+    LLRs, [M, n_bits] normalized per candidate to std 3.
+
+    A CPU tensor runs :func:`_multisym_llrs_plain`; any other launches the
+    ``multisym_llrs`` kernel (``csrc/gfsk.cu``, one launch over all M
+    candidates), which raises if it cannot (no fallback).
+    """
+    if csym.device.type == "cpu":
+        return _multisym_llrs_plain(spec, csym, rot, bitmaps)
+    return _gfsk_kernels.multisym_llrs(spec, csym.contiguous(),
+                                       rot.contiguous(), bitmaps.contiguous())
+
+
+def _multisym_llrs_plain(spec: ModeSpec, csym: torch.Tensor,
+                         rot: torch.Tensor, bitmaps: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain PyTorch version of :func:`_multisym_llrs` (on any device):
+    the kernel's oracle.
 
     csym [M, n_sym, n_tones] complex64 symbol DFT values, rot [M] complex64
     inter-symbol reference rotation, bitmaps [bits_per_sym, n_tones].

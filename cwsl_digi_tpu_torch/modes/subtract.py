@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from cwsl_digi_tpu_torch.constants import WAVE_SR
+from cwsl_digi_tpu_torch.modes import _gfsk_kernels
 from cwsl_digi_tpu_torch.modes.gfsk import gaussian_frequency_pulse
 
 # moving-average window (symbols) of the time-varying complex gain
@@ -64,7 +65,22 @@ def subtract_known(spec, audio: torch.Tensor, params: torch.Tensor,
                valid bursts first in every window
     gen_parity [k, n-k] float32 systematic generator
     Returns the [B, T] float32 residual.
+
+    A CPU tensor runs :func:`subtract_known_plain`; any other launches the
+    ``subtract_known`` kernel (``csrc/gfsk.cu``), which raises if it cannot
+    (no fallback) and never syncs with the host.
     """
+    if audio.device.type == "cpu":
+        return subtract_known_plain(spec, audio, params, gen_parity)
+    return _gfsk_kernels.subtract_known(spec, audio.contiguous(),
+                                        params.contiguous(),
+                                        gen_parity.contiguous())
+
+
+def subtract_known_plain(spec, audio: torch.Tensor, params: torch.Tensor,
+                         gen_parity: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`subtract_known` (on any device):
+    the kernel's oracle.  It syncs with the host once a burst."""
     B, T = audio.shape
     dev = audio.device
     k_info = gen_parity.shape[0]

@@ -2,7 +2,9 @@
 its plain version (streaming, and at the blocks time shards give it), the
 LDPC kernels ``bp_minsum`` and ``osd`` against their plain versions on
 every code and OSD shape the decoders run (and no fallback when their
-library cannot be built), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
+library cannot be built), the GFSK kernels ``subtract_known`` and
+``multisym_llrs`` against their plain versions at FT8, FT4, JS8 and
+FST4-60 shapes (and no fallback), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
 Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
 and the parallel layer on a virtual mesh of the card against one on the
 CPU.
@@ -28,9 +30,10 @@ import chip_smoke
 from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
+from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
 from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
-from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, js8, jt65, ldpc, osd,
-                                       q65, wspr)
+from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, gfsk_engine, js8,
+                                       jt65, ldpc, osd, q65, subtract, wspr)
 from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
 from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
 from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
@@ -181,6 +184,110 @@ def test_decoders_launch_the_ldpc_kernels_on_card(dev):
     torch.cuda.synchronize()
     assert ldpc_kernels.launches["osd"] > before["osd"]
     assert ldpc_kernels.launches["bp_minsum"] == before["bp_minsum"]
+
+
+def _gfsk_shapes():
+    """(name, spec, LDPC code) of each GFSK engine shape."""
+    return [("ft8", ft8.SPEC, ldpc.ft8_code()),
+            ("ft4", ft4.SPEC, ldpc.ft8_code()),
+            ("js8", js8.SPEC, js8.js8_code()),
+            ("fst4-60", fst4.make_spec(Mode.FST4_60), ldpc.fst4_code())]
+
+
+# bursts in each window of the subtraction cases: one window's run out
+# before the others'
+GFSK_COUNTS = {"ft8": (6, 1, 3, 0, 2, 4, 5, 6), "ft4": (3, 1, 2, 3),
+               "js8": (2, 1, 3, 2), "fst4-60": (2, 1)}
+
+
+@pytest.mark.parametrize("shape", range(4),
+                         ids=[s[0] for s in _gfsk_shapes()])
+def test_subtract_kernel_matches_plain_on_card(dev, shape):
+    """subtract_known against subtract_known_plain on CPU copies
+    (chip_smoke.subtract_vs_plain): seeded windows with 0 to 6 known bursts
+    at -6 to -14 dB in noise, 16 burst slots, at each shape.  Residual
+    within 1e-3 of each window's peak, every fitted burst's integer time
+    shift equal; one launch."""
+    name, spec, code = _gfsk_shapes()[shape]
+    audio, params, gp, _ = chip_smoke.burst_case(
+        spec, code, GFSK_COUNTS[name], seed=20 + shape, n_slots=16)
+    before = gfsk_kernels.launches["subtract_known"]
+    got = chip_smoke.subtract_vs_plain(
+        spec, *(torch.from_numpy(x).to(dev) for x in (audio, params, gp)))
+    torch.cuda.synchronize()
+    assert gfsk_kernels.launches["subtract_known"] == before + 1
+    assert got["ok"], got
+    assert got["steps"] == sum(GFSK_COUNTS[name])
+    assert not got["shift_flips"], got
+
+
+@pytest.mark.parametrize("shape", range(4),
+                         ids=[s[0] for s in _gfsk_shapes()])
+def test_llr_kernel_matches_plain_on_card(dev, shape):
+    """multisym_llrs against _multisym_llrs_plain on CPU copies
+    (chip_smoke.llr_vs_plain): 1024 seeded candidates at each shape,
+    FST4-60 with its 4-symbol windows; within atol 1e-3; one launch."""
+    _, spec, _ = _gfsk_shapes()[shape]
+    csym, rot = chip_smoke.noisy_csym(spec, 1024, seed=30 + shape)
+    bm = torch.from_numpy(spec.bitmaps()).to(dev)
+    before = gfsk_kernels.launches["multisym_llrs"]
+    got = chip_smoke.llr_vs_plain(spec, torch.from_numpy(csym).to(dev),
+                                  torch.from_numpy(rot).to(dev), bm)
+    torch.cuda.synchronize()
+    assert gfsk_kernels.launches["multisym_llrs"] == before + 1
+    assert got["ok"], got
+
+
+def test_gfsk_kernels_raise_without_library_on_card(dev, monkeypatch,
+                                                    tmp_path):
+    """With no nvcc and no built library, subtract_known and
+    _multisym_llrs on CUDA tensors raise; the plain versions never run and
+    nothing counts."""
+    monkeypatch.setattr(gfsk_kernels, "_lib", None)
+    monkeypatch.setattr(gfsk_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(gfsk_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(subtract, "subtract_known_plain", plain)
+    monkeypatch.setattr(gfsk_engine, "_multisym_llrs_plain", plain)
+    spec = ft8.SPEC
+    before = dict(gfsk_kernels.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        subtract.subtract_known(
+            spec, torch.zeros((2, 180_000), device=dev),
+            torch.ones((2, 4, 94), dtype=torch.int32, device=dev),
+            torch.zeros((91, 83), device=dev))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gfsk_engine._multisym_llrs(
+            spec, torch.ones((4, 79, 8), dtype=torch.complex64, device=dev),
+            torch.ones(4, dtype=torch.complex64, device=dev),
+            torch.from_numpy(spec.bitmaps()).to(dev))
+    assert gfsk_kernels.launches == before
+
+
+def test_decoders_launch_the_gfsk_kernels_on_card(dev):
+    """An FT8 decode on the card at depth 2 runs multisym_llrs on each pass
+    and subtract_known between them; a WSPR decode runs neither."""
+    rng = np.random.default_rng(13)
+    win = add_noise_at_snr(ft8.synthesize("CQ W2AXR FN13", 1200.0), -12.0,
+                           12_000, rng).astype(np.float32)
+    before = dict(gfsk_kernels.launches)
+    res = ft8.FT8Decoder(device=dev).decode(
+        torch.from_numpy(win[None]).to(dev), depth=2)
+    torch.cuda.synchronize()
+    assert [r.message for r in res[0]] == ["CQ W2AXR FN13"]
+    assert gfsk_kernels.launches["multisym_llrs"] == before["multisym_llrs"] + 2
+    assert gfsk_kernels.launches["subtract_known"] == \
+        before["subtract_known"] + 1
+    win = add_noise_at_snr(wspr.synthesize("K1ABC", "FN42", 37, 1500.0),
+                           -20.0, 12_000, rng).astype(np.float32)
+    before = dict(gfsk_kernels.launches)
+    wspr.WSPRDecoder(device=dev).decode(torch.from_numpy(win[None]).to(dev))
+    assert gfsk_kernels.launches == before
 
 
 def test_one_decode_at_a_time_on_the_card(dev):
