@@ -29,7 +29,8 @@
    1e-4; OSD against the plain version on the card: codewords and hard
    errors equal (near-ties counted apart), distances within 1e-5
    relative.  Then each kernel's device time at the main path's shape
-   beside the plain version's on the card and the bound;
+   beside the plain version's on the card and the bound, at the rates of
+   the operations' types (FP32 without FMA, INT32) and at 67 TFLOP/s;
 4b. holds ``subtract_known`` and ``multisym_llrs`` against their plain
    versions on CPU copies of the inputs the decoders hand them (phase
    ``gfsk_kernels``): the FT8 main path's (FT8Decoder with AP at depth 3
@@ -38,8 +39,13 @@
    3, JS8, FST4-60 (4-symbol windows) and FST4W-1800 at its device batch:
    residual within 1e-3 of each window's peak and every fitted burst's
    integer time shift counted against the plain version's, LLRs within
-   1e-3.  Then each kernel's device time at the main path's shape beside
-   the plain version's on the card and the bound;
+   1e-3; the same for four FT8 windows with all 16 slots valid (the work
+   queue then takes every pass a call can open); each subtraction's
+   device operations a call, counted by ``torch.profiler`` (one kernel
+   launch), and its device time in a CUDA graph, and that ``sincosf``
+   rounds as ``sinf`` and ``cosf``.  Then each kernel's device time at
+   the main path's shape beside the plain version's on the card and the
+   bound, as in 4;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
@@ -113,6 +119,7 @@ Any failed phase raises; nothing is caught.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -131,11 +138,16 @@ CHAN_TOL = 1e-4          # kernel vs plain, max abs (split-bf16 products,
                          # ~16 bits, against float32 FIR sums of 512 taps;
                          # output rms ~0.2)
 # published H100 SXM peaks at 700 W (dense): HBM bytes/s, bf16, TF32 and FP32
-# FLOP/s
+# FLOP/s (FP32_FLOPS counts an FMA as two operations)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
+# the stage kernels are built with --fmad=false: each float add, multiply,
+# minimum and compare issues as one operation a lane and clock (132 SMs x
+# 128 FP32 lanes x 1.98 GHz), integer work on 64 INT32 lanes an SM
+FP32_OPS = 132 * 128 * 1.98e9
+INT32_OPS = 132 * 64 * 1.98e9
 SPOT_TOL_HZ = 2
 LDPC_KERNELS = ("bp_minsum", "osd")
 # the XLA programs of the JAX package that the LDPC kernels replace
@@ -224,6 +236,31 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def device_ops(fn) -> dict | None:
+    """The device operations of one fn() call (after a warm-up call) as
+    ``torch.profiler`` records them: {"events": all, "by_name": {name:
+    count}}, each kernel named without its return type, namespace and
+    arguments; None when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return None
+    by_name: dict[str, int] = {}
+    for n in names:
+        n = n.removeprefix("void ").replace("(anonymous namespace)::", "")
+        n = re.split(r"[<(]", n, maxsplit=1)[0].strip()
+        by_name[n] = by_name.get(n, 0) + 1
+    return {"events": len(names), "by_name": by_name}
 
 
 def eager_ms(fn, reps: int) -> float:
@@ -473,14 +510,16 @@ def bp_bound_ms(bp, m: int) -> tuple[float, float, dict]:
     rate, and per word and iteration 5 float operations an edge (the
     variable->check difference, the two minima, the scaling, the sum into
     the variable) and one a variable (the channel LLR), plus the last
-    totals and the syndrome, at the FP32 rate."""
+    totals and the syndrome, at FP32_OPS (``ops_ms_fma_rate``: the
+    same at FP32_FLOPS, which counts an FMA as two)."""
     t = bp.t
     edges = int(t.row_mask.sum())
     ops = m * (bp.iters * (5 * edges + t.n) + 2 * edges + t.n)
     n_bytes = m * t.n * (4 + 1 + 4) + m + 2 * (t.row_cols.size
                                                + t.col_slots.size)
-    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
-            {"edges": edges, "ops": ops, "bytes": n_bytes})
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+            {"edges": edges, "ops": ops, "bytes": n_bytes,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
 
 
 def osd_bound_ms(k: int, n: int, n_pat: int, m: int
@@ -491,15 +530,55 @@ def osd_bound_ms(k: int, n: int, n_pat: int, m: int
     comparisons, the elimination's k pivots XORed into k rows of
     ceil(n/32) words, each pattern's re-encoding (5 word operations a row
     word: 3 flips, the mismatch, the count) and its soft distance (a
-    multiply and an add a bit), at the FP32 rate (integer and float
-    operations alike)."""
+    multiply and an add a bit).  The sort, elimination and re-encoding are
+    integer work at INT32_OPS, the distances float work at FP32_OPS; the
+    two pipes issue side by side, so the bound is the larger time
+    (``ops_ms_fma_rate``: all of it at FP32_FLOPS, which counts an FMA
+    as two)."""
     w = -(-n // 32)
-    per_word = (n * int(np.ceil(np.log2(n))) + k * k * w + n_pat * 5 * w
-                + n_pat * 2 * n)
+    int_word = n * int(np.ceil(np.log2(n))) + k * k * w + n_pat * 5 * w
+    float_word = n_pat * 2 * n
+    per_word = int_word + float_word
     ops = m * per_word
     n_bytes = m * n * 4 + k * n + n_pat * 3 * 2 + m * n + m * 8
-    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
-            {"ops_per_word": per_word, "ops": ops, "bytes": n_bytes})
+    ops_ms = max(m * int_word / INT32_OPS, m * float_word / FP32_OPS) * 1e3
+    return (n_bytes / HBM_BYTES_S * 1e3, ops_ms,
+            {"ops_per_word": per_word, "int_ops_per_word": int_word,
+             "ops": ops, "bytes": n_bytes,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
+
+
+def stage_kernel_times(runs: dict, bounds: dict, errs: dict,
+                       shapes: dict) -> dict:
+    """Each stage kernel's device time at the main path's shape: in a CUDA
+    graph, two turns around its plain version issued from the host (``runs``
+    name: (kernel, plain, kernel reps, plain reps)), beside its bound at the
+    corrected rates (FP32_OPS, INT32_OPS) and at FP32_FLOPS."""
+    out = {}
+    for name, (kern, plain, reps, plain_reps) in runs.items():
+        ms = [cuda_ms(kern, reps)]
+        plain_ms = eager_ms(plain, plain_reps)
+        ms.append(cuda_ms(kern, reps))
+        kern_eager = eager_ms(kern, reps)
+        bytes_ms, ops_ms, counts = bounds[name]
+        bound = max(bytes_ms, ops_ms)
+        bound_fma = max(bytes_ms, counts["ops_ms_fma_rate"])
+        k_ms = statistics.median(ms)
+        out[name] = {"ms": k_ms, "ms_turns": ms, "plain_ms": plain_ms,
+                     "eager_ms": kern_eager, "bound_ms": bound,
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes", "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                     "bound_ms_fma_rate": bound_fma, "counts": counts,
+                     "library_ms": None, "max_abs_err": errs[name],
+                     "shape": shapes[name]}
+        print(f"{name} at {shapes[name]}: kernel {k_ms:.4f} ms device time "
+              f"(turns {ms}), {kern_eager:.4f} ms issued from the host; "
+              f"plain {plain_ms:.3f} ms from the host; bound {bound:.5f} ms "
+              f"(bytes {bytes_ms:.5f}, ops {ops_ms:.5f}; {counts}), kernel "
+              f"at {100 * bound / k_ms:.1f} % of it (at FP32_FLOPS: bound "
+              f"{bound_fma:.5f} ms, {100 * bound_fma / k_ms:.1f} %); no "
+              "single library call computes it")
+    return out
 
 
 def ldpc_kernels_phase(dev) -> dict:
@@ -560,40 +639,21 @@ def ldpc_kernels_phase(dev) -> dict:
     runs = {
         "bp_minsum": (lambda: mk.bp_minsum(
             bp_llr, bp._k_row_cols, bp._k_col_slots, bp.iters, bp.alpha),
-                      lambda: bp.decode_full_plain(bp_llr), 10),
+                      lambda: bp.decode_full_plain(bp_llr), 10, 5),
         "osd": (lambda: mk.osd(tabs["gen"], osd_llr, tabs["pattern_idx"]),
                 lambda: osd.osd_decode_plain(tabs["gen"], osd_llr,
-                                             tabs["patterns"]), 20),
+                                             tabs["patterns"]), 20, 5),
     }
     k_gen, n_gen = tabs["gen"].shape
     bounds = {"bp_minsum": bp_bound_ms(bp, bp_llr.shape[0]),
               "osd": osd_bound_ms(k_gen, n_gen, tabs["patterns"].shape[0],
                                   osd_llr.shape[0])}
-    out = {}
-    for name, (kern, plain, reps) in runs.items():
-        ms = [cuda_ms(kern, reps)]
-        plain_ms = eager_ms(plain, 5)
-        ms.append(cuda_ms(kern, reps))
-        kern_eager = eager_ms(kern, reps)
-        bytes_ms, ops_ms, counts = bounds[name]
-        bound = max(bytes_ms, ops_ms)
-        err = max(c["max_abs_err"] for cn, c in checks.items()
-                  if cn.startswith("bp" if name == "bp_minsum" else "osd"))
-        out[name] = {"ms": statistics.median(ms), "ms_turns": ms,
-                     "plain_ms": plain_ms, "eager_ms": kern_eager,
-                     "bound_ms": bound,
-                     "bound_by": "operations" if ops_ms >= bytes_ms
-                     else "bytes", "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                     "counts": counts, "library_ms": None,
-                     "max_abs_err": err,
-                     "shape": list((bp_llr if name == "bp_minsum"
-                                    else osd_llr).shape)}
-        print(f"{name} at {out[name]['shape']}: kernel {out[name]['ms']:.4f}"
-              f" ms device time (turns {ms}), {kern_eager:.4f} ms issued "
-              f"from the host; plain {plain_ms:.3f} ms from the host; bound "
-              f"{bound:.5f} ms (bytes {bytes_ms:.5f}, ops {ops_ms:.5f}; "
-              f"{counts}), kernel at {100 * bound / out[name]['ms']:.1f} % "
-              "of it; no single library call computes it")
+    errs = {name: max(c["max_abs_err"] for cn, c in checks.items()
+                      if cn.startswith(name[:2]))
+            for name in runs}
+    out = stage_kernel_times(runs, bounds, errs,
+                             {"bp_minsum": list(bp_llr.shape),
+                              "osd": list(osd_llr.shape)})
     return {"kernels": out, "checks": checks}
 
 
@@ -758,7 +818,9 @@ def subtract_bound_ms(spec, audio, params, gen_parity
     add, the scale and carrier, the phase add, cos and sin, the mask: 53
     with TRIG_OPS a trig call), two correlations (three products, two
     cumsum adds: 10), the df2 twist (its angle, cos and sin, the rotation:
-    48) and the gain and subtraction (4): 168 at the FP32 rate."""
+    48) and the gain and subtraction (4): 168 at FP32_OPS
+    (``ops_ms_fma_rate``: the same at FP32_FLOPS, which counts an FMA as
+    two)."""
     b, t = audio.shape
     span = (spec.n_sym + 1) * spec.sps
     steps = int(fitted_steps(params.cpu()).sum())
@@ -766,9 +828,10 @@ def subtract_bound_ms(spec, audio, params, gen_parity
         + (2 + 2 * TRIG_OPS + 6) + 4
     ops = steps * span * per
     n_bytes = 2 * b * t * 4 + params.numel() * 4 + gen_parity.numel() * 4
-    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
             {"steps": steps, "span": span, "ops_per_sample_step": per,
-             "ops": ops, "bytes": n_bytes})
+             "ops": ops, "bytes": n_bytes,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
 
 
 def llr_bound_ms(spec, m: int) -> tuple[float, float, dict]:
@@ -779,7 +842,8 @@ def llr_bound_ms(spec, m: int) -> tuple[float, float, dict]:
     maxima (an add and a max a combination), the triples (5 adds and a
     max), with coh4 the two 4-symbol windows (9 adds and a max), each
     over the neighbour tones the sync cells allow, the bit maxima and the
-    scaling, at the FP32 rate."""
+    scaling, at FP32_OPS (``ops_ms_fma_rate``: the same at FP32_FLOPS,
+    which counts an FMA as two)."""
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
 
     t = spec.n_tones
@@ -800,8 +864,9 @@ def llr_bound_ms(spec, m: int) -> tuple[float, float, dict]:
                        + (10 * t * ap2 * ap * an).sum())
     ops = m * ops_sym
     n_bytes = m * (spec.n_sym * t * 8 + 8 + n_data * spec.bits_per_sym * 4)
-    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3,
-            {"ops_per_candidate": ops_sym, "ops": ops, "bytes": n_bytes})
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+            {"ops_per_candidate": ops_sym, "ops": ops, "bytes": n_bytes,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
 
 
 def _gfsk_mode_windows(mode: str, n: int, seed: int) -> np.ndarray:
@@ -841,18 +906,16 @@ def _gfsk_mode_windows(mode: str, n: int, seed: int) -> np.ndarray:
     return np.stack(out)
 
 
-def gfsk_kernels_phase(dev) -> dict:
-    """The ``subtract_known`` and ``multisym_llrs`` kernels against their
-    plain versions on CPU copies of the inputs the decoders hand them: the
-    FT8 main path's (FT8Decoder with the operator's call at depth 3 on 64
-    busy windows: the pass-1 LLRs of its first 24-window call, 12,288
-    candidates, and its pass-1 subtraction over all 64 windows), FT4 at
-    depth 3, JS8, FST4-60 (coh4) and FST4W-1800 at its device batch; then
-    each kernel's device time at the main path's shape beside the plain
-    version's on the card and the bound."""
+def gfsk_cases(dev) -> dict:
+    """The coherent-LLR and subtraction operands the decoders hand over, by
+    case: the FT8 main path's (FT8Decoder with the operator's call at
+    depth 3 on 64 busy windows: the pass-1 LLRs of its first 24-window
+    call, 12,288 candidates, and its pass-1 subtraction over all 64
+    windows), FT4 at depth 3, JS8, FST4-60 (coh4) and FST4W-1800 at its
+    device batch.  {name: ((spec, csym, rot, bitmaps), (spec, audio,
+    params, gen_parity))}."""
     from cwsl_digi_tpu_torch.constants import Mode
-    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
-    from cwsl_digi_tpu_torch.modes import fst4, ft4, gfsk_engine, js8, subtract
+    from cwsl_digi_tpu_torch.modes import fst4, ft4, js8
     from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
@@ -860,9 +923,9 @@ def gfsk_kernels_phase(dev) -> dict:
 
     wins, _ = make_busy_windows(64)
     dec = FT8Decoder(my_call="W2AXR", depth=3, device=dev)
-    main_llr, main_sub = record_gfsk_inputs(dec, torch.from_numpy(wins).to(dev))
+    cases = {"ft8 main path": record_gfsk_inputs(
+        dec, torch.from_numpy(wins).to(dev))}
     del wins
-    cases = {"ft8 main path": (main_llr, main_sub)}
     others = [("ft4 depth 3", ft4.FT4Decoder(depth=3, device=dev), "FT4", 16),
               ("js8", js8.JS8Decoder(device=dev), "JS8", 16),
               ("fst4-60", fst4.FST4Decoder(Mode.FST4_60, device=dev),
@@ -874,64 +937,98 @@ def gfsk_kernels_phase(dev) -> dict:
         audio = torch.from_numpy(_gfsk_mode_windows(mode, n, SEED + 40 + i))
         cases[name] = record_gfsk_inputs(d, audio.to(dev))
         del audio, d
-    checks = {}
-    for name, (llr_in, sub_in) in cases.items():
-        checks[f"llr {name}"] = llr_vs_plain(*llr_in)
+    for name, (_, sub_in) in cases.items():
         if sub_in is None:
             raise AssertionError(f"{name}: the decode ran no subtraction")
+    return cases
+
+
+def gfsk_kernels_phase(dev) -> dict:
+    """The ``subtract_known`` and ``multisym_llrs`` kernels against their
+    plain versions on CPU copies of the inputs the decoders hand them
+    (``gfsk_cases``) and on four FT8 windows with every slot a valid
+    burst; each subtraction case's device operations a call (the
+    profiler's count: one ``k_subtract`` launch) and its device time in a
+    CUDA graph (so that a capture of it is shown to work at every shape);
+    that ``sincosf`` rounds as ``sinf`` and ``cosf`` over the phases the
+    kernel meets; then each kernel's device time at the main path's shape
+    beside the plain version's on the card and the bound."""
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+    from cwsl_digi_tpu_torch.modes import ft8, gfsk_engine, ldpc, subtract
+
+    cases = gfsk_cases(dev)
+    checks, calls = {}, {}
+    for name, (llr_in, sub_in) in cases.items():
+        checks[f"llr {name}"] = llr_vs_plain(*llr_in)
         checks[f"subtract {name}"] = subtract_vs_plain(*sub_in)
+        ops = device_ops(lambda a=sub_in: gk.subtract_known(*a))
+        launches = None if ops is None else ops["by_name"].get(
+            "k_subtract", 0)
+        calls[name] = {"k_subtract_launches": launches,
+                       "device_operations": ops,
+                       "graph_ms": cuda_ms(
+                           lambda a=sub_in: gk.subtract_known(*a), 1)}
         torch.cuda.empty_cache()
+    # every slot of every window a valid burst, as a crowded band fills
+    # the decoders' 16: the work queue then takes every pass a call opens
+    full = burst_case(ft8.SPEC, ldpc.ft8_code(), (16,) * 4, seed=SEED + 60,
+                      n_slots=16)
+    checks["subtract ft8 every slot filled"] = subtract_vs_plain(
+        ft8.SPEC, *(torch.from_numpy(x).to(dev) for x in full[:3]))
     torch.cuda.synchronize()
     for name, c in checks.items():
         print(f"gfsk kernel vs plain, {name}: {json.dumps(c)}")
+    for name, c in calls.items():
+        print(f"subtract_known per call, {name}: {json.dumps(c)}")
     bad = [name for name, c in checks.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"GFSK kernels disagree with the plain "
                              f"versions: {bad}")
+    if checks["subtract ft8 every slot filled"]["steps"] != 64:
+        raise AssertionError("the filled-slot case fitted "
+                             f"{checks['subtract ft8 every slot filled']}")
+    many = {n: c["k_subtract_launches"] for n, c in calls.items()
+            if c["k_subtract_launches"] not in (None, 1)}
+    if many:
+        raise AssertionError(f"subtract_known launched its kernel other "
+                             f"than once a call: {many}")
+    # every angle the kernel meets: FT8's phase to ~2.4e5 rad, FST4-1800's
+    # to ~1e7, and the small twists
+    rng = np.random.default_rng(SEED + 50)
+    x = np.concatenate([rng.uniform(-1e7, 1e7, 1 << 20),
+                        rng.uniform(-3e5, 3e5, 1 << 20),
+                        rng.uniform(-10, 10, 1 << 18)]).astype(np.float32)
+    trig = gk.trig_differ(torch.from_numpy(x).to(dev))
+    print(f"sincosf against sinf and cosf: {trig} of {x.size} angles differ")
+    if trig:
+        raise AssertionError("sincosf rounds otherwise than sinf and cosf")
 
     # device time at the main path's shapes: the kernels in a CUDA graph,
     # in turns around the plain versions on the card issued from the host
     # (the plain subtraction syncs with the host once a burst)
-    spec_l, csym, rot, bm = main_llr
-    spec_s, audio, params, gp = main_sub
+    spec_l, csym, rot, bm = cases["ft8 main path"][0]
+    spec_s, audio, params, gp = cases["ft8 main path"][1]
     runs = {
         "subtract_known": (
             lambda: gk.subtract_known(spec_s, audio, params, gp),
             lambda: subtract.subtract_known_plain(spec_s, audio, params, gp),
-            3),
+            3, 3),
         "multisym_llrs": (
             lambda: gk.multisym_llrs(spec_l, csym, rot, bm),
             lambda: gfsk_engine._multisym_llrs_plain(spec_l, csym, rot, bm),
-            10)}
+            10, 3)}
     bounds = {"subtract_known": subtract_bound_ms(spec_s, audio, params, gp),
               "multisym_llrs": llr_bound_ms(spec_l, csym.shape[0])}
-    shapes = {"subtract_known": list(params.shape),
-              "multisym_llrs": list(csym.shape)}
-    out = {}
-    for name, (kern, plain, reps) in runs.items():
-        ms = [cuda_ms(kern, reps)]
-        plain_ms = eager_ms(plain, 3)
-        ms.append(cuda_ms(kern, reps))
-        kern_eager = eager_ms(kern, reps)
-        bytes_ms, ops_ms, counts = bounds[name]
-        bound = max(bytes_ms, ops_ms)
-        err = max(c["max_abs_err"] for cn, c in checks.items()
-                  if cn.startswith("subtract" if name == "subtract_known"
-                                   else "llr"))
-        out[name] = {"ms": statistics.median(ms), "ms_turns": ms,
-                     "plain_ms": plain_ms, "eager_ms": kern_eager,
-                     "bound_ms": bound,
-                     "bound_by": "operations" if ops_ms >= bytes_ms
-                     else "bytes", "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                     "counts": counts, "library_ms": None,
-                     "max_abs_err": err, "shape": shapes[name]}
-        print(f"{name} at {shapes[name]}: kernel {out[name]['ms']:.4f} ms "
-              f"device time (turns {ms}), {kern_eager:.4f} ms issued from "
-              f"the host; plain {plain_ms:.3f} ms from the host; bound "
-              f"{bound:.5f} ms (bytes {bytes_ms:.5f}, ops {ops_ms:.5f}; "
-              f"{counts}), kernel at {100 * bound / out[name]['ms']:.1f} % "
-              "of it; no single library call computes it")
-    return {"kernels": out, "checks": checks}
+    errs = {name: max(c["max_abs_err"] for cn, c in checks.items()
+                      if cn.startswith("subtract" if name == "subtract_known"
+                                       else "llr"))
+            for name in runs}
+    out = stage_kernel_times(runs, bounds, errs,
+                             {"subtract_known": list(params.shape),
+                              "multisym_llrs": list(csym.shape)})
+    out["subtract_known"]["per_call"] = calls["ft8 main path"]
+    return {"kernels": out, "checks": checks, "per_call": calls,
+            "trig_differ": trig}
 
 
 def _plan():

@@ -46,7 +46,8 @@ BUILD_DIR = Path(__file__).parent / "build"
 EXTRA_FLAGS = ("--fmad=false",)
 
 # launches of each kernel wrapper since the last reset (one per call that
-# launches; a subtract_known call is 1 + 10 * bursts device launches)
+# launches; a subtract_known call is one kernel launch after a memset of
+# its work queue)
 launches = {"subtract_known": 0, "multisym_llrs": 0}
 
 _lock = threading.Lock()     # guards _lib, the counts and the table cache
@@ -74,8 +75,10 @@ def load_library() -> ctypes.CDLL:
             lib.gfsk_sub_scratch.argtypes = [p, p, ctypes.POINTER(
                 ctypes.c_longlong)]
             lib.gfsk_sub_scratch.restype = ctypes.c_longlong
-            lib.gfsk_subtract_launch.argtypes = [p] * 13
+            lib.gfsk_subtract_launch.argtypes = [p] * 13 + [i]
             lib.gfsk_subtract_launch.restype = i
+            lib.gfsk_trig_differ.argtypes = [p, i, p, p]
+            lib.gfsk_trig_differ.restype = i
             lib.gfsk_llr_launch.argtypes = [p] * 6 + [i] * 6 + [p]
             lib.gfsk_llr_launch.restype = i
             limits = {"gfsk_sub_max_bursts": SUB_MAX_BURSTS,
@@ -238,12 +241,29 @@ def subtract_known(spec, audio: torch.Tensor, params: torch.Tensor,
             tabs["pulse_pad"].data_ptr(), tabs["template"].data_ptr(),
             tabs["data_idx"].data_ptr(), tabs["gray"].data_ptr(),
             scratch_f.data_ptr(), scratch_i.data_ptr(),
-            None if shifts is None else shifts.data_ptr(), stream)
+            None if shifts is None else shifts.data_ptr(), stream, 0)
     if err != 0:
         raise RuntimeError(f"subtract_known kernel launch failed: CUDA error "
                            f"{err} ({spec.name}, {B} windows, {n_m} bursts)")
     _count("subtract_known")
     return out
+
+
+def trig_differ(x: torch.Tensor) -> int:
+    """How many float32 ``x`` (on the card) get other bits from CUDA's
+    ``sincosf`` than from ``sinf`` and ``cosf``.  The subtraction kernel
+    takes one ``sincosf`` for each angle; it rounds as separate ``cosf``
+    and ``sinf`` calls only if this is 0."""
+    _check({"x": (x, torch.float32, (x.numel(),))})
+    lib = load_library()
+    n = torch.zeros(1, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.gfsk_trig_differ(
+            x.data_ptr(), x.numel(), n.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"trig check launch failed: CUDA error {err}")
+    return int(n.item())
 
 
 def multisym_llrs(spec, csym: torch.Tensor, rot: torch.Tensor,

@@ -16,49 +16,72 @@
 //   - subtract at the FT8 path's 64 windows reads the audio and writes the
 //     residual once (~92 MB, ~0.03 ms of HBM), and computes per sample and
 //     burst two syntheses (a 4-tap pulse sum, a cumsum, cos and sin), two
-//     correlation cumsums and the twist (cos and sin again): ~160 float
-//     operations with range-reduced trig counted as tens each, ~0.1 ms of
-//     FP32 issue at ~6 bursts a window.  Operations bound it.  What costs
-//     in practice is the chain: each burst's fit needs the whole span's
-//     cumsums before the next stage, and each window's bursts run in order.
+//     correlation cumsums and the twist (cos and sin again): ~170 float
+//     operations with range-reduced trig counted as 20 each, ~0.26 ms at
+//     the FP32 rate without FMA (--fmad=false) for FT8's 343 fitted bursts
+//     (2 to 6 a window).  Operations bound it: the phase passes 1e5 rad,
+//     where sincosf takes its slow argument reduction.  What costs besides
+//     is the chain: each burst's fit needs the whole span's cumsums before
+//     its next stage, and each window's bursts run in order.  The first
+//     design issued each stage of each burst step as its own launch over
+//     every window (1 + 10 M launches for M burst slots, ten a step even
+//     after every window had run out of bursts), half of them grids of one
+//     block a window; a thread block cluster a window for the whole call
+//     (the stages between the span-wide passes repeated in each block,
+//     barrier.cluster in place of the launches) measured slower still on
+//     the H100: with 16 blocks a window the windows queue for the card,
+//     with 4 the span-wide passes crawl.
 //   - llr at FT8's 12,288 candidates reads 62 MB of symbol spectra and
 //     writes 8.5 MB (~0.021 ms); its ~4,300 operations per (candidate, data
-//     symbol) over the 512 triples take ~0.046 ms of FP32 issue: operations
-//     bound it.
+//     symbol) over the 512 triples take ~0.09 ms at the FP32 rate without
+//     FMA: operations bound it.
 //
 // The design.
 //
-//   - subtract: windows are independent and a window's bursts sequential,
-//     so a call issues, for each burst step, ten stream-ordered launches
-//     over every window at once (setup; per fit pass: phase up-sweep,
-//     phase scan, correlation pass, estimate; the subtraction): 1 + 10 M
-//     launches for M bursts, all from one host call, no host sync.  A
-//     window stops at its own first invalid burst (valid bursts come
-//     first, select_subtract_params): its blocks return at once, which is
-//     the reference's while_loop exactly, since an invalid burst subtracts
-//     zero there.  The span-wide passes run one block of 256 threads per
-//     4096 samples of a window's span, so FST4-1800's 21.6 M-sample spans
-//     spread over ~5,300 blocks a window and FT8's over 38.
+//   - subtract: one launch a call, of as many blocks as the card holds at
+//     once (a cooperative launch; 4 a SM at 64 registers a thread), every
+//     block a worker for the whole call, after a memset of the work queue.
+//     A burst step is five span-wide passes (phase, correlation, phase,
+//     correlation, subtraction), each cut into tasks of one span block
+//     (4096 samples: 38 a pass at FT8, 5,283 at FST4-1800).  A window's
+//     pass is opened by appending the window to the queue; blocks take
+//     the open passes' span blocks in the order the passes were opened
+//     (a count of taken span blocks per window), and the block that
+//     finishes a pass's last span block (a count of finished ones) runs
+//     what lies between that pass and the next, alone and at once: the
+//     scan of the 38 V3 sums after a phase pass, the estimate after a
+//     correlation pass, the next burst's tones after the subtraction; then
+//     it opens the window's next pass.  So windows never wait on each
+//     other, no block waits on a barrier while there is work, and a window
+//     ends after its own last valid burst (valid bursts come first,
+//     select_subtract_params), which is the reference's while_loop
+//     exactly, since an invalid burst subtracts zero there: no empty step
+//     runs.  A window's state, tones, gains and phase scan live in global
+//     memory; writes are fenced before the counts that publish them, and
+//     data other blocks wrote is read with __ldcg, past the L1.
 //   - The reference's cumsum order is a fixed tree (subtract.py _cumsum):
 //     sequential float32 adds within blocks of 16, the block totals scanned
 //     the same way, each block's exclusive prefix added last.  A thread
 //     owns one level-0 block of 16 samples: its sequential sum is V1, a
-//     block's 16 V1 sums (sequential) are V2 and its 16 V2 sums V3, one V3
-//     entry a block.  One block per window scans V3 in the tree's order
-//     (tree_scan), and any level-1 or level-2 prefix is the tree's
-//     E + W (exclusive prefix of the level above plus the sequential
-//     within-block sum) read back from V1, V2 and that scan (p1_point).
-//     So the phase, and the per-symbol correlations read at the symbol
-//     boundaries, round exactly as the plain version's; the library is
-//     built with --fmad=false, so no product and sum contract into an FMA.
-//     The phase is never stored: the subtraction pass rebuilds it from the
-//     same sums.
-//   - cosf, sinf and atan2f are CUDA's, with full range reduction (the
-//     phase reaches ~2.4e5 rad in an FT8 burst, ~1e7 at FST4-1800), within
-//     2 ulp of the CPU's; the shift rounds half to even (rintf) as
-//     torch.round.  The short per-symbol sums of the estimators run in
-//     their own order, so dt, df1 and df2 may differ from the plain
-//     version's in the last bits.
+//     span block's 16 V1 sums (sequential) are V2 and its 16 V2 sums V3,
+//     one V3 entry a span block.  The small stage after a pass scans V3 in
+//     the tree's order (tree_scan); a span block's level-1 prefixes are
+//     made once for the block (block_prefix: the 17 level-2 prefixes it
+//     needs, then each thread's E + W from V1 staged in shared memory),
+//     and the estimators' prefixes at the symbol boundaries are the tree's
+//     E + W read back from V1, V2 and the scan (p1_point).  So the phase,
+//     and the per-symbol correlations read at the symbol boundaries, round
+//     exactly as the plain version's, whichever block takes a span block;
+//     the library is built with --fmad=false, so no product and sum
+//     contract into an FMA.  The phase is never stored: the subtraction
+//     pass rebuilds it from the same sums.
+//   - sincosf and atan2f are CUDA's, with full range reduction (the phase
+//     reaches ~2.4e5 rad in an FT8 burst, ~1e7 at FST4-1800), within 2 ulp
+//     of the CPU's; one sincosf an angle gives the bits of separate sinf
+//     and cosf calls (gfsk_trig_differ checks it on the card).  The shift
+//     rounds half to even (rintf) as torch.round.  The estimators' short
+//     per-symbol sums are warp reductions in their own order, so dt, df1
+//     and df2 may differ from the plain version's in the last bits.
 //   - llr: one block per candidate, one thread per data symbol; the
 //     symbol's 3 (or 5) neighbour rows and the T x T cross terms stay in
 //     registers, and each window's terms are summed in the plain version's
@@ -77,21 +100,22 @@ namespace {
 constexpr int SCAN = 16;               // the reference cumsum's block
 constexpr int SPAN_THREADS = 256;      // level-0 blocks of a span block
 constexpr int CHUNK = SPAN_THREADS * SCAN;   // samples of one V3 entry
-constexpr int SMALL_THREADS = 256;     // per-window blocks
 constexpr int SUB_MAX_SYM = 256;
 constexpr int SUB_MAX_INFO = 128;
 constexpr int SUB_MAX_PAR = 256;
 constexpr int SUB_MAX_BURSTS = 64;
+constexpr int SUB_MIN_BLOCKS = 4;      // k_subtract blocks an SM (64 registers)
 constexpr int SUB_MAX_LEVELS = 12;
 constexpr int MOV_TMP = 64;            // tree_scan scratch of n_sym + 7
 constexpr int LLR_MAX_DATA = 128;
 constexpr int LLR_MAX_BPS = 3;
 constexpr int GAIN_SMOOTH = 7;         // subtract.py GAIN_SMOOTH_SYMS
+constexpr unsigned FULL = 0xffffffffu;
 
-// per-window state
-enum { SI_ALIVE, SI_ACTIVE, SI_FINE, SI_M, SI_START0, SI_BLK1, SI_START1,
-       SI_N };
-enum { SF_F0, SF_CF, SF_CDF2, SF_N };
+// the five span-wide passes of a burst step
+enum { P_PHASE0, P_CORR0, P_PHASE1, P_CORR1, P_APPLY, N_PASSES };
+// the work queue's counts (SubBufs::q)
+enum { Q_HEAD, Q_TAIL, Q_DONE, Q_N };
 
 struct SubDims {
     int B, T, row, hop, sps, n_sym, S, L, n_blk_seg, margin, nb_pad;
@@ -108,14 +132,45 @@ struct SubBufs {
     const float* templ;
     const int32_t* data_idx;
     const int32_t* gray;
-    int32_t* si;
-    float* sf;
-    float *tones, *g_re, *g_im;
-    float *ph_v1, *ph_v2, *ph_v3, *ph_p3, *ph_tmp;
-    float *cr_v1, *cr_v2, *cr_v3, *cr_p3, *cr_tmp;
-    float *ci_v1, *ci_v2, *ci_v3, *ci_p3, *ci_tmp;
-    float *bw_re, *bw_im;
+    float *ph_v1, *ph_v2, *ph_v3;      // level sums of the phase increments
+    float *cr_v1, *cr_v2, *cr_v3;      // ... of the correlation products
+    float *ci_v1, *ci_v2, *ci_v3;
+    float *bw_re, *bw_im;              // within-block sums at the symbols
+    float* ph_p3;                      // [B, n3] the phase's scan of V3
+    float *v3c, *sc_p3, *scan_tmp;     // [B, ...] a small stage's scan
+    float *tones, *g_re, *g_im;        // [B, n_sym] each window's burst
+    struct WinState* win;              // [B]
+    int32_t* entries;         // the queue: window + 1 of each opened pass,
+                              // 0 past the tail (queue_len: one spare)
+    unsigned *next, *done;    // [B] span blocks taken / finished this pass
+    unsigned* q;              // [Q_N] head and tail of the queue, windows done
     int32_t* shifts;          // [B, m_bursts] or null: each step's shift
+};
+
+// A window's burst step as its current pass needs it: written by the block
+// that runs the window's small stage, read by the blocks that take its
+// span blocks.
+struct WinState {
+    int mi, pass, fine, m, start0, blk1, start1;
+    float f0, cf, cdf2;
+};
+
+// A block's copy of the window it works on (its tones, gains and fit),
+// the estimator's per-symbol arrays and the span passes' staging.
+struct SubShared {
+    WinState ws;
+    int task_w, task_c, last;
+    float tones[SUB_MAX_SYM], g_re[SUB_MAX_SYM], g_im[SUB_MAX_SYM];
+    float par[SUB_MAX_PAR];
+    float vr[SUB_MAX_SYM + 1], vi[SUB_MAX_SYM + 1];
+    float cr[SUB_MAX_SYM], ci[SUB_MAX_SYM], pr[SUB_MAX_SYM], pi[SUB_MAX_SYM];
+    float ta[SUB_MAX_SYM], tb[SUB_MAX_SYM], tc[SUB_MAX_SYM];
+    float xp[SUB_MAX_SYM + GAIN_SMOOTH], cs[SUB_MAX_SYM + GAIN_SMOOTH];
+    float mov_tmp[MOV_TMP];
+    float ms[3][SUB_MAX_SYM];
+    float v1s[SPAN_THREADS], v2s[SCAN];
+    float st1[SPAN_THREADS + SCAN], st2[2 * SCAN], p2s[SCAN + 1];
+    float sums[3];
 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -186,24 +241,91 @@ __device__ void tree_scan(const float* v, int n, float* p, float* tmp) {
     }
 }
 
+// The scan P3 of a window's V3 row (written by other blocks, read past the
+// L1 into the window's copy v3c) into p3; ends on a barrier.
+__device__ void scan_v3(const SubDims& d, const SubBufs& b, int w,
+                        const float* v3, float* p3) {
+    float* v3c = b.v3c + static_cast<size_t>(w) * d.n3;
+    for (int i = threadIdx.x; i < d.n3; i += blockDim.x)
+        v3c[i] = __ldcg(v3 + i);
+    __syncthreads();
+    tree_scan(v3c, d.n3, p3, b.scan_tmp + static_cast<size_t>(w) * d.scan_tmp);
+}
+
 // The tree's inclusive prefix at level 2 (index i of V2) and level 1
 // (index i of V1), from V1, V2 and the scan P3 of V3.  Levels 1 and 2 hold
 // more than 16 values (S > CHUNK), so each is E + W.
+// The sequential sum of v[base], ..., v[base + cnt] (cnt < SCAN), its
+// loads issued together.
+__device__ __forceinline__ float seq_part(const float* v, int base, int cnt) {
+    float x[SCAN];
+#pragma unroll
+    for (int k = 0; k < SCAN; ++k) x[k] = k <= cnt ? __ldcg(v + base + k) : 0.f;
+    float w = x[0];
+#pragma unroll
+    for (int k = 1; k < SCAN; ++k)
+        if (k <= cnt) w = w + x[k];
+    return w;
+}
+
 __device__ float p2_point(const float* v2, const float* p3, int i) {
     const int blk = i / SCAN;
     const float e = blk == 0 ? 0.f : p3[blk - 1];
-    float w = v2[blk * SCAN];
-    for (int k = blk * SCAN + 1; k <= i; ++k) w = w + v2[k];
-    return e + w;
+    return e + seq_part(v2, blk * SCAN, i - blk * SCAN);
 }
 
 __device__ float p1_point(const float* v1, const float* v2, const float* p3,
                           int i) {
     const int blk = i / SCAN;
     const float e = blk == 0 ? 0.f : p2_point(v2, p3, blk - 1);
-    float w = v1[blk * SCAN];
-    for (int k = blk * SCAN + 1; k <= i; ++k) w = w + v1[k];
-    return e + w;
+    return e + seq_part(v1, blk * SCAN, i - blk * SCAN);
+}
+
+// Each thread's exclusive level-1 prefix (p1 at its V1 index j - 1, 0 for
+// j = 0) in span block c, made once for the block: the V1 and V2 entries
+// it needs staged in shared memory, the 17 level-2 prefixes by 17 threads
+// (from the window's scan P3, in global memory), then each thread's E + W.
+// The same operations in the same order as p1_point, so the same bits.
+__device__ float block_prefix(const SubDims& d, SubShared& sh,
+                              const float* v1, const float* v2,
+                              const float* p3, int c) {
+    const int t = threadIdx.x;
+    const int j0 = c * SPAN_THREADS - SCAN;     // first staged V1 index
+    const int q0 = c * SCAN - SCAN;             // first staged V2 index
+    for (int k = t; k < SPAN_THREADS + SCAN; k += blockDim.x) {
+        const int j = j0 + k;
+        sh.st1[k] = (j >= 0 && j < d.n1) ? __ldcg(v1 + j) : 0.f;
+    }
+    if (t < 2 * SCAN) {
+        const int q = q0 + t;
+        sh.st2[t] = (q >= 0 && q < d.n2) ? __ldcg(v2 + q) : 0.f;
+    }
+    __syncthreads();
+    if (t <= SCAN) {                            // p2 at q = 16 c - 2 + t
+        const int q = c * SCAN - 2 + t;
+        float r = 0.f;
+        if (q >= 0) {
+            const int blk = q / SCAN;
+            const float e = blk == 0 ? 0.f : __ldcg(p3 + blk - 1);
+            const float* x = sh.st2 + (blk * SCAN - q0);
+            float w = x[0];
+            for (int k = 1; k <= q - blk * SCAN; ++k) w = w + x[k];
+            r = e + w;
+        }
+        sh.p2s[t] = r;
+    }
+    __syncthreads();
+    const int j = c * SPAN_THREADS + t;
+    float e0 = 0.f;
+    if (j > 0 && j < d.n1) {
+        const int i = j - 1, blk = i / SCAN;
+        const float e = blk == 0 ? 0.f : sh.p2s[blk - 1 - (c * SCAN - 2)];
+        const float* x = sh.st1 + (blk * SCAN - j0);
+        float w = x[0];
+        for (int k = 1; k <= i - blk * SCAN; ++k) w = w + x[k];
+        e0 = e + w;
+    }
+    return e0;
 }
 
 // Synthesis phase increment at span sample u (subtract.py synth): the
@@ -229,290 +351,322 @@ __device__ __forceinline__ float dphi_at(const SubDims& d, const SubBufs& b,
     return acc * d.c_hmod + cf;
 }
 
-// V1 (each thread's), V2 and V3 of a span block from the threads' level-0
-// block sums: v1s is SPAN_THREADS floats of shared memory, v2s SCAN.
-__device__ void span_levels(const SubDims& d, float s, float* v1s, float* v2s,
+// V1 (each thread's), V2 and V3 of span block c from the threads' level-0
+// block sums, into the window's rows.
+__device__ void span_levels(const SubDims& d, SubShared& sh, float s,
                             float* v1, float* v2, float* v3, int c) {
     const int j = c * SPAN_THREADS + threadIdx.x;
-    v1s[threadIdx.x] = s;
+    sh.v1s[threadIdx.x] = s;
     if (j < d.n1) v1[j] = s;
     __syncthreads();
     if (threadIdx.x < SCAN) {
-        const float* x = v1s + threadIdx.x * SCAN;
+        const float* x = sh.v1s + threadIdx.x * SCAN;
         float s2 = x[0];
         for (int k = 1; k < SCAN; ++k) s2 = s2 + x[k];
-        v2s[threadIdx.x] = s2;
+        sh.v2s[threadIdx.x] = s2;
         const int q = c * SCAN + threadIdx.x;
         if (q < d.n2) v2[q] = s2;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-        float s3 = v2s[0];
-        for (int k = 1; k < SCAN; ++k) s3 = s3 + v2s[k];
+        float s3 = sh.v2s[0];
+        for (int k = 1; k < SCAN; ++k) s3 = s3 + sh.v2s[k];
         v3[c] = s3;
     }
 }
 
-__global__ void k_init(SubDims d, SubBufs b) {
-    const int w = blockIdx.x * blockDim.x + threadIdx.x;
-    if (w < d.B) {
-        b.si[w * SI_N + SI_ALIVE] = 1;
-        b.si[w * SI_N + SI_ACTIVE] = 0;
-    }
+// The sum of x[0, n) by one warp (lane-strided sums, then a butterfly:
+// every lane ends with the same value).
+__device__ float warp_sum(const float* x, int n) {
+    const int lane = threadIdx.x & 31;
+    float s = 0.f;
+    for (int i = lane; i < n; i += 32) s = s + x[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s = s + __shfl_xor_sync(FULL, s, o);
+    return s;
 }
 
-// Burst mi of every window: stop the window at its first invalid burst,
-// else its tones from the info bits and the first pass's alignment.
-__global__ void __launch_bounds__(SMALL_THREADS)
-k_setup(SubDims d, SubBufs b, int mi) {
-    __shared__ float par[SUB_MAX_PAR];
-    __shared__ int alive_s;
-    const int w = blockIdx.x;
-    int32_t* si = b.si + w * SI_N;
-    float* sf = b.sf + w * SF_N;
-    const int32_t* p = b.params
-        + (static_cast<size_t>(w) * d.m_bursts + mi) * (d.k_info + 3);
-    if (threadIdx.x == 0) {
-        int alive = si[SI_ALIVE];
-        if (alive && p[d.k_info + 2] == 0) alive = 0;
-        si[SI_ALIVE] = alive;
-        si[SI_ACTIVE] = alive;
-        if (alive) {
-            const int t0 = p[d.k_info];
-            si[SI_START0] = t0 * d.hop;
-            si[SI_FINE] = 0;
-            si[SI_M] = min(max(t0 + d.margin, 0), d.nb_pad - d.n_blk_seg);
-            const float f0 = static_cast<float>(p[d.k_info + 1]) * d.bin_hz;
-            sf[SF_F0] = f0;
-            sf[SF_CF] = d.c_w * f0;
-        }
-        alive_s = alive;
+// sh.sums[k] = the sum of xs[k][0, n) for k < cnt, by warp k; ends on a
+// barrier.
+__device__ void group_sums(SubShared& sh, const float* const* xs, int cnt,
+                           int n) {
+    const int warp = threadIdx.x >> 5;
+    if (warp < cnt) {
+        const float s = warp_sum(xs[warp], n);
+        if ((threadIdx.x & 31) == 0) sh.sums[warp] = s;
     }
     __syncthreads();
-    if (!alive_s) return;
+}
+
+// movsum over GAIN_SMOOTH symbols (subtract.py movsum): the tree cumsum of
+// x padded with 4 zeros before and 3 after, differenced 7 apart.
+__device__ void movsum(SubShared& sh, const float* x, int n, float* out) {
+    const int half = GAIN_SMOOTH / 2;
+    for (int i = threadIdx.x; i < n + GAIN_SMOOTH; i += blockDim.x)
+        sh.xp[i] = (i > half && i <= half + n) ? x[i - half - 1] : 0.f;
+    __syncthreads();
+    tree_scan(sh.xp, n + GAIN_SMOOTH, sh.cs, sh.mov_tmp);
+    for (int s = threadIdx.x; s < n; s += blockDim.x)
+        out[s] = sh.cs[s + GAIN_SMOOTH] - sh.cs[s];
+    __syncthreads();
+}
+
+// The window's state and burst (tones; the gains at the subtraction) into
+// this block's shared memory; ends on a barrier.
+__device__ void load_window(const SubDims& d, const SubBufs& b, SubShared& sh,
+                            int w, bool gains) {
+    const size_t o = static_cast<size_t>(w) * d.n_sym;
+    for (int s = threadIdx.x; s < d.n_sym; s += blockDim.x) {
+        sh.tones[s] = __ldcg(b.tones + o + s);
+        if (gains) {
+            sh.g_re[s] = __ldcg(b.g_re + o + s);
+            sh.g_im[s] = __ldcg(b.g_im + o + s);
+        }
+    }
+    if (threadIdx.x == 0) {
+        const volatile WinState* ws = b.win + w;
+        sh.ws.mi = ws->mi;
+        sh.ws.pass = ws->pass;
+        sh.ws.fine = ws->fine;
+        sh.ws.m = ws->m;
+        sh.ws.start0 = ws->start0;
+        sh.ws.blk1 = ws->blk1;
+        sh.ws.start1 = ws->start1;
+        sh.ws.f0 = ws->f0;
+        sh.ws.cf = ws->cf;
+        sh.ws.cdf2 = ws->cdf2;
+    }
+    __syncthreads();
+}
+
+// Open the window's next pass (state and burst already written): reset its
+// counts, then append it to the queue.  Every thread calls it.
+__device__ void open_pass(const SubBufs& b, SubShared& sh, int w) {
+    if (threadIdx.x == 0) b.win[w] = sh.ws;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        atomicExch(b.done + w, 0u);
+        __threadfence();
+        atomicExch(b.next + w, 0u);
+        const unsigned t = atomicAdd(b.q + Q_TAIL, 1u);
+        atomicExch(reinterpret_cast<unsigned*>(b.entries) + t,
+                   static_cast<unsigned>(w + 1));
+    }
+    __syncthreads();
+}
+
+// Burst sh.ws.mi of window w: its tones from the info bits and the first
+// pass's alignment, then its first pass opened; or, past the window's last
+// valid burst, the window counted done.
+__device__ void burst_setup(const SubDims& d, const SubBufs& b, SubShared& sh,
+                            int w) {
+    const int mi = sh.ws.mi;
+    const int32_t* p = b.params
+        + (static_cast<size_t>(w) * d.m_bursts + mi) * (d.k_info + 3);
+    if (mi >= d.m_bursts || p[d.k_info + 2] == 0) {
+        if (threadIdx.x == 0) atomicAdd(b.q + Q_DONE, 1u);
+        return;
+    }
     for (int j = threadIdx.x; j < d.n_par; j += blockDim.x) {
         float acc = 0.f;               // exact: sums of 0/1 products
         for (int i = 0; i < d.k_info; ++i)
             acc = acc + static_cast<float>(p[i]) * b.gen_par[i * d.n_par + j];
-        par[j] = fmodf(acc, 2.f);
+        sh.par[j] = fmodf(acc, 2.f);
     }
-    float* tones = b.tones + w * d.n_sym;
     for (int s = threadIdx.x; s < d.n_sym; s += blockDim.x)
-        tones[s] = b.templ[s];
+        sh.tones[s] = b.templ[s];
+    if (threadIdx.x == 0) {
+        const int t0 = p[d.k_info];
+        sh.ws.pass = P_PHASE0;
+        sh.ws.start0 = t0 * d.hop;
+        sh.ws.fine = 0;
+        sh.ws.m = min(max(t0 + d.margin, 0), d.nb_pad - d.n_blk_seg);
+        sh.ws.f0 = static_cast<float>(p[d.k_info + 1]) * d.bin_hz;
+        sh.ws.cf = d.c_w * sh.ws.f0;
+    }
     __syncthreads();
     for (int k = threadIdx.x; k < d.n_data; k += blockDim.x) {
         int v = 0;
         for (int bb = 0; bb < d.bps; ++bb) {
             const int c = k * d.bps + bb;
             const float bit = c < d.k_info ? static_cast<float>(p[c])
-                                           : par[c - d.k_info];
+                                           : sh.par[c - d.k_info];
             v = 2 * v + static_cast<int>(bit);
         }
-        tones[b.data_idx[k]] = static_cast<float>(b.gray[v]);
+        sh.tones[b.data_idx[k]] = static_cast<float>(b.gray[v]);
     }
+    __syncthreads();
+    const size_t o = static_cast<size_t>(w) * d.n_sym;
+    for (int s = threadIdx.x; s < d.n_sym; s += blockDim.x)
+        b.tones[o + s] = sh.tones[s];
+    open_pass(b, sh, w);
 }
 
-// Level sums of the phase increments of the current pass.
-__global__ void __launch_bounds__(SPAN_THREADS)
-k_phase_up(SubDims d, SubBufs b) {
-    __shared__ float v1s[SPAN_THREADS];
-    __shared__ float v2s[SCAN];
-    const int w = blockIdx.y, c = blockIdx.x;
-    if (!b.si[w * SI_N + SI_ACTIVE]) return;
-    const int fine = b.si[w * SI_N + SI_FINE];
-    const float cf = b.sf[w * SF_N + SF_CF];
-    const float* tones = b.tones + w * d.n_sym;
+// Span block c of a phase pass: the level sums of the phase increments.
+__device__ void phase_chunk(const SubDims& d, const SubBufs& b, SubShared& sh,
+                            int w, int c) {
+    const int fine = sh.ws.fine;
+    const float cf = sh.ws.cf;
     const int j = c * SPAN_THREADS + threadIdx.x;
     float s = 0.f;
     for (int i = 0; i < SCAN; ++i) {
         const int u = j * SCAN + i;
-        const float x = u < d.S ? dphi_at(d, b, tones, u, fine, cf) : 0.f;
+        const float x = u < d.S ? dphi_at(d, b, sh.tones, u, fine, cf) : 0.f;
         s = i == 0 ? x : s + x;
     }
-    span_levels(d, s, v1s, v2s, b.ph_v1 + static_cast<size_t>(w) * d.n1,
+    span_levels(d, sh, s, b.ph_v1 + static_cast<size_t>(w) * d.n1,
                 b.ph_v2 + static_cast<size_t>(w) * d.n2,
                 b.ph_v3 + static_cast<size_t>(w) * d.n3, c);
 }
 
-__global__ void __launch_bounds__(SMALL_THREADS)
-k_phase_scan(SubDims d, SubBufs b) {
-    const int w = blockIdx.x;
-    if (!b.si[w * SI_N + SI_ACTIVE]) return;
-    tree_scan(b.ph_v3 + static_cast<size_t>(w) * d.n3, d.n3,
-              b.ph_p3 + static_cast<size_t>(w) * d.n3,
-              b.ph_tmp + static_cast<size_t>(w) * d.scan_tmp);
-}
-
-// The phase of the span samples of this thread's level-0 block, in order;
-// calls f(u, phase) for each sample u < S.
-template <typename F>
-__device__ __forceinline__ void for_phase(const SubDims& d, const SubBufs& b,
-                                          int w, int j, int fine, float cf,
-                                          F&& f) {
-    const float* tones = b.tones + w * d.n_sym;
-    float e0 = 0.f;
-    if (j > 0 && j < d.n1)
-        e0 = p1_point(b.ph_v1 + static_cast<size_t>(w) * d.n1,
-                      b.ph_v2 + static_cast<size_t>(w) * d.n2,
-                      b.ph_p3 + static_cast<size_t>(w) * d.n3, j - 1);
-    float wp = 0.f;
-    for (int i = 0; i < SCAN; ++i) {
-        const int u = j * SCAN + i;
-        if (u >= d.S) {
-            f(u, 0.f, false);
-            continue;
-        }
-        const float x = dphi_at(d, b, tones, u, fine, cf);
-        wp = i == 0 ? x : wp + x;
-        f(u, e0 + wp, true);
-    }
-}
-
-// Masked reference cos/sin at the current pass's alignment, its products
-// with the extracted span and their level sums; the within-block prefix at
-// each symbol boundary fine + sps*k - 1.
-__global__ void __launch_bounds__(SPAN_THREADS)
-k_corr_up(SubDims d, SubBufs b) {
-    __shared__ float v1s[SPAN_THREADS];
-    __shared__ float v2s[SCAN];
-    const int w = blockIdx.y, c = blockIdx.x;
-    if (!b.si[w * SI_N + SI_ACTIVE]) return;
-    const int fine = b.si[w * SI_N + SI_FINE];
-    const int m = b.si[w * SI_N + SI_M];
-    const float cf = b.sf[w * SF_N + SF_CF];
+// Span block c of a correlation pass: the masked reference cos/sin at the
+// pass's alignment, its products with the extracted span and their level
+// sums; the within-block prefix at each symbol boundary fine + sps*k - 1.
+__device__ void corr_chunk(const SubDims& d, const SubBufs& b, SubShared& sh,
+                           int w, int c) {
+    const int fine = sh.ws.fine;
+    const float cf = sh.ws.cf;
+    const size_t w1 = static_cast<size_t>(w) * d.n1;
+    const size_t w2 = static_cast<size_t>(w) * d.n2;
+    const size_t w3 = static_cast<size_t>(w) * d.n3;
     const float* seg = b.res + static_cast<size_t>(w) * d.row
-        + static_cast<size_t>(m) * d.hop;
+        + static_cast<size_t>(sh.ws.m) * d.hop;
     float* bw_re = b.bw_re + w * (d.n_sym + 1);
     float* bw_im = b.bw_im + w * (d.n_sym + 1);
+    const float e0 = block_prefix(d, sh, b.ph_v1 + w1, b.ph_v2 + w2,
+                                  b.ph_p3 + w3, c);
     const int j = c * SPAN_THREADS + threadIdx.x;
-    float wr = 0.f, wi = 0.f;
-    int i = 0;
-    for_phase(d, b, w, j, fine, cf, [&](int u, float ph, bool in) {
+    float wr = 0.f, wi = 0.f, wp = 0.f;
+    for (int i = 0; i < SCAN; ++i) {
+        const int u = j * SCAN + i;
         float ar = 0.f, ai = 0.f;
-        if (in) {
+        if (u < d.S) {
+            const float x = dphi_at(d, b, sh.tones, u, fine, cf);
+            wp = i == 0 ? x : wp + x;
             const float mk = (u >= fine && u < fine + d.L) ? 1.f : 0.f;
-            const float zr = cosf(ph) * mk;
-            const float zi = sinf(ph) * mk;
-            const float sg = seg[u];
+            float sn, cs;
+            sincosf(e0 + wp, &sn, &cs);
+            const float zr = cs * mk;
+            const float zi = sn * mk;
+            const float sg = __ldcg(seg + u);
             ar = sg * zr;
             ai = (-sg) * zi;
         }
         wr = i == 0 ? ar : wr + ar;
         wi = i == 0 ? ai : wi + ai;
-        ++i;
-        if (in) {
+        if (u < d.S) {
             const int bp = u + 1 - fine;
             if (bp >= 0 && bp % d.sps == 0 && bp / d.sps <= d.n_sym) {
                 bw_re[bp / d.sps] = wr;
                 bw_im[bp / d.sps] = wi;
             }
         }
-    });
-    const size_t w1 = static_cast<size_t>(w) * d.n1;
-    const size_t w2 = static_cast<size_t>(w) * d.n2;
-    const size_t w3 = static_cast<size_t>(w) * d.n3;
-    span_levels(d, wr, v1s, v2s, b.cr_v1 + w1, b.cr_v2 + w2, b.cr_v3 + w3, c);
-    __syncthreads();
-    span_levels(d, wi, v1s, v2s, b.ci_v1 + w1, b.ci_v2 + w2, b.ci_v3 + w3, c);
-}
-
-// Sum of x[0, n) in order, by thread 0 of the block.
-__device__ float seq_sum(const float* x, int n) {
-    float s = 0.f;
-    for (int i = 0; i < n; ++i) s = s + x[i];
-    return s;
-}
-
-// movsum over GAIN_SMOOTH symbols (subtract.py movsum): the tree cumsum of
-// x padded with 4 zeros before and 3 after, differenced 7 apart.
-__device__ void movsum(const float* x, int n, float* xp, float* cs,
-                       float* tmp, float* out) {
-    const int half = GAIN_SMOOTH / 2;
-    for (int i = threadIdx.x; i < n + GAIN_SMOOTH; i += blockDim.x)
-        xp[i] = (i > half && i <= half + n) ? x[i - half - 1] : 0.f;
-    __syncthreads();
-    tree_scan(xp, n + GAIN_SMOOTH, cs, tmp);
-    for (int s = threadIdx.x; s < n; s += blockDim.x)
-        out[s] = cs[s + GAIN_SMOOTH] - cs[s];
-    __syncthreads();
-}
-
-// The per-symbol correlations of the current pass, then pass 0: df1 and dt,
-// the refined start and the second pass's alignment; pass 1: df2 and the
-// smoothed complex gain.
-__global__ void __launch_bounds__(SMALL_THREADS)
-k_estimate(SubDims d, SubBufs b, int pass, int mi) {
-    __shared__ float vr[SUB_MAX_SYM + 1], vi[SUB_MAX_SYM + 1];
-    __shared__ float cr[SUB_MAX_SYM], ci[SUB_MAX_SYM], tn[SUB_MAX_SYM];
-    __shared__ float pr[SUB_MAX_SYM], pi[SUB_MAX_SYM];
-    __shared__ float ta[SUB_MAX_SYM], tb[SUB_MAX_SYM], tc[SUB_MAX_SYM];
-    __shared__ float xp[SUB_MAX_SYM + GAIN_SMOOTH];
-    __shared__ float cs[SUB_MAX_SYM + GAIN_SMOOTH];
-    __shared__ float tmp[MOV_TMP];
-    __shared__ float ms[3][SUB_MAX_SYM];
-    __shared__ float df_s;
-    const int w = blockIdx.x;
-    int32_t* si = b.si + w * SI_N;
-    float* sf = b.sf + w * SF_N;
-    if (!si[SI_ACTIVE]) return;
-    const size_t w1 = static_cast<size_t>(w) * d.n1;
-    const size_t w2 = static_cast<size_t>(w) * d.n2;
-    const size_t w3 = static_cast<size_t>(w) * d.n3;
-    const size_t wt = static_cast<size_t>(w) * d.scan_tmp;
-    tree_scan(b.cr_v3 + w3, d.n3, b.cr_p3 + w3, b.cr_tmp + wt);
-    tree_scan(b.ci_v3 + w3, d.n3, b.ci_p3 + w3, b.ci_tmp + wt);
-    const int n_sym = d.n_sym;
-    const int fine = si[SI_FINE];
-    const float* bw_re = b.bw_re + w * (n_sym + 1);
-    const float* bw_im = b.bw_im + w * (n_sym + 1);
-    // the cumsums at the boundaries fine + sps*k - 1 (0 where that is < 0)
-    for (int k = threadIdx.x; k <= n_sym; k += blockDim.x) {
-        const int bpos = fine + d.sps * k;
-        float a = 0.f, bb = 0.f;
-        if (bpos > 0) {
-            const int blk = (bpos - 1) / SCAN;
-            float er = 0.f, ei = 0.f;
-            if (blk > 0) {
-                er = p1_point(b.cr_v1 + w1, b.cr_v2 + w2, b.cr_p3 + w3,
-                              blk - 1);
-                ei = p1_point(b.ci_v1 + w1, b.ci_v2 + w2, b.ci_p3 + w3,
-                              blk - 1);
-            }
-            a = er + bw_re[k];
-            bb = ei + bw_im[k];
-        }
-        vr[k] = a;
-        vi[k] = bb;
     }
-    for (int s = threadIdx.x; s < n_sym; s += blockDim.x)
-        tn[s] = b.tones[w * n_sym + s];
+    span_levels(d, sh, wr, b.cr_v1 + w1, b.cr_v2 + w2, b.cr_v3 + w3, c);
     __syncthreads();
+    span_levels(d, sh, wi, b.ci_v1 + w1, b.ci_v2 + w2, b.ci_v3 + w3, c);
+}
+
+// Span block c of the subtraction: the second pass's reference twisted by
+// df2, times the gain of its symbol, masked to the window.
+__device__ void apply_chunk(const SubDims& d, const SubBufs& b, SubShared& sh,
+                            int w, int c) {
+    const int fine = sh.ws.fine, blk1 = sh.ws.blk1;
+    const float cf = sh.ws.cf, cdf2 = sh.ws.cdf2;
+    const size_t w1 = static_cast<size_t>(w) * d.n1;
+    const size_t w2 = static_cast<size_t>(w) * d.n2;
+    float* seg = b.res + static_cast<size_t>(w) * d.row
+        + static_cast<size_t>(sh.ws.m) * d.hop;
+    const float e0 = block_prefix(d, sh, b.ph_v1 + w1, b.ph_v2 + w2,
+                                  b.ph_p3 + static_cast<size_t>(w) * d.n3, c);
+    const int j = c * SPAN_THREADS + threadIdx.x;
+    float wp = 0.f;
+    for (int i = 0; i < SCAN; ++i) {
+        const int u = j * SCAN + i;
+        if (u >= d.S) continue;
+        const float x = dphi_at(d, b, sh.tones, u, fine, cf);
+        wp = i == 0 ? x : wp + x;
+        const float mk = (u >= fine && u < fine + d.L) ? 1.f : 0.f;
+        float sn, cs;
+        sincosf(e0 + wp, &sn, &cs);
+        const float zr = cs * mk;
+        const float zi = sn * mk;
+        const float th2 = cdf2 * (static_cast<float>(u) + 1.f);
+        float st, ct;
+        sincosf(th2, &st, &ct);
+        const float zr2 = zr * ct - zi * st;
+        const float zi2 = zi * ct + zr * st;
+        const int q = u / d.sps;
+        const int r = u - q * d.sps;
+        const int gk = r >= fine ? q : q - 1;   // gain_pad index - 1
+        const bool gin = gk >= 0 && gk < d.n_sym;
+        const float ar = gin ? sh.g_re[gk] : 0.f;
+        const float ai = gin ? sh.g_im[gk] : 0.f;
+        float sub = ar * zr2 - ai * zi2;
+        const long long pos = static_cast<long long>(blk1) * d.hop + u;
+        sub = sub * ((pos >= 0 && pos < d.T) ? 1.f : 0.f);
+        seg[u] = __ldcg(seg + u) - sub;
+    }
+}
+
+// The per-symbol correlations of the current pass, then pass 0: df1 and
+// dt, the refined start and the second pass's alignment; pass 1: df2 and
+// the smoothed complex gain.  Into sh (the caller stores the window).
+__device__ void estimate(const SubDims& d, const SubBufs& b, SubShared& sh,
+                         int w, int pass) {
+    const int n_sym = d.n_sym;
+    const int fine = sh.ws.fine;
+    const size_t w1 = static_cast<size_t>(w) * d.n1;
+    const size_t w2 = static_cast<size_t>(w) * d.n2;
+    const size_t w3 = static_cast<size_t>(w) * d.n3;
+    // the cumsums at the boundaries fine + sps*k - 1 (0 where that is < 0)
+    for (int part = 0; part < 2; ++part) {
+        const float* v1 = (part ? b.ci_v1 : b.cr_v1) + w1;
+        const float* v2 = (part ? b.ci_v2 : b.cr_v2) + w2;
+        const float* bw = (part ? b.bw_im : b.bw_re) + w * (n_sym + 1);
+        float* out = part ? sh.vi : sh.vr;
+        float* p3 = b.sc_p3 + w3;
+        scan_v3(d, b, w, (part ? b.ci_v3 : b.cr_v3) + w3, p3);
+        for (int k = threadIdx.x; k <= n_sym; k += blockDim.x) {
+            const int bpos = fine + d.sps * k;
+            float a = 0.f;
+            if (bpos > 0) {
+                const int blk = (bpos - 1) / SCAN;
+                const float e = blk > 0 ? p1_point(v1, v2, p3, blk - 1) : 0.f;
+                a = e + __ldcg(bw + k);
+            }
+            out[k] = a;
+        }
+        __syncthreads();
+    }
     for (int s = threadIdx.x; s < n_sym; s += blockDim.x) {
-        cr[s] = vr[s + 1] - vr[s];
-        ci[s] = vi[s + 1] - vi[s];
+        sh.cr[s] = sh.vr[s + 1] - sh.vr[s];
+        sh.ci[s] = sh.vi[s + 1] - sh.vi[s];
     }
     __syncthreads();
     // df from same-tone pairs (df_same)
+    const float* tn = sh.tones;
     const int np = n_sym - 1;
     for (int s = threadIdx.x; s < np; s += blockDim.x) {
-        const float p_r = cr[s + 1] * cr[s] + ci[s + 1] * ci[s];
-        const float p_i = ci[s + 1] * cr[s] - cr[s + 1] * ci[s];
+        const float p_r = sh.cr[s + 1] * sh.cr[s] + sh.ci[s + 1] * sh.ci[s];
+        const float p_i = sh.ci[s + 1] * sh.cr[s] - sh.cr[s + 1] * sh.ci[s];
         const float same = (tn[s + 1] - tn[s]) == 0.f ? 1.f : 0.f;
-        pr[s] = p_r;
-        pi[s] = p_i;
-        ta[s] = p_r * same;
-        tb[s] = p_i * same;
-        tc[s] = same;
+        sh.pr[s] = p_r;
+        sh.pi[s] = p_i;
+        sh.ta[s] = p_r * same;
+        sh.tb[s] = p_i * same;
+        sh.tc[s] = same;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-        const float srr = seq_sum(ta, np), sri = seq_sum(tb, np);
-        const float df = atan2f(sri, srr) / d.c_df;
-        const bool keep = seq_sum(tc, np) > 0.f && fabsf(df) < d.bin_hz;
-        df_s = keep ? df : 0.f;
+    {
+        const float* xs[3] = {sh.ta, sh.tb, sh.tc};
+        group_sums(sh, xs, 3, np);
     }
-    __syncthreads();
-    const float df = df_s;
+    const float df_raw = atan2f(sh.sums[1], sh.sums[0]) / d.c_df;
+    const float df = (sh.sums[2] > 0.f && fabsf(df_raw) < d.bin_hz) ? df_raw
+                                                                      : 0.f;
+    __syncthreads();                 // sums read before they are reused
     if (pass == 0) {
         // dt from tone-change pairs, df1 removed analytically
         const float ang = d.two_pi * df * d.t_sym;
@@ -520,93 +674,179 @@ k_estimate(SubDims d, SubBufs b, int pass, int mi) {
             const float dtone = tn[s + 1] - tn[s];
             const float adt = fabsf(dtone);
             const float sel = (adt >= 1.f && adt <= 3.f) ? 1.f : 0.f;
-            float th = atan2f(pi[s], pr[s]) - ang;
-            th = atan2f(sinf(th), cosf(th));
-            const float wgt = sqrtf(pr[s] * pr[s] + pi[s] * pi[s]) * sel;
-            ta[s] = wgt * dtone * dtone;
-            tb[s] = wgt * th * dtone;
+            float th = atan2f(sh.pi[s], sh.pr[s]) - ang;
+            float sn, cs;
+            sincosf(th, &sn, &cs);
+            th = atan2f(sn, cs);
+            const float wgt = sqrtf(sh.pr[s] * sh.pr[s] + sh.pi[s] * sh.pi[s])
+                * sel;
+            sh.ta[s] = wgt * dtone * dtone;
+            sh.tb[s] = wgt * th * dtone;
         }
         __syncthreads();
+        const float* xs[2] = {sh.ta, sh.tb};
+        group_sums(sh, xs, 2, np);
         if (threadIdx.x == 0) {
-            const float den = d.c_den * seq_sum(ta, np);
-            const float dt = seq_sum(tb, np) / fmaxf(den, 1e-20f);
+            const float den = d.c_den * sh.sums[0];
+            const float dt = sh.sums[1] / fmaxf(den, 1e-20f);
             int shift = static_cast<int>(rintf(dt * d.sr));
             shift = min(max(shift, -(d.sps - 1)), d.sps - 1);
-            if (b.shifts) b.shifts[w * d.m_bursts + mi] = shift;
-            const int start1 = si[SI_START0] - shift;
+            const int start1 = sh.ws.start0 - shift;
             const int blk1 = start1 >= 0 ? start1 / d.hop
                                          : -ceil_div(-start1, d.hop);
-            si[SI_FINE] = start1 - blk1 * d.hop;
-            si[SI_M] = min(max(blk1 + d.margin, 0), d.nb_pad - d.n_blk_seg);
-            si[SI_BLK1] = blk1;
-            si[SI_START1] = start1;
-            const float f1 = sf[SF_F0] + df;
-            sf[SF_CF] = d.c_w * f1;
+            if (b.shifts) b.shifts[w * d.m_bursts + sh.ws.mi] = shift;
+            sh.ws.fine = start1 - blk1 * d.hop;
+            sh.ws.m = min(max(blk1 + d.margin, 0), d.nb_pad - d.n_blk_seg);
+            sh.ws.blk1 = blk1;
+            sh.ws.start1 = start1;
+            sh.ws.cf = d.c_w * (sh.ws.f0 + df);
         }
+        __syncthreads();
         return;
     }
     // pass 1: the gain, each correlation twisted by df2 at its symbol centre
     const float cdf2 = d.c_w * df;
-    const int start1 = si[SI_START1];
+    const int start1 = sh.ws.start1;
     for (int s = threadIdx.x; s < n_sym; s += blockDim.x) {
         const float uc = static_cast<float>(fine)
             + (static_cast<float>(s) + 0.5f) * d.sps_f;
         const float thc = cdf2 * (uc + 1.f);
-        const float cc = cosf(thc), sc = sinf(thc);
-        ta[s] = cr[s] * cc + ci[s] * sc;
-        tb[s] = ci[s] * cc - cr[s] * sc;
+        float sc, cc;
+        sincosf(thc, &sc, &cc);
+        sh.ta[s] = sh.cr[s] * cc + sh.ci[s] * sc;
+        sh.tb[s] = sh.ci[s] * cc - sh.cr[s] * sc;
         const int lo = start1 + s * d.sps;
-        tc[s] = static_cast<float>(min(max(lo + d.sps, 0), d.T)
-                                   - min(max(lo, 0), d.T));
+        sh.tc[s] = static_cast<float>(min(max(lo + d.sps, 0), d.T)
+                                      - min(max(lo, 0), d.T));
     }
     __syncthreads();
-    movsum(tc, n_sym, xp, cs, tmp, ms[0]);
-    movsum(ta, n_sym, xp, cs, tmp, ms[1]);
-    movsum(tb, n_sym, xp, cs, tmp, ms[2]);
+    movsum(sh, sh.tc, n_sym, sh.ms[0]);
+    movsum(sh, sh.ta, n_sym, sh.ms[1]);
+    movsum(sh, sh.tb, n_sym, sh.ms[2]);
+    const size_t o = static_cast<size_t>(w) * n_sym;
     for (int s = threadIdx.x; s < n_sym; s += blockDim.x) {
-        const float den = fmaxf(ms[0][s], 1.f);
-        b.g_re[w * n_sym + s] = 2.f * ms[1][s] / den;
-        b.g_im[w * n_sym + s] = 2.f * ms[2][s] / den;
+        const float den = fmaxf(sh.ms[0][s], 1.f);
+        b.g_re[o + s] = 2.f * sh.ms[1][s] / den;
+        b.g_im[o + s] = 2.f * sh.ms[2][s] / den;
     }
-    if (threadIdx.x == 0) sf[SF_CDF2] = cdf2;
+    if (threadIdx.x == 0) sh.ws.cdf2 = cdf2;
+    __syncthreads();
 }
 
-// Subtract the refit burst: the second pass's reference twisted by df2,
-// times the gain of its symbol, masked to the window.
-__global__ void __launch_bounds__(SPAN_THREADS)
-k_apply(SubDims d, SubBufs b) {
-    const int w = blockIdx.y, c = blockIdx.x;
-    if (!b.si[w * SI_N + SI_ACTIVE]) return;
-    const int fine = b.si[w * SI_N + SI_FINE];
-    const int m = b.si[w * SI_N + SI_M];
-    const int blk1 = b.si[w * SI_N + SI_BLK1];
-    const float cf = b.sf[w * SF_N + SF_CF];
-    const float cdf2 = b.sf[w * SF_N + SF_CDF2];
-    const float* g_re = b.g_re + w * d.n_sym;
-    const float* g_im = b.g_im + w * d.n_sym;
-    float* seg = b.res + static_cast<size_t>(w) * d.row
-        + static_cast<size_t>(m) * d.hop;
-    const int j = c * SPAN_THREADS + threadIdx.x;
-    for_phase(d, b, w, j, fine, cf, [&](int u, float ph, bool in) {
-        if (!in) return;
-        const float mk = (u >= fine && u < fine + d.L) ? 1.f : 0.f;
-        const float zr = cosf(ph) * mk;
-        const float zi = sinf(ph) * mk;
-        const float th2 = cdf2 * (static_cast<float>(u) + 1.f);
-        const float ct = cosf(th2), st = sinf(th2);
-        const float zr2 = zr * ct - zi * st;
-        const float zi2 = zi * ct + zr * st;
-        const int q = u / d.sps;
-        const int r = u - q * d.sps;
-        const int gk = r >= fine ? q : q - 1;   // gain_pad index - 1
-        const bool gin = gk >= 0 && gk < d.n_sym;
-        const float ar = gin ? g_re[gk] : 0.f;
-        const float ai = gin ? g_im[gk] : 0.f;
-        float sub = ar * zr2 - ai * zi2;
-        const long long pos = static_cast<long long>(blk1) * d.hop + u;
-        sub = sub * ((pos >= 0 && pos < d.T) ? 1.f : 0.f);
-        seg[u] = seg[u] - sub;
-    });
+// What follows a window's pass once its last span block is done, by the
+// block that did that span block: after a phase pass the scan of its V3;
+// after a correlation pass the estimate; after the subtraction the next
+// burst's setup (or the window done).  Then the next pass is opened.
+__device__ void small_stage(const SubDims& d, const SubBufs& b, SubShared& sh,
+                            int w) {
+    load_window(d, b, sh, w, false);
+    const int pass = sh.ws.pass;
+    if (pass == P_PHASE0 || pass == P_PHASE1) {
+        const size_t w3 = static_cast<size_t>(w) * d.n3;
+        scan_v3(d, b, w, b.ph_v3 + w3, b.ph_p3 + w3);
+    } else if (pass == P_CORR0 || pass == P_CORR1) {
+        estimate(d, b, sh, w, pass == P_CORR0 ? 0 : 1);
+    } else {
+        __syncthreads();
+        if (threadIdx.x == 0) ++sh.ws.mi;
+        __syncthreads();
+        burst_setup(d, b, sh, w);
+        return;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) ++sh.ws.pass;
+    __syncthreads();
+    open_pass(b, sh, w);
+}
+
+// The next span block to work on: the head of the queue's window's next
+// untaken one (an entry is used up once all its window's span blocks of
+// the pass are taken), or -1 once every window is done.  The head stops at
+// the tail, whose entry is 0 until a pass is opened there: the queue has
+// one entry more than a call can open, so when every window opens all its
+// passes the head still reads a 0.  Thread 0.
+__device__ void take_task(const SubDims& d, const SubBufs& b, int* w_out,
+                          int* c_out) {
+    volatile unsigned* q = b.q;
+    const volatile int32_t* entries = b.entries;
+    unsigned nap = 32;                  // ns; doubles while the queue is empty
+    for (;;) {
+        const unsigned h = q[Q_HEAD];
+        const int e = entries[h];
+        if (e == 0) {                   // nothing open beyond the head
+            if (q[Q_DONE] >= static_cast<unsigned>(d.B)) {
+                *w_out = -1;
+                return;
+            }
+            __nanosleep(nap);
+            nap = min(2 * nap, 2048u);
+            continue;
+        }
+        const int w = e - 1;
+        const unsigned k = atomicAdd(b.next + w, 1u);
+        if (k < static_cast<unsigned>(d.n3)) {
+            __threadfence();
+            *w_out = w;
+            *c_out = static_cast<int>(k);
+            return;
+        }
+        atomicCAS(b.q + Q_HEAD, h, h + 1);
+    }
+}
+
+// The whole subtraction in one launch: every block a worker for the whole
+// call.  Each window's first burst is set up and its first pass opened;
+// then each block takes span blocks of open passes off the queue, in the
+// order the passes were opened, and the block that finishes a pass's last
+// span block runs the window's small stage and opens its next pass.
+// Windows never wait on each other, and a window ends after its last valid
+// burst.  A launch of every block the card holds at once (cooperative),
+// since blocks wait on the queue.
+__global__ void __launch_bounds__(SPAN_THREADS, SUB_MIN_BLOCKS)
+k_subtract(SubDims d, SubBufs b) {
+    __shared__ SubShared sh;
+    for (int w = blockIdx.x; w < d.B; w += gridDim.x) {
+        if (threadIdx.x == 0) sh.ws.mi = 0;
+        __syncthreads();
+        burst_setup(d, b, sh, w);
+        __syncthreads();
+    }
+    for (;;) {
+        if (threadIdx.x == 0) take_task(d, b, &sh.task_w, &sh.task_c);
+        __syncthreads();
+        const int w = sh.task_w, c = sh.task_c;
+        if (w < 0) break;
+        const int pass = __ldcg(&b.win[w].pass);
+        load_window(d, b, sh, w, pass == P_APPLY);
+        if (pass == P_PHASE0 || pass == P_PHASE1) phase_chunk(d, b, sh, w, c);
+        else if (pass == P_APPLY) apply_chunk(d, b, sh, w, c);
+        else corr_chunk(d, b, sh, w, c);
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0)
+            sh.last = atomicAdd(b.done + w, 1u) + 1 == static_cast<unsigned>(d.n3);
+        __syncthreads();
+        if (sh.last) {
+            __threadfence();
+            small_stage(d, b, sh, w);
+        }
+        __syncthreads();
+    }
+}
+
+// Count of x[i] whose sincosf differs in any bit from sinf and cosf (each
+// argument read twice through volatile, so that the compiler cannot merge
+// the two calls into one).
+__global__ void k_trig_differ(const float* x, int n, int* n_differ) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const volatile float* xv = x;
+    const float a = xv[i], c = xv[i];
+    float s1, c1;
+    sincosf(x[i], &s1, &c1);
+    if (__float_as_uint(s1) != __float_as_uint(sinf(a))
+        || __float_as_uint(c1) != __float_as_uint(cosf(c)))
+        atomicAdd(n_differ, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -898,8 +1138,20 @@ bool dims_ok(const SubDims& d) {
 
 // scratch floats (per window) in the order make_bufs carves them
 long long sub_floats_per_window(const SubDims& d) {
-    return 3LL * d.n_sym + 2LL * (d.n_sym + 1)
-        + 3LL * (d.n1 + d.n2 + 2LL * d.n3 + d.scan_tmp) + SF_N;
+    return 2LL * (d.n_sym + 1) + 3LL * (d.n1 + d.n2 + d.n3) + 3LL * d.n3
+        + d.scan_tmp + 3LL * d.n_sym
+        + static_cast<long long>(sizeof(WinState) / 4);
+}
+
+// entries of the queue: one for each pass a window may open, and a last
+// one that stays 0, so that a head past every opened pass reads "empty"
+long long queue_len(const SubDims& d) {
+    return static_cast<long long>(d.B) * d.m_bursts * N_PASSES + 1;
+}
+
+// scratch int32s: the queue, each window's two counts, the queue's counts
+long long sub_ints(const SubDims& d) {
+    return queue_len(d) + 2LL * d.B + Q_N;
 }
 
 SubBufs make_bufs(const SubDims& d, float* f, int32_t* si) {
@@ -910,24 +1162,52 @@ SubBufs make_bufs(const SubDims& d, float* f, int32_t* si) {
         f += n;
         return p;
     };
-    b.sf = take(B * SF_N);
-    b.tones = take(B * d.n_sym);
-    b.g_re = take(B * d.n_sym);
-    b.g_im = take(B * d.n_sym);
     b.bw_re = take(B * (d.n_sym + 1));
     b.bw_im = take(B * (d.n_sym + 1));
-    float** sets[3][5] = {{&b.ph_v1, &b.ph_v2, &b.ph_v3, &b.ph_p3, &b.ph_tmp},
-                          {&b.cr_v1, &b.cr_v2, &b.cr_v3, &b.cr_p3, &b.cr_tmp},
-                          {&b.ci_v1, &b.ci_v2, &b.ci_v3, &b.ci_p3, &b.ci_tmp}};
+    float** sets[3][3] = {{&b.ph_v1, &b.ph_v2, &b.ph_v3},
+                          {&b.cr_v1, &b.cr_v2, &b.cr_v3},
+                          {&b.ci_v1, &b.ci_v2, &b.ci_v3}};
     for (auto& s : sets) {
         *s[0] = take(B * d.n1);
         *s[1] = take(B * d.n2);
         *s[2] = take(B * d.n3);
-        *s[3] = take(B * d.n3);
-        *s[4] = take(B * d.scan_tmp);
     }
-    b.si = si;
+    b.ph_p3 = take(B * d.n3);
+    b.v3c = take(B * d.n3);
+    b.sc_p3 = take(B * d.n3);
+    b.scan_tmp = take(B * d.scan_tmp);
+    b.tones = take(B * d.n_sym);
+    b.g_re = take(B * d.n_sym);
+    b.g_im = take(B * d.n_sym);
+    b.win = reinterpret_cast<WinState*>(take(B * (sizeof(WinState) / 4)));
+    b.entries = si;
+    si += queue_len(d);
+    b.next = reinterpret_cast<unsigned*>(si);
+    b.done = b.next + B;
+    b.q = b.done + B;
     return b;
+}
+
+// The blocks of a call: n_blocks, or (0) every block the card holds at
+// once, but no more than there are span blocks in a pass of every window.
+// Returns a cudaError_t.
+cudaError_t plan_subtract(const SubDims& d, int n_blocks, int* blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, k_subtract, SPAN_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    const int cap = per_sm * sms;       // co-resident blocks
+    if (cap < 1 || n_blocks < 0 || n_blocks > cap)
+        return cudaErrorCooperativeLaunchTooLarge;
+    const long long tasks = static_cast<long long>(d.B) * d.n3;
+    *blocks = n_blocks ? n_blocks
+                       : static_cast<int>(tasks < cap ? tasks : cap);
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -946,22 +1226,28 @@ long long gfsk_sub_scratch(const int* dims, const float* consts,
                            long long* n_int) {
     const SubDims d = make_dims(dims, consts);
     if (!dims_ok(d)) return -1;
-    *n_int = static_cast<long long>(d.B) * SI_N;
+    *n_int = sub_ints(d);
     return static_cast<long long>(d.B) * sub_floats_per_window(d);
 }
 
 // Subtract every window's known bursts from res [B, row] in place, on
-// `stream`: 1 + 10 * m_bursts launches, no host sync.  shifts, if not
-// null, is [B, m_bursts] int32 and takes each fitted step's integer time
-// shift.  Returns the first cudaError_t of the launches (0 = success).
+// `stream`: a memset of the work queue and one cooperative launch of
+// n_blocks blocks (0: every block the card holds at once; the wrapper
+// passes 0, the card's tests fewer, to show that the residual does not
+// depend on them), no host sync.
+// shifts, if not null, is [B, m_bursts] int32 and takes each fitted step's
+// integer time shift.  Returns the first cudaError_t (0 = success).
 int gfsk_subtract_launch(const int* dims, const float* consts, void* res,
                          const void* params, const void* gen_par,
                          const void* pulse, const void* templ,
                          const void* data_idx, const void* gray,
                          void* scratch_f, void* scratch_i, void* shifts,
-                         void* stream) {
+                         void* stream, int n_blocks) {
     const SubDims d = make_dims(dims, consts);
     if (!dims_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+    int blocks = 0;
+    cudaError_t err = plan_subtract(d, n_blocks, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
     SubBufs b = make_bufs(d, static_cast<float*>(scratch_f),
                           static_cast<int32_t*>(scratch_i));
     b.res = static_cast<float*>(res);
@@ -973,18 +1259,32 @@ int gfsk_subtract_launch(const int* dims, const float* consts, void* res,
     b.gray = static_cast<const int32_t*>(gray);
     b.shifts = static_cast<int32_t*>(shifts);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 span(d.n3, d.B);
-    k_init<<<ceil_div(d.B, 128), 128, 0, st>>>(d, b);
-    cudaError_t err = cudaGetLastError();
-    for (int mi = 0; mi < d.m_bursts && err == cudaSuccess; ++mi) {
-        k_setup<<<d.B, SMALL_THREADS, 0, st>>>(d, b, mi);
-        for (int pass = 0; pass < 2; ++pass) {
-            k_phase_up<<<span, SPAN_THREADS, 0, st>>>(d, b);
-            k_phase_scan<<<d.B, SMALL_THREADS, 0, st>>>(d, b);
-            k_corr_up<<<span, SPAN_THREADS, 0, st>>>(d, b);
-            k_estimate<<<d.B, SMALL_THREADS, 0, st>>>(d, b, pass, mi);
-        }
-        k_apply<<<span, SPAN_THREADS, 0, st>>>(d, b);
+    err = cudaMemsetAsync(scratch_i, 0, sub_ints(d) * sizeof(int32_t), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(SPAN_THREADS);
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, k_subtract, d, b);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    return static_cast<int>(err);
+}
+
+// Whether sincosf gives the bits of sinf and cosf: x [n] float32 on the
+// card; returns (through *n_differ, device memory) how many x differ.
+// One launch on `stream`.
+int gfsk_trig_differ(const void* x, int n, void* n_differ, void* stream) {
+    if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaMemsetAsync(n_differ, 0, sizeof(int), st);
+    if (err == cudaSuccess) {
+        k_trig_differ<<<ceil_div(n, 256), 256, 0, st>>>(
+            static_cast<const float*>(x), n, static_cast<int*>(n_differ));
         err = cudaGetLastError();
     }
     return static_cast<int>(err);

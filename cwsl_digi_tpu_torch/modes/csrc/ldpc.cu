@@ -1,7 +1,7 @@
 // Min-sum LDPC belief propagation and ordered-statistics decoding (OSD), the
 // two largest stages of the GFSK decode, as one launch each.
 //
-// bp_minsum replaces the XLA program cwsl_digi_tpu/modes/ldpc.py:
+// bp_minsum replaces the XLA program cwsl_digi_tpu/modes/ldpc.py:238
 // BPDecoder.decode_full (normalized min-sum with a fixed iteration count,
 // then the syndrome); its plain PyTorch version is
 // cwsl_digi_tpu_torch/modes/ldpc.py:BPDecoder.decode_full_plain, some 20
@@ -13,29 +13,47 @@
 //
 // What bounds them on an H100.  BP at the FT8 path's first pass (36,864
 // words of LDPC(174,91), 522 edges, 30 iterations) does ~3.1e9 float
-// operations on 58 MB of LLRs and outputs: 0.046 ms of FP32 issue against
-// 0.017 ms of HBM, so the bound is operations.  OSD (384 words, k = 91,
-// 268 flip patterns) is ~5.7e7 integer and float operations on 0.36 MB:
-// under a microsecond either way.  Neither is near its bound in practice:
-// both are chains of dependent steps (30 iterations of a check phase and a
-// variable phase; ~36 sort steps and ~100 elimination columns), so what
-// they cost is latency per step times the number of steps, and keeping the
-// whole chain on chip.  The design:
+// operations on 58 MB of LLRs and outputs: 0.093 ms of FP32 issue (each
+// add, multiply, minimum and compare one operation a lane and clock, the
+// library being built with --fmad=false) against 0.017 ms of HBM, so the
+// bound is operations.  OSD (384 words, k = 91, 268 flip patterns) is
+// ~5.7e7 integer and float operations on 0.36 MB: a few microseconds at
+// the INT32 rate.  Neither is near its bound in practice: both are chains
+// of dependent steps (30 iterations of a check phase and a variable phase;
+// ~36 sort steps and ~100 elimination columns), so what they cost is
+// latency per step times the number of steps, and keeping the whole chain
+// on chip.  What holds BP back on this card is the instructions it
+// issues, not its shared-memory traffic: on the H100, packing its tables
+// (a fifth fewer shared-memory wavefronts) left its time as it was, while
+// unrolling its loops for the code's degrees made it faster; and keeping
+// each check's messages in min-sum's compressed form (alpha * m1,
+// alpha * m2eff, the signs, the minimum's slot), with the tables in
+// registers or in shared memory, made it slower: rebuilding every message
+// in the variable phase costs more instructions than the loads it saves,
+// and the register tables cost occupancy.  The design:
 //
 //   - bp_minsum: one warp per word, four words per block.  The messages
-//     [n_checks, max_row] and the variable totals [n + 1] of a word live in
-//     shared memory for all iterations, the code's int16 tables in shared
-//     memory once per block; lane l owns checks l, l+32, ... and variables
-//     l, l+32, ....  An iteration is a check phase, __syncwarp, a variable
-//     phase, __syncwarp: no block barrier, words never wait for each other.
-//     The LLRs are read once; hard bits, the syndrome flag and the
-//     posterior totals are written once.  The arithmetic is the plain
-//     version's, operation for operation: the sign is (m < 0), so -0.0 is
-//     positive; the second minimum is over magnitudes strictly above the
-//     first, a duplicated minimum gives the first, padded slots count as
-//     1e9; a variable's incoming messages are summed in column-slot order
-//     and then added to the channel LLR.  The library is built with
-//     --fmad=false, so no product and sum are contracted into an FMA.
+//     [n_checks, max_row] and the variable totals [n] of a word live in
+//     shared memory for all iterations; lane l owns checks l, l+32, ...
+//     and variables l, l+32, ....  An iteration is a check phase,
+//     __syncwarp, a variable phase, __syncwarp: no block barrier, words
+//     never wait for each other.  The tables are packed once per block in
+//     shared memory as byte offsets (a check's 8 columns into the totals
+//     in one 16-byte load, a variable's 4 incoming slots into the
+//     messages in one 8-byte load), and the kernel is instantiated for the
+//     codes' degrees (7 and 3 for FT8/FT4, 6 and 3 for JS8 and
+//     FST4/FST4W, any other up to the limits), so the loops over a check's
+//     slots and a variable's edges unroll with no run-time bounds.  A
+//     check forms alpha * m1 and alpha * m2eff once and each message from
+//     them and its sign.  The LLRs are read once; hard bits, the syndrome
+//     flag and the posterior totals are written once.  The arithmetic is
+//     the plain version's, operation for operation: the sign is (m < 0),
+//     so -0.0 is positive; the second minimum is over magnitudes strictly
+//     above the first, a duplicated minimum gives the first, padded slots
+//     count as 1e9 and send 0; a variable's incoming messages are summed
+//     in column-slot order from 0 and then added to the channel LLR.  The
+//     library is built with --fmad=false, so no product and sum are
+//     contracted into an FMA.
 //   - osd: one block of 128 threads per word, one generator row per
 //     thread (k <= 128), kept in registers as <= 8 packed 32-bit words.  A
 //     bitonic sort of 64-bit keys (|LLR| bits descending, then index) gives
@@ -64,6 +82,7 @@ constexpr int BP_MAX_N = 256;        // code length
 constexpr int BP_MAX_CHECKS = 256;
 constexpr int BP_VARS_PER_LANE = BP_MAX_N / 32;
 constexpr float BP_PAD = 1e9f;       // magnitude of a padded check slot
+constexpr unsigned BP_NONE = 0xffffu;  // a padded table entry
 
 constexpr int OSD_THREADS = 128;     // one generator row per thread
 constexpr int OSD_WARPS = OSD_THREADS / 32;
@@ -73,40 +92,75 @@ constexpr int OSD_MAX_W = OSD_MAX_N / 32;    // packed words per row
 constexpr int OSD_MAX_FLIPS = 3;             // rows per flip pattern
 constexpr unsigned FULL = 0xffffffffu;
 
-// int16 table entries, rounded up so the float area after them is aligned
-__host__ __device__ inline int bp_table_entries(int n, int nc, int mr,
-                                                int mc) {
-    return (nc * mr + n * mc + 1) & ~1;
+// Shared memory of a block: the packed tables (a check's columns as byte
+// offsets into the totals, 8 x 16 bits; a variable's incoming slots as
+// byte offsets into the messages, 4 x 16 bits), then each word's messages
+// [n_checks, max_row] and totals [n], 16-byte aligned.
+__host__ __device__ inline int bp_table_bytes(int n, int nc) {
+    return nc * 16 + n * 8;
 }
 
-__host__ __device__ inline int bp_floats_per_word(int n, int nc, int mr) {
-    return nc * mr + n + 1;
+__host__ __device__ inline int bp_word_bytes(int n, int nc, int mr) {
+    return (nc * mr * 4 + n * 4 + 15) & ~15;
 }
 
+// 16-bit entry k of a packed table word
+template <typename V>
+__device__ __forceinline__ unsigned bp_half(const V& v, int k) {
+    const unsigned w = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
+    return (w >> (16 * (k & 1))) & 0xffffu;
+}
+
+__device__ __forceinline__ unsigned bp_half(const uint2& v, int k) {
+    return ((k < 2 ? v.x : v.y) >> (16 * (k & 1))) & 0xffffu;
+}
+
+// MR, MC: the check and variable degrees the loops are unrolled for (the
+// code's max_row and max_col), or 0 for any up to the limits.
+template <int MR, int MC>
 __global__ void __launch_bounds__(BP_WARPS * 32)
 bp_minsum_kernel(const float* __restrict__ llr,
-                 const int16_t* __restrict__ row_cols_g,
-                 const int16_t* __restrict__ col_slots_g,
+                 const int16_t* __restrict__ row_cols,
+                 const int16_t* __restrict__ col_slots,
                  int8_t* __restrict__ hard, uint8_t* __restrict__ ok,
-                 float* __restrict__ post, int m, int n, int nc, int mr,
-                 int mc, int iters, float alpha) {
+                 float* __restrict__ post, int m, int n, int nc, int mr_rt,
+                 int mc_rt, int iters, float alpha) {
+    constexpr int ROW = MR ? MR : BP_MAX_ROW;
+    constexpr int COL = MC ? MC : BP_MAX_COL;
+    const int mr = MR ? MR : mr_rt;
+    const int mc = MC ? MC : mc_rt;
     extern __shared__ __align__(16) unsigned char smem[];
-    const int n_slots = nc * mr;
-    int16_t* row_cols = reinterpret_cast<int16_t*>(smem);    // pad = n
-    int16_t* col_slots = row_cols + n_slots;                  // pad = -1
-    float* words = reinterpret_cast<float*>(
-        row_cols + bp_table_entries(n, nc, mr, mc));
-    for (int i = threadIdx.x; i < n_slots; i += blockDim.x)
-        row_cols[i] = row_cols_g[i];
-    for (int i = threadIdx.x; i < n * mc; i += blockDim.x)
-        col_slots[i] = col_slots_g[i];
+    uint4* ctab = reinterpret_cast<uint4*>(smem);
+    uint2* etab = reinterpret_cast<uint2*>(ctab + nc);
+    for (int i = threadIdx.x; i < nc; i += blockDim.x) {
+        unsigned h[BP_MAX_ROW];
+#pragma unroll
+        for (int s = 0; s < BP_MAX_ROW; ++s) {
+            const int c = s < mr ? row_cols[i * mr + s] : n;
+            h[s] = c < n ? 4u * static_cast<unsigned>(c) : BP_NONE;
+        }
+        ctab[i] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                             h[4] | h[5] << 16, h[6] | h[7] << 16);
+    }
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        unsigned h[BP_MAX_COL];
+#pragma unroll
+        for (int e = 0; e < BP_MAX_COL; ++e) {
+            const int sl = e < mc ? col_slots[j * mc + e] : -1;
+            h[e] = sl >= 0 ? 4u * static_cast<unsigned>(sl) : BP_NONE;
+        }
+        etab[j] = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+    }
     __syncthreads();
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int word = blockIdx.x * BP_WARPS + warp;
     if (word >= m) return;          // a whole warp; no block barrier follows
-    float* msg = words + warp * bp_floats_per_word(n, nc, mr);
-    float* tot = msg + n_slots;
+    float* msg = reinterpret_cast<float*>(smem + bp_table_bytes(n, nc)
+                                          + warp * bp_word_bytes(n, nc, mr));
+    float* tot = msg + nc * mr;
+    const char* tot_b = reinterpret_cast<const char*>(tot);
+    const char* msg_b = reinterpret_cast<const char*>(msg);
     const float* l = llr + static_cast<size_t>(word) * n;
 
     float lv[BP_VARS_PER_LANE];
@@ -116,52 +170,52 @@ bp_minsum_kernel(const float* __restrict__ llr,
         lv[q] = j < n ? l[j] : 0.f;
         if (j < n) tot[j] = lv[q];  // the LLR plus no message yet
     }
-    for (int s = lane; s < n_slots; s += 32) msg[s] = 0.f;
+    for (int s = lane; s < nc * mr; s += 32) msg[s] = 0.f;
     __syncwarp();
 
     for (int it = 0; it < iters; ++it) {
         // check phase: variable->check messages, then normalized min-sum
         for (int i = lane; i < nc; i += 32) {
-            const int16_t* rc = row_cols + i * mr;
+            const uint4 ct = ctab[i];
             float* mi = msg + i * mr;
-            float mag[BP_MAX_ROW];
-            unsigned neg = 0, real = 0;
+            float mag[ROW];
+            unsigned neg = 0;
 #pragma unroll
-            for (int s = 0; s < BP_MAX_ROW; ++s) {
+            for (int s = 0; s < ROW; ++s) {
                 mag[s] = BP_PAD;
-                if (s < mr) {
-                    const int c = rc[s];
-                    if (c < n) {
-                        const float v = __fsub_rn(tot[c], mi[s]);
-                        mag[s] = fabsf(v);
-                        neg |= static_cast<unsigned>(v < 0.f) << s;
-                        real |= 1u << s;
-                    }
+                const unsigned off = bp_half(ct, s);
+                if (off != BP_NONE) {
+                    const float v = __fsub_rn(
+                        *reinterpret_cast<const float*>(tot_b + off), mi[s]);
+                    mag[s] = fabsf(v);
+                    neg |= static_cast<unsigned>(v < 0.f) << s;
                 }
             }
             float m1 = mag[0];
 #pragma unroll
-            for (int s = 1; s < BP_MAX_ROW; ++s)
+            for (int s = 1; s < ROW; ++s)
                 if (s < mr) m1 = fminf(m1, mag[s]);
             float m2 = BP_PAD;
             int n_min = 0;
 #pragma unroll
-            for (int s = 0; s < BP_MAX_ROW; ++s) {
+            for (int s = 0; s < ROW; ++s) {
                 if (s < mr) {
                     if (mag[s] > m1) m2 = fminf(m2, mag[s]);
                     n_min += mag[s] <= m1;
                 }
             }
-            const unsigned par = __popc(neg) & 1u;
+            // every message is +-alpha * m1, or +-alpha * m2eff at the
+            // minimum (m2eff = m1 when the minimum is duplicated)
+            const float a1 = __fmul_rn(alpha, m1);
+            const float a2 = __fmul_rn(alpha, n_min > 1 ? m1 : m2);
+            const unsigned sgn = neg ^ ((__popc(neg) & 1u) ? 0xffu : 0u);
 #pragma unroll
-            for (int s = 0; s < BP_MAX_ROW; ++s) {
+            for (int s = 0; s < ROW; ++s) {
                 if (s < mr) {
                     float out = 0.f;
-                    if ((real >> s) & 1u) {
-                        const float use =
-                            mag[s] == m1 ? (n_min > 1 ? m1 : m2) : m1;
-                        const float v = __fmul_rn(alpha, use);
-                        out = (par ^ ((neg >> s) & 1u)) ? -v : v;
+                    if (bp_half(ct, s) != BP_NONE) {
+                        const float v = mag[s] == m1 ? a2 : a1;
+                        out = ((sgn >> s) & 1u) ? -v : v;
                     }
                     mi[s] = out;
                 }
@@ -173,10 +227,14 @@ bp_minsum_kernel(const float* __restrict__ llr,
         for (int q = 0; q < BP_VARS_PER_LANE; ++q) {
             const int j = lane + 32 * q;
             if (j < n) {
+                const uint2 et = etab[j];
                 float inc = 0.f;
-                for (int s = 0; s < mc; ++s) {
-                    const int sl = col_slots[j * mc + s];
-                    if (sl >= 0) inc = __fadd_rn(inc, msg[sl]);
+#pragma unroll
+                for (int e = 0; e < COL; ++e) {
+                    const unsigned off = bp_half(et, e);
+                    if (off != BP_NONE)
+                        inc = __fadd_rn(
+                            inc, *reinterpret_cast<const float*>(msg_b + off));
                 }
                 tot[j] = __fadd_rn(lv[q], inc);
             }
@@ -196,10 +254,13 @@ bp_minsum_kernel(const float* __restrict__ llr,
     }
     bool bad = false;
     for (int i = lane; i < nc; i += 32) {
+        const uint4 ct = ctab[i];
         unsigned p = 0;
-        for (int s = 0; s < mr; ++s) {
-            const int c = row_cols[i * mr + s];
-            if (c < n) p ^= tot[c] < 0.f;
+#pragma unroll
+        for (int s = 0; s < ROW; ++s) {
+            const unsigned off = bp_half(ct, s);
+            if (off != BP_NONE)
+                p ^= *reinterpret_cast<const float*>(tot_b + off) < 0.f;
         }
         bad |= p != 0;
     }
@@ -445,6 +506,21 @@ osd_kernel(const uint8_t* __restrict__ gen, const float* __restrict__ llr,
     }
 }
 
+template <int MR, int MC>
+cudaError_t bp_minsum_start(int smem, cudaStream_t st, const void* llr,
+                            const void* row_cols, const void* col_slots,
+                            void* hard, void* ok, void* post, int m, int n,
+                            int nc, int mr, int mc, int iters, float alpha) {
+    bp_minsum_kernel<MR, MC>
+        <<<(m + BP_WARPS - 1) / BP_WARPS, BP_WARPS * 32, smem, st>>>(
+            static_cast<const float*>(llr),
+            static_cast<const int16_t*>(row_cols),
+            static_cast<const int16_t*>(col_slots),
+            static_cast<int8_t*>(hard), static_cast<uint8_t*>(ok),
+            static_cast<float*>(post), m, n, nc, mr, mc, iters, alpha);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -460,15 +536,15 @@ int osd_max_flips() { return OSD_MAX_FLIPS; }
 // Shared memory of one bp_minsum block, in bytes (under 48 KB for every
 // code within the limits, so no attribute is needed).
 int bp_minsum_smem_bytes(int n, int nc, int mr, int mc) {
-    return bp_table_entries(n, nc, mr, mc) * static_cast<int>(sizeof(int16_t))
-           + BP_WARPS * bp_floats_per_word(n, nc, mr)
-                 * static_cast<int>(sizeof(float));
+    (void)mc;
+    return bp_table_bytes(n, nc) + BP_WARPS * bp_word_bytes(n, nc, mr);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // row_cols [nc, mr] int16 (n in a padded slot), col_slots [n, mc] int16
 // (flat slot index, -1 padded), llr [m, n] float32; hard [m, n] int8,
-// ok [m] bool, post [m, n] float32.
+// ok [m] bool, post [m, n] float32.  The loops are unrolled for the
+// codes' degrees: (7, 3) for FT8/FT4, (6, 3) for JS8 and FST4/FST4W.
 int bp_minsum_launch(const void* llr, const void* row_cols,
                      const void* col_slots, void* hard, void* ok, void* post,
                      int m, int n, int nc, int mr, int mc, int iters,
@@ -479,13 +555,18 @@ int bp_minsum_launch(const void* llr, const void* row_cols,
         return static_cast<int>(cudaErrorInvalidValue);
     const int smem = bp_minsum_smem_bytes(n, nc, mr, mc);
     if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-    bp_minsum_kernel<<<(m + BP_WARPS - 1) / BP_WARPS, BP_WARPS * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(llr), static_cast<const int16_t*>(row_cols),
-        static_cast<const int16_t*>(col_slots), static_cast<int8_t*>(hard),
-        static_cast<uint8_t*>(ok), static_cast<float*>(post), m, n, nc, mr,
-        mc, iters, alpha);
-    return static_cast<int>(cudaGetLastError());
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (mr == 7 && mc == 3)
+        err = bp_minsum_start<7, 3>(smem, st, llr, row_cols, col_slots, hard,
+                                    ok, post, m, n, nc, mr, mc, iters, alpha);
+    else if (mr == 6 && mc == 3)
+        err = bp_minsum_start<6, 3>(smem, st, llr, row_cols, col_slots, hard,
+                                    ok, post, m, n, nc, mr, mc, iters, alpha);
+    else
+        err = bp_minsum_start<0, 0>(smem, st, llr, row_cols, col_slots, hard,
+                                    ok, post, m, n, nc, mr, mc, iters, alpha);
+    return static_cast<int>(err);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).

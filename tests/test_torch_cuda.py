@@ -4,7 +4,9 @@ LDPC kernels ``bp_minsum`` and ``osd`` against their plain versions on
 every code and OSD shape the decoders run (and no fallback when their
 library cannot be built), the GFSK kernels ``subtract_known`` and
 ``multisym_llrs`` against their plain versions at FT8, FT4, JS8 and
-FST4-60 shapes (and no fallback), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
+FST4-60 shapes (and no fallback; the subtraction bit for bit alike
+whatever its blocks, in and out of a CUDA graph; ``sincosf`` as ``sinf``
+and ``cosf``), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
 Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
 and the parallel layer on a virtual mesh of the card against one on the
 CPU.
@@ -219,6 +221,133 @@ def test_subtract_kernel_matches_plain_on_card(dev, shape):
     assert got["ok"], got
     assert got["steps"] == sum(GFSK_COUNTS[name])
     assert not got["shift_flips"], got
+
+
+# blocks of subtract_known: every block the card holds at once, then 1, 3
+# and 40 (fewer than a pass's span blocks at FST4-60, more at FT4)
+SUB_BLOCKS = [0, 1, 3, 40]
+
+
+def _subtract_blocks(spec, audio, params, gp, n_blocks: int):
+    """The subtraction launched with ``n_blocks`` blocks, straight through
+    the library (the wrapper always asks for every block the card holds),
+    with the wrapper's operands, scratch and padding, on the current
+    stream.  Returns (CUDA error, residual [B, T])."""
+    import ctypes
+
+    B, T = audio.shape
+    dims, consts = gfsk_kernels.subtract_dims(spec, B, T, *gp.shape,
+                                              params.shape[1])
+    margin, hop = dims[9], dims[3]
+    t_pad = -(-T // hop) * hop
+    res = torch.nn.functional.pad(audio, (margin * hop,
+                                          t_pad - T + margin * hop))
+    tabs = gfsk_kernels._spec_tables(spec, audio.device)
+    lib = gfsk_kernels.load_library()
+    di = (ctypes.c_int * len(dims))(*dims)
+    dc = (ctypes.c_float * len(consts))(*consts)
+    n_int = ctypes.c_longlong(0)
+    n_float = lib.gfsk_sub_scratch(ctypes.addressof(di),
+                                   ctypes.addressof(dc), ctypes.byref(n_int))
+    assert n_float > 0
+    sf = torch.empty(n_float, dtype=torch.float32, device=audio.device)
+    si = torch.empty(n_int.value, dtype=torch.int32, device=audio.device)
+    err = lib.gfsk_subtract_launch(
+        ctypes.addressof(di), ctypes.addressof(dc), res.data_ptr(),
+        params.data_ptr(), gp.data_ptr(), tabs["pulse_pad"].data_ptr(),
+        tabs["template"].data_ptr(), tabs["data_idx"].data_ptr(),
+        tabs["gray"].data_ptr(), sf.data_ptr(), si.data_ptr(), None,
+        torch.cuda.current_stream(audio.device).cuda_stream, n_blocks)
+    return err, res[:, margin * hop:margin * hop + T]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [1, 3], ids=["ft4", "fst4-60"])
+def test_subtract_blocks_agree_bit_for_bit_on_card(dev, shape):
+    """However many blocks share subtract_known's work queue, the residual
+    is the wrapper's bit for bit (each span block's sums in the same
+    order, whichever block takes it); and each captures in a CUDA graph
+    whose replay gives the same bits."""
+    name, spec, code = _gfsk_shapes()[shape]
+    audio, params, gp, _ = chip_smoke.burst_case(
+        spec, code, GFSK_COUNTS[name], seed=40 + shape, n_slots=8)
+    args = [torch.from_numpy(x).to(dev) for x in (audio, params, gp)]
+    before = gfsk_kernels.launches["subtract_known"]
+    ref = gfsk_kernels.subtract_known(spec, *args)
+    assert gfsk_kernels.launches["subtract_known"] == before + 1
+    for n in SUB_BLOCKS:
+        err, got = _subtract_blocks(spec, *args, n)
+        assert err == 0, n
+        assert _same_bits(got, ref), n
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _subtract_blocks(spec, *args, n)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            err, captured = _subtract_blocks(spec, *args, n)
+        assert err == 0, n
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(captured, ref), n
+
+
+# windows whose bursts fill every slot, so that the work queue takes every
+# pass a call can open: one FT8 window with 4 of 4, two FT4 windows with
+# 3 of 3 each
+FULL_SLOTS = {"ft8": (4,), "ft4": (3, 3)}
+
+
+@pytest.mark.parametrize("shape", [0, 1], ids=["ft8", "ft4"])
+def test_subtract_with_every_slot_filled_on_card(dev, shape):
+    """With every slot of every window a valid burst, subtract_known stays
+    within SUB_TOL_PEAK of the plain version with no shift flip, and gives
+    the same bits at every block count and on a second call."""
+    name, spec, code = _gfsk_shapes()[shape]
+    counts = FULL_SLOTS[name]
+    audio, params, gp, _ = chip_smoke.burst_case(
+        spec, code, counts, seed=60 + shape, n_slots=max(counts))
+    assert bool((params[:, :, -1] == 1).all())
+    args = [torch.from_numpy(x).to(dev) for x in (audio, params, gp)]
+    got = chip_smoke.subtract_vs_plain(spec, *args)
+    assert got["ok"], got
+    assert got["steps"] == sum(counts)
+    assert not got["shift_flips"], got
+    ref = gfsk_kernels.subtract_known(spec, *args)
+    assert _same_bits(gfsk_kernels.subtract_known(spec, *args), ref)
+    for n in SUB_BLOCKS:
+        err, res = _subtract_blocks(spec, *args, n)
+        torch.cuda.synchronize()
+        assert err == 0, n
+        assert _same_bits(res, ref), n
+
+
+def test_subtract_refuses_more_blocks_than_the_card_holds(dev):
+    """The work queue's blocks wait on each other, so all must be on the
+    card at once: the library refuses a launch of more blocks than the
+    card holds, before it writes anything."""
+    name, spec, code = _gfsk_shapes()[1]
+    audio, params, gp, _ = chip_smoke.burst_case(spec, code, (1,), seed=9)
+    args = [torch.from_numpy(x).to(dev) for x in (audio, params, gp)]
+    err, res = _subtract_blocks(spec, *args, 1 << 20)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert _same_bits(res, args[0])
+
+
+def test_sincosf_rounds_as_sinf_and_cosf_on_card(dev):
+    """The subtraction kernel's one sincosf an angle gives the bits of
+    separate sinf and cosf calls over the angles it meets (to ~1e7 rad)."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.uniform(-1e7, 1e7, 1 << 18),
+                        rng.uniform(-3e5, 3e5, 1 << 18),
+                        rng.uniform(-10, 10, 1 << 16)]).astype(np.float32)
+    assert gfsk_kernels.trig_differ(torch.from_numpy(x).to(dev)) == 0
 
 
 @pytest.mark.parametrize("shape", range(4),

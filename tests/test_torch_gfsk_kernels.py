@@ -1,9 +1,9 @@
 """The GFSK kernels' host side, on the CPU: their oracles (the plain burst
 subtraction and coherent LLRs) against the JAX package at FT8, FT4, JS8 and
 FST4-60 shapes, a NumPy model of the subtraction kernel's cumsum tree and
-per-window burst loop held bit for bit to the plain version, CPU dispatch
-to the plain versions, and the wrappers' refusals, which come before any
-build."""
+per-window burst loop held bit for bit to the plain version, a model of
+its work queue, CPU dispatch to the plain versions, and the wrappers'
+refusals, which come before any build."""
 
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, fst4, ft4, ft8,
 REPO = Path(__file__).resolve().parents[1]
 F32 = np.float32
 SCAN = 16
+CHUNK = 256 * SCAN         # samples of one span block
 
 torch.set_num_threads(1)
 
@@ -153,12 +154,65 @@ def _span_cumsum(x: np.ndarray, n1: int, n2: int, n3: int) -> np.ndarray:
     return (_exclusive(p1)[:, :, None] + w0).reshape(b, -1)[:, :s]
 
 
+def _levels(x: np.ndarray, n3: int):
+    """span_levels over one window's span [S]: each thread's within-block
+    prefixes [n3 * 256, 16] (zero padded), V1 [n3 * 256], V2 [n3 * 16] and
+    V3 [n3], every sum sequential."""
+    w0 = np.zeros(n3 * CHUNK, F32)
+    w0[: x.size] = x
+    w0 = np.add.accumulate(w0.reshape(-1, SCAN), axis=1)
+    v1 = w0[:, -1]
+    v2 = np.add.accumulate(v1.reshape(-1, SCAN), axis=1)[:, -1]
+    v3 = np.add.accumulate(v2.reshape(-1, SCAN), axis=1)[:, -1]
+    return w0, v1, v2, v3
+
+
+def _block_prefix(v1, v2, p3, c: int, n1: int, n2: int) -> np.ndarray:
+    """block_prefix: the exclusive level-1 prefix of each of span block c's
+    256 threads, from the V1 and V2 entries it stages (V1 from 16 before
+    the block, V2 from one V3 entry before) and the block's own scan P3 of
+    V3: the level-2 prefixes at 16 c - 2 ... 16 c + 14 (E3 + W2), then
+    each thread's E2 + W1."""
+    j0, q0 = c * 256 - SCAN, c * SCAN - SCAN
+    j = np.arange(j0, j0 + 256 + SCAN)
+    st1 = np.where((j >= 0) & (j < n1), v1[np.clip(j, 0, v1.size - 1)],
+                   F32(0))
+    q = np.arange(q0, q0 + 2 * SCAN)
+    st2 = np.where((q >= 0) & (q < n2), v2[np.clip(q, 0, v2.size - 1)],
+                   F32(0))
+    w2 = np.add.accumulate(st2.reshape(2, SCAN), axis=1)
+    w1 = np.add.accumulate(st1.reshape(-1, SCAN), axis=1)
+    qs = c * SCAN - 2 + np.arange(SCAN + 1)
+    blk = np.maximum(qs, 0) // SCAN
+    e3 = np.where(blk > 0, p3[np.maximum(blk - 1, 0)], F32(0))
+    p2s = np.where(qs >= 0, e3 + w2[np.clip(blk - (c - 1), 0, 1), qs % SCAN],
+                   F32(0))
+    jt = c * 256 + np.arange(256)
+    i = np.maximum(jt - 1, 0)
+    g = i // SCAN
+    e2 = np.where(g > 0, p2s[np.clip(g - 1 - (c * SCAN - 2), 0, SCAN)],
+                  F32(0))
+    e0 = e2 + w1[np.clip(g - (c * SCAN - 1), 0, SCAN), i % SCAN]
+    return np.where((jt > 0) & (jt < n1), e0, F32(0))
+
+
+def _p1_points(v1, v2, p3, idx: np.ndarray) -> np.ndarray:
+    """p1_point at V1 indices idx: E2 + W1 with E2 = E3 + W2 from P3."""
+    w1 = np.add.accumulate(v1.reshape(-1, SCAN), axis=1).reshape(-1)
+    w2 = np.add.accumulate(v2.reshape(-1, SCAN), axis=1).reshape(-1)
+    p2 = _exclusive(p3[None])[0].repeat(SCAN) + w2
+    return _exclusive(p2[None])[0].repeat(SCAN)[idx] + w1[idx]
+
+
 def _model_subtract(spec, audio: np.ndarray, params: np.ndarray,
-                    gen_parity: np.ndarray) -> np.ndarray:
-    """The subtraction kernel in NumPy float32: per burst step every
-    window's setup, two fit passes (phase levels and scan, correlations,
-    estimate) and the subtraction, each window stopping at its own first
-    invalid burst; index arithmetic per sample as the kernel's."""
+                    gen_parity: np.ndarray, blocks: int = 3) -> np.ndarray:
+    """The subtraction kernel in NumPy float32, as its blocks compute it:
+    each window alone, burst by burst up to its first invalid burst, with
+    ``blocks`` blocks a window.  A span pass gives each block the span
+    blocks rank, rank + blocks, ...; between passes every block scans V3
+    itself and makes its span blocks' level-1 prefixes (block_prefix); the
+    estimates, which every block repeats on the same sums, run once here.
+    Index arithmetic per sample as the kernel's."""
     b_n, t_n = audio.shape
     k = gen_parity.shape[0]
     n_m = params.shape[1]
@@ -178,120 +232,140 @@ def _model_subtract(spec, audio: np.ndarray, params: np.ndarray,
     res[:, margin * hop : margin * hop + t_n] = audio
     u = np.arange(s_n)
     q_u, r_u = u // sps, u % sps
-    rows = np.arange(b_n)[:, None]
-    alive = np.ones(b_n, bool)
 
-    def synth(tpad, fine, cf):
-        acc = np.zeros((b_n, s_n), F32)
+    def phase(tpad, fine, cf):
+        """The span's phase: every block's scan of V3, then each of its
+        span blocks' prefixes plus the threads' own sums."""
+        acc = np.zeros(s_n, F32)
         for dd in (-1, 0, 1, 2):
-            idx = np.clip((3 - dd) * sps + r_u[None] - fine[:, None], 0,
-                          5 * sps - 1)
-            acc = acc + tpad[rows, q_u[None] + dd + 1] * pulse[idx]
-        phase = _span_cumsum(acc * c_hmod + cf[:, None], n1, n2, n3)
-        mask = ((u[None] >= fine[:, None])
-                & (u[None] < fine[:, None] + l_n)).astype(F32)
-        return _lib(torch.cos, phase) * mask, _lib(torch.sin, phase) * mask
+            idx = np.clip((3 - dd) * sps + r_u - fine, 0, 5 * sps - 1)
+            acc = acc + tpad[q_u + dd + 1] * pulse[idx]
+        w0, v1, v2, v3 = _levels(acc * c_hmod + cf, n3)
+        out = np.zeros(n3 * CHUNK, F32)
+        for rank in range(blocks):
+            p3 = _tree_scan(v3[None])[0]
+            for c in range(rank, n3, blocks):
+                e0 = _block_prefix(v1, v2, p3, c, n1, n2)
+                out[c * CHUNK : (c + 1) * CHUNK] = (
+                    e0[:, None] + w0[c * 256 : (c + 1) * 256]).reshape(-1)
+        return out[:s_n]
 
-    def correlate(m_blk, zr, zi, fine):
-        seg = res[rows, m_blk[:, None] * hop + u[None]]
-        pr = _span_cumsum(seg * zr, n1, n2, n3)
-        pi = _span_cumsum((-seg) * zi, n1, n2, n3)
-        bpos = fine[:, None] + sps * np.arange(n_sym + 1)[None]
+    def lib(fn, w, *xs):
+        """_lib on window w's row of arrays of the plain version's [B, ...]
+        shape, so that each element sits where the plain version's does."""
+        rows = []
+        for x in xs:
+            full = np.zeros((b_n,) + np.shape(x), F32)
+            full[w] = x
+            rows.append(full)
+        return _lib(fn, *rows)[w]
+
+    def synth(w, tpad, fine, cf):
+        ph = phase(tpad, fine, cf)
+        mask = ((u >= fine) & (u < fine + l_n)).astype(F32)
+        return lib(torch.cos, w, ph) * mask, lib(torch.sin, w, ph) * mask
+
+    def correlate(w, m_blk, zr, zi, fine):
+        seg = res[w, m_blk * hop + u]
+        bpos = fine + sps * np.arange(n_sym + 1)
         idx = np.maximum(bpos - 1, 0)
-        vr = np.where(bpos > 0, pr[rows, idx], F32(0))
-        vi = np.where(bpos > 0, pi[rows, idx], F32(0))
-        return vr[:, 1:] - vr[:, :-1], vi[:, 1:] - vi[:, :-1]
+        out = []
+        for x in (seg * zr, (-seg) * zi):
+            w0, v1, v2, v3 = _levels(x, n3)
+            p3 = _tree_scan(v3[None])[0]
+            blk = idx // SCAN
+            e = np.where(blk > 0, _p1_points(v1, v2, p3, np.maximum(blk - 1, 0)),
+                         F32(0))
+            out.append(np.where(bpos > 0, e + w0[blk, idx % SCAN], F32(0)))
+        vr, vi = out
+        return vr[1:] - vr[:-1], vi[1:] - vi[:-1]
 
-    def df_same(cr, ci, same):
-        pr = cr[:, 1:] * cr[:, :-1] + ci[:, 1:] * ci[:, :-1]
-        pi = ci[:, 1:] * cr[:, :-1] - cr[:, 1:] * ci[:, :-1]
-        srr = _lib(lambda x: x.sum(-1), pr * same)
-        sri = _lib(lambda x: x.sum(-1), pi * same)
-        df = _lib(torch.atan2, sri, srr) / c_df
-        keep = (same.sum(-1) > 0) & (np.abs(df) < bin_hz)
+    def df_same(w, cr, ci, same):
+        pr = cr[1:] * cr[:-1] + ci[1:] * ci[:-1]
+        pi = ci[1:] * cr[:-1] - cr[1:] * ci[:-1]
+        srr = lib(lambda x: x.sum(-1), w, pr * same)
+        sri = lib(lambda x: x.sum(-1), w, pi * same)
+        df = lib(torch.atan2, w, sri, srr) / c_df
+        keep = (same.sum() > 0) & (np.abs(df) < bin_hz)
         return np.where(keep, df, F32(0)), pr, pi
 
     def movsum(x):
-        cs = _tree_scan(np.pad(x, ((0, 0), (4, 3))))
-        return cs[:, 7:] - cs[:, :-7]
+        cs = _tree_scan(np.pad(x, (4, 3))[None])[0]
+        return cs[7:] - cs[:-7]
 
-    for mi in range(n_m):
-        p = params[:, mi]
-        alive &= p[:, k + 2] != 0
-        if not alive.any():
-            continue                      # every block returns at once
-        # setup: tones from the info bits
-        info = p[:, :k].astype(F32)
-        par = np.remainder(info @ gen_parity, F32(2))
-        cw = np.concatenate([info, par], axis=1)[:, : n_data * bps]
-        v = np.zeros((b_n, n_data), np.int64)
-        for bb in range(bps):
-            v = 2 * v + cw[:, bb::bps].astype(np.int64)
-        tones = np.tile(tabs["template"], (b_n, 1))
-        tones[:, tabs["data_idx"]] = gray[v]
-        tpad = np.concatenate([np.zeros((b_n, 1), F32), tones[:, :1], tones,
-                               tones[:, -1:], np.zeros((b_n, 1), F32)], 1)
-        dtone = tones[:, 1:] - tones[:, :-1]
-        same = (dtone == 0).astype(F32)
-        sel = ((np.abs(dtone) >= 1) & (np.abs(dtone) <= 3)).astype(F32)
-        t0 = p[:, k].astype(np.int64)
-        f0 = p[:, k + 1].astype(F32) * bin_hz
-        start0 = t0 * hop
-        m0 = np.clip(t0 + margin, 0, nb_pad - n_blk_seg)
-        fine0 = np.zeros(b_n, np.int64)
+    for w in range(b_n):
+        for mi in range(n_m):
+            p = params[w, mi]
+            if p[k + 2] == 0:
+                break                      # the window's last burst is done
+            # setup: tones from the info bits
+            info = p[:k].astype(F32)
+            par = np.remainder(info @ gen_parity, F32(2))
+            cw = np.concatenate([info, par])[: n_data * bps]
+            v = np.zeros(n_data, np.int64)
+            for bb in range(bps):
+                v = 2 * v + cw[bb::bps].astype(np.int64)
+            tones = tabs["template"].copy()
+            tones[tabs["data_idx"]] = gray[v]
+            tpad = np.concatenate([[F32(0)], tones[:1], tones, tones[-1:],
+                                   [F32(0)]]).astype(F32)
+            dtone = tones[1:] - tones[:-1]
+            same = (dtone == 0).astype(F32)
+            sel = ((np.abs(dtone) >= 1) & (np.abs(dtone) <= 3)).astype(F32)
+            t0 = int(p[k])
+            f0 = F32(p[k + 1]) * bin_hz
+            m0 = min(max(t0 + margin, 0), nb_pad - n_blk_seg)
 
-        # pass 0: df1, then dt and the refined start
-        zr, zi = synth(tpad, fine0, c_w * f0)
-        cr, ci = correlate(m0, zr, zi, fine0)
-        df1, pr, pi = df_same(cr, ci, same)
-        ang = two_pi * df1[:, None] * t_sym
-        th = _lib(torch.atan2, pi, pr) - ang
-        th = _lib(torch.atan2, _lib(torch.sin, th), _lib(torch.cos, th))
-        w = _lib(torch.sqrt, pr * pr + pi * pi) * sel
-        den = c_den * _lib(lambda x: x.sum(-1), w * dtone * dtone)
-        dt = _lib(lambda x: x.sum(-1), w * th * dtone) / np.maximum(
-            den, F32(1e-20))
-        shift = np.clip(np.rint(dt * sr).astype(np.int64), -(sps - 1),
-                        sps - 1)
-        start1 = start0 - shift
-        blk1 = np.floor_divide(start1, hop)
-        fine1 = start1 - blk1 * hop
-        m1 = np.clip(blk1 + margin, 0, nb_pad - n_blk_seg)
+            # pass 0: df1, then dt and the refined start
+            zr, zi = synth(w, tpad, 0, c_w * f0)
+            cr, ci = correlate(w, m0, zr, zi, 0)
+            df1, pr, pi = df_same(w, cr, ci, same)
+            ang = two_pi * df1 * t_sym
+            th = lib(torch.atan2, w, pi, pr) - ang
+            th = lib(torch.atan2, w, lib(torch.sin, w, th),
+                     lib(torch.cos, w, th))
+            wgt = lib(torch.sqrt, w, pr * pr + pi * pi) * sel
+            den = c_den * lib(lambda x: x.sum(-1), w, wgt * dtone * dtone)
+            dt = lib(lambda x: x.sum(-1), w, wgt * th * dtone) / np.maximum(
+                den, F32(1e-20))
+            shift = int(np.clip(np.rint(dt * sr), -(sps - 1), sps - 1))
+            start1 = t0 * hop - shift
+            blk1 = start1 // hop
+            fine1 = start1 - blk1 * hop
+            m1 = min(max(blk1 + margin, 0), nb_pad - n_blk_seg)
 
-        # pass 1: df2 and the gain
-        zr, zi = synth(tpad, fine1, c_w * (f0 + df1))
-        cr, ci = correlate(m1, zr, zi, fine1)
-        df2, _, _ = df_same(cr, ci, same)
-        cdf2 = c_w * df2
-        uc = fine1[:, None].astype(F32) \
-            + (np.arange(n_sym, dtype=F32)[None] + F32(0.5)) * sps_f
-        thc = cdf2[:, None] * (uc + F32(1))
-        cc, sc = _lib(torch.cos, thc), _lib(torch.sin, thc)
-        ctr = cr * cc + ci * sc
-        cti = ci * cc - cr * sc
-        s_lo = start1[:, None] + np.arange(n_sym)[None] * sps
-        cnt = (np.clip(s_lo + sps, 0, t_n) - np.clip(s_lo, 0, t_n)
-               ).astype(F32)
-        den = np.maximum(movsum(cnt), F32(1))
-        g_re = F32(2) * movsum(ctr) / den
-        g_im = F32(2) * movsum(cti) / den
+            # pass 1: df2 and the gain
+            zr, zi = synth(w, tpad, fine1, c_w * (f0 + df1))
+            cr, ci = correlate(w, m1, zr, zi, fine1)
+            df2, _, _ = df_same(w, cr, ci, same)
+            cdf2 = c_w * df2
+            uc = F32(fine1) + (np.arange(n_sym, dtype=F32) + F32(0.5)) * sps_f
+            thc = cdf2 * (uc + F32(1))
+            cc, sc = lib(torch.cos, w, thc), lib(torch.sin, w, thc)
+            ctr = cr * cc + ci * sc
+            cti = ci * cc - cr * sc
+            s_lo = start1 + np.arange(n_sym) * sps
+            cnt = (np.clip(s_lo + sps, 0, t_n) - np.clip(s_lo, 0, t_n)
+                   ).astype(F32)
+            den = np.maximum(movsum(cnt), F32(1))
+            g_re = F32(2) * movsum(ctr) / den
+            g_im = F32(2) * movsum(cti) / den
 
-        # the subtraction
-        th2 = cdf2[:, None] * (u[None].astype(F32) + F32(1))
-        ct, st = _lib(torch.cos, th2), _lib(torch.sin, th2)
-        zr2 = zr * ct - zi * st
-        zi2 = zi * ct + zr * st
-        gk = np.where(r_u[None] >= fine1[:, None], q_u[None], q_u[None] - 1)
-        gin = (gk >= 0) & (gk < n_sym)
-        gkc = np.clip(gk, 0, n_sym - 1)
-        amp_re = np.where(gin, g_re[rows, gkc], F32(0))
-        amp_im = np.where(gin, g_im[rows, gkc], F32(0))
-        sub = amp_re * zr2 - amp_im * zi2
-        pos = blk1[:, None] * hop + u[None]
-        sub = sub * ((pos >= 0) & (pos < t_n)).astype(F32)
-        for b in np.flatnonzero(alive):
-            wpos = m1[b] * hop + u
-            res[b, wpos] = res[b, wpos] - sub[b]
+            # the subtraction, block by block over the span
+            th2 = cdf2 * (u.astype(F32) + F32(1))
+            ct, st = lib(torch.cos, w, th2), lib(torch.sin, w, th2)
+            zr2 = zr * ct - zi * st
+            zi2 = zi * ct + zr * st
+            gk = np.where(r_u >= fine1, q_u, q_u - 1)
+            gin = (gk >= 0) & (gk < n_sym)
+            gkc = np.clip(gk, 0, n_sym - 1)
+            amp_re = np.where(gin, g_re[gkc], F32(0))
+            amp_im = np.where(gin, g_im[gkc], F32(0))
+            sub = amp_re * zr2 - amp_im * zi2
+            pos = blk1 * hop + u
+            sub = sub * ((pos >= 0) & (pos < t_n)).astype(F32)
+            wpos = m1 * hop + u
+            res[w, wpos] = res[w, wpos] - sub
     return res[:, margin * hop : margin * hop + t_n]
 
 
@@ -316,9 +390,11 @@ MODEL_CASES = [("ft8", ft8.SPEC, ldpc.ft8_code, (3, 1, 2)),
 @pytest.mark.parametrize("name,spec,code,counts", MODEL_CASES,
                          ids=[c[0] for c in MODEL_CASES])
 def test_kernel_model_equals_plain_bit_for_bit(name, spec, code, counts):
-    """The NumPy model of the subtraction kernel (the cumsum tree cut into
-    thread blocks, span blocks and one scan; each window's burst loop with
-    its own early stop) gives the plain version's residual bit for bit."""
+    """The NumPy model of the subtraction kernel as its blocks compute it
+    (the cumsum tree cut into thread blocks and span blocks; three blocks a
+    window, each scanning V3 itself and making its own span blocks'
+    level-1 prefixes once; each window alone, stopping after its own last
+    burst) gives the plain version's residual bit for bit."""
     audio, params, gp, clean = chip_smoke.burst_case(
         spec, code(), counts, seed=3, n_slots=max(counts) + 1)
     want = subtract.subtract_known_plain(
@@ -345,6 +421,125 @@ def test_model_tree_equals_the_reference_cumsum():
         v = rng.uniform(-2, 2, (2, n)).astype(F32)
         np.testing.assert_array_equal(
             _tree_scan(v), subtract._cumsum(torch.from_numpy(v)).numpy())
+
+
+# ---------------------------------------------------------------------------
+# model of the subtraction kernel's work queue (k_subtract, take_task)
+
+N_PASSES = 5               # span passes of a burst step
+QUEUE_SPARE = 1            # gfsk.cu queue_len: entries past one a pass
+
+
+def _queue_model(counts, n_slots: int, n3: int, n_blocks: int, seed: int,
+                 spare: int = QUEUE_SPARE) -> dict:
+    """k_subtract's work queue in Python, its blocks interleaved at random
+    between their shared-memory operations (seeded): the queue holds
+    B * n_slots * N_PASSES + spare entries, as ``sub_ints`` sizes it, and
+    a read past its end raises IndexError, as it would read the counts
+    beyond it on the card.  Returns {(window, burst, pass): span blocks
+    run} and the queue's counts."""
+    b_n = len(counts)
+    entries = [0] * (b_n * n_slots * N_PASSES + spare)
+    nxt, done = [0] * b_n, [0] * b_n
+    mi, pas = [0] * b_n, [0] * b_n
+    q = {"head": 0, "tail": 0, "done": 0}
+    runs: dict = {}
+
+    def open_pass(w):
+        done[w] = 0
+        nxt[w] = 0
+        entries[q["tail"]] = w + 1
+        q["tail"] += 1
+
+    def setup(w):
+        if mi[w] >= n_slots or mi[w] >= counts[w]:
+            q["done"] += 1
+        else:
+            open_pass(w)
+
+    def block():
+        while True:
+            while True:                                 # take_task
+                h = q["head"]
+                yield
+                e = entries[h]
+                yield
+                if e == 0:
+                    if q["done"] >= b_n:
+                        return
+                    continue
+                w = e - 1
+                k = nxt[w]
+                nxt[w] += 1
+                yield
+                if k < n3:
+                    break
+                if q["head"] == h:                      # atomicCAS
+                    q["head"] = h + 1
+                yield
+            runs.setdefault((w, mi[w], pas[w]), []).append(k)
+            yield
+            done[w] += 1
+            if done[w] == n3:                           # small_stage
+                pas[w] += 1
+                if pas[w] == N_PASSES:
+                    pas[w] = 0
+                    mi[w] += 1
+                    setup(w)
+                else:
+                    open_pass(w)
+            yield
+
+    for w in range(b_n):
+        setup(w)
+    rng = np.random.default_rng(seed)
+    live = [block() for _ in range(n_blocks)]
+    for _ in range(10_000_000):
+        if not live:
+            break
+        g = live[rng.integers(len(live))]
+        try:
+            next(g)
+        except StopIteration:
+            live.remove(g)
+    assert not live, "the queue model did not finish"
+    return {"runs": runs, **q}
+
+
+# (bursts in each window, slots, span blocks a pass, blocks): every slot
+# of every window filled, so that the queue takes every pass a call can
+# open (one window; two; a crowded FT8 batch), and windows with free
+# slots, one with none valid
+QUEUE_CASES = [((4,), 4, 3, 2), ((3, 3), 3, 2, 5), ((16,) * 4, 16, 3, 7),
+               ((2, 0, 1), 3, 4, 3)]
+
+
+@pytest.mark.parametrize("counts,n_slots,n3,n_blocks", QUEUE_CASES,
+                         ids=["1x4of4", "2x3of3", "4x16of16", "free-slots"])
+def test_work_queue_model_runs_every_pass_once(counts, n_slots, n3,
+                                               n_blocks):
+    """In the model of k_subtract's work queue, every window runs each of
+    its valid bursts' five passes, every span block of a pass once, and
+    then stops; the head never reads past the queue, also when every slot
+    of every window is a valid burst."""
+    for seed in range(5):
+        got = _queue_model(counts, n_slots, n3, n_blocks, seed)
+        want = {(w, m, p) for w, c in enumerate(counts) for m in range(c)
+                for p in range(N_PASSES)}
+        assert set(got["runs"]) == want
+        assert all(sorted(v) == list(range(n3))
+                   for v in got["runs"].values())
+        assert got["tail"] == N_PASSES * sum(counts)
+        assert got["done"] == len(counts)
+
+
+def test_work_queue_model_overruns_without_the_spare_entry():
+    """The model sees the fault that the spare entry repairs: with a queue
+    of exactly one entry a pass, a call whose windows fill every slot reads
+    past its end once the last pass is taken."""
+    with pytest.raises(IndexError):
+        _queue_model((3, 3), 3, 2, 4, seed=0, spare=0)
+    _queue_model((3, 2), 3, 2, 4, seed=0, spare=0)
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +620,7 @@ def test_subtract_wrapper_refusals(no_build):
     tiny = dataclasses.replace(spec, sps=48, n_sym=79)
     with pytest.raises(ValueError, match="span above 4096"):
         sub(tiny, audio, params, gp)
+
 
 
 def test_llr_wrapper_refusals(no_build):

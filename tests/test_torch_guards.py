@@ -85,7 +85,8 @@ _PORT_FILES = sorted(
      for p in (REPO / "cwsl_digi_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "bench_cuda.py", "tools/torch_bench_sections.py",
        "tools/torch_decode_profile.py", "tools/torch_bench_ab.py",
-       "tools/channelizer_ab.py", "tools/parallel_cards.py",
+       "tools/channelizer_ab.py", "tools/stage_kernels_ab.py",
+       "tools/parallel_cards.py",
        "tools/torch_parity.py", "tools/torch_snr_check.py",
        "tools/torch_soak.py", "tools/torch_soak_merge.py",
        "tools/torch_ap_false.py", "tools/torch_import_tables.py",

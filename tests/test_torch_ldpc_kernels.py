@@ -170,6 +170,85 @@ def test_bp_kernel_tables_match_build_bp_tables(code):
     np.testing.assert_array_equal(dec._k_col_slots.numpy(), cs)
 
 
+def _bp_model(bp, llr: np.ndarray):
+    """bp_minsum in NumPy float32 as the kernel computes it: each check
+    forms alpha * m1 and alpha * m2eff (m1 when the minimum is duplicated,
+    else the second minimum) once, and each outgoing message from them
+    (m2eff where the magnitude is the minimum) and its sign (its own sign
+    bit against the parity of all); each variable sums its incoming
+    messages in column-slot order from 0.  Returns (hard, ok, post)."""
+    f32 = np.float32
+    rc, cs = (x.astype(np.int64) for x in ldpc.kernel_tables(bp.t))
+    m, n = llr.shape
+    nc, mr = rc.shape
+    real = rc < n
+    col = np.where(real, rc, 0)
+    alpha = f32(bp.alpha)
+    msg = np.zeros((m, nc, mr), f32)
+    tot = llr.copy()
+    for _ in range(bp.iters):
+        mag = np.full((m, nc, mr), f32(1e9), f32)
+        neg = np.zeros((m, nc), np.int64)
+        for s in range(mr):
+            v = tot[:, col[:, s]] - msg[:, :, s]
+            mag[:, :, s] = np.where(real[:, s], np.abs(v), f32(1e9))
+            neg |= ((v < 0) & real[:, s]).astype(np.int64) << s
+        m1 = mag[:, :, 0]
+        for s in range(1, mr):
+            m1 = np.fmin(m1, mag[:, :, s])
+        m2 = np.full_like(m1, f32(1e9))
+        n_min = np.zeros((m, nc), np.int64)
+        for s in range(mr):
+            m2 = np.where(mag[:, :, s] > m1, np.fmin(m2, mag[:, :, s]), m2)
+            n_min += mag[:, :, s] <= m1
+        a1 = alpha * m1
+        a2 = alpha * np.where(n_min > 1, m1, m2)
+        par = np.vectorize(lambda x: bin(x).count("1") & 1)(neg)
+        sgn = neg ^ np.where(par == 1, 0xFF, 0)
+        for s in range(mr):
+            v = np.where(mag[:, :, s] == m1, a2, a1)
+            v = np.where((sgn >> s) & 1, -v, v)
+            msg[:, :, s] = np.where(real[:, s], v, f32(0))
+        inc = np.zeros((m, n), f32)
+        flat = msg.reshape(m, nc * mr)
+        for e in range(cs.shape[1]):
+            sl = cs[:, e]
+            inc = np.where(sl >= 0, inc + flat[:, np.maximum(sl, 0)], inc)
+        tot = llr + inc
+    hard = (tot < 0).astype(np.int8)
+    syn = np.zeros((m, nc), np.int64)
+    for s in range(mr):
+        syn ^= (tot[:, col[:, s]] < 0) & real[:, s]
+    return hard, ~syn.any(axis=1), tot
+
+
+@pytest.mark.parametrize("code,iters", [(ldpc.ft8_code, 30),
+                                        (js8.js8_code, 30),
+                                        (ldpc.fst4_code, 60)],
+                         ids=["ft8", "js8", "fst4"])
+def test_bp_kernel_model_equals_plain_bit_for_bit(code, iters):
+    """Messages formed from each check's alpha * m1, alpha * m2eff and sign
+    mask are the plain min-sum's: the model of the kernel gives
+    decode_full_plain's hard bits, parity flags and posterior totals bit
+    for bit, on noisy words with a quarter rounded (tied magnitudes,
+    duplicated minima), zeros of both signs, and words that do not
+    converge."""
+    c = code()
+    bp = ldpc.BPDecoder(c, iters=iters, device="cpu")
+    llr = chip_smoke.noisy_llrs(_generator(c), 48, seed=c.n + iters,
+                                ties=12)
+    llr[0, :9] = -0.0
+    llr[1, ::4] = 0.0
+    llr[2, 1::5] = -0.0
+    got = _bp_model(bp, llr)
+    want = [x.numpy() for x in bp.decode_full_plain(torch.from_numpy(llr))]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2].view(np.uint32),
+                                  want[2].view(np.uint32))
+    assert 0 < want[1].sum() < len(llr)    # converged and failed words
+
+
 def test_cpu_tensors_run_the_plain_versions(monkeypatch):
     """decode_full and osd_decode on CPU tensors return the plain versions'
     results and never reach a kernel wrapper."""

@@ -40,14 +40,16 @@ print("RESULT " + json.dumps(out))
 """
 
 
-def run(root: Path) -> dict:
-    code = RUN.replace("TIMER_PATH", repr(str(HERE / "chip_smoke.py")))
+def run(root: Path, code: str = RUN) -> dict:
+    """``code`` (a script that prints ``RESULT <json>``) from ``root``,
+    with this checkout's ``chip_smoke.py`` as TIMER_PATH; its result."""
+    code = code.replace("TIMER_PATH", repr(str(HERE / "chip_smoke.py")))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=600)
     sys.stdout.write(proc.stdout)
     if proc.returncode != 0:
         sys.stderr.write(proc.stderr)
-        raise RuntimeError(f"kernel phase failed in {root}")
+        raise RuntimeError(f"kernel run failed in {root}")
     line = next(x for x in proc.stdout.splitlines() if x.startswith("RESULT "))
     return json.loads(line[len("RESULT "):])
 

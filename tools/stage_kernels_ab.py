@@ -1,0 +1,60 @@
+"""Time the four stage kernels of two checkouts on one card, in turns.
+
+    python3 tools/stage_kernels_ab.py OTHER_CHECKOUT
+
+Runs ``chip_smoke.ldpc_kernels_phase`` and ``chip_smoke.gfsk_kernels_phase``
+of OTHER_CHECKOUT, of this checkout, of this checkout again and of
+OTHER_CHECKOUT again, each in its own process from its own root (so each
+builds its own kernels and checks them against its own plain versions on
+the main path's inputs), and prints every run's device times (CUDA graphs,
+this checkout's ``chip_smoke.cuda_ms`` for both), then the medians by
+checkout and kernel as one JSON object.  Needs one CUDA device;
+OTHER_CHECKOUT is e.g. ``git archive`` of a parent commit unpacked into a
+directory that ``.gitignore`` lists.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from channelizer_ab import HERE, run  # noqa: E402
+
+RUN = """
+import importlib.util, json, torch, chip_smoke
+spec = importlib.util.spec_from_file_location("timer", TIMER_PATH)
+timer = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timer)
+chip_smoke.cuda_ms = timer.cuda_ms      # one device timer for both
+dev = torch.device("cuda", 0)
+out = {**chip_smoke.ldpc_kernels_phase(dev)["kernels"],
+       **chip_smoke.gfsk_kernels_phase(dev)["kernels"]}
+print("RESULT " + json.dumps(out))
+"""
+KEYS = ("ms", "plain_ms", "max_abs_err")
+
+
+def main() -> int:
+    other = Path(sys.argv[1]).resolve()
+    order = [("other", other), ("this", HERE), ("this", HERE),
+             ("other", other)]
+    results: dict[str, list[dict]] = {"other": [], "this": []}
+    for name, root in order:
+        print(f"== {name}: {root}", flush=True)
+        r = run(root, RUN)
+        print(f"{name}: " + json.dumps({k: v["ms"] for k, v in r.items()}),
+              flush=True)
+        results[name].append(r)
+    summary = {name: {k: {key: statistics.median(r[k][key] for r in runs)
+                          for key in KEYS}
+                      for k in runs[0]}
+               for name, runs in results.items()}
+    print(json.dumps({"runs": results, "median": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
