@@ -30,22 +30,31 @@
    errors equal (near-ties counted apart), distances within 1e-5
    relative.  Then each kernel's device time at the main path's shape
    beside the plain version's on the card and the bound, at the rates of
-   the operations' types (FP32 without FMA, INT32) and at 67 TFLOP/s;
+   the operations' types (FP32 without FMA, INT32) and at 67 TFLOP/s, and
+   the ``osd`` kernel's dependent steps a word (sort steps and pivot
+   columns), which its time follows;
 4b. holds ``subtract_known`` and ``multisym_llrs`` against their plain
    versions on CPU copies of the inputs the decoders hand them (phase
    ``gfsk_kernels``): the FT8 main path's (FT8Decoder with AP at depth 3
    on 64 busy windows: the pass-1 LLRs of its first 24-window call, 12,288
-   candidates, and its pass-1 subtraction of all 64 windows), FT4 at depth
-   3, JS8, FST4-60 (4-symbol windows) and FST4W-1800 at its device batch:
+   candidates straight from its demod spectrogram, and its pass-1
+   subtraction of all 64 windows), FT4 at depth 3, JS8, FST4-60 (4-symbol
+   windows) and FST4W-1800 at its device batch (the rfft branch):
    residual within 1e-3 of each window's peak and every fitted burst's
    integer time shift counted against the plain version's, LLRs within
-   1e-3; the same for four FT8 windows with all 16 slots valid (the work
-   queue then takes every pass a call can open); each subtraction's
-   device operations a call, counted by ``torch.profiler`` (one kernel
-   launch), and its device time in a CUDA graph, and that ``sincosf``
-   rounds as ``sinf`` and ``cosf``.  Then each kernel's device time at
-   the main path's shape beside the plain version's on the card and the
-   bound, as in 4;
+   1e-3 through both entries of the LLR kernel (``candidate_llrs`` from the
+   spectrogram against ``candidate_llrs_plain``, and ``multisym_llrs`` on
+   the gathered csym against ``_multisym_llrs_plain``); the same for four
+   FT8 windows with all 16 slots valid (the work queue then takes every
+   pass a call can open); each subtraction's device operations a call,
+   counted by ``torch.profiler`` (one kernel launch), and its device time in
+   a CUDA graph, and that ``sincosf`` rounds as ``sinf`` and ``cosf``.  Then
+   each kernel's device time at the main path's shape beside the plain
+   version's on the card and the bound (the LLR kernel through both
+   entries), and the LLR stage in turns on the same inputs: the fused call
+   against the route before it (the plain gather and rotation, then the
+   csym entry), each as the profiler's device time and as the time issued
+   from the host;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
@@ -241,8 +250,9 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ops(fn) -> dict | None:
     """The device operations of one fn() call (after a warm-up call) as
     ``torch.profiler`` records them: {"events": all, "by_name": {name:
-    count}}, each kernel named without its return type, namespace and
-    arguments; None when the profiler records no device activity."""
+    count}, "busy_ms": the sum of their device times}, each kernel named
+    without its return type, namespace and arguments; None when the
+    profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -251,8 +261,9 @@ def device_ops(fn) -> dict | None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in dev_events]
     if not names:
         return None
     by_name: dict[str, int] = {}
@@ -260,7 +271,8 @@ def device_ops(fn) -> dict | None:
         n = n.removeprefix("void ").replace("(anonymous namespace)::", "")
         n = re.split(r"[<(]", n, maxsplit=1)[0].strip()
         by_name[n] = by_name.get(n, 0) + 1
-    return {"events": len(names), "by_name": by_name}
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    return {"events": len(names), "by_name": by_name, "busy_ms": busy}
 
 
 def eager_ms(fn, reps: int) -> float:
@@ -654,7 +666,28 @@ def ldpc_kernels_phase(dev) -> dict:
     out = stage_kernel_times(runs, bounds, errs,
                              {"bp_minsum": list(bp_llr.shape),
                               "osd": list(osd_llr.shape)})
+    steps = osd_steps(tabs["gen"], osd_llr)
+    out["osd"]["dependent_steps"] = steps
+    print(f"osd dependent steps a word: {json.dumps(steps)}")
     return {"kernels": out, "checks": checks}
+
+
+def osd_steps(gen, llrs: torch.Tensor) -> dict:
+    """The chain of dependent steps a word of the ``osd`` kernel takes,
+    which its time follows: the bitonic sort's steps to the power of two
+    >= n, and the generator columns it eliminates until k pivots (the
+    plain reduction's last pivot column + 1), mean and max over the
+    words."""
+    from cwsl_digi_tpu_torch.modes import osd
+
+    n = llrs.shape[1]
+    lg = max(1, int(np.ceil(np.log2(n))))
+    _, _, basis = osd.osd_reduce_plain(gen, llrs)
+    cols = (basis.max(dim=1).values + 1).to(torch.float64)
+    return {"sort_steps": lg * (lg + 1) // 2,
+            "pivot_columns_mean": float(cols.mean()),
+            "pivot_columns_max": int(cols.max()),
+            "steps_mean": lg * (lg + 1) // 2 + float(cols.mean())}
 
 
 def burst_case(spec, code, counts, seed: int, n_slots: int = 0
@@ -717,19 +750,61 @@ def noisy_csym(spec, m: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return c.astype(np.complex64), rot.astype(np.complex64)
 
 
+def noisy_demod(spec, b: int, k: int, os_t_eff: int, seed: int
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Seeded operands of the coherent LLRs' spectrogram entry: demod [b,
+    H, F] complex64 unit noise, H = os_t_eff * n_sym + 7 hops and F =
+    os_f * (n_tones + 6) + 3 bins (neither a whole number of strides, so
+    the gather reads the zero padding), with a tone track (a tone a
+    symbol, the sync tones where known, amplitudes 0.5 to 3) under each
+    even candidate; tt and f0 [b, k] int64 start hops and bins, the first
+    five candidates of each window at the edges where the clamps of the
+    block start bite (hop 0 and H - 1, bin 0 and F - 1, and the last start
+    of the largest remainder, whose block reads the zero padding)."""
+    rng = np.random.default_rng(seed)
+    t, osf = spec.n_tones, spec.os_f
+    h = os_t_eff * spec.n_sym + 7
+    f = osf * (t + 6) + 3
+    demod = (rng.standard_normal((b, h, f))
+             + 1j * rng.standard_normal((b, h, f))) / np.sqrt(2.0)
+    tt = rng.integers(0, h, (b, k))
+    f0 = rng.integers(0, f, (b, k))
+    # the last start with the largest remainder: its block runs past H and
+    # F into the padding
+    edges = [(0, 0), (h - 1, f - 1),
+             ((h // os_t_eff) * os_t_eff - 1, (f // osf) * osf - 1),
+             (0, f - 1), (h - 1, 0)]
+    for i, (t_, f_) in enumerate(edges[:k]):
+        tt[:, i], f0[:, i] = t_, f_
+    for w in range(b):
+        for c in range(0, k, 2):
+            tones = rng.integers(0, t, spec.n_sym)
+            for s_, tone in spec.sync_cells:
+                tones[s_] = tone
+            for s_ in range(spec.n_sym):
+                hop = tt[w, c] + os_t_eff * s_
+                fb = f0[w, c] + osf * tones[s_]
+                if hop < h and fb < f:
+                    demod[w, hop, fb] += rng.uniform(0.5, 3.0) * np.exp(
+                        1j * rng.uniform(0, 2 * np.pi))
+    return (demod.astype(np.complex64), tt.astype(np.int64),
+            f0.astype(np.int64))
+
+
 def record_gfsk_inputs(dec, audio: torch.Tensor):
     """The first coherent-LLR and subtraction operands that
-    ``dec.decode(audio)`` hands over: ((spec, csym, rot, bitmaps), (spec,
-    audio, params, gen_parity) or None)."""
+    ``dec.decode(audio)`` hands over: ((spec, demod, tt, f0, os_t_eff,
+    fold_pairs, bitmaps), (spec, audio, params, gen_parity) or None)."""
     from cwsl_digi_tpu_torch.modes import gfsk_engine
 
     llr_in, sub_in = [], []
-    orig_llr, orig_sub = gfsk_engine._multisym_llrs, gfsk_engine.subtract_known
+    orig_llr, orig_sub = gfsk_engine.candidate_llrs, gfsk_engine.subtract_known
 
-    def llr_rec(spec, csym, rot, bitmaps):
+    def llr_rec(spec, demod, tt, f0, os_t_eff, fold_pairs, bitmaps):
         if not llr_in:
-            llr_in.append((spec, csym.clone(), rot.clone(), bitmaps.clone()))
-        return orig_llr(spec, csym, rot, bitmaps)
+            llr_in.append((spec, demod.clone(), tt.clone(), f0.clone(),
+                           os_t_eff, fold_pairs, bitmaps.clone()))
+        return orig_llr(spec, demod, tt, f0, os_t_eff, fold_pairs, bitmaps)
 
     def sub_rec(spec, audio, params, gen_parity):
         if not sub_in:
@@ -737,14 +812,26 @@ def record_gfsk_inputs(dec, audio: torch.Tensor):
                            gen_parity.clone()))
         return orig_sub(spec, audio, params, gen_parity)
 
-    gfsk_engine._multisym_llrs = llr_rec
+    gfsk_engine.candidate_llrs = llr_rec
     gfsk_engine.subtract_known = sub_rec
     try:
         dec.decode(audio)
     finally:
-        gfsk_engine._multisym_llrs = orig_llr
+        gfsk_engine.candidate_llrs = orig_llr
         gfsk_engine.subtract_known = orig_sub
     return llr_in[0], (sub_in[0] if sub_in else None)
+
+
+def csym_operands(spec, demod, tt, f0, os_t_eff, fold_pairs, bitmaps):
+    """The csym entry's operands (spec, csym [B*K, n_sym, T], rot [B*K],
+    bitmaps) of the same candidates: the plain version's gather and
+    rotation (the route before the fused kernel)."""
+    from cwsl_digi_tpu_torch.modes import gfsk_engine
+
+    csym = gfsk_engine.gather_candidates(spec, demod, tt, f0, os_t_eff)
+    rot = gfsk_engine.candidate_rotation(spec, csym, f0, fold_pairs)
+    return (spec, csym.reshape(-1, spec.n_sym, spec.n_tones),
+            rot.reshape(-1), bitmaps)
 
 
 def fitted_steps(params: torch.Tensor) -> torch.Tensor:
@@ -809,6 +896,23 @@ def llr_vs_plain(spec, csym, rot, bitmaps) -> dict:
             "max_abs_err": err}
 
 
+def fused_llr_vs_plain(spec, demod, tt, f0, os_t_eff, fold_pairs,
+                       bitmaps) -> dict:
+    """``candidate_llrs`` (the kernel's spectrogram entry) against
+    ``candidate_llrs_plain`` on CPU copies: max abs within LLR_TOL."""
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+    from cwsl_digi_tpu_torch.modes import gfsk_engine
+
+    got = gk.candidate_llrs(spec, demod, tt, f0, os_t_eff, fold_pairs,
+                            bitmaps)
+    want = gfsk_engine.candidate_llrs_plain(
+        spec, demod.cpu(), tt.cpu(), f0.cpu(), os_t_eff, fold_pairs,
+        bitmaps.cpu())
+    err = float((got.cpu() - want).abs().max())
+    return {"ok": err <= LLR_TOL and bool(torch.isfinite(got).all()),
+            "candidates": tt.numel(), "max_abs_err": err}
+
+
 def subtract_bound_ms(spec, audio, params, gen_parity
                       ) -> tuple[float, float, dict]:
     """(bytes ms, ops ms, counts) of the subtraction of this run's bursts:
@@ -834,21 +938,26 @@ def subtract_bound_ms(spec, audio, params, gen_parity
              "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
 
 
-def llr_bound_ms(spec, m: int) -> tuple[float, float, dict]:
+def llr_bound_ms(spec, m: int, fused: bool = True, fold_pairs: bool = True
+                 ) -> tuple[float, float, dict]:
     """(bytes ms, ops ms, counts) of the coherent LLRs of ``m``
-    candidates: csym and rot read and the LLRs written once at the HBM
-    rate; per data symbol the |C|^2 of its rows (3 ops a tone), each T x T
-    cross table (a complex product a column, 6, and 4 a cell), the pair
-    maxima (an add and a max a combination), the triples (5 adds and a
-    max), with coh4 the two 4-symbol windows (9 adds and a max), each
-    over the neighbour tones the sync cells allow, the bit maxima and the
+    candidates: the candidates' cells (fused: read from the spectrogram at
+    most once, with their start hop and bin; else csym and rot) read and
+    the LLRs written once at the HBM rate; per candidate its rotation
+    (fused: the angle, cos and sin, and with ``fold_pairs`` the sync pairs'
+    products and sum, the angle of their sum, cos and sin and two complex
+    products), per data symbol the |C|^2 of its rows (3 ops a tone), each
+    T x T cross table (a complex product a column, 6, and 4 a cell), the
+    pair maxima (an add and a max a combination), the triples (5 adds and a
+    max), with coh4 the two 4-symbol windows (9 adds and a max), each over
+    the neighbour tones the sync cells allow, the bit maxima and the
     scaling, at FP32_OPS (``ops_ms_fma_rate``: the same at FP32_FLOPS,
     which counts an FMA as two)."""
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
 
     t = spec.n_tones
-    allow = gk._spec_tables(spec, torch.device("cpu"))["allow"].numpy()
-    pop = np.vectorize(lambda v: bin(int(v)).count("1"))(allow)
+    tabs = gk._spec_tables(spec, torch.device("cpu"))
+    pop = np.vectorize(lambda v: bin(int(v)).count("1"))(tabs["allow"].numpy())
     ap, an, ap2, an2 = pop
     rows = 5 if spec.coh4 else 3
     tables = 9 if spec.coh4 else 3
@@ -862,10 +971,18 @@ def llr_bound_ms(spec, m: int) -> tuple[float, float, dict]:
     if spec.coh4:
         ops_sym += int((10 * t * ap * an * an2).sum()
                        + (10 * t * ap2 * ap * an).sum())
-    ops = m * ops_sym
-    n_bytes = m * (spec.n_sym * t * 8 + 8 + n_data * spec.bits_per_sym * 4)
+    rot_ops = 0
+    if fused:
+        rot_ops = 3 + 2 * TRIG_OPS
+        if fold_pairs:
+            rot_ops += 8 * tabs["pairs"].shape[0] + 12 + 3 * TRIG_OPS
+    ops = m * (ops_sym + rot_ops)
+    cells = spec.n_sym * t * 8
+    n_bytes = m * (cells + (16 if fused else 8)
+                   + n_data * spec.bits_per_sym * 4)
     return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
-            {"ops_per_candidate": ops_sym, "ops": ops, "bytes": n_bytes,
+            {"ops_per_candidate": ops_sym + rot_ops, "rotation_ops": rot_ops,
+             "ops": ops, "bytes": n_bytes,
              "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
 
 
@@ -912,8 +1029,8 @@ def gfsk_cases(dev) -> dict:
     depth 3 on 64 busy windows: the pass-1 LLRs of its first 24-window
     call, 12,288 candidates, and its pass-1 subtraction over all 64
     windows), FT4 at depth 3, JS8, FST4-60 (coh4) and FST4W-1800 at its
-    device batch.  {name: ((spec, csym, rot, bitmaps), (spec, audio,
-    params, gen_parity))}."""
+    device batch.  {name: ((spec, demod, tt, f0, os_t_eff, fold_pairs,
+    bitmaps), (spec, audio, params, gen_parity))}."""
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.modes import fst4, ft4, js8
     from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
@@ -946,20 +1063,24 @@ def gfsk_cases(dev) -> dict:
 def gfsk_kernels_phase(dev) -> dict:
     """The ``subtract_known`` and ``multisym_llrs`` kernels against their
     plain versions on CPU copies of the inputs the decoders hand them
-    (``gfsk_cases``) and on four FT8 windows with every slot a valid
-    burst; each subtraction case's device operations a call (the
-    profiler's count: one ``k_subtract`` launch) and its device time in a
-    CUDA graph (so that a capture of it is shown to work at every shape);
-    that ``sincosf`` rounds as ``sinf`` and ``cosf`` over the phases the
-    kernel meets; then each kernel's device time at the main path's shape
-    beside the plain version's on the card and the bound."""
+    (``gfsk_cases``: the LLR kernel through both entries, from the demod
+    spectrogram and from the gathered csym) and on four FT8 windows with
+    every slot a valid burst; each subtraction case's device operations a
+    call (the profiler's count: one ``k_subtract`` launch) and its device
+    time in a CUDA graph (so that a capture of it is shown to work at every
+    shape); that ``sincosf`` rounds as ``sinf`` and ``cosf`` over the
+    phases the kernel meets; then each kernel's device time at the main
+    path's shape beside the plain version's on the card and the bound, and
+    the LLR stage in turns: the fused call against the route before it
+    (the plain gather and rotation, then the csym entry)."""
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
     from cwsl_digi_tpu_torch.modes import ft8, gfsk_engine, ldpc, subtract
 
     cases = gfsk_cases(dev)
     checks, calls = {}, {}
     for name, (llr_in, sub_in) in cases.items():
-        checks[f"llr {name}"] = llr_vs_plain(*llr_in)
+        checks[f"llr fused {name}"] = fused_llr_vs_plain(*llr_in)
+        checks[f"llr csym {name}"] = llr_vs_plain(*csym_operands(*llr_in))
         checks[f"subtract {name}"] = subtract_vs_plain(*sub_in)
         ops = device_ops(lambda a=sub_in: gk.subtract_known(*a))
         launches = None if ops is None else ops["by_name"].get(
@@ -1005,8 +1126,11 @@ def gfsk_kernels_phase(dev) -> dict:
 
     # device time at the main path's shapes: the kernels in a CUDA graph,
     # in turns around the plain versions on the card issued from the host
-    # (the plain subtraction syncs with the host once a burst)
-    spec_l, csym, rot, bm = cases["ft8 main path"][0]
+    # (the plain subtraction syncs with the host once a burst); the LLR
+    # kernel through both entries
+    llr_in = cases["ft8 main path"][0]
+    spec_l, demod, tt, f0, os_t_eff, fold, bm = llr_in
+    old = csym_operands(*llr_in)
     spec_s, audio, params, gp = cases["ft8 main path"][1]
     runs = {
         "subtract_known": (
@@ -1014,21 +1138,53 @@ def gfsk_kernels_phase(dev) -> dict:
             lambda: subtract.subtract_known_plain(spec_s, audio, params, gp),
             3, 3),
         "multisym_llrs": (
-            lambda: gk.multisym_llrs(spec_l, csym, rot, bm),
-            lambda: gfsk_engine._multisym_llrs_plain(spec_l, csym, rot, bm),
-            10, 3)}
+            lambda: gk.candidate_llrs(*llr_in),
+            lambda: gfsk_engine.candidate_llrs_plain(*llr_in), 10, 3),
+        "multisym_llrs_csym": (
+            lambda: gk.multisym_llrs(*old),
+            lambda: gfsk_engine._multisym_llrs_plain(*old), 10, 3)}
+    m = tt.numel()
     bounds = {"subtract_known": subtract_bound_ms(spec_s, audio, params, gp),
-              "multisym_llrs": llr_bound_ms(spec_l, csym.shape[0])}
+              "multisym_llrs": llr_bound_ms(spec_l, m, True, fold),
+              "multisym_llrs_csym": llr_bound_ms(spec_l, m, False)}
+    prefix = {"subtract_known": "subtract", "multisym_llrs": "llr fused",
+              "multisym_llrs_csym": "llr csym"}
     errs = {name: max(c["max_abs_err"] for cn, c in checks.items()
-                      if cn.startswith("subtract" if name == "subtract_known"
-                                       else "llr"))
+                      if cn.startswith(prefix[name]))
             for name in runs}
     out = stage_kernel_times(runs, bounds, errs,
                              {"subtract_known": list(params.shape),
-                              "multisym_llrs": list(csym.shape)})
+                              "multisym_llrs": [list(demod.shape),
+                                                list(tt.shape)],
+                              "multisym_llrs_csym": list(old[1].shape)})
     out["subtract_known"]["per_call"] = calls["ft8 main path"]
-    return {"kernels": out, "checks": checks, "per_call": calls,
-            "trig_differ": trig}
+    return {"kernels": out, "llr_stage": llr_stage_turns(llr_in),
+            "checks": checks, "per_call": calls, "trig_differ": trig}
+
+
+def llr_stage_turns(llr_in) -> dict:
+    """The FT8 main path's LLR stage on the same inputs, in turns fused,
+    old, old, fused: the fused call (one launch from the demod
+    spectrogram) against the route before it (the plain gather and
+    rotation, then the csym entry), each as the device time the profiler
+    sums over its operations and as the time issued from the host between
+    CUDA events."""
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+
+    routes = {"fused": lambda: gk.candidate_llrs(*llr_in),
+              "old_route": lambda: gk.multisym_llrs(*csym_operands(*llr_in))}
+    got: dict = {name: {"device_ms": [], "eager_ms": [], "events": None}
+                 for name in routes}
+    for name in ("fused", "old_route", "old_route", "fused"):
+        ops = device_ops(routes[name])
+        if ops is not None:
+            got[name]["device_ms"].append(ops["busy_ms"])
+            got[name]["events"] = ops["events"]
+        got[name]["eager_ms"].append(eager_ms(routes[name], 5))
+        torch.cuda.empty_cache()
+    print(f"LLR stage, FT8 main path, fused against the old route: "
+          f"{json.dumps(got)}")
+    return got
 
 
 def _plan():

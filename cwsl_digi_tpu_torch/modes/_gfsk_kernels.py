@@ -10,12 +10,15 @@ source's hash (:mod:`cwsl_digi_tpu_torch.kernel_build`), and loaded with
 ctypes.  Importing this module builds nothing: the CPU tests import it on
 machines with no ``nvcc``.
 
-:func:`subtract_known` and :func:`multisym_llrs` are the kernels' only
-wrappers.  They check every operand before the library is loaded, raise on
+:func:`subtract_known`, :func:`candidate_llrs` and :func:`multisym_llrs`
+are the kernels' only wrappers; the last two are entries of one kernel (the
+decode's, from the demod spectrogram, and one from gathered symbol spectra
+``csym``).  They check every operand before the library is loaded, raise on
 anything the kernels do not take and when the library cannot be built or a
 launch is refused: no path here falls back to the plain versions
-(``subtract.subtract_known_plain``, ``gfsk_engine._multisym_llrs_plain``).
-Neither syncs with the host, so both can be captured in a CUDA graph.
+(``subtract.subtract_known_plain``, ``gfsk_engine.candidate_llrs_plain``,
+``gfsk_engine._multisym_llrs_plain``).  None syncs with the host, so each
+can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ SUB_MAX_INFO = 128
 SUB_MAX_PAR = 256
 SUB_CHUNK = 4096          # samples of one span block; the span must exceed it
 LLR_MAX_DATA = 128
+LLR_MAX_SYM = 256
 LLR_TONES = (4, 8)
 LLR_BPS = (2, 3)
 
@@ -45,9 +49,9 @@ SRC = Path(__file__).parent / "csrc" / "gfsk.cu"
 BUILD_DIR = Path(__file__).parent / "build"
 EXTRA_FLAGS = ("--fmad=false",)
 
-# launches of each kernel wrapper since the last reset (one per call that
+# launches of each kernel since the last reset (one per wrapper call that
 # launches; a subtract_known call is one kernel launch after a memset of
-# its work queue)
+# its work queue; candidate_llrs and multisym_llrs launch the one LLR kernel)
 launches = {"subtract_known": 0, "multisym_llrs": 0}
 
 _lock = threading.Lock()     # guards _lib, the counts and the table cache
@@ -79,14 +83,15 @@ def load_library() -> ctypes.CDLL:
             lib.gfsk_subtract_launch.restype = i
             lib.gfsk_trig_differ.argtypes = [p, i, p, p]
             lib.gfsk_trig_differ.restype = i
-            lib.gfsk_llr_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+            lib.gfsk_llr_launch.argtypes = [p] * 11
             lib.gfsk_llr_launch.restype = i
             limits = {"gfsk_sub_max_bursts": SUB_MAX_BURSTS,
                       "gfsk_sub_max_sym": SUB_MAX_SYM,
                       "gfsk_sub_max_info": SUB_MAX_INFO,
                       "gfsk_sub_max_par": SUB_MAX_PAR,
                       "gfsk_sub_chunk": SUB_CHUNK,
-                      "gfsk_llr_max_data": LLR_MAX_DATA}
+                      "gfsk_llr_max_data": LLR_MAX_DATA,
+                      "gfsk_llr_max_sym": LLR_MAX_SYM}
             for name, want in limits.items():
                 getattr(lib, name).restype = i
                 if getattr(lib, name)() != want:
@@ -138,6 +143,9 @@ def _spec_tables(spec, device: torch.device) -> dict[str, torch.Tensor]:
     for row, off in enumerate((-1, 1, -2, 2)):
         ok = _neighbor_allowed(spec, dnp + off)
         allow[row] = (ok * (1 << np.arange(spec.n_tones))).sum(axis=1)
+    by_sym = {int(s): int(t) for s, t in spec.sync_cells}
+    pairs = [(s, by_sym[s], by_sym[s + 1]) for s in sorted(by_sym)
+             if s + 1 in by_sym]
     host = {
         "pulse_pad": np.concatenate([np.zeros(sps), pulse, np.zeros(sps)]
                                     ).astype(np.float32),
@@ -145,6 +153,9 @@ def _spec_tables(spec, device: torch.device) -> dict[str, torch.Tensor]:
         "data_idx": dnp.astype(np.int32),
         "gray": np.asarray(spec.gray_map, np.int32),
         "allow": allow,
+        # the consecutive sync pairs of the frequency correction, in the
+        # plain version's order: (symbol, its tone, the next symbol's tone)
+        "pairs": np.asarray(pairs, np.int32).reshape(-1, 3),
     }
     tabs = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     with _lock:
@@ -266,19 +277,8 @@ def trig_differ(x: torch.Tensor) -> int:
     return int(n.item())
 
 
-def multisym_llrs(spec, csym: torch.Tensor, rot: torch.Tensor,
-                  bitmaps: torch.Tensor) -> torch.Tensor:
-    """Launch the coherent LLRs on PyTorch's current stream, one block a
-    candidate.
-
-    csym [M, n_sym, T] complex64, rot [M] complex64, bitmaps [bps, T]
-    float32, as ``gfsk_engine._multisym_llrs_plain`` takes them.  Returns
-    [M, n_bits] float32, each candidate scaled to std 3."""
-    if csym.dim() != 3 or rot.dim() != 1 or bitmaps.dim() != 2:
-        raise ValueError("csym [M, n_sym, T], rot [M] and bitmaps [bps, T] "
-                         "must be 3-, 1- and 2-D")
-    m, n_sym, n_tones = csym.shape
-    bps = bitmaps.shape[0]
+def _llr_spec_checks(spec, n_tones: int, bps: int) -> None:
+    """The LLR kernel's limits on the mode."""
     n_data = len(spec.data_syms)
     if n_tones not in LLR_TONES or bps not in LLR_BPS \
             or (1 << bps) > n_tones:
@@ -291,28 +291,102 @@ def multisym_llrs(spec, csym: torch.Tensor, rot: torch.Tensor,
     if not 0 < n_data <= LLR_MAX_DATA:
         raise ValueError(f"{n_data} data symbols: the kernel takes 1 to "
                          f"{LLR_MAX_DATA}")
-    if (n_sym, n_tones, bps) != (spec.n_sym, spec.n_tones,
-                                 spec.bits_per_sym):
-        raise ValueError(f"csym [{m}, {n_sym}, {n_tones}] with {bps}-bit "
-                         f"bitmaps does not fit {spec.name}")
-    _check({"csym": (csym, torch.complex64, (m, n_sym, n_tones)),
-            "rot": (rot, torch.complex64, (m,)),
-            "bitmaps": (bitmaps, torch.float32, (bps, n_tones))})
-    out = torch.empty((m, n_data * bps), dtype=torch.float32,
-                      device=csym.device)
-    if m == 0:
+    if spec.n_sym > LLR_MAX_SYM:
+        raise ValueError(f"{spec.n_sym} symbols: the kernel takes at most "
+                         f"{LLR_MAX_SYM}")
+    if (n_tones, bps) != (spec.n_tones, spec.bits_per_sym):
+        raise ValueError(f"{n_tones} tones with {bps}-bit bitmaps does not "
+                         f"fit {spec.name}")
+
+
+def _llr_launch(spec, src: torch.Tensor, k: int, tt, f0, rot, bitmaps,
+                os_t: int, os_f: int, fold_pairs: bool) -> torch.Tensor:
+    """One launch of the LLR kernel over src [B, H, F]'s B * k candidates;
+    returns [B * k, n_bits] float32."""
+    b, h, f = src.shape
+    n_data = len(spec.data_syms)
+    out = torch.empty((b * k, n_data * spec.bits_per_sym),
+                      dtype=torch.float32, device=src.device)
+    if b * k == 0:
         return out
-    tabs = _spec_tables(spec, csym.device)
+    tabs = _spec_tables(spec, src.device)
+    n_pairs = tabs["pairs"].shape[0] if fold_pairs else 0
+    dims = [b, k, h, f, spec.n_sym, spec.n_tones, n_data, spec.bits_per_sym,
+            os_t, os_f, spec.bin_range[0], n_pairs, int(spec.coh4)]
     lib = load_library()
-    stream = torch.cuda.current_stream(csym.device).cuda_stream
-    with torch.cuda.device(csym.device):
+    di = (ctypes.c_int * len(dims))(*dims)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    with torch.cuda.device(src.device):
         err = lib.gfsk_llr_launch(
-            csym.data_ptr(), rot.data_ptr(), bitmaps.data_ptr(),
-            tabs["data_idx"].data_ptr(), tabs["allow"].data_ptr(),
-            out.data_ptr(), m, n_sym, n_tones, bps, n_data, int(spec.coh4),
-            stream)
+            ctypes.addressof(di), src.data_ptr(), ptr(tt), ptr(f0), ptr(rot),
+            bitmaps.data_ptr(), tabs["data_idx"].data_ptr(),
+            tabs["allow"].data_ptr(), tabs["pairs"].data_ptr(),
+            out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"multisym_llrs kernel launch failed: CUDA error "
-                           f"{err} ({spec.name}, M={m})")
+        raise RuntimeError(f"LLR kernel launch failed: CUDA error {err} "
+                           f"({spec.name}, {b} x {k} candidates, dims {dims})")
     _count("multisym_llrs")
     return out
+
+
+def candidate_llrs(spec, demod: torch.Tensor, tt: torch.Tensor,
+                   f0: torch.Tensor, os_t_eff: int, fold_pairs: bool,
+                   bitmaps: torch.Tensor) -> torch.Tensor:
+    """Launch the coherent LLRs of every candidate straight from the demod
+    spectrogram, on PyTorch's current stream: one launch, a block a
+    candidate.
+
+    demod [B, H, F] complex64, tt and f0 [B, K] int64 (start hop and bin),
+    os_t_eff the hops between symbols, fold_pairs whether the sync-pair
+    residual is folded into the rotation, bitmaps [bps, T] float32, as
+    ``gfsk_engine.candidate_llrs_plain`` takes them.  Returns [B, K,
+    n_bits] float32, each candidate scaled to std 3."""
+    if demod.dim() != 3 or tt.dim() != 2 or bitmaps.dim() != 2:
+        raise ValueError("demod [B, H, F], tt and f0 [B, K] and bitmaps "
+                         "[bps, T] must be 3-, 2- and 2-D")
+    b, h, f = demod.shape
+    k = tt.shape[1]
+    _llr_spec_checks(spec, bitmaps.shape[1], bitmaps.shape[0])
+    if os_t_eff < 1 or -(-h // os_t_eff) < spec.n_sym \
+            or -(-f // spec.os_f) < spec.n_tones:
+        raise ValueError(f"demod [{b}, {h}, {f}] at {os_t_eff} hops and "
+                         f"{spec.os_f} bins a step holds no {spec.n_sym} x "
+                         f"{spec.n_tones} block: the kernel needs every "
+                         "clamped block inside the padded spectrogram")
+    if b * k >= 2 ** 31:
+        raise ValueError(f"{b} x {k} candidates: the kernel takes fewer "
+                         "than 2**31")
+    _check({"demod": (demod, torch.complex64, (b, h, f)),
+            "tt": (tt, torch.int64, (b, k)),
+            "f0": (f0, torch.int64, (b, k)),
+            "bitmaps": (bitmaps, torch.float32, tuple(bitmaps.shape))})
+    return _llr_launch(spec, demod, k, tt, f0, None, bitmaps, os_t_eff,
+                       spec.os_f, fold_pairs).reshape(b, k, -1)
+
+
+def multisym_llrs(spec, csym: torch.Tensor, rot: torch.Tensor,
+                  bitmaps: torch.Tensor) -> torch.Tensor:
+    """Launch the coherent LLRs of gathered symbol spectra on PyTorch's
+    current stream: the kernel of :func:`candidate_llrs` on csym read as a
+    spectrogram of M windows with unit strides, one candidate each at hop
+    and bin 0, with the rotation given.
+
+    csym [M, n_sym, T] complex64, rot [M] complex64, bitmaps [bps, T]
+    float32, as ``gfsk_engine._multisym_llrs_plain`` takes them.  Returns
+    [M, n_bits] float32, each candidate scaled to std 3."""
+    if csym.dim() != 3 or rot.dim() != 1 or bitmaps.dim() != 2:
+        raise ValueError("csym [M, n_sym, T], rot [M] and bitmaps [bps, T] "
+                         "must be 3-, 1- and 2-D")
+    m, n_sym, n_tones = csym.shape
+    _llr_spec_checks(spec, n_tones, bitmaps.shape[0])
+    if n_sym != spec.n_sym:
+        raise ValueError(f"csym [{m}, {n_sym}, {n_tones}] does not fit "
+                         f"{spec.name}")
+    _check({"csym": (csym, torch.complex64, (m, n_sym, n_tones)),
+            "rot": (rot, torch.complex64, (m,)),
+            "bitmaps": (bitmaps, torch.float32, tuple(bitmaps.shape))})
+    return _llr_launch(spec, csym, 1, None, None, rot, bitmaps, 1, 1, False)

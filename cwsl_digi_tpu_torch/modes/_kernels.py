@@ -42,8 +42,13 @@ EXTRA_FLAGS = ("--fmad=false",)
 # launches of each kernel since the last reset (one per successful launch)
 launches = {"bp_minsum": 0, "osd": 0}
 
-_lock = threading.Lock()     # guards _lib and the counts
+_lock = threading.Lock()     # guards _lib, the counts and the column tables
 _lib: ctypes.CDLL | None = None
+# each generator's column masks for the OSD kernel, built on its first call:
+# {(data_ptr, shape, device, version): (generator, table)}; the entry holds
+# the generator, so that its memory is not reused while the entry lives
+_gen_cols: dict = {}
+GEN_COLS_CACHE = 64
 build_log = ""       # nvcc's output for the library in use (ptxas -v)
 
 
@@ -160,13 +165,38 @@ def bp_minsum(llrs: torch.Tensor, row_cols: torch.Tensor,
     return hard, ok, post
 
 
+def generator_columns(gen: torch.Tensor) -> torch.Tensor:
+    """The OSD kernel's column table of the generator gen [k, n] (k <=
+    128): [n, 4] int32, column j as a k-bit mask (row i at bit i & 31 of
+    word i >> 5), on gen's device.  Made once for each generator tensor
+    (a few device operations on its first call) and cached."""
+    key = (gen.data_ptr(), tuple(gen.shape), str(gen.device), gen._version)
+    with _lock:
+        hit = _gen_cols.get(key)
+    if hit is not None:
+        return hit[1]
+    k, n = gen.shape
+    bits = torch.nn.functional.pad((gen != 0).T.to(torch.int64),
+                                   (0, OSD_MAX_K - k))            # [n, 128]
+    shift = torch.arange(32, device=gen.device, dtype=torch.int64)
+    words = (bits.reshape(n, OSD_MAX_K // 32, 32) << shift).sum(-1)
+    table = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32).contiguous()
+    with _lock:
+        if len(_gen_cols) >= GEN_COLS_CACHE:
+            _gen_cols.pop(next(iter(_gen_cols)))
+        _gen_cols[key] = (gen, table)
+    return table
+
+
 def osd(gen: torch.Tensor, llrs: torch.Tensor, pattern_idx: torch.Tensor
         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch OSD on PyTorch's current stream, one block per word.
+    """Launch OSD on PyTorch's current stream, one warp per word.
 
-    gen [k, n] uint8 0/1 generator, llrs [M, n] float32 (positive = bit
-    0), pattern_idx [T, 3] int16: each flip pattern's basis coordinates,
-    -1 padded (``osd.pattern_index_lists``).  Returns (codewords [M, n]
+    gen [k, n] uint8 0/1 generator (the kernel reads its
+    :func:`generator_columns`), llrs [M, n] float32 (positive = bit 0),
+    pattern_idx [T, 3] int16: each flip pattern's basis coordinates, -1
+    padded (``osd.pattern_index_lists``).  Returns (codewords [M, n]
     int8, soft distance [M] float32, hard errors [M] int32)."""
     device = llrs.device
     if gen.dim() != 2 or llrs.dim() != 2 or pattern_idx.dim() != 2:
@@ -190,9 +220,10 @@ def osd(gen: torch.Tensor, llrs: torch.Tensor, pattern_idx: torch.Tensor
     if m == 0:
         return cw, dist, nhard
     lib = load_library()
+    cols = generator_columns(gen)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = lib.osd_launch(gen.data_ptr(), llrs.data_ptr(),
+        err = lib.osd_launch(cols.data_ptr(), llrs.data_ptr(),
                              pattern_idx.data_ptr(), cw.data_ptr(),
                              dist.data_ptr(), nhard.data_ptr(), m, k, n, t,
                              stream)

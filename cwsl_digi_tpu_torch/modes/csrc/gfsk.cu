@@ -6,10 +6,13 @@
 // version, cwsl_digi_tpu_torch/modes/subtract.py:subtract_known_plain,
 // makes ~700 launches a burst (nine reference-order cumsums of ~70 launches
 // each) and syncs with the host once a burst.  llr replaces
-// cwsl_digi_tpu/modes/gfsk_engine.py:161 _multisym_llrs; its plain version,
-// gfsk_engine.py:_multisym_llrs_plain, splits the candidates into chunks
-// and materializes [m, n_data, T, T, T] (T^4 with coh4) float32 several
-// times a chunk.
+// cwsl_digi_tpu/modes/gfsk_engine.py:161 _multisym_llrs together with the
+// candidates' block gather (:492-516, a relayout and a dynamic_slice) and
+// their rotation (:555-579, with the sync-pair frequency correction); its
+// plain versions are gfsk_engine.py:candidate_llrs_plain (from the demod
+// spectrogram) and _multisym_llrs_plain (from gathered csym), which split
+// the candidates into chunks and materialize [m, n_data, T, T, T] (T^4 with
+// coh4) float32 several times a chunk.
 //
 // What bounds them on an H100.
 //
@@ -31,10 +34,16 @@
 //     barrier.cluster in place of the launches) measured slower still on
 //     the H100: with 16 blocks a window the windows queue for the card,
 //     with 4 the span-wide passes crawl.
-//   - llr at FT8's 12,288 candidates reads 62 MB of symbol spectra and
-//     writes 8.5 MB (~0.021 ms); its ~4,300 operations per (candidate, data
+//   - llr at FT8's 12,288 candidates reads each candidate's 79 x 8 cells of
+//     the demod spectrogram once (62 MB) and writes 8.5 MB of LLRs
+//     (~0.021 ms of HBM); its ~4,300 operations per (candidate, data
 //     symbol) over the 512 triples take ~0.09 ms at the FP32 rate without
-//     FMA: operations bound it.
+//     FMA: operations bound it.  The first design (one thread a data
+//     symbol, its three 8 x 8 cross tables in registers) issued about as
+//     many instructions but spilled and idled 6 of 64 lanes, 0.297 ms; and
+//     the glue that fed it (a padded copy of the half-hop spectrogram,
+//     0.7 GB a 24-window FT8 call, a fancy-index gather into csym, the
+//     rotation's small launches) took ~0.9 ms more of device time a call.
 //
 // The design.
 //
@@ -82,12 +91,34 @@
 //     rounds half to even (rintf) as torch.round.  The estimators' short
 //     per-symbol sums are warp reductions in their own order, so dt, df1
 //     and df2 may differ from the plain version's in the last bits.
-//   - llr: one block per candidate, one thread per data symbol; the
-//     symbol's 3 (or 5) neighbour rows and the T x T cross terms stay in
-//     registers, and each window's terms are summed in the plain version's
-//     order (e1p + e1s + e1n + x_ps + x_sn + x_pn) so that near-equal
-//     maxima pick alike.  The per-candidate peak and std-3 scaling are a
-//     block reduction in the same launch: one launch a call.
+//   - llr: one launch from the demod spectrogram to the scaled LLRs, a
+//     block of 128 threads a candidate (8 blocks an SM at 64 registers, no
+//     spill).  The block stages the candidate's [n_sym, T] cells in shared
+//     memory once, at the plain version's strided indices with its clamps
+//     (0 where the plain version reads the padding), and their |C|^2 (|C|
+//     correctly rounded, then squared, as torch's abs() ** 2); warp 0 forms
+//     the rotation: exp(-2j pi abs_bin / os_f) from f0 with sincosf (in the
+//     kernel, not passed in: the sync-pair fold makes the final rotation
+//     independent of it but for rounding, and every spot list of the
+//     smoke is unchanged), then the fold, rot * exp(-1j angle(z * rot)),
+//     z the sum over the sync pairs of conj(c_s) c_s+1 (a lane's pairs in
+//     order, the lanes' sums as a tree: not torch's order, within
+//     LLR_TOL).  Then 128 / T groups of T lanes take a data symbol each a
+//     round, lane sm its middle tone sm: its column of x_ps and row of
+//     x_sn in registers, its row of x_pn (with coh4 of the four other
+//     shared tables) into the group's shared memory, the next row times r
+//     and r^2 shared a tone a lane; a neighbour tone the sync cells rule
+//     out enters as -inf, so the windows through it never win (as the
+//     plain version's -1e30), with no branch.  Each window's terms are
+//     summed in the plain version's order (e1p + e1s + e1n + x_ps + x_sn
+//     + x_pn, and the 4-symbol windows'), maxima in any order (max is
+//     exact), so near-equal maxima pick alike; the bit maxima are taken by
+//     lane pairs (tones with bit b 0 and 1) and subtracted by a shuffle.
+//     Warp 0 scales the candidate's LLRs by its peak and to std 3.  The
+//     csym entry (multisym_llrs) is the same kernel on csym read as M
+//     spectrograms of n_sym hops and T bins, hop and bin 0, rot given.
+//     What is left is instructions issued, about 2x the operations the
+//     bound counts (the per-lane tables and the bit maxima).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC --fmad=false -o libgfsk.so gfsk.cu
@@ -108,7 +139,11 @@ constexpr int SUB_MIN_BLOCKS = 4;      // k_subtract blocks an SM (64 registers)
 constexpr int SUB_MAX_LEVELS = 12;
 constexpr int MOV_TMP = 64;            // tree_scan scratch of n_sym + 7
 constexpr int LLR_MAX_DATA = 128;
+constexpr int LLR_MAX_SYM = 256;
 constexpr int LLR_MAX_BPS = 3;
+constexpr int LLR_THREADS = 128;       // a candidate's block: 128 / T groups
+constexpr int LLR_BLOCKS_PER_SM = 8;   // at 64 registers a thread (4 with
+                                       // coh4's 4-symbol windows)
 constexpr int GAIN_SMOOTH = 7;         // subtract.py GAIN_SMOOTH_SYMS
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -850,7 +885,7 @@ __global__ void k_trig_differ(const float* x, int n, int* n_differ) {
 }
 
 // ---------------------------------------------------------------------------
-// Coherent multi-symbol LLRs
+// Coherent multi-symbol LLRs, from the demod spectrogram
 
 struct C2 {
     float x, y;
@@ -865,228 +900,458 @@ __device__ __forceinline__ float cross(C2 a, C2 w) {
     return 2.f * (a.x * w.x + a.y * w.y);
 }
 
-template <int T>
-__device__ __forceinline__ void load_row(const C2* c, int k, int n_sym,
-                                         C2 (&o)[T]) {
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-        o[t] = (k >= 0 && k < n_sym) ? c[k * T + t] : C2{0.f, 0.f};
+// |c| ** 2 as the plain version rounds it: |c| correctly rounded (the
+// double square root of the exact float products' sum, as glibc's hypotf),
+// then squared in float32
+__device__ __forceinline__ float mag2(C2 c) {
+    const double re = c.x, im = c.y;
+    const float m = static_cast<float>(sqrt(re * re + im * im));
+    return m * m;
 }
 
-// max over tones with bit b of the tone's Gray value 0, minus max over 1
-template <int T>
-__device__ __forceinline__ float bit_llr(const float (&f)[T], int mask0) {
-    float m0 = -1e30f, m1 = -1e30f;
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-        if ((mask0 >> t) & 1) m0 = fmaxf(m0, f[t]);
-        else m1 = fmaxf(m1, f[t]);
-    }
-    return m0 - m1;
+__device__ __forceinline__ int floor_div(int a, int b) {
+    const int q = a / b;
+    return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
 }
 
-template <int T>
-__device__ __forceinline__ void table(const C2 (&a)[T], const C2 (&b)[T],
-                                      C2 rr, float (&x)[T][T]) {
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-        const C2 wj = cmul(rr, b[j]);
-#pragma unroll
-        for (int i = 0; i < T; ++i) x[i][j] = cross(a[i], wj);
-    }
+struct LlrDims {
+    int B, K, H, F;          // spectrogram [B, H, F], K candidates a window
+    int n_sym, n_data, bps;
+    int os_t, os_f;          // hop and bin strides between symbols / tones
+    int fmin_bin;            // absolute bin of spectrogram bin 0
+    int n_pairs;             // sync pairs folded into the rotation (0: none)
+};
+
+struct LlrArgs {
+    const C2* spec;          // [B, H, F]
+    const int64_t* tt;       // [B, K] start hop (null: 0)
+    const int64_t* f0;       // [B, K] start bin (null: 0)
+    const C2* rot;           // [B * K] given rotation (null: from f0)
+    const float* bitmaps;    // [bps, T]
+    const int32_t* data;     // [n_data] symbol indices
+    const uint8_t* allow;    // [4, n_data] tone masks of the neighbours
+    const int32_t* pairs;    // [n_pairs, 3]: symbol, its tone, next's tone
+    float* out;              // [B * K, n_data * bps]
+};
+
+// A group's shared memory, in floats: its T x T tables (x_pn; with coh4
+// also x_p_nn, x_n_nn, x_pp_p, x_pp_n) padded so that the groups of a warp
+// start in other banks, the next row times r and r^2 (a float4 a tone),
+// and the metrics of each tone (one float4, two with coh4)
+template <int T, bool COH4>
+__host__ __device__ constexpr int llr_tab_floats() {
+    return (COH4 ? 5 : 1) * T * T + 4;
 }
 
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    float s = 0.f;
-    for (int k = 0; k < (blockDim.x >> 5); ++k) s += red[k];
-    return s;
-}
-
-__device__ float block_max(float v, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    float s = red[0];
-    for (int k = 1; k < (blockDim.x >> 5); ++k) s = fmaxf(s, red[k]);
-    return s;
+// floats a tone's metrics take (e1s, e2p, e2n, e3; with coh4 e4n, e4p)
+template <bool COH4>
+__host__ __device__ constexpr int llr_met_stride() {
+    return COH4 ? 8 : 4;
 }
 
 template <int T, bool COH4>
-__global__ void __launch_bounds__(LLR_MAX_DATA)
-k_llr(const float* __restrict__ csym, const float* __restrict__ rot,
-      const float* __restrict__ bitmaps, const int32_t* __restrict__ data,
-      const uint8_t* __restrict__ allow, float* __restrict__ out, int n_sym,
-      int n_data, int bps) {
-    __shared__ float red[LLR_MAX_DATA / 32];
-    const int mc = blockIdx.x, d = threadIdx.x;
-    const bool on = d < n_data;
-    float l[LLR_MAX_BPS] = {0.f, 0.f, 0.f};
-    if (on) {
-        const C2* c = reinterpret_cast<const C2*>(csym)
-            + static_cast<size_t>(mc) * n_sym * T;
-        const C2 r = reinterpret_cast<const C2*>(rot)[mc];
-        const C2 r2 = cmul(r, r);
-        const int s = data[d];
-        const int ap = allow[d], an = allow[n_data + d];
-        int mask0[LLR_MAX_BPS];
-        for (int bb = 0; bb < bps; ++bb) {
-            int mk = 0;
+__host__ __device__ constexpr int llr_group_floats() {
+    return llr_tab_floats<T, COH4>() + 4 * T + llr_met_stride<COH4>() * T;
+}
+
+// the block's cells and their |C|^2, the groups', the candidate's LLRs
+template <int T, bool COH4>
+__host__ __device__ inline int llr_smem_bytes(int n_sym, int n_bits) {
+    return n_sym * T * 12
+        + (LLR_THREADS / T) * llr_group_floats<T, COH4>() * 4 + n_bits * 4;
+}
+
+// a row of the staged block (zeros outside the candidate's symbols)
+template <int T>
+__device__ __forceinline__ void cell_row(const C2* blk, int k, int n_sym,
+                                         C2 (&o)[T]) {
+    const bool in = k >= 0 && k < n_sym;
+    const float4* p = reinterpret_cast<const float4*>(blk + (in ? k : 0) * T);
+#pragma unroll
+    for (int q = 0; q < T / 2; ++q) {
+        const float4 v = in ? p[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+        o[2 * q] = {v.x, v.y};
+        o[2 * q + 1] = {v.z, v.w};
+    }
+}
+
+__device__ __forceinline__ C2 cell(const C2* blk, int k, int t, int n_sym,
+                                   int T) {
+    return (k >= 0 && k < n_sym) ? blk[k * T + t] : C2{0.f, 0.f};
+}
+
+// a row's |C|^2, -inf at the tones the neighbour may not hold: every window
+// through such a tone is then -inf and never the maximum, as the plain
+// version's -1e30 never is
+template <int T>
+__device__ __forceinline__ void e1_row(const float* e1b, int k, int n_sym,
+                                       int allow, float (&o)[T]) {
+    const bool in = k >= 0 && k < n_sym;
+    const float4* p = reinterpret_cast<const float4*>(e1b + (in ? k : 0) * T);
+#pragma unroll
+    for (int q = 0; q < T / 4; ++q) {
+        const float4 v = in ? p[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            o[4 * q + j] = ((allow >> (4 * q + j)) & 1) ? w[j] : -INFINITY;
+    }
+}
+
+// row p of a T x T table in shared memory
+template <int T>
+__device__ __forceinline__ void tab_row(const float* tab, int p,
+                                        float (&o)[T]) {
+    const float4* q4 = reinterpret_cast<const float4*>(tab + p * T);
+#pragma unroll
+    for (int q = 0; q < T / 4; ++q) {
+        const float4 v = q4[q];
+        o[4 * q] = v.x;
+        o[4 * q + 1] = v.y;
+        o[4 * q + 2] = v.z;
+        o[4 * q + 3] = v.w;
+    }
+}
+
+template <int T>
+__device__ __forceinline__ void store_row(float* tab, int p,
+                                          const float (&v)[T]) {
+    float4* q4 = reinterpret_cast<float4*>(tab + p * T);
+#pragma unroll
+    for (int q = 0; q < T / 4; ++q)
+        q4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                            v[4 * q + 3]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+    return v;
+}
+
+// One block of LLR_THREADS a candidate: G = LLR_THREADS / T groups of T
+// lanes, a group a data symbol and round, lane sm of a group its middle
+// tone sm.
+template <int T, bool COH4>
+__global__ void __launch_bounds__(LLR_THREADS, COH4 ? 4 : LLR_BLOCKS_PER_SM)
+k_llr(LlrDims d, LlrArgs a) {
+    extern __shared__ float4 llr_smem[];
+    __shared__ C2 rot_s;
+    constexpr int G = LLR_THREADS / T;
+    constexpr int TT = T * T;
+    constexpr int NM = COH4 ? 6 : 4;          // metrics a tone
+    constexpr int MS = llr_met_stride<COH4>();
+    const int n_cells = d.n_sym * T;
+    C2* blk = reinterpret_cast<C2*>(llr_smem);                 // [n_sym, T]
+    float* e1b = reinterpret_cast<float*>(blk + n_cells);     // [n_sym, T]
+    const int tid = threadIdx.x, g = tid / T, sm = tid % T;
+    float* grp = e1b + n_cells + g * llr_group_floats<T, COH4>();
+    float* tab = grp;                                          // tables
+    float4* wsh = reinterpret_cast<float4*>(grp + llr_tab_floats<T, COH4>());
+    float* met = grp + llr_tab_floats<T, COH4>() + 4 * T;     // [T, MS]
+    float* llr_s = e1b + n_cells + G * llr_group_floats<T, COH4>();
+    const int mc = blockIdx.x;
+
+    // 1. the candidate's [n_sym, T] block: the plain version's strided
+    //    gather with its clamps, 0 where it reads the padding (hops and
+    //    bins fit in int: the wrapper takes H, F < 2**31 / max(os_t, os_f))
+    {
+        const int tt = a.tt ? static_cast<int>(a.tt[mc]) : 0;
+        const int f0 = a.f0 ? static_cast<int>(a.f0[mc]) : 0;
+        const int hq = ceil_div(d.H, d.os_t), fq = ceil_div(d.F, d.os_f);
+        const int qt = floor_div(tt, d.os_t), qf = floor_div(f0, d.os_f);
+        const int h0 = min(max(qt, 0), hq - d.n_sym) * d.os_t
+            + (tt - qt * d.os_t);
+        const int b0 = min(max(qf, 0), fq - T) * d.os_f + (f0 - qf * d.os_f);
+        const C2* src = a.spec + static_cast<size_t>(mc / d.K) * d.H * d.F;
+        for (int i = tid; i < n_cells; i += LLR_THREADS) {
+            const int h = h0 + d.os_t * (i / T), f = b0 + d.os_f * (i % T);
+            blk[i] = (h < d.H && f < d.F)
+                ? src[static_cast<size_t>(h) * d.F + f] : C2{0.f, 0.f};
+        }
+    }
+    __syncthreads();
+
+    // 2. warp 0: the rotation, exp(-2j pi abs_bin / os_f) or the one given,
+    //    then the sync-pair residual, rot * exp(-1j angle(z * rot)) with z
+    //    the sum of conj(c_s) c_s+1 over the pairs (a lane's pairs summed
+    //    in order, then the lanes' sums as a tree); every thread: the
+    //    cells' |C|^2
+    if (tid < 32) {
+        C2 r;
+        if (a.rot) {
+            r = a.rot[mc];
+        } else {
+            const long long f0 = a.f0 ? a.f0[mc] : 0;
+            const float ab = static_cast<float>(f0 + d.fmin_bin);
+            float s, c;
+            sincosf((-6.28318548f * ab) / static_cast<float>(d.os_f), &s, &c);
+            r = {c, s};
+        }
+        if (d.n_pairs) {
+            C2 z = {0.f, 0.f};
+            for (int i = tid; i < d.n_pairs; i += 32) {
+                const int* pr = a.pairs + 3 * i;
+                const C2 u = blk[pr[0] * T + pr[1]];
+                const C2 v = blk[(pr[0] + 1) * T + pr[2]];
+                z.x = z.x + (u.x * v.x + u.y * v.y);
+                z.y = z.y + (u.x * v.y - u.y * v.x);
+            }
+            z.x = warp_sum(z.x);
+            z.y = warp_sum(z.y);
+            z = cmul(z, r);
+            float s, c;
+            sincosf(atan2f(z.y, z.x), &s, &c);
+            r = cmul(r, C2{c, -s});
+        }
+        if (tid == 0) rot_s = r;
+    }
+    for (int i = tid; i < n_cells; i += LLR_THREADS) e1b[i] = mag2(blk[i]);
+    int mask0[LLR_MAX_BPS];
+#pragma unroll
+    for (int bb = 0; bb < LLR_MAX_BPS; ++bb) {
+        int mk = 0;
+        if (bb < d.bps) {
+#pragma unroll
             for (int t = 0; t < T; ++t)
-                mk |= (bitmaps[bb * T + t] < 0.5f ? 1 : 0) << t;
-            mask0[bb] = mk;
+                mk |= (a.bitmaps[bb * T + t] < 0.5f ? 1 : 0) << t;
         }
-        C2 cp[T], cs[T], cn[T];
-        load_row<T>(c, s - 1, n_sym, cp);
-        load_row<T>(c, s, n_sym, cs);
-        load_row<T>(c, s + 1, n_sym, cn);
-        float e1p[T], e1s[T], e1n[T];
+        mask0[bb] = mk;
+    }
+    // the tones whose bit sm / 2 is 0 (lanes 0, 2, 4) or 1 (lanes 1, 3, 5),
+    // as a mask of the tones each lane takes
+    const int bit_of = sm / 2 < LLR_MAX_BPS ? sm / 2 : 0;
+    const int mk0 = bit_of == 0 ? mask0[0] : bit_of == 1 ? mask0[1] : mask0[2];
+    const int my_mask = (sm & 1) ? (~mk0 & ((1 << T) - 1)) : mk0;
+    __syncthreads();
+    const C2 r = rot_s, r2 = cmul(r, r), r3 = cmul(r2, r);
+
+    // 3. G data symbols a round
+    for (int base = 0; base < d.n_data; base += G) {
+        const bool on = base + g < d.n_data;
+        const int di = on ? base + g : d.n_data - 1;   // idle groups mirror
+        const int s = a.data[di];
+        const int ap = a.allow[di], an = a.allow[d.n_data + di];
+        const C2 cs = cell(blk, s, sm, d.n_sym, T);
+        const C2 cp_sm = cell(blk, s - 1, sm, d.n_sym, T);
+        C2 cp[T];
+        cell_row<T>(blk, s - 1, d.n_sym, cp);
+        float e1p[T], e1n[T];
+        e1_row<T>(e1b, s - 1, d.n_sym, ap, e1p);
+        e1_row<T>(e1b, s + 1, d.n_sym, an, e1n);
+        const float e1s = (s >= 0 && s < d.n_sym) ? e1b[s * T + sm] : 0.f;
+
+        // this lane's column of x_ps and row of x_sn, its row of the
+        // shared tables, each cell 2 Re(conj(a) rr b) as the plain version
+        float xps[T], xsn[T], row[T];
+        {
+            const C2 w = cmul(r, cs);
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-            e1p[t] = cp[t].x * cp[t].x + cp[t].y * cp[t].y;
-            e1s[t] = cs[t].x * cs[t].x + cs[t].y * cs[t].y;
-            e1n[t] = cn[t].x * cn[t].x + cn[t].y * cn[t].y;
+            for (int t = 0; t < T; ++t) xps[t] = cross(cp[t], w);
         }
-        float x_ps[T][T], x_sn[T][T], x_pn[T][T];
-        table<T>(cp, cs, r, x_ps);
-        table<T>(cs, cn, r, x_sn);
-        table<T>(cp, cn, r2, x_pn);
-        float e2p[T], e2n[T], e3[T];
+        if constexpr (!COH4) {
+            // the next row times r and r^2, a tone a lane, shared
+            const C2 cn_sm = cell(blk, s + 1, sm, d.n_sym, T);
+            const C2 w1 = cmul(r, cn_sm), w2 = cmul(r2, cn_sm);
+            wsh[sm] = make_float4(w1.x, w1.y, w2.x, w2.y);
+            __syncwarp();
 #pragma unroll
-        for (int j = 0; j < T; ++j) {
-            float g = -1e30f;
+            for (int t = 0; t < T; ++t) {
+                const float4 w = wsh[t];
+                xsn[t] = cross(cs, C2{w.x, w.y});
+                row[t] = cross(cp_sm, C2{w.z, w.w});
+            }
+            store_row<T>(tab, sm, row);
+        } else {
+            C2 cn[T], cp2[T], cn2[T];
+            cell_row<T>(blk, s + 1, d.n_sym, cn);
+            cell_row<T>(blk, s - 2, d.n_sym, cp2);
+            cell_row<T>(blk, s + 2, d.n_sym, cn2);
+            const C2 cn_sm = cell(blk, s + 1, sm, d.n_sym, T);
+            const C2 cp2_sm = cell(blk, s - 2, sm, d.n_sym, T);
 #pragma unroll
-            for (int i = 0; i < T; ++i)
-                if ((ap >> i) & 1) g = fmaxf(g, e1p[i] + x_ps[i][j]);
-            e2p[j] = e1s[j] + g;
+            for (int t = 0; t < T; ++t) {
+                xsn[t] = cross(cs, cmul(r, cn[t]));
+                row[t] = cross(cp_sm, cmul(r2, cn[t]));
+            }
+            store_row<T>(tab, sm, row);                           // x_pn
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+                row[t] = cross(cp_sm, cmul(r3, cn2[t]));
+            store_row<T>(tab + TT, sm, row);                      // x_p_nn
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+                row[t] = cross(cn_sm, cmul(r, cn2[t]));
+            store_row<T>(tab + 2 * TT, sm, row);                  // x_n_nn
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+                row[t] = cross(cp2_sm, cmul(r, cp[t]));
+            store_row<T>(tab + 3 * TT, sm, row);                  // x_pp_p
+#pragma unroll
+            for (int t = 0; t < T; ++t)
+                row[t] = cross(cp2_sm, cmul(r3, cn[t]));
+            store_row<T>(tab + 4 * TT, sm, row);                  // x_pp_n
         }
+        __syncwarp();
+
+        // the metrics of tone sm, each window's terms summed in the plain
+        // version's order
+        float e2p = -INFINITY, e2n = -INFINITY, e3 = -INFINITY;
 #pragma unroll
-        for (int i = 0; i < T; ++i) {
-            float g = -1e30f;
+        for (int i = 0; i < T; ++i) e2p = fmaxf(e2p, e1p[i] + xps[i]);
+        e2p = e1s + e2p;
 #pragma unroll
-            for (int j = 0; j < T; ++j)
-                if ((an >> j) & 1) g = fmaxf(g, e1n[j] + x_sn[i][j]);
-            e2n[i] = e1s[i] + g;
-        }
-#pragma unroll
-        for (int sm = 0; sm < T; ++sm) {
-            float g = -1e30f;
+        for (int j = 0; j < T; ++j) e2n = fmaxf(e2n, e1n[j] + xsn[j]);
+        e2n = e1s + e2n;
+        {
+            // a maximum a neighbour tone p, then over p: max is exact, so
+            // the eight chains may run side by side
+            float mp[T];
 #pragma unroll
             for (int p = 0; p < T; ++p) {
-                if (!((ap >> p) & 1)) continue;
-                const float a = e1p[p] + e1s[sm];
+                float xpn[T];
+                tab_row<T>(tab, p, xpn);
+                const float h = e1p[p] + e1s;
+                mp[p] = -INFINITY;
+#pragma unroll
+                for (int n = 0; n < T; ++n)
+                    mp[p] = fmaxf(mp[p], h + e1n[n] + xps[p] + xsn[n]
+                                             + xpn[n]);
+            }
+#pragma unroll
+            for (int p = 0; p < T; ++p) e3 = fmaxf(e3, mp[p]);
+        }
+        float m[NM];
+        m[0] = e1s;
+        m[1] = e2p;
+        m[2] = e2n;
+        m[3] = e3;
+        if constexpr (COH4) {
+            const int ap2 = a.allow[2 * d.n_data + di];
+            const int an2 = a.allow[3 * d.n_data + di];
+            float e1p2[T], e1n2[T], xsnn[T], xpps[T];
+            e1_row<T>(e1b, s - 2, d.n_sym, ap2, e1p2);
+            e1_row<T>(e1b, s + 2, d.n_sym, an2, e1n2);
+            {
+                C2 cp2[T], cn2[T];
+                cell_row<T>(blk, s - 2, d.n_sym, cp2);
+                cell_row<T>(blk, s + 2, d.n_sym, cn2);
+                const C2 w2 = cmul(r2, cs);
+#pragma unroll
+                for (int t = 0; t < T; ++t) {
+                    xsnn[t] = cross(cs, cmul(r2, cn2[t]));
+                    xpps[t] = cross(cp2[t], w2);
+                }
+            }
+            // window [s-1, s, s+1, s+2]: axes (p, self, n, q)
+            float e4n = -INFINITY;
+#pragma unroll
+            for (int p = 0; p < T; ++p) {
+                float xpn[T], xpnn[T];
+                tab_row<T>(tab, p, xpn);
+                tab_row<T>(tab + TT, p, xpnn);
 #pragma unroll
                 for (int n = 0; n < T; ++n) {
-                    if (!((an >> n) & 1)) continue;
-                    g = fmaxf(g, a + e1n[n] + x_ps[p][sm] + x_sn[sm][n]
-                                     + x_pn[p][n]);
+                    float xnnn[T];
+                    tab_row<T>(tab + 2 * TT, n, xnnn);
+                    const float h = e1p[p] + e1s + e1n[n];
+#pragma unroll
+                    for (int q = 0; q < T; ++q)
+                        e4n = fmaxf(e4n, h + e1n2[q] + xps[p] + xpn[n]
+                                             + xpnn[q] + xsn[n] + xsnn[q]
+                                             + xnnn[q]);
                 }
             }
-            e3[sm] = g;
+            // window [s-2, s-1, s, s+1]: axes (q2, p, self, n)
+            float e4p = -INFINITY;
+#pragma unroll
+            for (int q2 = 0; q2 < T; ++q2) {
+                float xppp[T], xppn[T];
+                tab_row<T>(tab + 3 * TT, q2, xppp);
+                tab_row<T>(tab + 4 * TT, q2, xppn);
+#pragma unroll
+                for (int p = 0; p < T; ++p) {
+                    float xpn[T];
+                    tab_row<T>(tab, p, xpn);
+                    const float h = e1p2[q2] + e1p[p] + e1s;
+#pragma unroll
+                    for (int n = 0; n < T; ++n)
+                        e4p = fmaxf(e4p, h + e1n[n] + xppp[p] + xpps[q2]
+                                             + xppn[n] + xps[p] + xpn[n]
+                                             + xsn[n]);
+                }
+            }
+            m[4] = e4n;
+            m[5] = e4p;
         }
-        for (int bb = 0; bb < bps; ++bb)
-            l[bb] = bit_llr<T>(e1s, mask0[bb]) + bit_llr<T>(e2p, mask0[bb])
-                + bit_llr<T>(e2n, mask0[bb]) + bit_llr<T>(e3, mask0[bb]);
-        if constexpr (COH4) {
-            const int ap2 = allow[2 * n_data + d], an2 = allow[3 * n_data + d];
-            const C2 r3 = cmul(r2, r);
-            float e4n[T], e4p[T];
-            {
-                C2 cn2[T];
-                load_row<T>(c, s + 2, n_sym, cn2);
-                float e1n2[T];
+        // the bit LLRs: lane 2 b + z < 2 bps of the group takes the
+        // maxima of the metrics over the tones whose bit b is z, and lane
+        // 2 b subtracts its partner's, metric by metric in the plain
+        // version's order
 #pragma unroll
-                for (int t = 0; t < T; ++t)
-                    e1n2[t] = cn2[t].x * cn2[t].x + cn2[t].y * cn2[t].y;
-                float x_p_nn[T][T], x_s_nn[T][T], x_n_nn[T][T];
-                table<T>(cp, cn2, r3, x_p_nn);
-                table<T>(cs, cn2, r2, x_s_nn);
-                table<T>(cn, cn2, r, x_n_nn);
-                // window [s-1, s, s+1, s+2]: axes (p, self, n, q)
+        for (int j = 0; j < NM; ++j) met[sm * MS + j] = m[j];
+        __syncwarp();
+        float mx[NM];
 #pragma unroll
-                for (int sm = 0; sm < T; ++sm) {
-                    float g = -1e30f;
-                    for (int p = 0; p < T; ++p) {
-                        if (!((ap >> p) & 1)) continue;
-                        for (int n = 0; n < T; ++n) {
-                            if (!((an >> n) & 1)) continue;
-                            const float a = e1p[p] + e1s[sm] + e1n[n];
-                            for (int q = 0; q < T; ++q) {
-                                if (!((an2 >> q) & 1)) continue;
-                                g = fmaxf(g, a + e1n2[q] + x_ps[p][sm]
-                                                 + x_pn[p][n] + x_p_nn[p][q]
-                                                 + x_sn[sm][n] + x_s_nn[sm][q]
-                                                 + x_n_nn[n][q]);
-                            }
-                        }
-                    }
-                    e4n[sm] = g;
-                }
+        for (int j = 0; j < NM; ++j) mx[j] = -1e30f;
+        if (sm < 2 * d.bps) {
+#pragma unroll
+            for (int t = 0; t < T; ++t) {
+                if (!((my_mask >> t) & 1)) continue;
+#pragma unroll
+                for (int j = 0; j < NM; ++j)
+                    mx[j] = fmaxf(mx[j], met[t * MS + j]);
             }
-            {
-                C2 cp2[T];
-                load_row<T>(c, s - 2, n_sym, cp2);
-                float e1p2[T];
-#pragma unroll
-                for (int t = 0; t < T; ++t)
-                    e1p2[t] = cp2[t].x * cp2[t].x + cp2[t].y * cp2[t].y;
-                float x_pp_p[T][T], x_pp_s[T][T], x_pp_n[T][T];
-                table<T>(cp2, cp, r, x_pp_p);
-                table<T>(cp2, cs, r2, x_pp_s);
-                table<T>(cp2, cn, r3, x_pp_n);
-                // window [s-2, s-1, s, s+1]: axes (q2, p, self, n)
-#pragma unroll
-                for (int sm = 0; sm < T; ++sm) {
-                    float g = -1e30f;
-                    for (int q2 = 0; q2 < T; ++q2) {
-                        if (!((ap2 >> q2) & 1)) continue;
-                        for (int p = 0; p < T; ++p) {
-                            if (!((ap >> p) & 1)) continue;
-                            const float a = e1p2[q2] + e1p[p] + e1s[sm];
-                            for (int n = 0; n < T; ++n) {
-                                if (!((an >> n) & 1)) continue;
-                                g = fmaxf(g, a + e1n[n] + x_pp_p[q2][p]
-                                                 + x_pp_s[q2][sm]
-                                                 + x_pp_n[q2][n] + x_ps[p][sm]
-                                                 + x_pn[p][n] + x_sn[sm][n]);
-                            }
-                        }
-                    }
-                    e4p[sm] = g;
-                }
-            }
-            for (int bb = 0; bb < bps; ++bb)
-                l[bb] = l[bb] + bit_llr<T>(e4n, mask0[bb])
-                    + bit_llr<T>(e4p, mask0[bb]);
         }
+        float l = 0.f;
+#pragma unroll
+        for (int j = 0; j < NM; ++j) {
+            const float m1 = __shfl_down_sync(FULL, mx[j], 1, T);
+            l = j == 0 ? mx[0] - m1 : l + (mx[j] - m1);
+        }
+        if (on && sm < 2 * d.bps && !(sm & 1)) llr_s[di * d.bps + sm / 2] = l;
+        __syncwarp();
     }
-    // per candidate: divide by the peak |LLR|, then scale to std 3
-    float pk = 0.f;
-    for (int bb = 0; bb < bps; ++bb) pk = fmaxf(pk, fabsf(l[bb]));
-    const float peak = block_max(on ? pk : 0.f, red);
-    float sum = 0.f;
-    for (int bb = 0; bb < bps; ++bb) {
-        l[bb] = l[bb] / (peak + 1e-20f);
-        sum += l[bb];
+    __syncthreads();
+
+    // 4. warp 0: divide by the candidate's peak |LLR|, then scale to std 3
+    if (tid < 32) {
+        const int nb = d.n_data * d.bps;
+        float pk = 0.f;
+        for (int i = tid; i < nb; i += 32) pk = fmaxf(pk, fabsf(llr_s[i]));
+        const float den = warp_max(pk) + 1e-20f;
+        float sum = 0.f;
+        for (int i = tid; i < nb; i += 32) sum += llr_s[i] / den;
+        const float mean = warp_sum(sum) / static_cast<float>(nb);
+        float sq = 0.f;
+        for (int i = tid; i < nb; i += 32) {
+            const float v = llr_s[i] / den - mean;
+            sq += v * v;
+        }
+        const float sd = sqrtf(warp_sum(sq) / static_cast<float>(nb));
+        float* o = a.out + static_cast<size_t>(mc) * nb;
+        for (int i = tid; i < nb; i += 32)
+            o[i] = llr_s[i] / den / (sd + 1e-20f) * 3.f;
     }
-    const float nb = static_cast<float>(n_data * bps);
-    const float mean = block_sum(on ? sum : 0.f, red) / nb;
-    float sq = 0.f;
-    for (int bb = 0; bb < bps; ++bb) sq += (l[bb] - mean) * (l[bb] - mean);
-    const float sd = sqrtf(block_sum(on ? sq : 0.f, red) / nb);
-    if (on) {
-        float* o = out + static_cast<size_t>(mc) * n_data * bps + d * bps;
-        for (int bb = 0; bb < bps; ++bb) o[bb] = l[bb] / (sd + 1e-20f) * 3.f;
+}
+
+template <int T, bool COH4>
+cudaError_t llr_start(const LlrDims& d, const LlrArgs& a, cudaStream_t st) {
+    const int smem = llr_smem_bytes<T, COH4>(d.n_sym, d.n_data * d.bps);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            k_llr<T, COH4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (err != cudaSuccess) return err;
     }
+    k_llr<T, COH4><<<d.B * d.K, LLR_THREADS, smem, st>>>(d, a);
+    return cudaGetLastError();
 }
 
 SubDims make_dims(const int* di, const float* df) {
@@ -1220,6 +1485,7 @@ int gfsk_sub_max_info() { return SUB_MAX_INFO; }
 int gfsk_sub_max_par() { return SUB_MAX_PAR; }
 int gfsk_sub_chunk() { return CHUNK; }
 int gfsk_llr_max_data() { return LLR_MAX_DATA; }
+int gfsk_llr_max_sym() { return LLR_MAX_SYM; }
 
 // Scratch a call needs: floats and int32s; -1 when the dims are refused.
 long long gfsk_sub_scratch(const int* dims, const float* consts,
@@ -1290,37 +1556,62 @@ int gfsk_trig_differ(const void* x, int n, void* n_differ, void* stream) {
     return static_cast<int>(err);
 }
 
-// Coherent LLRs of m candidates on `stream`: csym [m, n_sym, n_tones]
-// complex64 as float pairs, rot [m] complex64, bitmaps [bps, n_tones]
-// float32, data [n_data] int32 symbol indices, allow [4, n_data] uint8
+// Coherent LLRs of B * K candidates on `stream`, one launch.
+// dims [13]: B, K, H, F, n_sym, n_tones, n_data, bps, os_t, os_f,
+// fmin_bin, n_pairs, coh4.  spec [B, H, F] complex64 as float pairs; tt
+// and f0 [B, K] int64 start hop and bin (null: 0); rot [B * K] complex64
+// (null: exp(-2j pi (f0 + fmin_bin) / os_f)); bitmaps [bps, n_tones]
+// float32; data [n_data] int32 symbol indices; allow [4, n_data] uint8
 // masks of the tones a previous / next / second previous / second next
-// neighbour may hold; out [m, n_data * bps] float32.  One launch.
-int gfsk_llr_launch(const void* csym, const void* rot, const void* bitmaps,
-                    const void* data, const void* allow, void* out, int m,
-                    int n_sym, int n_tones, int bps, int n_data, int coh4,
-                    void* stream) {
-    if (m < 1 || n_sym < 1 || n_data < 1 || n_data > LLR_MAX_DATA || bps < 2
-        || bps > LLR_MAX_BPS || (1 << bps) > n_tones
-        || !(n_tones == 4 || n_tones == 8) || (coh4 && n_tones != 4))
+// neighbour may hold; pairs [n_pairs, 3] int32 (symbol, its tone, the next
+// symbol's tone) of the sync pairs folded into the rotation; out [B * K,
+// n_data * bps] float32.  Returns the cudaError_t (0 = success).
+int gfsk_llr_launch(const int* dims, const void* spec, const void* tt,
+                    const void* f0, const void* rot, const void* bitmaps,
+                    const void* data, const void* allow, const void* pairs,
+                    void* out, void* stream) {
+    LlrDims d;
+    d.B = dims[0];
+    d.K = dims[1];
+    d.H = dims[2];
+    d.F = dims[3];
+    d.n_sym = dims[4];
+    const int n_tones = dims[5];
+    d.n_data = dims[6];
+    d.bps = dims[7];
+    d.os_t = dims[8];
+    d.os_f = dims[9];
+    d.fmin_bin = dims[10];
+    d.n_pairs = dims[11];
+    const int coh4 = dims[12];
+    if (d.B < 1 || d.K < 1 || d.B > 2147483647 / d.K || d.H < 1 || d.F < 1
+        || d.n_sym < 1 || d.n_sym > LLR_MAX_SYM || d.n_data < 1
+        || d.n_data > LLR_MAX_DATA || d.bps < 2 || d.bps > LLR_MAX_BPS
+        || !(n_tones == 4 || n_tones == 8) || (1 << d.bps) > n_tones
+        || (coh4 && n_tones != 4) || d.os_t < 1 || d.os_f < 1
+        || ceil_div(d.H, d.os_t) < d.n_sym || ceil_div(d.F, d.os_f) < n_tones
+        || d.H > 2147483647 / (d.os_t + 1) || d.F > 2147483647 / (d.os_f + 1)
+        || d.n_pairs < 0 || d.n_pairs >= d.n_sym || (d.n_pairs && !pairs))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = ceil_div(n_data, 32) * 32;
+    LlrArgs a;
+    a.spec = static_cast<const C2*>(spec);
+    a.tt = static_cast<const int64_t*>(tt);
+    a.f0 = static_cast<const int64_t*>(f0);
+    a.rot = static_cast<const C2*>(rot);
+    a.bitmaps = static_cast<const float*>(bitmaps);
+    a.data = static_cast<const int32_t*>(data);
+    a.allow = static_cast<const uint8_t*>(allow);
+    a.pairs = static_cast<const int32_t*>(pairs);
+    a.out = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* c = static_cast<const float*>(csym);
-    const float* r = static_cast<const float*>(rot);
-    const float* bm = static_cast<const float*>(bitmaps);
-    const int32_t* di = static_cast<const int32_t*>(data);
-    const uint8_t* al = static_cast<const uint8_t*>(allow);
-    float* o = static_cast<float*>(out);
+    cudaError_t err;
     if (n_tones == 8)
-        k_llr<8, false><<<m, threads, 0, st>>>(c, r, bm, di, al, o, n_sym,
-                                               n_data, bps);
+        err = llr_start<8, false>(d, a, st);
     else if (coh4)
-        k_llr<4, true><<<m, threads, 0, st>>>(c, r, bm, di, al, o, n_sym,
-                                              n_data, bps);
+        err = llr_start<4, true>(d, a, st);
     else
-        k_llr<4, false><<<m, threads, 0, st>>>(c, r, bm, di, al, o, n_sym,
-                                               n_data, bps);
-    return static_cast<int>(cudaGetLastError());
+        err = llr_start<4, false>(d, a, st);
+    return static_cast<int>(err);
 }
 
 }  // extern "C"

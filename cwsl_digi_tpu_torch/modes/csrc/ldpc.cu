@@ -20,7 +20,7 @@
 // ~5.7e7 integer and float operations on 0.36 MB: a few microseconds at
 // the INT32 rate.  Neither is near its bound in practice: both are chains
 // of dependent steps (30 iterations of a check phase and a variable phase;
-// ~36 sort steps and ~100 elimination columns), so what they cost is
+// 36 sort steps and ~105 elimination columns a word), so what they cost is
 // latency per step times the number of steps, and keeping the whole chain
 // on chip.  What holds BP back on this card is the instructions it
 // issues, not its shared-memory traffic: on the H100, packing its tables
@@ -30,7 +30,12 @@
 // alpha * m2eff, the signs, the minimum's slot), with the tables in
 // registers or in shared memory, made it slower: rebuilding every message
 // in the variable phase costs more instructions than the loads it saves,
-// and the register tables cost occupancy.  The design:
+// and the register tables cost occupancy.  OSD's 384 words fill less than
+// one warp a scheduler of the card's 528, so a word's chain of dependent
+// instructions is the kernel's time: the first design (a block a word, two
+// block barriers a pivot column, a 256-key sort whatever n, every word
+// packing its permuted generator from a byte matrix through perm) took
+// 0.086 ms.  The design:
 //
 //   - bp_minsum: one warp per word, four words per block.  The messages
 //     [n_checks, max_row] and the variable totals [n] of a word live in
@@ -54,18 +59,31 @@
 //     in column-slot order from 0 and then added to the channel LLR.  The
 //     library is built with --fmad=false, so no product and sum are
 //     contracted into an FMA.
-//   - osd: one block of 128 threads per word, one generator row per
-//     thread (k <= 128), kept in registers as <= 8 packed 32-bit words.  A
-//     bitonic sort of 64-bit keys (|LLR| bits descending, then index) gives
-//     the stable reliability order; warp ballots pack the permuted
-//     generator and the received hard decisions; the elimination finds
-//     each column's first pivot row at or below r by ballot, broadcasts the
-//     pivot row through shared memory and XORs it into the rows with that
-//     bit set, two barriers a pivot column, and stops at r = k for each word
-//     on its own.  A flip pattern's codeword is the base codeword (rows
-//     whose basis decision is 1) XOR its <= 3 rows; its soft distance sums
-//     the weights of the mismatched bits, and the arg-min takes the first
-//     pattern on a tie, as torch.argmin does.
+//   - osd: one warp a word, four words a block, __syncwarp and shuffles
+//     only (no block barrier: words never wait on each other).  The
+//     generator is packed once per code (_kernels.generator_columns): column
+//     j as a k-bit mask, 16 bytes, read through the L1 (each lane its
+//     columns' masks at their received positions; staging the 2.8 KB table
+//     in shared memory would need a block barrier or a copy a warp).  A
+//     bitonic sort in registers, 8 keys a lane, up to the power of two >= n,
+//     of 64-bit keys (|LLR| bits + 1, 0 for NaN; 511 - index; the sign)
+//     gives the stable reliability order, NaN last.  Gauss-Jordan runs in
+//     column form: lane l owns columns l, l + 32, ...; for each column in
+//     order its owner finds the lowest row not yet a pivot with a set bit
+//     (a one-hot mask, no bit search on the chain) and broadcasts it and
+//     the column; every lane XORs that column, less the pivot bit, into
+//     its columns with that bit set, branch-free.  Rows are not swapped:
+//     the reduced row echelon form is unique, so the pivot rows ordered by
+//     their columns are the plain version's rows (the NumPy model in the
+//     LDPC tests shows it), each row's basis coordinate its pivot column.
+//     The rows go to shared memory in basis order through a transpose of
+//     the columns, and the base codeword is the parity of each column's
+//     bits in the rows whose decision is 1.  Each flip pattern's codeword
+//     is the base XOR <= 3 rows; a lane takes three patterns at once and
+//     sums their soft distances word by word with __fadd_rn in ascending
+//     bit order (+0 where the bits agree, no branch); the arg-min takes the
+//     first pattern on a tie, pattern 0 when every distance is NaN.  Its
+//     time is a single warp's: one scheduler issues it alone.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC --fmad=false -o libldpc.so ldpc.cu
@@ -84,12 +102,12 @@ constexpr int BP_VARS_PER_LANE = BP_MAX_N / 32;
 constexpr float BP_PAD = 1e9f;       // magnitude of a padded check slot
 constexpr unsigned BP_NONE = 0xffffu;  // a padded table entry
 
-constexpr int OSD_THREADS = 128;     // one generator row per thread
-constexpr int OSD_WARPS = OSD_THREADS / 32;
-constexpr int OSD_MAX_K = OSD_THREADS;
-constexpr int OSD_MAX_N = 2 * OSD_THREADS;   // one compare pair per thread
+constexpr int OSD_WARPS = 4;         // words per block, one warp each
+constexpr int OSD_MAX_K = 128;       // code dimension: 4 words a column
+constexpr int OSD_MAX_N = 256;       // code length: 8 keys and columns a lane
 constexpr int OSD_MAX_W = OSD_MAX_N / 32;    // packed words per row
 constexpr int OSD_MAX_FLIPS = 3;             // rows per flip pattern
+constexpr int OSD_PATS = 3;                  // patterns a lane takes at once
 constexpr unsigned FULL = 0xffffffffu;
 
 // Shared memory of a block: the packed tables (a check's columns as byte
@@ -268,241 +286,372 @@ bp_minsum_kernel(const float* __restrict__ llr,
     if (lane == 0) ok[word] = !bad;
 }
 
-// v[i] for a runtime i < OSD_MAX_W, without a local-memory array
-__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[OSD_MAX_W],
-                                         int i) {
-    uint32_t r = 0;
+// A warp's shared memory for one word
+struct OsdWarp {
+    uint32_t rows[OSD_MAX_K][OSD_MAX_W];   // reduced rows, basis order
+    float wts[OSD_MAX_N];                  // |LLR| in reliability order
+    int16_t perm[OSD_MAX_N];               // received index of a position
+    uint8_t ysgn[OSD_MAX_N];               // hard decision of a position
+    uint8_t rank[OSD_MAX_K];               // basis coordinate of a row
+    uint8_t pcol[OSD_MAX_K];               // pivot column of a row
+    uint4 cols[OSD_MAX_N];                 // reduced columns, for the rows
+};
+
+// One pivot of the column-form elimination, the pivot row p in word PW:
+// every column from slot s on whose bit p is set takes the pivot column,
+// less bit p (columns before slot s are final).
+template <int KW, int NW, int PW>
+__device__ __forceinline__ void osd_pivot(uint32_t (&col)[NW][KW],
+                                          uint32_t (&piv)[KW],
+                                          uint32_t (&used)[KW], int s,
+                                          uint32_t pb) {
+    piv[PW] &= ~pb;
+    used[PW] |= pb;
 #pragma unroll
-    for (int w = 0; w < OSD_MAX_W; ++w)
-        if (w == i) r = v[w];
-    return r;
+    for (int ss = 0; ss < NW; ++ss) {
+        if (ss < s) continue;
+        const uint32_t sel = 0u - ((col[ss][PW] & pb) != 0u);   // no branch
+#pragma unroll
+        for (int w = 0; w < KW; ++w) col[ss][w] ^= piv[w] & sel;
+    }
 }
 
-__global__ void __launch_bounds__(OSD_THREADS)
-osd_kernel(const uint8_t* __restrict__ gen, const float* __restrict__ llr,
+// One warp a word, OSD_WARPS words a block; KW words a generator column (k
+// <= 32 KW), NW columns a lane and words a row (n <= 32 NW).  cols [n]
+// uint4: column j of the generator as a k-bit mask (bit i = row i).
+template <int KW, int NW>
+__global__ void __launch_bounds__(OSD_WARPS * 32)
+osd_kernel(const uint4* __restrict__ cols, const float* __restrict__ llr,
            const int16_t* __restrict__ pats, int8_t* __restrict__ cw_out,
            float* __restrict__ dist_out, int32_t* __restrict__ nhard_out,
-           int k, int n, int n_pat) {
-    __shared__ unsigned long long key[OSD_MAX_N];
-    __shared__ int perm[OSD_MAX_N];
-    __shared__ float wts[OSD_MAX_N];
-    __shared__ uint32_t rows[OSD_MAX_K][OSD_MAX_W];
-    __shared__ uint32_t ybits[OSD_MAX_W];
-    __shared__ uint32_t ballots[2][OSD_WARPS];
-    __shared__ uint32_t pivot[OSD_MAX_W], displaced[OSD_MAX_W];
-    __shared__ uint32_t part[OSD_WARPS][OSD_MAX_W];
-    __shared__ float best_d[OSD_WARPS];
-    __shared__ int best_t[OSD_WARPS];
-
-    const int word = blockIdx.x, tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int nw = (n + 31) >> 5;
+           int m, int k, int n, int n_pat) {
+    __shared__ OsdWarp shared[OSD_WARPS];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int word = blockIdx.x * OSD_WARPS + warp;
+    if (word >= m) return;          // no block barrier follows
+    OsdWarp& S = shared[warp];
     const float* l = llr + static_cast<size_t>(word) * n;
 
-    // 1. stable sort by |LLR|, most reliable first: ascending keys of the
-    //    inverted |LLR| bits (NaN last, as torch sorts it) over the index
-    for (int j = tid; j < OSD_MAX_N; j += OSD_THREADS) {
-        unsigned long long kk = ~0ull;
+    // 1. reliability order: a bitonic sort, descending, of 64-bit keys
+    //    (|LLR| bits + 1, 0 for NaN; then 511 - index; then the sign), 8
+    //    a lane (position lane * 8 + i), up to the power of two >= n
+    unsigned long long key[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int j = lane * 8 + i;
+        key[i] = 0ull;
         if (j < n) {
-            const float a = fabsf(l[j]);
-            const uint32_t inv = ~__float_as_uint(a);
-            const unsigned long long hi =
-                isnan(a) ? 0x100000000ull : static_cast<unsigned long long>(inv);
-            kk = (hi << 9) | static_cast<unsigned>(j);
-        }
-        key[j] = kk;
-    }
-    __syncthreads();
-    for (int size = 2; size <= OSD_MAX_N; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            const int i = 2 * tid - (tid & (stride - 1));
-            const int j = i + stride;
-            const unsigned long long a = key[i], b = key[j];
-            if ((a > b) == ((i & size) == 0)) {
-                key[i] = b;
-                key[j] = a;
-            }
-            __syncthreads();
+            const float x = l[j];
+            const float a = fabsf(x);
+            const unsigned long long v =
+                isnan(a) ? 0ull : __float_as_uint(a) + 1ull;
+            key[i] = (v << 10) | (static_cast<unsigned>(511 - j) << 1)
+                | (x < 0.f ? 1u : 0u);
         }
     }
-    for (int j = tid; j < n; j += OSD_THREADS) {
-        const int p = static_cast<int>(key[j] & 511u);
-        perm[j] = p;
-        wts[j] = fabsf(l[p]);
-    }
-    __syncthreads();
-
-    // 2. the generator's columns and the hard decisions in that order,
-    //    column c at bit c & 31 of word c >> 5
-    for (int p = warp; p < k * nw; p += OSD_WARPS) {
-        const int i = p / nw, w = p - i * nw;
-        const int c = 32 * w + lane;
-        const bool bit = c < n && gen[static_cast<size_t>(i) * n + perm[c]];
-        const uint32_t b = __ballot_sync(FULL, bit);
-        if (lane == 0) rows[i][w] = b;
-    }
-    for (int w = warp; w < nw; w += OSD_WARPS) {
-        const int c = 32 * w + lane;
-        const uint32_t b = __ballot_sync(FULL, c < n && l[perm[c]] < 0.f);
-        if (lane == 0) ybits[w] = b;
-    }
-    __syncthreads();
-    uint32_t row[OSD_MAX_W];
+    int n2 = 2;
+    while (n2 < n) n2 <<= 1;
 #pragma unroll
-    for (int w = 0; w < OSD_MAX_W; ++w)
-        row[w] = (tid < k && w < nw) ? rows[tid][w] : 0u;
-
-    // 3. GF(2) elimination until k pivots (every thread sees the same r)
-    int r = 0;
-    for (int c = 0; c < n && r < k; ++c) {
-        const int wi = c >> 5, bit = c & 31;
-        const bool cand = tid >= r && ((pick(row, wi) >> bit) & 1u);
-        const uint32_t b = __ballot_sync(FULL, cand);
-        if (lane == 0) ballots[c & 1][warp] = b;
-        __syncthreads();
-        int p = -1;
+    for (int kk = 2; kk <= OSD_MAX_N; kk <<= 1) {
+        if (kk > n2) break;
 #pragma unroll
-        for (int q = 0; q < OSD_WARPS; ++q) {
-            const uint32_t bq = ballots[c & 1][q];
-            if (p < 0 && bq) p = 32 * q + __ffs(bq) - 1;
-        }
-        if (p < 0) continue;        // no pivot in this column
-        if (tid == p) {
+        for (int j = kk >> 1; j > 0; j >>= 1) {
+            if (j >= 8) {
+                const int lm = j >> 3;
+                const bool upper = (lane & lm) != 0;
 #pragma unroll
-            for (int w = 0; w < OSD_MAX_W; ++w) pivot[w] = row[w];
-        } else if (tid == r) {
+                for (int i = 0; i < 8; ++i) {
+                    const bool desc = ((lane * 8 + i) & kk) == 0;
+                    const unsigned long long o =
+                        __shfl_xor_sync(FULL, key[i], lm);
+                    key[i] = (upper != desc) ? max(key[i], o) : min(key[i], o);
+                }
+            } else {
 #pragma unroll
-            for (int w = 0; w < OSD_MAX_W; ++w) displaced[w] = row[w];
-        }
-        __syncthreads();
-        if (tid == r) {
-#pragma unroll
-            for (int w = 0; w < OSD_MAX_W; ++w) row[w] = pivot[w];
-        } else {
-            if (tid == p) {
-#pragma unroll
-                for (int w = 0; w < OSD_MAX_W; ++w) row[w] = displaced[w];
-            }
-            if ((pick(row, wi) >> bit) & 1u) {
-#pragma unroll
-                for (int w = 0; w < OSD_MAX_W; ++w) row[w] ^= pivot[w];
-            }
-        }
-        ++r;
-    }
-
-    // 4. a row's basis coordinate is its first set bit (0 for a zero row);
-    //    the base codeword is the XOR of the rows whose decision there is 1
-    int basis = 0;
-    bool found = false;
-#pragma unroll
-    for (int w = 0; w < OSD_MAX_W; ++w) {
-        if (!found && row[w]) {
-            basis = 32 * w + __ffs(row[w]) - 1;
-            found = true;
-        }
-    }
-    const bool d = tid < k && ((ybits[basis >> 5] >> (basis & 31)) & 1u);
-    __syncthreads();
-    if (tid < k) {
-#pragma unroll
-        for (int w = 0; w < OSD_MAX_W; ++w)
-            if (w < nw) rows[tid][w] = row[w];
-    }
-    uint32_t acc[OSD_MAX_W];
-#pragma unroll
-    for (int w = 0; w < OSD_MAX_W; ++w) {
-        acc[w] = d ? row[w] : 0u;
-        for (int off = 16; off > 0; off >>= 1)
-            acc[w] ^= __shfl_xor_sync(FULL, acc[w], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-        for (int w = 0; w < OSD_MAX_W; ++w) part[warp][w] = acc[w];
-    }
-    __syncthreads();
-    uint32_t base[OSD_MAX_W];
-#pragma unroll
-    for (int w = 0; w < OSD_MAX_W; ++w) {
-        base[w] = 0u;
-        for (int q = 0; q < OSD_WARPS; ++q) base[w] ^= part[q][w];
-    }
-
-    // 5. each flip pattern's codeword, soft distance and the arg-min
-    auto encode = [&](int t, uint32_t (&cw)[OSD_MAX_W]) {
-#pragma unroll
-        for (int w = 0; w < OSD_MAX_W; ++w) cw[w] = base[w];
-        for (int q = 0; q < OSD_MAX_FLIPS; ++q) {
-            const int idx = pats[t * OSD_MAX_FLIPS + q];
-            if (idx >= 0) {
-#pragma unroll
-                for (int w = 0; w < OSD_MAX_W; ++w)
-                    if (w < nw) cw[w] ^= rows[idx][w];
-            }
-        }
-    };
-    auto distance = [&](const uint32_t (&cw)[OSD_MAX_W], int* nh) {
-        float dist = 0.f;
-        int cnt = 0;
-#pragma unroll
-        for (int w = 0; w < OSD_MAX_W; ++w) {
-            if (w < nw) {
-                uint32_t mis = cw[w] ^ ybits[w];
-                cnt += __popc(mis);
-                while (mis) {
-                    dist = __fadd_rn(dist, wts[32 * w + __ffs(mis) - 1]);
-                    mis &= mis - 1;
+                for (int i = 0; i < 8; ++i) {
+                    if (i & j) continue;
+                    const bool desc = ((lane * 8 + i) & kk) == 0;
+                    const unsigned long long x = key[i], y = key[i | j];
+                    const bool sw = desc ? x < y : x > y;
+                    key[i] = sw ? y : x;
+                    key[i | j] = sw ? x : y;
                 }
             }
         }
-        *nh = cnt;
-        return dist;
-    };
-    float bd = INFINITY;
-    int bt = 0x7fffffff;
-    for (int t = tid; t < n_pat; t += OSD_THREADS) {
-        uint32_t cw[OSD_MAX_W];
-        encode(t, cw);
-        int nh;
-        const float dist = distance(cw, &nh);
-        if (dist < bd) {
-            bd = dist;
-            bt = t;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int e = lane * 8 + i;
+        if (e < n) {
+            const unsigned long long kv = key[i];
+            const unsigned v = static_cast<unsigned>(kv >> 10);
+            S.perm[e] = static_cast<int16_t>(511 - ((kv >> 1) & 511));
+            S.wts[e] = v ? __uint_as_float(v - 1)
+                         : __uint_as_float(0x7fc00000u);      // NaN
+            S.ysgn[e] = static_cast<uint8_t>(kv & 1);
         }
     }
+    __syncwarp();
+
+    // 2. column c = lane + 32 s of the permuted generator: the code's
+    //    column mask of the received position perm[c]; the hard decisions
+    int perm[NW];
+    uint32_t col[NW][KW], ybits[NW];
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+        const int c = lane + 32 * s;
+        perm[s] = c < n ? S.perm[c] : 0;
+        uint4 t = make_uint4(0u, 0u, 0u, 0u);
+        if (c < n) t = __ldg(cols + perm[s]);
+        const uint32_t tw[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int w = 0; w < KW; ++w) col[s][w] = tw[w];
+        ybits[s] = __ballot_sync(FULL, c < n && S.ysgn[c]);
+    }
+
+    // 3. Gauss-Jordan in column form, column by column until k pivots: the
+    //    owner finds the first row not yet a pivot with a set bit (none: no
+    //    pivot in this column) and broadcasts it and its column; every lane
+    //    XORs that column, less the pivot's bit, into its columns with the
+    //    pivot's bit set.  Rows are never swapped: the reduced row echelon
+    //    form is unique, so ordering the pivot rows by their column gives
+    //    the rows the plain version's swaps give.  Columns before c are
+    //    final (their bits in rows not yet pivots are 0).
+    uint32_t used[KW];
+#pragma unroll
+    for (int w = 0; w < KW; ++w) used[w] = 0u;
+    int r = 0;
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+        for (int ln = 0; ln < 32; ++ln) {
+            const int c = 32 * s + ln;
+            if (r >= k || c >= n) break;
+            // the owner's lowest candidate row, as a one-hot mask pb in
+            // word pw (-1: none), with no bit search on the chain
+            int pw = -1;
+            uint32_t pb = 0u;
+#pragma unroll
+            for (int w = KW - 1; w >= 0; --w) {
+                const uint32_t cm = col[s][w] & ~used[w];
+                if (cm) {
+                    pw = w;
+                    pb = cm & (0u - cm);
+                }
+            }
+            pw = __shfl_sync(FULL, pw, ln);
+            pb = __shfl_sync(FULL, pb, ln);
+            uint32_t piv[KW];
+#pragma unroll
+            for (int w = 0; w < KW; ++w)
+                piv[w] = __shfl_sync(FULL, col[s][w], ln);
+            if (pw < 0) continue;
+            if (pw == 0)
+                osd_pivot<KW, NW, 0>(col, piv, used, s, pb);
+            else if (KW > 1 && pw == 1)
+                osd_pivot<KW, NW, (KW > 1 ? 1 : 0)>(col, piv, used, s, pb);
+            else if (KW > 2 && pw == 2)
+                osd_pivot<KW, NW, (KW > 2 ? 2 : 0)>(col, piv, used, s, pb);
+            else if (KW > 3)
+                osd_pivot<KW, NW, (KW > 3 ? 3 : 0)>(col, piv, used, s, pb);
+            const int p = 32 * pw + __ffs(pb) - 1;
+            if (lane == 0) {
+                S.rank[p] = static_cast<uint8_t>(r);
+                S.pcol[p] = static_cast<uint8_t>(c);
+            }
+            ++r;
+        }
+    }
+    if (r < k && lane == 0) {       // rank deficient: zero rows, basis 0
+        for (int p = 0; p < k; ++p) {
+            uint32_t u = 0u;
+#pragma unroll
+            for (int w = 0; w < KW; ++w)
+                if (w == (p >> 5)) u = used[w];
+            if (!((u >> (p & 31)) & 1u)) {
+                S.rank[p] = static_cast<uint8_t>(r++);
+                S.pcol[p] = 0;
+            }
+        }
+    }
+    __syncwarp();
+
+    // 4. the reduced rows in basis order, through shared memory: the
+    //    columns go in, lane l takes rows l, l + 32, ... bit by bit; and
+    //    the base codeword: row p contributes where the decision at its
+    //    pivot column is 1, so bit j is the parity of column j's bits in
+    //    those rows
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        uint32_t* vw = &v.x;
+#pragma unroll
+        for (int w = 0; w < KW; ++w) vw[w] = col[s][w];
+        S.cols[lane + 32 * s] = v;
+    }
+    __syncwarp();
+    uint32_t rw[KW][NW];
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+#pragma unroll
+        for (int w = 0; w < KW; ++w) rw[w][s] = 0u;
+#pragma unroll 8
+        for (int b = 0; b < 32; ++b) {
+            const uint4 v = S.cols[32 * s + b];
+            const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int w = 0; w < KW; ++w)
+                rw[w][s] |= ((vw[w] >> lane) & 1u) << b;
+        }
+    }
+#pragma unroll
+    for (int w = 0; w < KW; ++w) {
+        const int p = 32 * w + lane;
+        if (p < k) {
+            const int rr = S.rank[p];
+#pragma unroll
+            for (int s = 0; s < NW; ++s) S.rows[rr][s] = rw[w][s];
+        }
+    }
+    uint32_t dmask[KW];
+#pragma unroll
+    for (int w = 0; w < KW; ++w) {
+        const int p = 32 * w + lane;
+        dmask[w] = __ballot_sync(FULL, p < k && S.ysgn[S.pcol[p]]);
+    }
+    uint32_t base[NW];
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+        int par = 0;
+#pragma unroll
+        for (int w = 0; w < KW; ++w) par ^= __popc(col[s][w] & dmask[w]);
+        base[s] = __ballot_sync(FULL, par & 1);
+    }
+    __syncwarp();
+
+    // 5. each flip pattern's codeword (the base XOR <= 3 rows), its soft
+    //    distance (the weights of the bits where it differs from the hard
+    //    decisions, summed with __fadd_rn in ascending bit order) and the
+    //    arg-min: the first pattern on a tie.  A lane takes OSD_PATS
+    //    patterns at once, word by word: a word's 32 weights once in
+    //    registers, then bit by bit an add for each pattern, of +0 where
+    //    the bits agree (which leaves the sum as it is: no branch, no
+    //    predicate), the patterns' chains side by side.
+    auto encode = [&](const int (&idx)[OSD_MAX_FLIPS], uint32_t (&cw)[NW]) {
+#pragma unroll
+        for (int s = 0; s < NW; ++s) cw[s] = base[s];
+#pragma unroll
+        for (int q = 0; q < OSD_MAX_FLIPS; ++q) {
+            const int row = idx[q] >= 0 ? idx[q] : 0;
+            const uint32_t use = idx[q] >= 0 ? ~0u : 0u;
+#pragma unroll
+            for (int s = 0; s < NW; ++s) cw[s] ^= S.rows[row][s] & use;
+        }
+    };
+    auto pattern = [&](int t, int (&idx)[OSD_MAX_FLIPS]) {
+#pragma unroll
+        for (int q = 0; q < OSD_MAX_FLIPS; ++q)
+            idx[q] = pats[t * OSD_MAX_FLIPS + q];
+    };
+    float bd = INFINITY;
+    int bt = 0x7fffffff, bn = 0;
+    for (int t0 = 0; t0 < n_pat; t0 += 32 * OSD_PATS) {
+        int idx[OSD_PATS][OSD_MAX_FLIPS];    // all the chunk's loads first
+#pragma unroll
+        for (int i = 0; i < OSD_PATS; ++i) {
+            const int t = t0 + 32 * i + lane;
+            pattern(t < n_pat ? t : 0, idx[i]);
+        }
+        uint32_t mis[OSD_PATS][NW];
+        float dist[OSD_PATS];
+        int cnt[OSD_PATS];
+#pragma unroll
+        for (int i = 0; i < OSD_PATS; ++i) {
+            uint32_t cw[NW];
+            encode(idx[i], cw);
+            dist[i] = 0.f;
+            cnt[i] = 0;
+#pragma unroll
+            for (int s = 0; s < NW; ++s) {
+                mis[i][s] = cw[s] ^ ybits[s];
+                cnt[i] += __popc(mis[i][s]);
+            }
+        }
+#pragma unroll
+        for (int s = 0; s < NW; ++s) {
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {      // 8 weights at a time
+                const float4* w4 = reinterpret_cast<const float4*>(
+                    S.wts + 32 * s + 8 * h);
+                const float4 lo = w4[0], hi = w4[1];
+                const float w[8] = {lo.x, lo.y, lo.z, lo.w,
+                                    hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+                for (int b = 0; b < 8; ++b) {
+#pragma unroll
+                    for (int i = 0; i < OSD_PATS; ++i) {
+                        const uint32_t m =
+                            0u - ((mis[i][s] >> (8 * h + b)) & 1u);
+                        dist[i] = __fadd_rn(
+                            dist[i],
+                            __uint_as_float(__float_as_uint(w[b]) & m));
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < OSD_PATS; ++i) {
+            const int t = t0 + 32 * i + lane;
+            if (t < n_pat && dist[i] < bd) {
+                bd = dist[i];
+                bt = t;
+                bn = cnt[i];
+            }
+        }
+    }
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
         const float od = __shfl_xor_sync(FULL, bd, off);
         const int ot = __shfl_xor_sync(FULL, bt, off);
+        const int on = __shfl_xor_sync(FULL, bn, off);
         if (od < bd || (od == bd && ot < bt)) {
             bd = od;
             bt = ot;
+            bn = on;
         }
     }
-    if (lane == 0) {
-        best_d[warp] = bd;
-        best_t[warp] = bt;
-    }
-    __syncthreads();
-    bd = best_d[0];
-    bt = best_t[0];
-    for (int q = 1; q < OSD_WARPS; ++q) {
-        if (best_d[q] < bd || (best_d[q] == bd && best_t[q] < bt)) {
-            bd = best_d[q];
-            bt = best_t[q];
+    uint32_t cw[NW];
+    int idx[OSD_MAX_FLIPS];
+    if (bt >= n_pat) {              // every distance NaN: pattern 0
+        bt = 0;
+        pattern(0, idx);
+        encode(idx, cw);
+        bd = 0.f;
+        bn = 0;
+#pragma unroll
+        for (int s = 0; s < NW; ++s) {
+            uint32_t mis = cw[s] ^ ybits[s];
+            bn += __popc(mis);
+            while (mis) {
+                bd = __fadd_rn(bd, S.wts[32 * s + __ffs(mis) - 1]);
+                mis &= mis - 1;
+            }
         }
+    } else {
+        pattern(bt, idx);
+        encode(idx, cw);
     }
-    if (bt >= n_pat) bt = 0;        // every distance NaN
 
     // 6. the chosen codeword back in the received bit order
-    uint32_t cw[OSD_MAX_W];
-    encode(bt, cw);
     const size_t o = static_cast<size_t>(word) * n;
-    for (int j = tid; j < n; j += OSD_THREADS)
-        cw_out[o + perm[j]] = static_cast<int8_t>((pick(cw, j >> 5) >> (j & 31)) & 1u);
-    if (tid == 0) {
-        int nh;
-        dist_out[word] = distance(cw, &nh);
-        nhard_out[word] = nh;
+#pragma unroll
+    for (int s = 0; s < NW; ++s) {
+        const int c = lane + 32 * s;
+        if (c < n)
+            cw_out[o + perm[s]] = static_cast<int8_t>((cw[s] >> lane) & 1u);
+    }
+    if (lane == 0) {
+        dist_out[word] = bd;
+        nhard_out[word] = bn;
     }
 }
 
@@ -518,6 +667,19 @@ cudaError_t bp_minsum_start(int smem, cudaStream_t st, const void* llr,
             static_cast<const int16_t*>(col_slots),
             static_cast<int8_t*>(hard), static_cast<uint8_t*>(ok),
             static_cast<float*>(post), m, n, nc, mr, mc, iters, alpha);
+    return cudaGetLastError();
+}
+
+template <int KW, int NW>
+cudaError_t osd_start(cudaStream_t st, const void* cols, const void* llr,
+                      const void* pats, void* cw, void* dist, void* nhard,
+                      int m, int k, int n, int n_pat) {
+    osd_kernel<KW, NW><<<(m + OSD_WARPS - 1) / OSD_WARPS, OSD_WARPS * 32, 0,
+                         st>>>(
+        static_cast<const uint4*>(cols), static_cast<const float*>(llr),
+        static_cast<const int16_t*>(pats), static_cast<int8_t*>(cw),
+        static_cast<float*>(dist), static_cast<int32_t*>(nhard), m, k, n,
+        n_pat);
     return cudaGetLastError();
 }
 
@@ -570,19 +732,30 @@ int bp_minsum_launch(const void* llr, const void* row_cols,
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// gen [k, n] uint8 0/1, llr [m, n] float32, pats [n_pat, 3] int16 row
-// indices (-1 padded); cw [m, n] int8, dist [m] float32, nhard [m] int32.
-int osd_launch(const void* gen, const void* llr, const void* pats, void* cw,
+// cols [n, 4] int32: generator column j as a k-bit mask (bit i of word
+// i >> 5 = row i), llr [m, n] float32, pats [n_pat, 3] int16 row indices
+// (-1 padded); cw [m, n] int8, dist [m] float32, nhard [m] int32.
+// Instantiated for the codes' column and row words: (3, 6) for FT8/FT4 and
+// JS8, (2, 6) for WSPR, (4, 8) for FST4/FST4W and any other.
+int osd_launch(const void* cols, const void* llr, const void* pats, void* cw,
                void* dist, void* nhard, int m, int k, int n, int n_pat,
                void* stream) {
-    if (m < 1 || k < 1 || k > OSD_MAX_K || n < 1 || n > OSD_MAX_N
+    if (m < 1 || k < 1 || k > OSD_MAX_K || n < k || n > OSD_MAX_N
         || n_pat < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    osd_kernel<<<m, OSD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(gen), static_cast<const float*>(llr),
-        static_cast<const int16_t*>(pats), static_cast<int8_t*>(cw),
-        static_cast<float*>(dist), static_cast<int32_t*>(nhard), k, n, n_pat);
-    return static_cast<int>(cudaGetLastError());
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int kw = (k + 31) / 32, nw = (n + 31) / 32;
+    cudaError_t err;
+    if (kw == 3 && nw == 6)
+        err = osd_start<3, 6>(st, cols, llr, pats, cw, dist, nhard, m, k, n,
+                              n_pat);
+    else if (kw <= 2 && nw == 6)
+        err = osd_start<2, 6>(st, cols, llr, pats, cw, dist, nhard, m, k, n,
+                              n_pat);
+    else
+        err = osd_start<4, 8>(st, cols, llr, pats, cw, dist, nhard, m, k, n,
+                              n_pat);
+    return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -430,6 +430,80 @@ def sync_pair_rotation(spec: ModeSpec, csym: torch.Tensor,
     return rot * torch.exp(-1j * z.angle())
 
 
+def gather_candidates(spec: ModeSpec, demod: torch.Tensor, tt: torch.Tensor,
+                      f0: torch.Tensor, os_t_eff: int) -> torch.Tensor:
+    """Stage 4b's strided block gather (``dynamic_slice`` semantics): each
+    candidate's [n_sym, n_tones] symbol spectra from demod [B, H, F] at
+    start hop tt and bin f0 [B, K], symbols os_t_eff hops and tones os_f
+    bins apart, the block start clamped into the spectrogram zero-padded to
+    whole strides.  Returns csym [B, K, n_sym, n_tones]."""
+    b = demod.shape[0]
+    dev = demod.device
+    n_hops_src = demod.shape[1]
+    hq = -(-n_hops_src // os_t_eff)
+    fq = -(-demod.shape[2] // spec.os_f)
+    src = torch.nn.functional.pad(
+        demod, (0, fq * spec.os_f - demod.shape[2],
+                0, hq * os_t_eff - n_hops_src))
+    q = (tt // os_t_eff).clamp(0, hq - spec.n_sym)
+    p = (f0 // spec.os_f).clamp(0, fq - spec.n_tones)
+    hop_idx = (q * os_t_eff + tt % os_t_eff)[:, :, None, None] \
+        + os_t_eff * torch.arange(spec.n_sym, device=dev)[:, None]
+    bin_idx = (p * spec.os_f + f0 % spec.os_f)[:, :, None, None] \
+        + spec.os_f * torch.arange(spec.n_tones, device=dev)
+    bidx = torch.arange(b, device=dev)[:, None, None, None]
+    return src[bidx, hop_idx, bin_idx]                    # [B, K, S, T]
+
+
+def candidate_rotation(spec: ModeSpec, csym: torch.Tensor, f0: torch.Tensor,
+                       fold_pairs: bool) -> torch.Tensor:
+    """The combiner's reference rotation [B, K] of candidates at bin f0:
+    exp(-2j pi abs_bin / os_f), with the sync-pair residual folded in when
+    ``fold_pairs``."""
+    fmin_bin = spec.bin_range[0]
+    abs_bin = (f0 + fmin_bin).to(torch.float32)
+    rot = torch.exp(-2j * np.pi * abs_bin / spec.os_f)
+    if fold_pairs:
+        rot = sync_pair_rotation(spec, csym, rot)
+    return rot
+
+
+def candidate_llrs(spec: ModeSpec, demod: torch.Tensor, tt: torch.Tensor,
+                   f0: torch.Tensor, os_t_eff: int, fold_pairs: bool,
+                   bitmaps: torch.Tensor) -> torch.Tensor:
+    """Stage 4b: every candidate's coherent LLRs, [B, K, n_bits] scaled per
+    candidate to std 3, from the demod spectrogram [B, H, F] and the
+    candidates' start hop tt and bin f0 [B, K].
+
+    A CPU tensor runs :func:`candidate_llrs_plain`; any other launches the
+    ``multisym_llrs`` kernel's spectrogram entry (``csrc/gfsk.cu``: one
+    launch that gathers each candidate's block, forms its rotation and its
+    LLRs), which raises if it cannot (no fallback).
+    """
+    if demod.device.type == "cpu":
+        return candidate_llrs_plain(spec, demod, tt, f0, os_t_eff,
+                                    fold_pairs, bitmaps)
+    return _gfsk_kernels.candidate_llrs(
+        spec, demod.contiguous(), tt.contiguous(), f0.contiguous(), os_t_eff,
+        fold_pairs, bitmaps.contiguous())
+
+
+def candidate_llrs_plain(spec: ModeSpec, demod: torch.Tensor,
+                         tt: torch.Tensor, f0: torch.Tensor, os_t_eff: int,
+                         fold_pairs: bool, bitmaps: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain PyTorch version of :func:`candidate_llrs` (on any device):
+    the kernel's oracle.  The block gather, the rotation and the LLRs of
+    :func:`_multisym_llrs_plain`."""
+    b, k = tt.shape
+    csym = gather_candidates(spec, demod, tt, f0, os_t_eff)
+    rot = candidate_rotation(spec, csym, f0, fold_pairs)
+    llr = _multisym_llrs_plain(
+        spec, csym.reshape(b * k, spec.n_sym, spec.n_tones), rot.reshape(-1),
+        bitmaps)
+    return llr.reshape(b, k, spec.n_bits)
+
+
 def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
                    bp: BPDecoder) -> dict[str, torch.Tensor]:
     """One decode pass over a batch of windows ([B, N] float32 audio).
@@ -491,30 +565,10 @@ def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
         tt = t0
         os_t_eff = spec.os_t
 
-    # --- 4b. strided block gather (dynamic_slice semantics) ----------------
-    hq = -(-n_hops_src // os_t_eff)
-    fq = -(-demod.shape[2] // spec.os_f)
-    src = torch.nn.functional.pad(
-        demod, (0, fq * spec.os_f - demod.shape[2],
-                0, hq * os_t_eff - n_hops_src))
-    q = (tt // os_t_eff).clamp(0, hq - spec.n_sym)
-    p = (f0 // spec.os_f).clamp(0, fq - spec.n_tones)
-    hop_idx = (q * os_t_eff + tt % os_t_eff)[:, :, None, None] \
-        + os_t_eff * torch.arange(spec.n_sym, device=dev)[:, None]
-    bin_idx = (p * spec.os_f + f0 % spec.os_f)[:, :, None, None] \
-        + spec.os_f * torch.arange(spec.n_tones, device=dev)
-    bidx = torch.arange(b, device=dev)[:, None, None, None]
-    csym = src[bidx, hop_idx, bin_idx]                    # [B, K, S, T]
-    del src, demod
-
-    abs_bin = (f0 + fmin_bin).to(torch.float32)
-    rot = torch.exp(-2j * np.pi * abs_bin / spec.os_f)
-    if refine or spec.refine_freq:
-        rot = sync_pair_rotation(spec, csym, rot)
-    llr = _multisym_llrs(
-        spec, csym.reshape(b * spec.top_k, spec.n_sym, spec.n_tones),
-        rot.reshape(-1), tabs["bitmaps"]).reshape(b, spec.top_k, spec.n_bits)
-    del csym
+    # --- 4b. strided block gather, rotation and coherent LLRs -------------
+    llr = candidate_llrs(spec, demod, tt, f0, os_t_eff,
+                         refine or spec.refine_freq, tabs["bitmaps"])
+    del demod
 
     # --- 4c. a-priori hypotheses -------------------------------------------
     k_eff = spec.top_k

@@ -14,9 +14,10 @@ codeword at minimum soft distance.  Batched over words:
 
 That is :func:`osd_decode_plain`.  :func:`osd_decode` runs it on CPU
 tensors; on a CUDA tensor it launches the hand kernel ``osd``
-(``csrc/ldpc.cu``, one block per word), which takes the flip patterns as
+(``csrc/ldpc.cu``, one warp per word), which takes the flip patterns as
 index lists (:func:`pattern_index_lists`, built once beside the pattern
-table).
+table) and the generator as column masks (``_kernels.generator_columns``,
+built on its first call).
 """
 
 from __future__ import annotations
@@ -91,11 +92,13 @@ def osd_decode(gen: torch.Tensor, llrs: torch.Tensor, patterns: torch.Tensor,
     return _kernels.osd(gen, llrs.contiguous(), pattern_idx)
 
 
-def osd_decode_plain(gen: torch.Tensor, llrs: torch.Tensor,
-                     patterns: torch.Tensor
+def osd_reduce_plain(gen: torch.Tensor, llrs: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of :func:`osd_decode` (on any device):
-    the kernel's oracle.  gen may have any integer or float dtype."""
+    """The reduction of :func:`osd_decode_plain`: each word's stable
+    reliability order perm [M, n] (most reliable first), its permuted
+    generator reduced to row echelon form by GF(2) elimination, as 0/1
+    float32 rows gbits [M, k, n], and each row's basis coordinate (its
+    first set bit, 0 for a zero row) basis [M, k]."""
     m_words, n = llrs.shape
     k = gen.shape[0]
     dev = llrs.device
@@ -133,6 +136,18 @@ def osd_decode_plain(gen: torch.Tensor, llrs: torch.Tensor,
     gbits = ((gp[:, :, :, None] >> shift) & 1).reshape(m_words, k, w * 32)
     gbits = gbits[:, :, :n].to(torch.float32)
     basis = gbits.argmax(dim=2)                                  # [M, k]
+    return perm, gbits, basis
+
+
+def osd_decode_plain(gen: torch.Tensor, llrs: torch.Tensor,
+                     patterns: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`osd_decode` (on any device):
+    the kernel's oracle.  gen may have any integer or float dtype."""
+    m_words, n = llrs.shape
+    dev = llrs.device
+    ar = torch.arange(m_words, device=dev)
+    perm, gbits, basis = osd_reduce_plain(gen, llrs)
 
     llr_p = torch.gather(llrs, 1, perm)
     y = (llr_p < 0).to(torch.float32)

@@ -4,7 +4,9 @@ LDPC kernels ``bp_minsum`` and ``osd`` against their plain versions on
 every code and OSD shape the decoders run (and no fallback when their
 library cannot be built), the GFSK kernels ``subtract_known`` and
 ``multisym_llrs`` against their plain versions at FT8, FT4, JS8 and
-FST4-60 shapes (and no fallback; the subtraction bit for bit alike
+FST4-60 shapes, the LLR kernel also from the demod spectrogram at FT8,
+FT4, JS8 and FST4W-120 with the clamps' edge cases (and no fallback; the
+subtraction bit for bit alike
 whatever its blocks, in and out of a CUDA graph; ``sincosf`` as ``sinf``
 and ``cosf``), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
 Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
@@ -97,6 +99,7 @@ def _ldpc_decoder(name: str, dev):
     """A decoder whose BP tables and OSD tables are those of ``name``."""
     return {"ft8": lambda: ft8.FT8Decoder(my_call="W2AXR", depth=3,
                                           device=dev),
+            "ft4": lambda: ft4.FT4Decoder(depth=3, device=dev),
             "js8": lambda: js8.JS8Decoder(device=dev),
             "fst4": lambda: fst4.FST4Decoder(Mode.FST4_60, device=dev),
             "wspr": lambda: wspr.WSPRDecoder(device=dev)}[name]()
@@ -122,14 +125,15 @@ def test_bp_kernel_matches_plain_on_card(dev, name, seed):
 
 
 @pytest.mark.parametrize("name,seed", [("ft8", 4), ("js8", 5), ("fst4", 6),
-                                       ("wspr", 7)])
+                                       ("wspr", 7), ("ft4", 8)])
 def test_osd_kernel_matches_plain_on_card(dev, name, seed):
     """osd against osd_decode_plain on the same CUDA LLRs: 384 seeded
     noisy codewords of each OSD shape, FT8 (91, 174, 268 patterns), JS8
-    (87, 174), FST4 (101, 240) and WSPR (50, 162, 740 patterns), an eighth
-    rounded (ties in |LLR|: the stable sort).  Codewords and hard errors
-    equal outside near-ties (the two picks' distances within 1e-5
-    relative), distances within rtol 1e-5; one launch."""
+    (87, 174), FST4 (101, 240), WSPR (50, 162, 740 patterns) and FT4's
+    pattern set, an eighth rounded (ties in |LLR|: the stable sort).
+    Codewords and hard errors equal outside near-ties (the two picks'
+    distances within 1e-5 relative), distances within rtol 1e-5; one
+    launch."""
     d = _ldpc_decoder(name, dev)
     gen = d._tabs["wspr_gen" if name == "wspr" else "gen"]
     llr = torch.from_numpy(chip_smoke.noisy_llrs(
@@ -367,11 +371,44 @@ def test_llr_kernel_matches_plain_on_card(dev, shape):
     assert got["ok"], got
 
 
+def _fused_shapes():
+    """(name, spec, os_t_eff, fold_pairs) of each spectrogram shape the
+    LLR kernel's fused entry meets: the refine branch's half hops (FT8,
+    FT4, JS8), FST4W-120's hops (coh4) and FT8 without the pair fold."""
+    fst4w = fst4.make_spec(Mode.FST4W_120)
+    return [("ft8", ft8.SPEC, 2 * ft8.SPEC.os_t, True),
+            ("ft4", ft4.SPEC, 2 * ft4.SPEC.os_t, True),
+            ("js8", js8.SPEC, 2 * js8.SPEC.os_t, True),
+            ("fst4w-120", fst4w, fst4w.os_t, True),
+            ("ft8 no fold", ft8.SPEC, 2 * ft8.SPEC.os_t, False)]
+
+
+@pytest.mark.parametrize("shape", range(5),
+                         ids=[s[0] for s in _fused_shapes()])
+def test_fused_llr_kernel_matches_plain_on_card(dev, shape):
+    """candidate_llrs (the LLR kernel from the demod spectrogram) against
+    candidate_llrs_plain on CPU copies (chip_smoke.fused_llr_vs_plain): 8
+    seeded spectrograms of 96 candidates each, the first five at the
+    edges where the block start's clamps and the zero padding bite;
+    within atol 1e-3; one launch."""
+    _, spec, os_t_eff, fold = _fused_shapes()[shape]
+    demod, tt, f0 = (torch.from_numpy(x).to(dev) for x in
+                     chip_smoke.noisy_demod(spec, 8, 96, os_t_eff,
+                                            seed=60 + shape))
+    bm = torch.from_numpy(spec.bitmaps()).to(dev)
+    before = gfsk_kernels.launches["multisym_llrs"]
+    got = chip_smoke.fused_llr_vs_plain(spec, demod, tt, f0, os_t_eff, fold,
+                                        bm)
+    torch.cuda.synchronize()
+    assert gfsk_kernels.launches["multisym_llrs"] == before + 1
+    assert got["ok"], got
+
+
 def test_gfsk_kernels_raise_without_library_on_card(dev, monkeypatch,
                                                     tmp_path):
-    """With no nvcc and no built library, subtract_known and
-    _multisym_llrs on CUDA tensors raise; the plain versions never run and
-    nothing counts."""
+    """With no nvcc and no built library, subtract_known, _multisym_llrs
+    and candidate_llrs on CUDA tensors raise; the plain versions never run
+    and nothing counts."""
     monkeypatch.setattr(gfsk_kernels, "_lib", None)
     monkeypatch.setattr(gfsk_kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(gfsk_kernels.kernel_build.shutil, "which",
@@ -383,6 +420,7 @@ def test_gfsk_kernels_raise_without_library_on_card(dev, monkeypatch,
 
     monkeypatch.setattr(subtract, "subtract_known_plain", plain)
     monkeypatch.setattr(gfsk_engine, "_multisym_llrs_plain", plain)
+    monkeypatch.setattr(gfsk_engine, "candidate_llrs_plain", plain)
     spec = ft8.SPEC
     before = dict(gfsk_kernels.launches)
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -394,6 +432,13 @@ def test_gfsk_kernels_raise_without_library_on_card(dev, monkeypatch,
         gfsk_engine._multisym_llrs(
             spec, torch.ones((4, 79, 8), dtype=torch.complex64, device=dev),
             torch.ones(4, dtype=torch.complex64, device=dev),
+            torch.from_numpy(spec.bitmaps()).to(dev))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gfsk_engine.candidate_llrs(
+            spec, torch.ones((2, 1300, 50), dtype=torch.complex64,
+                             device=dev),
+            torch.zeros((2, 4), dtype=torch.int64, device=dev),
+            torch.zeros((2, 4), dtype=torch.int64, device=dev), 16, True,
             torch.from_numpy(spec.bitmaps()).to(dev))
     assert gfsk_kernels.launches == before
 

@@ -8,9 +8,12 @@ OTHER_CHECKOUT again, each in its own process from its own root (so each
 builds its own kernels and checks them against its own plain versions on
 the main path's inputs), and prints every run's device times (CUDA graphs,
 this checkout's ``chip_smoke.cuda_ms`` for both), then the medians by
-checkout and kernel as one JSON object.  Needs one CUDA device;
-OTHER_CHECKOUT is e.g. ``git archive`` of a parent commit unpacked into a
-directory that ``.gitignore`` lists.
+checkout and kernel as one JSON object, and each kernel's pair of medians
+like for like: a checkout whose ``multisym_llrs`` is the LLR kernel's
+spectrogram entry also times its csym entry (``multisym_llrs_csym``), which
+is compared with the other's ``multisym_llrs`` where that has no such
+entry.  Needs one CUDA device; OTHER_CHECKOUT is e.g. ``git archive`` of a
+parent commit unpacked into a directory that ``.gitignore`` lists.
 """
 
 from __future__ import annotations
@@ -52,7 +55,18 @@ def main() -> int:
                           for key in KEYS}
                       for k in runs[0]}
                for name, runs in results.items()}
-    print(json.dumps({"runs": results, "median": summary}))
+    pairs = {}
+    for name in summary["other"]:
+        mine = name
+        if f"{name}_csym" in summary["this"] \
+                and f"{name}_csym" not in summary["other"]:
+            mine = f"{name}_csym"
+        if mine in summary["this"]:
+            pairs[name] = {"other": summary["other"][name]["ms"],
+                           "this": summary["this"][mine]["ms"],
+                           "this_entry": mine}
+    print(json.dumps({"runs": results, "median": summary,
+                      "like_for_like_ms": pairs}))
     return 0
 
 

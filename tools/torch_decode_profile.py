@@ -133,7 +133,7 @@ def _setup(mode: str, dev):
             ("_bf16_matmul", "spectrogram matmuls"),
             ("_shifted_sum", "sync accumulation (coarse+fine)"),
             ("_top_k", "top-K sorts (candidates, OSD pick)"),
-            ("_multisym_llrs", "coherent LLRs"),
+            ("candidate_llrs", "gather + coherent LLRs"),
             ("osd_decode", "OSD"),
             ("subtract_known", "subtraction"),
             ("select_subtract_params", "subtraction pick"),
