@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and fails without CUDA;
-2. builds the port's three kernel libraries from ``cwsl_digi_tpu_torch``,
+2. builds the port's four kernel libraries from ``cwsl_digi_tpu_torch``,
    one nvcc each, started together: the channelizer
    (``dsp/csrc/channelizer.cu``), the LDPC kernels ``bp_minsum`` and
-   ``osd`` (``modes/csrc/ldpc.cu``) and the GFSK kernels
-   ``subtract_known`` and ``multisym_llrs`` (``modes/csrc/gfsk.cu``),
-   printing each ptxas report;
+   ``osd`` (``modes/csrc/ldpc.cu``), the GFSK kernels
+   ``subtract_known`` and ``multisym_llrs`` (``modes/csrc/gfsk.cu``) and
+   the sync-search kernels ``sync_score``, ``sync_select`` and
+   ``sync_refine`` (``modes/csrc/sync.cu``), printing each ptxas report;
 3. holds the channelizer kernel against its plain PyTorch version on the
    card, at the FT8 path's 64 dials, the mixed-mode path's 5 lines, the
    weak-mode path's 3 lines and the bench's 256 channels (192 kHz, 15 s
@@ -55,12 +56,27 @@
    against the route before it (the plain gather and rotation, then the
    csym entry), each as the profiler's device time and as the time issued
    from the host;
+4c. holds ``sync_score``, ``sync_select`` and ``sync_refine`` (one launch
+   each, and the stage's wrapper ``sync_candidates``) against the plain
+   versions on CPU copies of the inputs the decoders hand the sync search
+   (phase ``sync_kernels``, recorded with the 4b cases): the FT8 main
+   path's first 24-window pass-1 call and its first call at the later
+   passes' top_k, FT4 at depth 3, JS8, the App's FST4-60 (3000 Hz: the rfft
+   branch), FST4W-1800 at its device batch, and FT8 windows of a constant
+   map and of zeros (every score ties): the score and NMS map bit for
+   bit, top_val bit for bit, top_idx and tt identical; beside it the plain
+   version on the card against the same.  Then each kernel's device time
+   at the FT8 pass-1 shape beside the plain version's on the card and the
+   bound, ``torch.topk`` of both maps as the selection's yardstick, and
+   the whole stage issued from the host through the kernels and the plain
+   version;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
    every expected spot must appear within 2 Hz and no other, through the
-   channelizer, ``bp_minsum``, ``osd``, ``subtract_known`` and
-   ``multisym_llrs`` kernels, with CUDA tensors reaching the decoder;
+   channelizer, ``bp_minsum``, ``osd``, ``subtract_known``,
+   ``multisym_llrs`` and the three sync kernels, with CUDA tensors reaching
+   the decoder;
 6. runs the App on seeded 192 kHz IQ with the lines a 20 m skimmer runs
    on one receiver: FT8, JS8, FT4, FST4-60 and FST4W-120.  The replay
    starts on the App's own anchor (the next UTC 15 s boundary) with noise
@@ -68,7 +84,7 @@
    windows of each (SNR -5 dB down to about 3 dB above each mode's
    threshold); every window must close on its own UTC boundary from the
    anchor on, and every expected spot (JS8's by its sender grammar) appear
-   within 2 Hz, and no other, through the five kernels;
+   within 2 Hz, and no other, through the eight kernels;
 7. runs the App on seeded 192 kHz IQ with the weak-signal lines of the
    same receiver: WSPR (14.0956 MHz), JT65 (14.076 MHz) and Q65-30
    (14.0795 MHz), written for the App's anchor as in 6: one WSPR window,
@@ -95,7 +111,7 @@
     with 6 bursts a window spread over the receivers, scheduled from the
     App's anchor: every channel-window decoded, no stale drop or ingest
     overrun, every burst found on its own receiver's dials and no spot on
-    another's, CUDA audio into the decoders, through the five kernels,
+    another's, CUDA audio into the decoders, through the eight kernels,
     with the App's default pool (4 workers, one decode at a time on the
     card) and no spot later than its 15 s deadline; it prints the pool
     size, the latencies, the wait for the card's decode lock, stages, busy
@@ -114,11 +130,12 @@
     may be one never injected), the decode of each of the 15 modes at
     batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
     share at batch 2, and prints each section's line; it must launch all
-    five kernels;
+    eight kernels;
 15. prints a ``{"kernels": [...]}`` line (``channelize``, ``bp_minsum``,
-    ``osd``, ``subtract_known``, ``multisym_llrs``, each with its launches
-    in the App phases 5-7, 11 and 14, which set every count to 0 before
-    they start and read it after), then ``{"ok": true, ...}`` last.
+    ``osd``, ``subtract_known``, ``multisym_llrs``, ``sync_score``,
+    ``sync_select``, ``sync_refine``, each with its launches in the App
+    phases 5-7, 11 and 14, which set every count to 0 before they start
+    and read it after), then ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -179,6 +196,12 @@ SUB_TOL_PEAK = 1e-3      # subtract_known vs the plain version on the CPU,
                          # in another order)
 LLR_TOL = 1e-3           # multisym_llrs vs the plain version on the CPU,
                          # max abs of the std-3 LLRs (max-log sums)
+SYNC_KERNELS = ("sync_score", "sync_select", "sync_refine")
+HAND_KERNELS = LDPC_KERNELS + GFSK_KERNELS + SYNC_KERNELS
+# the lines of the JAX package's XLA program that the sync kernels replace
+SYNC_REPLACES = {"sync_score": "cwsl_digi_tpu/modes/gfsk_engine.py:435",
+                 "sync_select": "cwsl_digi_tpu/modes/gfsk_engine.py:467",
+                 "sync_refine": "cwsl_digi_tpu/modes/gfsk_engine.py:517"}
 TRIG_OPS = 20            # a range-reduced float32 sin or cos, counted as
                          # this many operations in the bounds
 
@@ -792,13 +815,16 @@ def noisy_demod(spec, b: int, k: int, os_t_eff: int, seed: int
 
 
 def record_gfsk_inputs(dec, audio: torch.Tensor):
-    """The first coherent-LLR and subtraction operands that
+    """The first coherent-LLR, subtraction and sync-search operands that
     ``dec.decode(audio)`` hands over: ((spec, demod, tt, f0, os_t_eff,
-    fold_pairs, bitmaps), (spec, audio, params, gen_parity) or None)."""
+    fold_pairs, bitmaps), (spec, audio, params, gen_parity) or None,
+    [(spec, power_sync, demod, base, n_hops, refine)]): the sync search's
+    first call and the first of each later top_k (the later passes')."""
     from cwsl_digi_tpu_torch.modes import gfsk_engine
 
-    llr_in, sub_in = [], []
+    llr_in, sub_in, sync_in = [], [], []
     orig_llr, orig_sub = gfsk_engine.candidate_llrs, gfsk_engine.subtract_known
+    orig_sync = gfsk_engine.sync_candidates
 
     def llr_rec(spec, demod, tt, f0, os_t_eff, fold_pairs, bitmaps):
         if not llr_in:
@@ -812,14 +838,23 @@ def record_gfsk_inputs(dec, audio: torch.Tensor):
                            gen_parity.clone()))
         return orig_sub(spec, audio, params, gen_parity)
 
+    def sync_rec(spec, power_sync, demod, base, n_hops, refine):
+        if all(spec.top_k != s[0].top_k for s in sync_in):
+            sync_in.append((spec, power_sync.clone(),
+                            demod.clone() if refine else None, base.clone(),
+                            n_hops, refine))
+        return orig_sync(spec, power_sync, demod, base, n_hops, refine)
+
     gfsk_engine.candidate_llrs = llr_rec
     gfsk_engine.subtract_known = sub_rec
+    gfsk_engine.sync_candidates = sync_rec
     try:
         dec.decode(audio)
     finally:
         gfsk_engine.candidate_llrs = orig_llr
         gfsk_engine.subtract_known = orig_sub
-    return llr_in[0], (sub_in[0] if sub_in else None)
+        gfsk_engine.sync_candidates = orig_sync
+    return llr_in[0], (sub_in[0] if sub_in else None), sync_in
 
 
 def csym_operands(spec, demod, tt, f0, os_t_eff, fold_pairs, bitmaps):
@@ -1030,7 +1065,8 @@ def gfsk_cases(dev) -> dict:
     call, 12,288 candidates, and its pass-1 subtraction over all 64
     windows), FT4 at depth 3, JS8, FST4-60 (coh4) and FST4W-1800 at its
     device batch.  {name: ((spec, demod, tt, f0, os_t_eff, fold_pairs,
-    bitmaps), (spec, audio, params, gen_parity))}."""
+    bitmaps), (spec, audio, params, gen_parity), [sync-search operands])}
+    (``record_gfsk_inputs``)."""
     from cwsl_digi_tpu_torch.constants import Mode
     from cwsl_digi_tpu_torch.modes import fst4, ft4, js8
     from cwsl_digi_tpu_torch.modes.ft8 import FT8Decoder
@@ -1054,13 +1090,13 @@ def gfsk_cases(dev) -> dict:
         audio = torch.from_numpy(_gfsk_mode_windows(mode, n, SEED + 40 + i))
         cases[name] = record_gfsk_inputs(d, audio.to(dev))
         del audio, d
-    for name, (_, sub_in) in cases.items():
+    for name, (_, sub_in, _) in cases.items():
         if sub_in is None:
             raise AssertionError(f"{name}: the decode ran no subtraction")
     return cases
 
 
-def gfsk_kernels_phase(dev) -> dict:
+def gfsk_kernels_phase(dev, cases: dict | None = None) -> dict:
     """The ``subtract_known`` and ``multisym_llrs`` kernels against their
     plain versions on CPU copies of the inputs the decoders hand them
     (``gfsk_cases``: the LLR kernel through both entries, from the demod
@@ -1076,9 +1112,9 @@ def gfsk_kernels_phase(dev) -> dict:
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
     from cwsl_digi_tpu_torch.modes import ft8, gfsk_engine, ldpc, subtract
 
-    cases = gfsk_cases(dev)
+    cases = cases or gfsk_cases(dev)
     checks, calls = {}, {}
-    for name, (llr_in, sub_in) in cases.items():
+    for name, (llr_in, sub_in, _) in cases.items():
         checks[f"llr fused {name}"] = fused_llr_vs_plain(*llr_in)
         checks[f"llr csym {name}"] = llr_vs_plain(*csym_operands(*llr_in))
         checks[f"subtract {name}"] = subtract_vs_plain(*sub_in)
@@ -1187,6 +1223,231 @@ def llr_stage_turns(llr_in) -> dict:
     return got
 
 
+def tie_case(spec, dev) -> tuple:
+    """Sync-search operands of two windows at the mode's decode_program
+    shapes where every score ties: window 0 a constant power map and
+    demod (every offset of the refinement ties too), window 1 all zero
+    (base 0, every score 0).  (spec, power_sync, demod, base, n_hops,
+    refine)."""
+    n_samples = int(round(spec.trperiod * 12_000))
+    n_hops = (n_samples - spec.sps) // spec.hop + 1
+    ph, n_bins = spec.pad_hops, spec.bin_range[2]
+    power = torch.zeros((2, n_hops + 2 * ph, n_bins), dtype=torch.bfloat16,
+                        device=dev)
+    power[0] = 1.0
+    demod = torch.zeros((2, 2 * n_hops - 1 + 4 * ph, n_bins),
+                        dtype=torch.complex64, device=dev)
+    demod[0] = 1.0 + 1.0j
+    base = power[:, ph : ph + n_hops].to(torch.float32).mean(
+        dim=(1, 2), keepdim=True) * len(spec.sync_cells)
+    return spec, power, demod, base, n_hops, spec.refine
+
+
+def sync_cases(dev, cases: dict) -> dict:
+    """The sync-search operands the decoders hand over, by case: the FT8
+    main path's first 24-window call of pass 1 and its first call at the
+    later passes' top_k, FT4 at depth 3, JS8 and FST4W-1800 at its device
+    batch (the rfft branch), all from ``gfsk_cases``; the App's FST4-60
+    (``highestdecodefreq`` 3000 Hz: the rfft branch) on 8 windows; and
+    FT8's all-tie windows (``tie_case``).  {name: (spec, power_sync,
+    demod, base, n_hops, refine)}."""
+    from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import fst4, ft8
+
+    ft8_in = cases["ft8 main path"][2]
+    if len(ft8_in) < 2:
+        raise AssertionError("the FT8 main path ran no later pass")
+    out = {"ft8 main path pass 1": ft8_in[0],
+           "ft8 main path pass 2": ft8_in[1]}
+    for name in ("ft4 depth 3", "js8", "fst4w-1800"):
+        out[name] = cases[name][2][0]
+    dec = fst4.FST4Decoder(Mode.FST4_60, fmax_hz=3000.0, device=dev)
+    if dec.spectrogram_branch != "rfft":
+        raise AssertionError(f"the App's FST4-60 runs the "
+                             f"{dec.spectrogram_branch} branch")
+    audio = torch.from_numpy(_gfsk_mode_windows("FST4-60", 8, SEED + 45))
+    out["fst4-60 app band"] = record_gfsk_inputs(dec, audio.to(dev))[2][0]
+    out["ft8 constant and all-zero windows"] = tie_case(ft8.SPEC, dev)
+    return out
+
+
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries of a (on the card) and b (on the CPU) that differ: by their
+    bits for floats, by value for integers."""
+    a = a.cpu()
+    if a.dtype == torch.float32:
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    return int((a != b).sum())
+
+
+def sync_vs_plain(spec, power_sync, demod, base, n_hops, refine) -> dict:
+    """The three sync kernels, one launch each, and the stage's wrapper
+    against the plain versions on CPU copies: score and NMS map bit for
+    bit, top_val bit for bit, top_idx and tt identical; beside it the plain
+    version on the card against the same (CUDA's complex abs may round
+    |z| otherwise than the CPU's, which the refinement's bf16 sums see)."""
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
+    from cwsl_digi_tpu_torch.modes import gfsk_engine as ge
+
+    score, nms = sk.sync_score(spec, power_sync, base)
+    top_val, t0, f0 = sk.sync_select(spec, score, nms)
+    tt = sk.sync_refine(spec, demod, t0, f0) if refine else t0
+    full = sk.sync_candidates(spec, power_sync, demod, base, n_hops, refine)
+
+    def cpu(x):
+        return None if x is None else x.cpu()
+
+    p_score, p_nms = ge.sync_score_plain(spec, cpu(power_sync), cpu(base))
+    p_val, p_idx = ge.sync_select_plain(spec, p_score, p_nms)
+    n_f0 = p_score.shape[2]
+    p_t0, p_f0 = p_idx // n_f0, p_idx % n_f0
+    p_tt = ge.sync_refine_plain(spec, cpu(demod), p_t0, p_f0) if refine \
+        else p_t0
+    card = ge.sync_candidates_plain(spec, power_sync, demod, base, n_hops,
+                                    refine)
+    res = {"windows": power_sync.shape[0], "scores": score.numel(),
+           "top_k": spec.top_k, "refine": refine,
+           "score_bits_differ": _bits_differ(score, p_score),
+           "nms_bits_differ": _bits_differ(nms, p_nms),
+           "top_val_bits_differ": _bits_differ(top_val, p_val),
+           "top_idx_differ": _bits_differ(t0 * n_f0 + f0, p_idx),
+           "tt_differ": _bits_differ(tt, p_tt),
+           "wrapper_differs": sum(_bits_differ(a, b.cpu()) for a, b in zip(
+               full[:4], (top_val, t0, f0, tt))) + int(
+               full[4] != (2 * spec.os_t if refine else spec.os_t)),
+           "max_abs_err": {
+               "sync_score": float((score.cpu() - p_score).abs().max()),
+               "sync_select": float((top_val.cpu() - p_val).abs().max()),
+               "sync_refine": float((tt.cpu() - p_tt).abs().max())},
+           "card_plain_differs": {
+               "top_idx": _bits_differ(card[1] * n_f0 + card[2], p_idx),
+               "tt": _bits_differ(card[3], p_tt)}}
+    res["ok"] = not any(res[k] for k in (
+        "score_bits_differ", "nms_bits_differ", "top_val_bits_differ",
+        "top_idx_differ", "tt_differ", "wrapper_differs"))
+    return res
+
+
+def sync_bounds(spec, power_sync, demod, t0, f0) -> dict:
+    """{kernel: (bytes ms, ops ms, counts)} of the sync search of one call:
+    sync_score reads once the cells of the power map that some score needs
+    (each sync cell's n_t0 x n_f0 window; not the padding rows below and
+    above nor the bins past the last tone) and base, writes the score and
+    the NMS map once, and does a float add a cell, a division and the
+    (os_t+1)(os_f+1) compares of the NMS a score (``fused_with_select``:
+    the bytes of score and selection as one kernel, with no map written
+    and read back); sync_select reads both
+    maps and writes top_val, t0 and f0 once, and compares each score once
+    (the least any selection does); sync_refine reads each distinct demod
+    cell its candidates need (counted on this call's t0 and bins) and t0
+    and f0, writes tt, and does |z|^2 (two products, an add, a square
+    root, a square), the bf16 rounding and an add a cell and offset, and
+    the argmax and clamp.  Operations at FP32_OPS (``ops_ms_fma_rate``:
+    at FP32_FLOPS)."""
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
+
+    b, h, f = power_sync.shape
+    n_t0, n_f0 = sk.grid(spec)
+    n = n_t0 * n_f0
+    cells = len(spec.sync_cells)
+    k = spec.top_k
+
+    def entry(n_bytes, ops, extra):
+        return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+                {"bytes": n_bytes, "ops": ops,
+                 "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3, **extra})
+
+    read = np.zeros((h, f), bool)
+    for sym, tone in spec.sync_cells:
+        r, c = spec.os_t * sym, spec.os_f * tone
+        read[r : r + n_t0, c : c + n_f0] = True
+    power_bytes = b * int(read.sum()) * 2
+    top_bytes = b * k * (4 + 8 + 8)
+    fused = power_bytes + b * 4 + top_bytes
+    out = {
+        "sync_score": entry(
+            power_bytes + b * 4 + 2 * b * n * 4,
+            b * n * (cells + (spec.os_t + 1) * (spec.os_f + 1)),
+            {"power_bytes_read": power_bytes,
+             "fused_with_select": {"bytes": fused,
+                                   "ms": fused / HBM_BYTES_S * 1e3}}),
+        "sync_select": entry(2 * b * n * 4 + top_bytes, 2 * b * n, {})}
+    if demod is not None:
+        rows = torch.as_tensor([2 * spec.os_t * s for s, _ in spec.sync_cells],
+                               device=t0.device)
+        cols = torch.as_tensor([spec.os_f * t for _, t in spec.sync_cells],
+                               device=t0.device)
+        r = (2 * t0[:, :, None, None] + torch.arange(3, device=t0.device)
+             [:, None] - 1 + rows)                     # [B, K, 3, cells]
+        c = (f0[:, :, None, None] + cols).expand_as(r)
+        w = torch.arange(b, device=t0.device)[:, None, None, None]
+        inside = (r >= 0) & (r < demod.shape[1])
+        key = ((w * demod.shape[1] + r) * demod.shape[2] + c)[inside]
+        uniq = int(torch.unique(key).numel())
+        out["sync_refine"] = entry(
+            uniq * 8 + b * k * 8 * 3,
+            b * k * (3 * cells * 7 + 4), {"distinct_cells": uniq})
+    return out
+
+
+def sync_kernels_phase(dev, cases: dict | None = None) -> dict:
+    """The ``sync_score``, ``sync_select`` and ``sync_refine`` kernels
+    against their plain versions on CPU copies of the inputs the decoders
+    hand them (``sync_cases``); then each kernel's device time at the FT8
+    main path's first-pass shape beside the plain version's on the card
+    and the bound, ``torch.topk`` of the same two maps as the selection's
+    library yardstick, and the whole stage issued from the host through
+    the kernels and through the plain version."""
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
+    from cwsl_digi_tpu_torch.modes import gfsk_engine as ge
+
+    s_cases = sync_cases(dev, cases or gfsk_cases(dev))
+    checks = {}
+    for name, args in s_cases.items():
+        checks[name] = sync_vs_plain(*args)
+        print(f"sync kernels vs plain, {name}: {json.dumps(checks[name])}")
+        torch.cuda.empty_cache()
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"sync kernels disagree with the plain "
+                             f"versions: {bad}")
+    spec, ps, demod, base, n_hops, refine = s_cases["ft8 main path pass 1"]
+    score, nms = sk.sync_score(spec, ps, base)
+    top_val, t0, f0 = sk.sync_select(spec, score, nms)
+    b = ps.shape[0]
+    k_nms = spec.top_k // 2
+    runs = {
+        "sync_score": (lambda: sk.sync_score(spec, ps, base),
+                       lambda: ge.sync_score_plain(spec, ps, base), 20, 3),
+        "sync_select": (lambda: sk.sync_select(spec, score, nms),
+                        lambda: ge.sync_select_plain(spec, score, nms), 10,
+                        3),
+        "sync_refine": (lambda: sk.sync_refine(spec, demod, t0, f0),
+                        lambda: ge.sync_refine_plain(spec, demod, t0, f0),
+                        20, 3)}
+    bounds = sync_bounds(spec, ps, demod, t0, f0)
+    errs = {name: max(c["max_abs_err"][name] for c in checks.values())
+            for name in runs}
+    out = stage_kernel_times(
+        runs, bounds, errs,
+        {"sync_score": list(ps.shape), "sync_select": list(score.shape),
+         "sync_refine": [list(demod.shape), list(t0.shape)]})
+    lib = cuda_ms(lambda: (torch.topk(nms.reshape(b, -1), k_nms),
+                           torch.topk(score.reshape(b, -1),
+                                      spec.top_k - k_nms)), 10)
+    out["sync_select"]["library_ms"] = lib
+    print(f"sync_select library yardstick: torch.topk of both maps "
+          f"{lib:.4f} ms device time")
+    stage = {
+        "kernels_ms": eager_ms(lambda: sk.sync_candidates(
+            spec, ps, demod, base, n_hops, refine), 5),
+        "plain_ms": eager_ms(lambda: ge.sync_candidates_plain(
+            spec, ps, demod, base, n_hops, refine), 5)}
+    print(f"sync stage, FT8 main path pass 1, issued from the host: "
+          f"{json.dumps(stage)}")
+    return {"kernels": out, "checks": checks, "stage": stage}
+
+
 def _plan():
     """64 dials across the band and the bursts: (dial index, message,
     audio offset Hz, SNR dB in 2.5 kHz, dt s)."""
@@ -1268,15 +1529,12 @@ def _write_replay(path: Path, dials, bursts) -> list[tuple[str, int]]:
 def _run_app(dev, ini: Path, n_windows, timeout_s: float,
              on_anchor=None) -> dict:
     """Run the port's App on ``ini`` until ``n_windows()`` channel-windows
-    are decoded: its spots, the jobs handed to the pool and the
-    channelizer, LDPC and GFSK kernel launches of the run.  The App starts the
-    replay on its own anchor, the next UTC 15 s boundary;
+    are decoded: its spots, the jobs handed to the pool and every kernel's
+    launches in the run.  The App starts the replay on its own anchor, the
+    next UTC 15 s boundary;
     ``on_anchor(utc_anchor)``, if given, runs once with that anchor just
     before the receiver opens the file (to write a replay that fits it)."""
     from cwsl_digi_tpu_torch.config import load_config
-    from cwsl_digi_tpu_torch.dsp import _kernels
-    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
-    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
     from cwsl_digi_tpu_torch.runtime.app import App
 
     app = App(load_config(ini), max_runtime_s=timeout_s + 60, device=dev)
@@ -1309,9 +1567,7 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
 
     # App.run warms the decoders up (one strong window through every pass)
     # before it starts the receiver
-    _kernels.launches["channelize"] = 0
-    _reset(ldpc_kernels.launches)
-    _reset(gfsk_kernels.launches)
+    _reset_launches()
     t0 = time.monotonic()
     runner = threading.Thread(target=app.run, daemon=True)
     try:
@@ -1322,9 +1578,7 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
             time.sleep(0.2)
         torch.cuda.synchronize()
         run_s = time.monotonic() - t0
-        launches = _kernels.launches["channelize"]
-        ldpc_launches = dict(ldpc_kernels.launches)
-        gfsk_launches = dict(gfsk_kernels.launches)
+        counts = _launch_counts()
     finally:
         app._terminate = True
         runner.join(timeout=60)
@@ -1334,16 +1588,34 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
     if rx_stage:
         print(f"channelize host wall {rx_stage[0]['channelize_wall_s']:.3f} s"
               f" for {rx_stage[0]['channelized_audio_s']:.2f} s of audio")
-    return {"spots": spots, "jobs": jobs, "launches": launches,
-            "ldpc_launches": ldpc_launches, "gfsk_launches": gfsk_launches,
-            "run_s": run_s, "decoded": app.pool.count_decoded_windows,
+    return {"spots": spots, "jobs": jobs, "launches": counts["channelize"],
+            "kernel_launches": counts, "run_s": run_s,
+            "decoded": app.pool.count_decoded_windows,
             "stage_log": list(app.pool.stage_log),
             "anchor": anchors[0] if anchors else None}
 
 
-def _reset(counts: dict) -> None:
-    for name in counts:
-        counts[name] = 0
+def _kernel_modules() -> tuple:
+    """The port's kernel libraries, each with its ``launches`` dict."""
+    from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels, _sync_kernels
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+
+    return _kernels, ldpc_kernels, _gfsk_kernels, _sync_kernels
+
+
+def _reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for mod in _kernel_modules():
+        for name in mod.launches:
+            mod.launches[name] = 0
+
+
+def _launch_counts() -> dict:
+    """{kernel: launches since the last ``_reset_launches``}, every
+    library's."""
+    return {name: n for mod in _kernel_modules()
+            for name, n in mod.launches.items()}
 
 
 def _require_launches(where: str, counts: dict, names) -> None:
@@ -1391,14 +1663,12 @@ def main_path_phase(dev, workdir: Path) -> dict:
     _check_spots(run["spots"], expected)
     if run["launches"] <= 0:
         raise AssertionError("main path did not launch the channelizer kernel")
-    _require_launches("main path", run["ldpc_launches"], LDPC_KERNELS)
-    _require_launches("main path", run["gfsk_launches"], GFSK_KERNELS)
+    _require_launches("main path", run["kernel_launches"], HAND_KERNELS)
     devices = [j[2] for j in run["jobs"]]
     if not devices or any(d != "cuda" for d in devices):
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
     return {"launches": run["launches"], "decode_s": decode_s,
-            "ldpc_launches": run["ldpc_launches"],
-            "gfsk_launches": run["gfsk_launches"], "run_s": run["run_s"]}
+            "kernel_launches": run["kernel_launches"], "run_s": run["run_s"]}
 
 
 # the lines a 20 m skimmer runs on one 192 kHz receiver at LO 14.100 MHz
@@ -1510,13 +1780,13 @@ def _write_lines_replay(path: Path, lead_s: float, lines, plan, seed: int
 
 
 def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
-                  ldpc_used, gfsk_used) -> dict:
+                  used) -> dict:
     """The port's App on a replay of ``lines`` with the bursts of ``plan``,
     written once the App has taken its anchor (noise to the next 2-minute
     boundary, then MIXED_S s): every line's windows on their own UTC
     boundaries, the expected spots and no other, through the channelizer
-    kernel, the LDPC kernels of ``ldpc_used`` and the GFSK kernels of
-    ``gfsk_used``, with CUDA tensors reaching the decoders."""
+    kernel and each hand kernel of ``used``, with CUDA tensors reaching the
+    decoders."""
     iq_path = workdir / f"{name}.npy"
     ini = workdir / f"{name}.ini"
     ini.write_text("\n".join(
@@ -1556,14 +1826,12 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
     if run["launches"] <= 0:
         raise AssertionError(f"{name} path did not launch the channelizer "
                              "kernel")
-    _require_launches(f"{name} path", run["ldpc_launches"], ldpc_used)
-    _require_launches(f"{name} path", run["gfsk_launches"], gfsk_used)
+    _require_launches(f"{name} path", run["kernel_launches"], used)
     devices = {j[2] for j in run["jobs"]}
     if devices != {"cuda"}:
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
     return {"launches": run["launches"],
-            "ldpc_launches": run["ldpc_launches"],
-            "gfsk_launches": run["gfsk_launches"], "decode_batches": batches,
+            "kernel_launches": run["kernel_launches"], "decode_batches": batches,
             "run_s": run["run_s"], "windows": run["decoded"],
             "lead_s": state["lead"]}
 
@@ -1571,7 +1839,7 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
 def mixed_mode_phase(dev, workdir: Path) -> dict:
     """The port's App on the mixed-mode replay."""
     return _replay_phase(dev, workdir, "mixed-mode", MIXED_LINES,
-                         _mixed_plan(), SEED + 2, LDPC_KERNELS, GFSK_KERNELS)
+                         _mixed_plan(), SEED + 2, HAND_KERNELS)
 
 
 # the weak-signal lines of the same 20 m receiver: WSPR beside FST4W on
@@ -1605,10 +1873,10 @@ def _weak_plan():
 def weak_modes_phase(dev, workdir: Path) -> dict:
     """The port's App on the weak-mode replay (WSPR, JT65, Q65-30): WSPR's
     OSD runs the ``osd`` kernel; none of the three has an LDPC code or
-    runs the GFSK engine, so ``bp_minsum``, ``subtract_known`` and
-    ``multisym_llrs`` have no launch here."""
+    runs the GFSK engine, so ``bp_minsum``, ``subtract_known``,
+    ``multisym_llrs`` and the sync kernels have no launch here."""
     return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
-                         _weak_plan(), SEED + 5, ("osd",), ())
+                         _weak_plan(), SEED + 5, ("osd",))
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -1988,14 +2256,9 @@ def live_soak_phase(dev) -> dict:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     from torch_soak import run_soak
 
-    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
-    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
-
-    _reset(ldpc_kernels.launches)
-    _reset(gfsk_kernels.launches)
+    _reset_launches()
     r = run_soak(device=dev, **SOAK)
-    ldpc_launches = dict(ldpc_kernels.launches)
-    gfsk_launches = dict(gfsk_kernels.launches)
+    counts = _launch_counts()
     st = r["stages"]
     lw = st["lock_wait_s"]
     print(f"live soak: {r['channels']} FT8 channels on {r['receivers']} "
@@ -2040,10 +2303,8 @@ def live_soak_phase(dev) -> dict:
     if r["channelize_launches"] <= 0:
         raise AssertionError("live soak did not launch the channelizer "
                              "kernel")
-    _require_launches("live soak", ldpc_launches, LDPC_KERNELS)
-    _require_launches("live soak", gfsk_launches, GFSK_KERNELS)
-    return {"launches": r["channelize_launches"],
-            "ldpc_launches": ldpc_launches, "gfsk_launches": gfsk_launches,
+    _require_launches("live soak", counts, HAND_KERNELS)
+    return {"launches": r["channelize_launches"], "kernel_launches": counts,
             "report": {
         k: v for k, v in r.items() if k not in ("stages", "missing")}}
 
@@ -2131,9 +2392,6 @@ def bench_phase(dev) -> dict:
     import torch_bench_sections
 
     from cwsl_digi_tpu_torch.constants import Mode
-    from cwsl_digi_tpu_torch.dsp import _kernels
-    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
-    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     # (name, section, args) at a small size
     sections = [("channelizer", "section_channelizer", (256,)),
@@ -2144,9 +2402,7 @@ def bench_phase(dev) -> dict:
     sections += [(f"qary_host_fraction:{m}", "section_qary_host_fraction",
                   (m, 2)) for m in ("JT65", "Q65-30")]
     out = {}
-    _kernels.launches["channelize"] = 0
-    _reset(ldpc_kernels.launches)
-    _reset(gfsk_kernels.launches)
+    _reset_launches()
     for name, fn, args in sections:
         r = getattr(torch_bench_sections, fn)(*args, device=dev)
         if not r:
@@ -2154,22 +2410,19 @@ def bench_phase(dev) -> dict:
         r.pop("decodes", None)
         print(f"bench {name}: {json.dumps(r)}")
         out[name] = r
-    ldpc_launches = dict(ldpc_kernels.launches)
-    gfsk_launches = dict(gfsk_kernels.launches)
+    counts = _launch_counts()
     chan, prod = out["channelizer"], out["decode_production"]
     if prod["false_messages"]:
         raise AssertionError(f"busy-band decode: {prod['false_messages']}")
-    if not 0 < chan["kernel_launches"] <= _kernels.launches["channelize"] \
+    if not 0 < chan["kernel_launches"] <= counts["channelize"] \
             or chan["backend"] != "cuda":
         raise AssertionError(f"bench channelizer: {chan['kernel_launches']} "
                              "kernel launches")
     missing = [k for k, r in out.items() if r.get("found_share", 1.0) <= 0]
     if missing:
         raise AssertionError(f"bench sections decoded nothing: {missing}")
-    _require_launches("bench", ldpc_launches, LDPC_KERNELS)
-    _require_launches("bench", gfsk_launches, GFSK_KERNELS)
-    return {"launches": chan["kernel_launches"],
-            "ldpc_launches": ldpc_launches, "gfsk_launches": gfsk_launches,
+    _require_launches("bench", counts, HAND_KERNELS)
+    return {"launches": chan["kernel_launches"], "kernel_launches": counts,
             "sections": out}
 
 
@@ -2183,12 +2436,13 @@ def main() -> int:
     from cwsl_digi_tpu_torch.dsp import _kernels
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sync_kernels
 
     dev = cuda_device()
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
     build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels,
-                     "gfsk": gfsk_kernels})
+                     "gfsk": gfsk_kernels, "sync": sync_kernels})
 
     walls = {}
 
@@ -2212,7 +2466,11 @@ def main() -> int:
     kwide = phase("kernel_256ch", kernel_phase, dev,
                   np.linspace(-FS / 2, FS / 2 - 6000, 256))
     kldpc = phase("ldpc_kernels", ldpc_kernels_phase, dev)
-    kgfsk = phase("gfsk_kernels", gfsk_kernels_phase, dev)
+    gcases = phase("gfsk_cases", gfsk_cases, dev)
+    kgfsk = phase("gfsk_kernels", gfsk_kernels_phase, dev, gcases)
+    ksync = phase("sync_kernels", sync_kernels_phase, dev, gcases)
+    del gcases
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2234,6 +2492,7 @@ def main() -> int:
                       "channelize_256ch": kwide}))
     print(json.dumps({"ldpc_kernels": kldpc}))
     print(json.dumps({"gfsk_kernels": kgfsk}))
+    print(json.dumps({"sync_kernels": ksync}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
                       "weak_decode_batches": wstats["decode_batches"],
@@ -2264,13 +2523,16 @@ def main() -> int:
         "bound_by": kmain["bound_by"],
         "library_ms": kmain["library_ms"],
     }]
-    hand = [(name, replaces, kldpc, "ldpc_launches", "ldpc.cu")
+    hand = [(name, replaces, kldpc, "ldpc.cu")
             for name, replaces in LDPC_REPLACES.items()]
-    hand += [(name, replaces, kgfsk, "gfsk_launches", "gfsk.cu")
+    hand += [(name, replaces, kgfsk, "gfsk.cu")
              for name, replaces in GFSK_REPLACES.items()]
-    for name, replaces, kphase, counts, src in hand:
+    hand += [(name, replaces, ksync, "sync.cu")
+             for name, replaces in SYNC_REPLACES.items()]
+    for name, replaces, kphase, src in hand:
         k = kphase["kernels"][name]
-        by_phase = {ph: st[counts][name] for ph, st in app_phases.items()}
+        by_phase = {ph: st["kernel_launches"][name]
+                    for ph, st in app_phases.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cwsl_digi_tpu_torch/modes/csrc/{src}",

@@ -15,8 +15,9 @@ Stages per batch of windows:
      rffts where the DFT matrix would be too large;
   2. sync correlation: one shifted-slice add per known sync cell;
   3. hybrid top-K over (start hop, base bin): half after NMS, half raw;
-  4. sub-grid refinement (refine branch), strided block gather, sync-pair
-     frequency correction, coherent LLRs;
+  4. sub-grid refinement (refine branch) -- stages 2-4a are
+     :func:`sync_candidates`, three hand kernels on the card --, strided
+     block gather, sync-pair frequency correction, coherent LLRs;
   5. AP hypotheses, min-sum LDPC, CRC and validity gates; OSD fallback.
 
 Where JAX and PyTorch differ, the port follows JAX: ``jnp.median``
@@ -37,7 +38,7 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes import _gfsk_kernels
+from cwsl_digi_tpu_torch.modes import _gfsk_kernels, _sync_kernels
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
@@ -504,6 +505,100 @@ def candidate_llrs_plain(spec: ModeSpec, demod: torch.Tensor,
     return llr.reshape(b, k, spec.n_bits)
 
 
+def sync_candidates(spec: ModeSpec, power_sync: torch.Tensor,
+                    demod: torch.Tensor, base: torch.Tensor, n_hops: int,
+                    refine: bool) -> tuple:
+    """Stages 2, 3 and 4a of :func:`decode_program`: the sync score over
+    (start hop, base bin), the hybrid top-K (half after NMS, half raw) and,
+    where ``refine``, the decision-directed half-hop refinement.
+
+    power_sync [B, ph + n_hops + ph, F] bf16, demod the complex boxcar
+    spectrogram (read only where ``refine``), base [B, 1, 1] float32 (the
+    real rows' mean times the sync cells).  Returns (top_val [B, K], t0,
+    f0, tt [B, K] int64, os_t_eff).
+
+    A CPU tensor runs :func:`sync_candidates_plain`; any other launches the
+    ``sync_score``, ``sync_select`` and ``sync_refine`` kernels
+    (``csrc/sync.cu``), which raise if they cannot (no fallback) and never
+    sync with the host.
+    """
+    if power_sync.device.type == "cpu":
+        return sync_candidates_plain(spec, power_sync, demod, base, n_hops,
+                                     refine)
+    return _sync_kernels.sync_candidates(
+        spec, power_sync.contiguous(),
+        demod.contiguous() if refine else demod, base.contiguous(), n_hops,
+        refine)
+
+
+def sync_score_plain(spec: ModeSpec, power_sync: torch.Tensor,
+                     base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 and the NMS of stage 3: the sync score [B, n_t0, n_f0] (one
+    shifted-slice add per sync cell, over ``base + 1e-30``) and the score
+    where it is the maximum of its (os_t+1) x (os_f+1) neighbourhood, else
+    0."""
+    n_t0, n_f0 = _sync_kernels.grid(spec)
+    acc = _shifted_sum(power_sync, spec.sync_cells, n_t0, n_f0,
+                       spec.os_t, spec.os_f)
+    score = acc / (base + 1e-30)
+    neigh = torch.nn.functional.max_pool2d(
+        score[:, None], kernel_size=(spec.os_t + 1, spec.os_f + 1), stride=1,
+        padding=(spec.os_t // 2, spec.os_f // 2))[:, 0]
+    return score, torch.where(score >= neigh, score, 0.0)
+
+
+def sync_select_plain(spec: ModeSpec, score: torch.Tensor, nms: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 3's hybrid top-K: ``top_k // 2`` of the NMS map, the rest of
+    the raw score, per window: (top_val, top_idx) [B, top_k], flat indices
+    into [n_t0 * n_f0]."""
+    b = score.shape[0]
+    k_nms = spec.top_k // 2
+    v1, i1 = _top_k(nms.reshape(b, -1), k_nms)
+    v2, i2 = _top_k(score.reshape(b, -1), spec.top_k - k_nms)
+    return torch.cat([v1, v2], dim=1), torch.cat([i1, i2], dim=1)
+
+
+def sync_refine_plain(spec: ModeSpec, demod: torch.Tensor, t0: torch.Tensor,
+                      f0: torch.Tensor) -> torch.Tensor:
+    """Stage 4a: each candidate's start on the half-hop grid, tt = 2 t0 +
+    the offset in -1..1 whose sync cells hold the most boxcar energy
+    bf16(|demod|^2) (rows outside the spectrogram read as 0), clamped into
+    the spectrogram."""
+    b = demod.shape[0]
+    dev = demod.device
+    n_t0, n_f0 = _sync_kernels.grid(spec)
+    powf = torch.nn.functional.pad(
+        (demod.abs() ** 2).to(torch.bfloat16), (0, 0, 1, 1))
+    n_tf = 2 * n_t0 + 1
+    accf = _shifted_sum(powf, spec.sync_cells, n_tf, n_f0,
+                        2 * spec.os_t, spec.os_f).reshape(b, n_tf * n_f0)
+    del powf
+    idx3 = ((2 * t0[:, :, None] + torch.arange(3, device=dev)) * n_f0
+            + f0[:, :, None])
+    e3 = torch.gather(accf, 1, idx3.reshape(b, -1)).reshape(
+        b, spec.top_k, 3)
+    delta = e3.argmax(dim=-1) - 1
+    return (2 * t0 + delta).clamp(0, demod.shape[1] - 1)
+
+
+def sync_candidates_plain(spec: ModeSpec, power_sync: torch.Tensor,
+                          demod: torch.Tensor, base: torch.Tensor,
+                          n_hops: int, refine: bool) -> tuple:
+    """The plain PyTorch version of :func:`sync_candidates` (on any
+    device): the kernels' oracle.  ``n_hops`` is unused here (the wrapper
+    checks the spectrogram's rows against it)."""
+    score, nms = sync_score_plain(spec, power_sync, base)
+    top_val, top_idx = sync_select_plain(spec, score, nms)
+    n_f0 = score.shape[2]
+    t0 = top_idx // n_f0
+    f0 = top_idx % n_f0
+    if refine:
+        return (top_val, t0, f0, sync_refine_plain(spec, demod, t0, f0),
+                2 * spec.os_t)
+    return top_val, t0, f0, t0, spec.os_t
+
+
 def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
                    bp: BPDecoder) -> dict[str, torch.Tensor]:
     """One decode pass over a batch of windows ([B, N] float32 audio).
@@ -517,53 +612,17 @@ def decode_program(spec: ModeSpec, audio: torch.Tensor, tabs: dict,
     b, n_samples = audio.shape
     dev = audio.device
     n_hops = (n_samples - spec.sps) // spec.hop + 1
-    fmin_bin, fmax_bin, _ = spec.bin_range
+    fmin_bin = spec.bin_range[0]
     ph = spec.pad_hops
 
     # --- 1. spectrograms ----------------------------------------------------
     power_sync, demod, refine = spectrograms(spec, audio, tabs)
 
-    # --- 2. sync correlation ----------------------------------------------
-    n_t0 = spec.max_hops
-    n_f0 = fmax_bin - fmin_bin
-    acc = _shifted_sum(power_sync, spec.sync_cells, n_t0, n_f0,
-                       spec.os_t, spec.os_f)
+    # --- 2-4a. sync correlation, hybrid top-K, half-hop refinement ---------
     real_rows = power_sync[:, ph : ph + n_hops].to(torch.float32)
     base = real_rows.mean(dim=(1, 2), keepdim=True) * len(spec.sync_cells)
-    score = acc / (base + 1e-30)
-
-    # --- 3. hybrid top-K: half after NMS, half raw -------------------------
-    neigh = torch.nn.functional.max_pool2d(
-        score[:, None], kernel_size=(spec.os_t + 1, spec.os_f + 1), stride=1,
-        padding=(spec.os_t // 2, spec.os_f // 2))[:, 0]
-    flat_nms = torch.where(score >= neigh, score, 0.0).reshape(b, -1)
-    k_nms = spec.top_k // 2
-    v1, i1 = _top_k(flat_nms, k_nms)
-    v2, i2 = _top_k(score.reshape(b, -1), spec.top_k - k_nms)
-    top_val = torch.cat([v1, v2], dim=1)
-    top_idx = torch.cat([i1, i2], dim=1)
-    t0 = top_idx // n_f0
-    f0 = top_idx % n_f0
-
-    n_hops_src = demod.shape[1]
-    if refine:
-        # --- 4a. decision-directed half-hop refinement ---------------------
-        powf = torch.nn.functional.pad(
-            (demod.abs() ** 2).to(torch.bfloat16), (0, 0, 1, 1))
-        n_tf = 2 * n_t0 + 1
-        accf = _shifted_sum(powf, spec.sync_cells, n_tf, n_f0,
-                            2 * spec.os_t, spec.os_f).reshape(b, n_tf * n_f0)
-        del powf
-        idx3 = ((2 * t0[:, :, None] + torch.arange(3, device=dev)) * n_f0
-                + f0[:, :, None])
-        e3 = torch.gather(accf, 1, idx3.reshape(b, -1)).reshape(
-            b, spec.top_k, 3)
-        delta = e3.argmax(dim=-1) - 1
-        tt = (2 * t0 + delta).clamp(0, n_hops_src - 1)
-        os_t_eff = 2 * spec.os_t
-    else:
-        tt = t0
-        os_t_eff = spec.os_t
+    top_val, t0, f0, tt, os_t_eff = sync_candidates(
+        spec, power_sync, demod, base, n_hops, refine)
 
     # --- 4b. strided block gather, rotation and coherent LLRs -------------
     llr = candidate_llrs(spec, demod, tt, f0, os_t_eff,

@@ -10,8 +10,10 @@ subtraction bit for bit alike
 whatever its blocks, in and out of a CUDA graph; ``sincosf`` as ``sinf``
 and ``cosf``), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
 Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
-and the parallel layer on a virtual mesh of the card against one on the
-CPU.
+the sync-search kernels ``sync_score``, ``sync_select`` and
+``sync_refine`` against their plain versions on FT8 (noise with tone tracks,
+and all-tie windows), JS8 and FST4-60 maps (and no fallback), and the
+parallel layer on a virtual mesh of the card against one on the CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -23,6 +25,7 @@ Elsewhere every test skips.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -36,6 +39,7 @@ from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
 from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+from cwsl_digi_tpu_torch.modes import _sync_kernels as sync_kernels
 from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, gfsk_engine, js8,
                                        jt65, ldpc, osd, q65, subtract, wspr)
 from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
@@ -462,6 +466,117 @@ def test_decoders_launch_the_gfsk_kernels_on_card(dev):
     before = dict(gfsk_kernels.launches)
     wspr.WSPRDecoder(device=dev).decode(torch.from_numpy(win[None]).to(dev))
     assert gfsk_kernels.launches == before
+
+
+def _sync_noise_case(spec, seed: int, dev) -> tuple:
+    """Sync-search operands of two windows at the mode's decode_program
+    shapes (``chip_smoke.tie_case``'s): exponential power noise and
+    complex Gaussian demod noise with 8 tone tracks a window along the
+    sync cells, the demod's at a random half-hop offset."""
+    spec, ps, dem, _, n_hops, refine = chip_smoke.tie_case(spec, "cpu")
+    rng = np.random.default_rng(seed)
+    power = rng.exponential(1.0, tuple(ps.shape)).astype(np.float32)
+    demod = ((rng.standard_normal(tuple(dem.shape))
+              + 1j * rng.standard_normal(tuple(dem.shape))) / np.sqrt(2)
+             ).astype(np.complex64)
+    n_f0 = spec.bin_range[1] - spec.bin_range[0]
+    for w in range(2):
+        for _ in range(8):
+            t0 = int(rng.integers(0, spec.max_hops))
+            f0 = int(rng.integers(0, n_f0))
+            amp = 10 ** rng.uniform(0.3, 1.2)
+            off = int(rng.integers(-1, 2))
+            for sym, tone in spec.sync_cells:
+                r, c = t0 + spec.os_t * sym, f0 + spec.os_f * tone
+                power[w, r, c] += amp
+                if 0 <= 2 * r + off < demod.shape[1]:
+                    demod[w, 2 * r + off, c] += np.sqrt(amp)
+    ps = torch.from_numpy(power).to(torch.bfloat16).to(dev)
+    ph = spec.pad_hops
+    base = ps[:, ph : ph + n_hops].to(torch.float32).mean(
+        dim=(1, 2), keepdim=True) * len(spec.sync_cells)
+    return (spec, ps, torch.from_numpy(demod).to(dev), base, n_hops,
+            refine)
+
+
+@pytest.mark.parametrize("case", ["ft8 noise", "ft8 ties", "js8 noise",
+                                  "fst4-60 noise", "ft8 noise widest"])
+def test_sync_kernels_match_plain_on_card(dev, case):
+    """sync_score, sync_select and sync_refine (and the stage's wrapper)
+    against the plain versions on CPU copies: the score and NMS map bit for
+    bit, top_val bit for bit, top_idx and tt identical; on a small FT8 map
+    with tone tracks, on FT8 windows of a constant map and of zeros (every
+    score and every refinement offset ties), on JS8, on FST4-60 (no
+    refinement) and on FT8 at the largest top_k the selection takes (its
+    pairs in 128 KB of shared memory a block).  Each wrapper call counts
+    one launch of its kernel."""
+    spec = {"ft8": ft8.SPEC, "js8": js8.SPEC,
+            "fst4-60": fst4.make_spec(Mode.FST4_60)}[case.split()[0]]
+    if case.endswith("widest"):
+        spec = dataclasses.replace(spec,
+                                   top_k=2 * sync_kernels.SELECT_MAX_K)
+    args = (chip_smoke.tie_case(spec, dev) if case.endswith("ties")
+            else _sync_noise_case(spec, 17, dev))
+    before = dict(sync_kernels.launches)
+    got = chip_smoke.sync_vs_plain(*args)
+    torch.cuda.synchronize()
+    refine = int(args[5])
+    assert sync_kernels.launches == {
+        "sync_score": before["sync_score"] + 2,
+        "sync_select": before["sync_select"] + 2,
+        "sync_refine": before["sync_refine"] + 2 * refine}
+    assert got["ok"], got
+
+
+def test_sync_kernels_raise_without_library_on_card(dev, monkeypatch,
+                                                    tmp_path):
+    """With no nvcc and no built library, sync_candidates on CUDA tensors
+    raises; the plain versions never run and nothing counts."""
+    monkeypatch.setattr(sync_kernels, "_lib", None)
+    monkeypatch.setattr(sync_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(sync_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for name in ("sync_candidates_plain", "sync_score_plain",
+                 "sync_select_plain", "sync_refine_plain"):
+        monkeypatch.setattr(gfsk_engine, name, plain)
+    before = dict(sync_kernels.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gfsk_engine.sync_candidates(*chip_smoke.tie_case(js8.SPEC, dev))
+    assert sync_kernels.launches == before
+
+
+def test_decoders_launch_the_sync_kernels_on_card(dev):
+    """An FT8 decode on the card at depth 2 runs each sync kernel once a
+    pass; FST4-60 runs the score and the selection, not the refinement; a
+    WSPR decode runs none."""
+    rng = np.random.default_rng(14)
+    win = add_noise_at_snr(ft8.synthesize("CQ W2AXR FN13", 1200.0), -12.0,
+                           12_000, rng).astype(np.float32)
+    before = dict(sync_kernels.launches)
+    res = ft8.FT8Decoder(device=dev).decode(
+        torch.from_numpy(win[None]).to(dev), depth=2)
+    torch.cuda.synchronize()
+    assert [r.message for r in res[0]] == ["CQ W2AXR FN13"]
+    assert sync_kernels.launches == {k: v + 2 for k, v in before.items()}
+    win = add_noise_at_snr(fst4.synthesize("CQ F5ABC JN18", Mode.FST4_60,
+                                           1000.0), -10.0, 12_000,
+                           rng).astype(np.float32)
+    before = dict(sync_kernels.launches)
+    fst4.FST4Decoder(Mode.FST4_60, device=dev).decode(
+        torch.from_numpy(win[None]).to(dev), depth=1)
+    assert sync_kernels.launches == {**before,
+                                     "sync_score": before["sync_score"] + 1,
+                                     "sync_select": before["sync_select"] + 1}
+    win = add_noise_at_snr(wspr.synthesize("K1ABC", "FN42", 37, 1500.0),
+                           -20.0, 12_000, rng).astype(np.float32)
+    before = dict(sync_kernels.launches)
+    wspr.WSPRDecoder(device=dev).decode(torch.from_numpy(win[None]).to(dev))
+    assert sync_kernels.launches == before
 
 
 def test_one_decode_at_a_time_on_the_card(dev):

@@ -131,8 +131,8 @@ def _setup(mode: str, dev):
         audio = _windows(WINDOWS, SIGNALS, 7)
         stages = [(gfsk_engine, name, label) for name, label in [
             ("_bf16_matmul", "spectrogram matmuls"),
-            ("_shifted_sum", "sync accumulation (coarse+fine)"),
-            ("_top_k", "top-K sorts (candidates, OSD pick)"),
+            ("sync_candidates", "sync search (score, NMS, top-K, refine)"),
+            ("_top_k", "top-K sorts (OSD and subtraction picks)"),
             ("candidate_llrs", "gather + coherent LLRs"),
             ("osd_decode", "OSD"),
             ("subtract_known", "subtraction"),

@@ -8,7 +8,9 @@ come from ``tools/torch_parity.py``'s ``make_trial``, ``SWEEPS``,
 same trials.  For each top-K it prints the decode time per window of a
 ``max_device_batch`` batch (host clock, the device synchronised around
 each decode), the recall at -18 and -21 dB, and the decodes per window of
-a busy band (6 signals a window, -20 to -5 dB).
+a busy band (6 signals a window, -20 to -5 dB).  On the card the sync
+search's selection takes top_k up to 32768
+(``_sync_kernels.SELECT_MAX_K`` a half) and refuses a larger one.
 
 Usage (the card by default)::
 
