@@ -60,12 +60,15 @@
    each, and the stage's wrapper ``sync_candidates``) against the plain
    versions on CPU copies of the inputs the decoders hand the sync search
    (phase ``sync_kernels``, recorded with the 4b cases): the FT8 main
-   path's first 24-window pass-1 call and its first call at the later
-   passes' top_k, FT4 at depth 3, JS8, the App's FST4-60 (3000 Hz: the rfft
-   branch), FST4W-1800 at its device batch, and FT8 windows of a constant
-   map and of zeros (every score ties): the score and NMS map bit for
-   bit, top_val bit for bit, top_idx and tt identical; beside it the plain
-   version on the card against the same.  Then each kernel's device time
+   path's first 24-window pass-1 call (also at top_k 32768, 16384 a half)
+   and its first call at the later passes' top_k, FT4 at depth 3, JS8, the
+   App's FST4-60 (3000 Hz: the rfft branch), FST4W-1800 at its device
+   batch, FT8 windows of a constant map and of zeros (every score ties) and
+   FT8 windows holding NaN and +-inf: the score and NMS map bit for bit,
+   top_val bit for bit, top_idx and tt identical; beside it the plain
+   version on the card against the same.  It prints the kept designs: the
+   selection's cluster, block and shared memory, each kernel's registers
+   and spills.  Then each kernel's device time
    at the FT8 pass-1 shape beside the plain version's on the card and the
    bound, ``torch.topk`` of both maps as the selection's yardstick, and
    the whole stage issued from the host through the kernels and the plain
@@ -144,6 +147,7 @@ Any failed phase raises; nothing is caught.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -1243,21 +1247,49 @@ def tie_case(spec, dev) -> tuple:
     return spec, power, demod, base, n_hops, spec.refine
 
 
+def odd_case(spec, dev, seed: int = SEED + 47) -> tuple:
+    """Sync-search operands of two windows at the mode's decode_program
+    shapes (``tie_case``'s) whose bf16 power map is exponential noise with
+    NaN, +inf, -inf and -0.0 cells (so NaN and infinite scores, and NMS
+    windows that hold them); base is the noise's before those cells went
+    in, so the other scores stay finite.  (spec, power_sync, demod, base,
+    n_hops, refine)."""
+    spec, ps, demod, _, n_hops, refine = tie_case(spec, dev)
+    rng = np.random.default_rng(seed)
+    power = rng.exponential(1.0, tuple(ps.shape)).astype(np.float32)
+    ph = spec.pad_hops
+    base = torch.from_numpy(power[:, ph : ph + n_hops]).to(
+        torch.bfloat16).to(torch.float32).mean(
+        dim=(1, 2), keepdim=True) * len(spec.sync_cells)
+    flat = power.reshape(-1)
+    for val, count in ((np.nan, 20), (np.inf, 30), (-np.inf, 10),
+                       (-0.0, 200)):
+        flat[rng.choice(flat.size, count, replace=False)] = val
+    return (spec, torch.from_numpy(power).to(torch.bfloat16).to(dev), demod,
+            base.to(dev), n_hops, refine)
+
+
 def sync_cases(dev, cases: dict) -> dict:
     """The sync-search operands the decoders hand over, by case: the FT8
-    main path's first 24-window call of pass 1 and its first call at the
-    later passes' top_k, FT4 at depth 3, JS8 and FST4W-1800 at its device
-    batch (the rfft branch), all from ``gfsk_cases``; the App's FST4-60
-    (``highestdecodefreq`` 3000 Hz: the rfft branch) on 8 windows; and
-    FT8's all-tie windows (``tie_case``).  {name: (spec, power_sync,
-    demod, base, n_hops, refine)}."""
+    main path's first 24-window call of pass 1 (also at top_k 32768, the
+    selection's widest: 16384 a half) and its first call at the later
+    passes' top_k, FT4 at depth 3, JS8 and FST4W-1800 at its device batch
+    (the rfft branch), all from ``gfsk_cases``; the App's FST4-60
+    (``highestdecodefreq`` 3000 Hz: the rfft branch) on 8 windows; FT8's
+    all-tie windows (``tie_case``) and FT8 windows holding NaN and +-inf
+    (``odd_case``).  {name: (spec, power_sync, demod, base, n_hops,
+    refine)}."""
     from cwsl_digi_tpu_torch.constants import Mode
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
     from cwsl_digi_tpu_torch.modes import fst4, ft8
 
     ft8_in = cases["ft8 main path"][2]
     if len(ft8_in) < 2:
         raise AssertionError("the FT8 main path ran no later pass")
+    widest = (dataclasses.replace(ft8_in[0][0], top_k=2 * sk.SELECT_MAX_K),
+              *ft8_in[0][1:])
     out = {"ft8 main path pass 1": ft8_in[0],
+           "ft8 main path pass 1 at top_k 32768": widest,
            "ft8 main path pass 2": ft8_in[1]}
     for name in ("ft4 depth 3", "js8", "fst4w-1800"):
         out[name] = cases[name][2][0]
@@ -1268,22 +1300,45 @@ def sync_cases(dev, cases: dict) -> dict:
     audio = torch.from_numpy(_gfsk_mode_windows("FST4-60", 8, SEED + 45))
     out["fst4-60 app band"] = record_gfsk_inputs(dec, audio.to(dev))[2][0]
     out["ft8 constant and all-zero windows"] = tie_case(ft8.SPEC, dev)
+    out["ft8 nan and inf"] = odd_case(ft8.SPEC, dev)
     return out
 
 
 def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
     """Entries of a (on the card) and b (on the CPU) that differ: by their
-    bits for floats, by value for integers."""
+    bits for floats, where both are NaN by nothing (a NaN's payload and
+    sign are the hardware's: x86 keeps an operand's and makes 0xffc00000
+    of inf - inf, the card makes 0x7fffffff; ``_nan_payloads_differ``
+    counts those), by value for integers."""
     a = a.cpu()
     if a.dtype == torch.float32:
-        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        differ = a.view(torch.int32) != b.view(torch.int32)
+        return int((differ & ~(a.isnan() & b.isnan())).sum())
     return int((a != b).sum())
+
+
+def _abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| of a (on the card) and b (on the CPU), entries
+    that are equal or both NaN counting 0 (so equal infinities and NaN
+    scores leave it finite); NaN where one is NaN and the other not."""
+    a = a.cpu()
+    same = (a == b) | (a.isnan() & b.isnan())
+    return float(torch.where(same, 0.0, (a - b).abs()).max())
+
+
+def _nan_payloads_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries where a (on the card) and b (on the CPU) are both NaN with
+    other bits."""
+    a = a.cpu()
+    return int(((a.view(torch.int32) != b.view(torch.int32))
+                & a.isnan() & b.isnan()).sum())
 
 
 def sync_vs_plain(spec, power_sync, demod, base, n_hops, refine) -> dict:
     """The three sync kernels, one launch each, and the stage's wrapper
     against the plain versions on CPU copies: score and NMS map bit for
-    bit, top_val bit for bit, top_idx and tt identical; beside it the plain
+    bit, top_val bit for bit (a NaN as any NaN: ``_bits_differ``), top_idx
+    and tt identical; beside it the plain
     version on the card against the same (CUDA's complex abs may round
     |z| otherwise than the CPU's, which the refinement's bf16 sums see)."""
     from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
@@ -1312,12 +1367,14 @@ def sync_vs_plain(spec, power_sync, demod, base, n_hops, refine) -> dict:
            "top_val_bits_differ": _bits_differ(top_val, p_val),
            "top_idx_differ": _bits_differ(t0 * n_f0 + f0, p_idx),
            "tt_differ": _bits_differ(tt, p_tt),
+           "nan_payloads_differ": _nan_payloads_differ(score, p_score)
+           + _nan_payloads_differ(top_val, p_val),
            "wrapper_differs": sum(_bits_differ(a, b.cpu()) for a, b in zip(
                full[:4], (top_val, t0, f0, tt))) + int(
                full[4] != (2 * spec.os_t if refine else spec.os_t)),
            "max_abs_err": {
-               "sync_score": float((score.cpu() - p_score).abs().max()),
-               "sync_select": float((top_val.cpu() - p_val).abs().max()),
+               "sync_score": _abs_err(score, p_score),
+               "sync_select": _abs_err(top_val, p_val),
                "sync_refine": float((tt.cpu() - p_tt).abs().max())},
            "card_plain_differs": {
                "top_idx": _bits_differ(card[1] * n_f0 + card[2], p_idx),
@@ -1412,6 +1469,7 @@ def sync_kernels_phase(dev, cases: dict | None = None) -> dict:
         raise AssertionError(f"sync kernels disagree with the plain "
                              f"versions: {bad}")
     spec, ps, demod, base, n_hops, refine = s_cases["ft8 main path pass 1"]
+    design = sync_design(spec, ps.shape[0], dev)
     score, nms = sk.sync_score(spec, ps, base)
     top_val, t0, f0 = sk.sync_select(spec, score, nms)
     b = ps.shape[0]
@@ -1445,7 +1503,25 @@ def sync_kernels_phase(dev, cases: dict | None = None) -> dict:
             spec, ps, demod, base, n_hops, refine), 5)}
     print(f"sync stage, FT8 main path pass 1, issued from the host: "
           f"{json.dumps(stage)}")
-    return {"kernels": out, "checks": checks, "stage": stage}
+    return {"kernels": out, "checks": checks, "stage": stage,
+            "design": design}
+
+
+def sync_design(spec, b: int, dev) -> dict:
+    """What the kept sync_select and sync_score designs are on this card at
+    ``spec``'s call of ``b`` windows: the selection's cut (blocks a
+    cluster, threads a block, keys a block and of them on chip, dynamic
+    shared memory, the clusters the card holds at once), and each kernel's
+    registers, spilled (local) bytes and static shared memory as
+    ``cudaFuncGetAttributes`` gives them (ptxas's own report of every
+    kernel is printed with the build).  Printed on one line."""
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
+
+    out = {"select_plan": sk.select_plan(spec, b, dev),
+           "attrs": sk.kernel_attrs(dev, len(spec.sync_cells))}
+    print(f"sync kernels' design, {spec.name} x {b} windows: "
+          f"{json.dumps(out)}")
+    return out
 
 
 def _plan():

@@ -66,8 +66,12 @@ def load_library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.sync_score_launch.argtypes = [p, p, p, i] + [p] * 5
             lib.sync_score_launch.restype = i
-            lib.sync_select_launch.argtypes = [p] * 7
+            lib.sync_select_launch.argtypes = [p] * 8
             lib.sync_select_launch.restype = i
+            lib.sync_select_plan.argtypes = [p, p]
+            lib.sync_select_plan.restype = i
+            lib.sync_kernel_attrs.argtypes = [i, i, p]
+            lib.sync_kernel_attrs.restype = i
             lib.sync_refine_launch.argtypes = [p, p, p, i] + [p] * 5
             lib.sync_refine_launch.restype = i
             limits = {"sync_max_cells": MAX_CELLS, "sync_max_os_t": MAX_OS_T,
@@ -204,8 +208,11 @@ def sync_select(spec, score: torch.Tensor, nms: torch.Tensor
     ``top_k // 2`` and the raw score's ``top_k - top_k // 2`` per window,
     each in ``torch.sort(stable=True, descending=True)`` order, as
     ``gfsk_engine.sync_select_plain`` picks them from score and nms [B,
-    n_t0, n_f0] float32.  Returns (top_val [B, top_k] float32, t0, f0 [B,
-    top_k] int64): top_idx // n_f0 and top_idx % n_f0."""
+    n_t0, n_f0] float32: one launch of thread-block clusters, one a
+    window and half, with a pair buffer of [B, 2, p2] int64 allocated
+    here as scratch (p2 the least power of two >= the raw half's k).
+    Returns (top_val [B, top_k] float32, t0, f0 [B, top_k] int64): top_idx
+    // n_f0 and top_idx % n_f0."""
     if score.dim() != 3:
         raise ValueError("score and nms [B, n_t0, n_f0] must be 3-D")
     b, n_t0, n_f0 = score.shape
@@ -215,25 +222,73 @@ def sync_select(spec, score: torch.Tensor, nms: torch.Tensor
     return _select_launch(spec, score, nms, b, n_t0 * n_f0, n_f0)
 
 
+def _pair_stride(k_total: int) -> int:
+    """The least power of two >= the raw half's k: the selection's pair
+    buffer a (window, half)."""
+    return 1 << (k_total - k_total // 2 - 1).bit_length()
+
+
 def _select_launch(spec, score, nms, b, n, n_f0):
     k = spec.top_k
     dev = score.device
     top_val = torch.empty((b, k), dtype=torch.float32, device=dev)
     t0 = torch.empty((b, k), dtype=torch.int64, device=dev)
     f0 = torch.empty_like(t0)
+    pairs = torch.empty(b * 2 * _pair_stride(k), dtype=torch.int64,
+                        device=dev)
     lib = load_library()
     dims = (ctypes.c_int * 5)(b, n, n_f0, k // 2, k - k // 2)
     with torch.cuda.device(dev):
         err = lib.sync_select_launch(
             ctypes.addressof(dims), nms.data_ptr(), score.data_ptr(),
             top_val.data_ptr(), t0.data_ptr(), f0.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            pairs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sync_select kernel launch failed: CUDA error "
                            f"{err} ({spec.name}, {b} windows of {n} scores, "
                            f"top_k={k})")
     _count("sync_select")
     return top_val, t0, f0
+
+
+def select_plan(spec, b: int, device) -> dict:
+    """How ``sync_select`` cuts a call of ``b`` windows of ``spec``'s grid
+    on ``device``: blocks a cluster, threads a block, keys a block, of them
+    kept in shared memory, dynamic shared memory bytes, the pair buffer's
+    stride, and the clusters of that shape the card holds at once."""
+    n_t0, n_f0 = grid(spec)
+    k = spec.top_k
+    lib = load_library()
+    dims = (ctypes.c_int * 5)(b, n_t0 * n_f0, n_f0, k // 2, k - k // 2)
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = lib.sync_select_plan(ctypes.addressof(dims),
+                                   ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"sync_select_plan: CUDA error {err}")
+    return dict(zip(("cluster", "threads", "keys_a_block", "keys_on_chip",
+                     "dynamic_smem_bytes", "pair_stride",
+                     "max_active_clusters"), list(out)))
+
+
+def kernel_attrs(device, n_cells: int = 21) -> dict:
+    """Each sync kernel's registers a thread, spilled (local) bytes a
+    thread, static shared bytes and threads a block at most, as
+    ``cudaFuncGetAttributes`` gives them; ``sync_score`` for os_t = 8, os_f
+    = 4 and ``n_cells``."""
+    lib = load_library()
+    out = {}
+    for which, name in enumerate(("sync_select", "sync_score",
+                                  "sync_refine")):
+        vals = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            err = lib.sync_kernel_attrs(which, n_cells,
+                                        ctypes.addressof(vals))
+        if err != 0:
+            raise RuntimeError(f"sync_kernel_attrs({name}): CUDA error {err}")
+        out[name] = dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                              "max_threads"), list(vals)))
+    return out
 
 
 def sync_refine(spec, demod: torch.Tensor, t0: torch.Tensor,

@@ -12,7 +12,9 @@ and ``cosf``), the FT8, FT4, JS8, FST4-60, WSPR, JT65 and
 Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
 the sync-search kernels ``sync_score``, ``sync_select`` and
 ``sync_refine`` against their plain versions on FT8 (noise with tone tracks,
-and all-tie windows), JS8 and FST4-60 maps (and no fallback), and the
+all-tie windows, NaN and +-inf, the pass-1 shape, top_k 32768, a grid
+smaller than a block), FT4, JS8, FST4-60 and FST4-900 maps (and no fallback,
+also when the library refuses a launch; no spills), and the
 parallel layer on a virtual mesh of the card against one on the CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
@@ -468,19 +470,21 @@ def test_decoders_launch_the_gfsk_kernels_on_card(dev):
     assert gfsk_kernels.launches == before
 
 
-def _sync_noise_case(spec, seed: int, dev) -> tuple:
-    """Sync-search operands of two windows at the mode's decode_program
-    shapes (``chip_smoke.tie_case``'s): exponential power noise and
-    complex Gaussian demod noise with 8 tone tracks a window along the
-    sync cells, the demod's at a random half-hop offset."""
+def _sync_noise_case(spec, seed: int, dev, windows: int = 2) -> tuple:
+    """Sync-search operands of ``windows`` windows at the mode's
+    decode_program shapes (``chip_smoke.tie_case``'s): exponential power
+    noise and complex Gaussian demod noise with 8 tone tracks a window
+    along the sync cells, the demod's at a random half-hop offset."""
     spec, ps, dem, _, n_hops, refine = chip_smoke.tie_case(spec, "cpu")
     rng = np.random.default_rng(seed)
-    power = rng.exponential(1.0, tuple(ps.shape)).astype(np.float32)
-    demod = ((rng.standard_normal(tuple(dem.shape))
-              + 1j * rng.standard_normal(tuple(dem.shape))) / np.sqrt(2)
+    p_shape = (windows,) + tuple(ps.shape[1:])
+    d_shape = (windows,) + tuple(dem.shape[1:])
+    power = rng.exponential(1.0, p_shape).astype(np.float32)
+    demod = ((rng.standard_normal(d_shape)
+              + 1j * rng.standard_normal(d_shape)) / np.sqrt(2)
              ).astype(np.complex64)
     n_f0 = spec.bin_range[1] - spec.bin_range[0]
-    for w in range(2):
+    for w in range(windows):
         for _ in range(8):
             t0 = int(rng.integers(0, spec.max_hops))
             f0 = int(rng.integers(0, n_f0))
@@ -499,24 +503,51 @@ def _sync_noise_case(spec, seed: int, dev) -> tuple:
             refine)
 
 
-@pytest.mark.parametrize("case", ["ft8 noise", "ft8 ties", "js8 noise",
-                                  "fst4-60 noise", "ft8 noise widest"])
+def _small_grid_spec():
+    """FT8 cut to a 3 x 40 grid (120 scores, fewer than a selection
+    block's threads) with top_k 64, refined."""
+    spec = ft8.SPEC
+    return dataclasses.replace(spec, max_hops=3,
+                               fmax_hz=spec.fmin_hz + 40 * spec.bin_hz,
+                               top_k=64)
+
+
+@pytest.mark.parametrize("case", [
+    "ft8 noise", "ft8 ties", "js8 noise", "fst4-60 noise",
+    "ft8 noise widest", "ft8 pass-1 shape", "ft8 nan inf", "ft4 noise",
+    "fst4-900 noise", "ft8 small grid", "ft8 fourteen cells"])
 def test_sync_kernels_match_plain_on_card(dev, case):
     """sync_score, sync_select and sync_refine (and the stage's wrapper)
     against the plain versions on CPU copies: the score and NMS map bit for
     bit, top_val bit for bit, top_idx and tt identical; on a small FT8 map
     with tone tracks, on FT8 windows of a constant map and of zeros (every
-    score and every refinement offset ties), on JS8, on FST4-60 (no
-    refinement) and on FT8 at the largest top_k the selection takes (its
-    pairs in 128 KB of shared memory a block).  Each wrapper call counts
-    one launch of its kernel."""
-    spec = {"ft8": ft8.SPEC, "js8": js8.SPEC,
-            "fst4-60": fst4.make_spec(Mode.FST4_60)}[case.split()[0]]
+    score and every refinement offset ties), on JS8 (the score's os_t = 4,
+    os_f = 2 instance with 21 cells), on FST4-60 (no refinement; os_t = 8,
+    os_f = 4 with 40 cells), on FT8 at the largest top_k the selection
+    takes (16384 a half), on FT8's pass-1 shape (24 windows), on FT8
+    windows holding NaN, +-inf and -0.0, on FT4 (os_t = 8, os_f = 4 with
+    16 cells), on FST4-900 (os_t = 4, os_f = 2 with 40 cells), on a grid
+    of fewer scores than a selection block's threads, and with 14 of FT8's
+    cells (the score's generic instance).  Each wrapper call counts one
+    launch of its kernel."""
+    name = case.split()[0]
+    spec = {"ft8": ft8.SPEC, "js8": js8.SPEC, "ft4": ft4.SPEC,
+            "fst4-60": fst4.make_spec(Mode.FST4_60),
+            "fst4-900": fst4.make_spec(Mode.FST4_900)}[name]
     if case.endswith("widest"):
         spec = dataclasses.replace(spec,
                                    top_k=2 * sync_kernels.SELECT_MAX_K)
-    args = (chip_smoke.tie_case(spec, dev) if case.endswith("ties")
-            else _sync_noise_case(spec, 17, dev))
+    if case.endswith("small grid"):
+        spec = _small_grid_spec()
+    if case.endswith("fourteen cells"):
+        spec = dataclasses.replace(spec, sync_cells=spec.sync_cells[:14])
+    if case.endswith("ties"):
+        args = chip_smoke.tie_case(spec, dev)
+    elif case.endswith("nan inf"):
+        args = chip_smoke.odd_case(spec, dev)
+    else:
+        args = _sync_noise_case(spec, 17, dev,
+                                24 if case.endswith("shape") else 2)
     before = dict(sync_kernels.launches)
     got = chip_smoke.sync_vs_plain(*args)
     torch.cuda.synchronize()
@@ -548,6 +579,46 @@ def test_sync_kernels_raise_without_library_on_card(dev, monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc not found"):
         gfsk_engine.sync_candidates(*chip_smoke.tie_case(js8.SPEC, dev))
     assert sync_kernels.launches == before
+
+
+def test_sync_launch_refused_raises_on_card(dev, monkeypatch):
+    """A launch the library refuses (a selection k above the scores a
+    window, an odd os_t for the score, both past the wrappers' own checks)
+    raises naming the kernel; the plain versions never run and nothing
+    counts."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for name in ("sync_candidates_plain", "sync_score_plain",
+                 "sync_select_plain", "sync_refine_plain"):
+        monkeypatch.setattr(gfsk_engine, name, plain)
+    spec, ps, _, base, _, _ = chip_smoke.tie_case(js8.SPEC, dev)
+    score = torch.zeros((2, 4, 5), dtype=torch.float32, device=dev)
+    before = dict(sync_kernels.launches)
+    with pytest.raises(RuntimeError, match="sync_select kernel launch"):
+        sync_kernels._select_launch(spec, score, score, 2, 20, 5)
+    b, h, f = ps.shape
+    n_t0, n_f0 = sync_kernels.grid(spec)
+    with pytest.raises(RuntimeError, match="sync_score kernel launch"):
+        sync_kernels._score_launch(dataclasses.replace(spec, os_t=3), ps,
+                                   base, b, h, f, n_t0, n_f0)
+    torch.cuda.synchronize()
+    assert sync_kernels.launches == before
+
+
+def test_sync_kernels_do_not_spill_on_card(dev):
+    """The selection and the score (each instance the GFSK modes run) keep
+    every value in registers: no local memory a thread; the selection runs
+    as 16-block clusters at FT8's grid where the card holds one, else
+    8."""
+    attrs = sync_kernels.kernel_attrs(dev)
+    assert attrs["sync_select"]["local_bytes"] == 0, attrs
+    for n_cells in (16, 21, 40):
+        got = sync_kernels.kernel_attrs(dev, n_cells)["sync_score"]
+        assert got["local_bytes"] == 0, (n_cells, got)
+    plan = sync_kernels.select_plan(ft8.SPEC, 24, dev)
+    assert plan["cluster"] in (8, 16) and plan["max_active_clusters"] >= 1
+    assert plan["threads"] == 1024
 
 
 def test_decoders_launch_the_sync_kernels_on_card(dev):

@@ -3,9 +3,12 @@
 top-K and the half-hop refinement) against the JAX package's own
 expressions at FT8, FT4, JS8, FST4-60 and FST4W-120 shapes; NumPy models of
 the ``sync_select`` kernel (radix select, compaction in index order,
-bitonic sort) and of the ``sync_refine`` kernel's row arithmetic held bit
-for bit to the plain version; and the wrapper's routing and refusals,
-which come before any build."""
+bitonic sort; the first port's one block a window and half and the
+cluster of 8 or 16 blocks with its slices, summed histograms and ties
+scanned over ranks), of the ``sync_score`` kernel's tiles and separable
+NMS, and of the ``sync_refine`` kernel's row arithmetic held bit for bit
+to the plain version (or max_pool2d); and the wrapper's routing and
+refusals, which come before any build."""
 
 from __future__ import annotations
 
@@ -252,12 +255,43 @@ def _bitonic(buf: np.ndarray) -> np.ndarray:
     return buf
 
 
+def _radix_digit(hist: np.ndarray, want: int) -> tuple[int, int]:
+    """The digit whose count from the top first reaches ``want`` in a
+    2048-bin histogram, and the count above it."""
+    above = 0
+    digit = 2047
+    while above + hist[digit] < want:
+        above += hist[digit]
+        digit -= 1
+    return digit, above
+
+
+def _pairs(key: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """(~key << 32 | index) as uint64 for the keys at ``idx``."""
+    idx = np.asarray(idx, np.int64)
+    return ((~key[idx]).astype(np.uint64) << np.uint64(32)) \
+        | idx.astype(np.uint64)
+
+
+def _sorted_pick(x: np.ndarray, comp: np.ndarray, k: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's last step: the bitonic sort of the k pairs padded to a
+    power of two, then (values, indices) of the first k."""
+    p2 = 1
+    while p2 < k:
+        p2 *= 2
+    buf = np.concatenate([comp, np.full(p2 - k, ~np.uint64(0))])
+    out = (_bitonic(buf)[:k] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return x[out], out
+
+
 def _select_model(x: np.ndarray, k: int, rng) -> tuple[np.ndarray,
                                                        np.ndarray]:
-    """sync_select on one map [n]: radix passes of 11, 11 and 10 bits to
-    the k-th key, the keys above it in any order (shuffled here), the
-    first ties at it in index order, the bitonic sort of (~key << 32 |
-    index) padded to a power of two.  Returns (values, indices)."""
+    """The first-port sync_select on one map [n] (one block a window and
+    half): radix passes of 11, 11 and 10 bits to the k-th key, the keys
+    above it in any order (shuffled here), the first ties at it in index
+    order, the bitonic sort of (~key << 32 | index) padded to a power of
+    two.  Returns (values, indices)."""
     key = _sort_key(x)
     prefix, mask, want = 0, 0, k
     for shift, bits in ((21, 11), (10, 11), (0, 10)):
@@ -265,11 +299,7 @@ def _select_model(x: np.ndarray, k: int, rng) -> tuple[np.ndarray,
         hit = (key & np.uint32(mask)) == prefix
         hist = np.bincount((key[hit] >> np.uint32(shift)) & dmask,
                            minlength=2048)
-        above = 0
-        digit = 2047
-        while above + hist[digit] < want:
-            above += hist[digit]
-            digit -= 1
+        digit, above = _radix_digit(hist, want)
         prefix |= digit << shift
         mask |= dmask << shift
         want -= above
@@ -277,15 +307,73 @@ def _select_model(x: np.ndarray, k: int, rng) -> tuple[np.ndarray,
     gt = np.nonzero(key > kth)[0]
     assert gt.size == k - want
     ties = np.nonzero(key == kth)[0][:want]
-    idx = np.concatenate([rng.permutation(gt), ties]).astype(np.uint64)
-    comp = ((~key[idx.astype(np.int64)]).astype(np.uint64) << np.uint64(32)) \
-        | idx
-    p2 = 1
-    while p2 < k:
-        p2 *= 2
-    buf = np.concatenate([comp, np.full(p2 - k, ~np.uint64(0))])
-    out = (_bitonic(buf)[:k] & np.uint64(0xFFFFFFFF)).astype(np.int64)
-    return x[out], out
+    comp = _pairs(key, np.concatenate([rng.permutation(gt), ties]))
+    return _sorted_pick(x, comp, k)
+
+
+def _cluster_select_model(x: np.ndarray, k: int, c: int, rng,
+                          cap: int | None = None
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """sync_select as a cluster of ``c`` blocks on one map [n]: block r
+    owns the r-th slice of ceil(n / c) keys (rank order is index order;
+    the last slices may be short or empty); each pass every block counts
+    its digits under the prefix, the counts are summed (rank 0's
+    histogram) and the digit chosen from the sum.  After the first pass a
+    block sends its keys above the first digit to the pair buffer and keeps
+    those on it as candidates (up to ``cap`` a block, None: no limit;
+    beyond it the later passes and the keys above K read the whole slice
+    again, taking only keys on the first digit).  The pair buffer takes
+    keys from every block in any order (shuffled here); block r's ties are
+    its last histogram's count at K's digit, its first slot the sum of the
+    counts below its rank, and it takes all its ties in any order
+    (shuffled here) where they fit, else its first in index order up to
+    those still open.  Returns (values, indices)."""
+    key = _sort_key(x)
+    n = key.size
+    size = -(-n // c)
+    los = [min(n, r * size) for r in range(c)]
+    parts = [key[lo : min(n, lo + size)] for lo in los]
+    prefix, mask, want = 0, 0, k
+    above = []
+    scans = parts
+    for shift, bits in ((21, 11), (10, 11), (0, 10)):
+        dmask = (1 << bits) - 1
+        hists = [np.bincount((p[(p & np.uint32(mask)) == prefix]
+                              >> np.uint32(shift)) & dmask, minlength=2048)
+                 for p in scans]
+        digit, count_above = _radix_digit(np.sum(hists, axis=0), want)
+        prefix |= digit << shift
+        mask |= dmask << shift
+        want -= count_above
+        if shift == 21:
+            scans = []
+            for lo, p in zip(los, parts):
+                above.append(lo + np.nonzero((p >> np.uint32(21)) > digit)[0])
+                on = p[(p >> np.uint32(21)) == digit]
+                scans.append(p if cap is not None and on.size > cap else on)
+    kth = np.uint32(prefix)
+    n_gt = k - want
+    gt = np.concatenate(above + [lo + np.nonzero(
+        (p > kth) & ((p >> np.uint32(21)) == (kth >> np.uint32(21))))[0]
+        for lo, p in zip(los, parts)]).astype(np.int64)
+    assert gt.size == n_gt
+    comp = np.zeros(k, np.uint64)
+    comp[:n_gt] = _pairs(key, rng.permutation(gt))
+    mine = [int(h[prefix & 0x3FF]) for h in hists]
+    before = np.concatenate([[0], np.cumsum(mine)[:-1]])
+    filled = n_gt
+    for lo, p, m, bef in zip(los, parts, mine, before):
+        if m == 0 or bef >= want:
+            continue
+        take = min(m, want - bef)
+        idx = lo + np.nonzero(p == kth)[0][:take]
+        assert idx.size == take
+        if take == m:                  # all of them: in any order
+            idx = rng.permutation(idx)
+        comp[n_gt + bef : n_gt + bef + take] = _pairs(key, idx)
+        filled += take
+    assert filled == k
+    return _sorted_pick(x, comp, k)
 
 
 def _select_maps(rng, n: int) -> dict[str, np.ndarray]:
@@ -304,23 +392,40 @@ def _select_maps(rng, n: int) -> dict[str, np.ndarray]:
             "constant": np.full(n, 1.5, F32)}
 
 
-@pytest.mark.parametrize("k", [1, 7, 64, 255, 1024, 4500])
-def test_select_model_equals_top_k_bit_for_bit(k):
+SELECT_MODELS = {
+    "block": _select_model,
+    "cluster 8": lambda x, k, rng: _cluster_select_model(x, k, 8, rng),
+    "cluster 16": lambda x, k, rng: _cluster_select_model(x, k, 16, rng),
+    "cluster 16 no room": lambda x, k, rng: _cluster_select_model(
+        x, k, 16, rng, cap=0)}
+
+
+@pytest.mark.parametrize("model", list(SELECT_MODELS))
+@pytest.mark.parametrize("k", [1, 7, 64, 255, 1024, 4500, 16384])
+def test_select_model_equals_top_k_bit_for_bit(k, model):
     """The kernel's selection, modelled in NumPy, picks exactly what
     ``_top_k`` (a stable descending sort) picks: the same indices and the
     same value bits (NaN payloads and -0.0 included), on ties, zeros,
     +inf, -inf, NaN and odd k, at the FT8 window's 459,008 scores and at
-    k = n."""
+    k = n; the first port's one block a window and half, and the cluster
+    of 8 and of 16 blocks (with the candidates under the first digit kept,
+    and with no room for them: the whole slices read again), also on
+    100,003 scores (no slice size divides them: the last slice is
+    short)."""
+    select = SELECT_MODELS[model]
     rng = np.random.default_rng(100 + k)
-    for name, x in _select_maps(rng, 256 * 1793).items():
-        mv, mi = _select_model(x, k, rng)
-        tv, ti = gfsk_engine._top_k(torch.from_numpy(x)[None], k)
-        np.testing.assert_array_equal(mi, ti[0].numpy(), err_msg=name)
-        np.testing.assert_array_equal(mv.view(np.uint32),
-                                      tv[0].numpy().view(np.uint32),
-                                      err_msg=name)
+    sizes = [256 * 1793] + ([100_003] if model != "block" else [])
+    for n in sizes:
+        for name, x in _select_maps(rng, n).items():
+            mv, mi = select(x, k, rng)
+            tv, ti = gfsk_engine._top_k(torch.from_numpy(x)[None], k)
+            np.testing.assert_array_equal(mi, ti[0].numpy(),
+                                          err_msg=f"{name} {n}")
+            np.testing.assert_array_equal(mv.view(np.uint32),
+                                          tv[0].numpy().view(np.uint32),
+                                          err_msg=f"{name} {n}")
     x = _select_maps(rng, max(k, 2048))["odd"][:k]
-    mv, mi = _select_model(x, k, rng)
+    mv, mi = select(x, k, rng)
     np.testing.assert_array_equal(
         mi, gfsk_engine._top_k(torch.from_numpy(x)[None], k)[1][0].numpy())
 
@@ -346,6 +451,93 @@ def test_select_model_lays_out_the_hybrid_halves():
                                       pi[b].numpy())
         np.testing.assert_array_equal(np.concatenate([v1, v2]),
                                       pv[b].numpy())
+
+
+# ---------------------------------------------------------------------------
+# a NumPy model of sync_score's tiles and separable NMS
+
+
+SCORE_SIDE = 64        # sync.cu's score region, halo included
+
+
+def _nan_max(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """sync.cu's nan_max: a where a > b or a is NaN, else b."""
+    return np.where((a > b) | np.isnan(a), a, b)
+
+
+def _separable_nms_model(score: np.ndarray, os_t: int, os_f: int
+                         ) -> np.ndarray:
+    """sync_score's NMS on one map [n_t0, n_f0]: block (ty, tx) holds the
+    64 x 64 region of scores from (ty (64 - os_t) - os_t / 2, tx (64 -
+    os_f) - os_f / 2), -inf off the map; the max over each row's os_f + 1
+    columns, then over os_t + 1 rows of those, both with nan_max; a score
+    of the inner tile is kept where it is >= that max, else +0.0."""
+    pt, pf = os_t // 2, os_f // 2
+    out_t, out_f = SCORE_SIDE - 2 * pt, SCORE_SIDE - 2 * pf
+    n_t0, n_f0 = score.shape
+    nt, nf = -(-n_t0 // out_t), -(-n_f0 // out_f)
+    pad = np.full((nt * out_t + 2 * pt, nf * out_f + 2 * pf), -np.inf, F32)
+    pad[pt : pt + n_t0, pf : pf + n_f0] = score
+    nms = np.empty_like(score)
+    for ty in range(nt):
+        for tx in range(nf):
+            t_lo, f_lo = ty * out_t, tx * out_f
+            tile = pad[t_lo : t_lo + SCORE_SIDE, f_lo : f_lo + SCORE_SIDE]
+            rmax = tile[:, :out_f]
+            for i in range(1, 2 * pf + 1):
+                rmax = _nan_max(rmax, tile[:, i : i + out_f])
+            m = rmax[:out_t]
+            for i in range(1, 2 * pt + 1):
+                m = _nan_max(m, rmax[i : i + out_t])
+            s = tile[pt : pt + out_t, pf : pf + out_f]
+            keep = np.where(s >= m, s, F32(0.0))
+            rows = min(out_t, n_t0 - t_lo)
+            cols = min(out_f, n_f0 - f_lo)
+            nms[t_lo : t_lo + rows, f_lo : f_lo + cols] = keep[:rows, :cols]
+    return nms
+
+
+def _nms_maps(rng, shape) -> dict[str, np.ndarray]:
+    """Score maps for the NMS: small integers (plateaus, ties across the
+    tile seams), noise with NaN, +inf, -inf and -0.0 (some on the edges
+    and corners), a constant map, and all NaN but one row."""
+    ties = rng.integers(0, 4, shape).astype(F32)
+    odd = rng.standard_normal(shape).astype(F32)
+    flat = odd.reshape(-1)
+    for val, count in ((np.nan, 25), (np.inf, 25), (-np.inf, 25),
+                       (-0.0, 60), (0.0, 60)):
+        flat[rng.choice(flat.size, min(count, flat.size // 8 + 1),
+                        replace=False)] = val
+    odd[0, 0], odd[-1, -1], odd[0, -1], odd[-1, 0] = (np.nan, np.inf,
+                                                      -0.0, -np.inf)
+    odd[-1, shape[1] // 2] = np.nan
+    odd[shape[0] // 2, -1] = np.inf
+    nan_rows = np.full(shape, np.nan, F32)
+    nan_rows[3] = 1.0
+    return {"ties": ties, "odd": odd, "constant": np.full(shape, 2.0, F32),
+            "nan rows": nan_rows}
+
+
+@pytest.mark.parametrize("os_t, os_f", [(8, 4), (4, 2)])
+def test_separable_nms_model_equals_max_pool2d(os_t, os_f):
+    """The score kernel's separable NMS, tiled as the kernel tiles it,
+    equals sync_score_plain's max_pool2d mask (score >= neighbourhood max,
+    else +0.0) bit for bit: plateaus keep all their members, a NaN score or
+    neighbour masks, -0.0 compares as 0.0, and every edge and tile seam
+    holds, on maps cut to no whole number of tiles (FT8's and JS8's
+    geometries)."""
+    rng = np.random.default_rng(40 + os_t)
+    for shape in [(130, 151), (256, 200), (5, 3)]:
+        for name, score in _nms_maps(rng, shape).items():
+            t = torch.from_numpy(score)[None, None]
+            neigh = torch.nn.functional.max_pool2d(
+                t, kernel_size=(os_t + 1, os_f + 1), stride=1,
+                padding=(os_t // 2, os_f // 2))[0, 0]
+            want = torch.where(t[0, 0] >= neigh, t[0, 0], 0.0).numpy()
+            got = _separable_nms_model(score, os_t, os_f)
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32),
+                                          err_msg=f"{name} {shape}")
 
 
 # ---------------------------------------------------------------------------
