@@ -64,13 +64,16 @@
    and its first call at the later passes' top_k, FT4 at depth 3, JS8, the
    App's FST4-60 (3000 Hz: the rfft branch), FST4W-1800 at its device
    batch, FT8 windows of a constant map and of zeros (every score ties) and
-   FT8 windows holding NaN and +-inf: the score and NMS map bit for bit,
+   FT8 windows holding NaN and +-inf, and the pass-1 call at both top_k
+   with the selection forced to 8-block clusters (the plan of a card that
+   holds no 16-block cluster): the score and NMS map bit for bit,
    top_val bit for bit, top_idx and tt identical; beside it the plain
    version on the card against the same.  It prints the kept designs: the
-   selection's cluster, block and shared memory, each kernel's registers
-   and spills.  Then each kernel's device time
+   selection's cluster, block and shared memory (also forced to 8 blocks),
+   each kernel's registers and spills.  Then each kernel's device time
    at the FT8 pass-1 shape beside the plain version's on the card and the
-   bound, ``torch.topk`` of both maps as the selection's yardstick, and
+   bound, the selection's at 8-block clusters beside it, ``torch.topk`` of
+   both maps as the selection's yardstick, and
    the whole stage issued from the host through the kernels and the plain
    version;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
@@ -1334,18 +1337,20 @@ def _nan_payloads_differ(a: torch.Tensor, b: torch.Tensor) -> int:
                 & a.isnan() & b.isnan()).sum())
 
 
-def sync_vs_plain(spec, power_sync, demod, base, n_hops, refine) -> dict:
-    """The three sync kernels, one launch each, and the stage's wrapper
-    against the plain versions on CPU copies: score and NMS map bit for
-    bit, top_val bit for bit (a NaN as any NaN: ``_bits_differ``), top_idx
-    and tt identical; beside it the plain
+def sync_vs_plain(spec, power_sync, demod, base, n_hops, refine, *,
+                  cluster: int | None = None) -> dict:
+    """The three sync kernels, one launch each (the selection's blocks a
+    cluster forced to ``cluster`` where given), and the stage's wrapper (the
+    card's own plan) against the plain versions on CPU copies: score and
+    NMS map bit for bit, top_val bit for bit (a NaN as any NaN:
+    ``_bits_differ``), top_idx and tt identical; beside it the plain
     version on the card against the same (CUDA's complex abs may round
     |z| otherwise than the CPU's, which the refinement's bf16 sums see)."""
     from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
     from cwsl_digi_tpu_torch.modes import gfsk_engine as ge
 
     score, nms = sk.sync_score(spec, power_sync, base)
-    top_val, t0, f0 = sk.sync_select(spec, score, nms)
+    top_val, t0, f0 = sk.sync_select(spec, score, nms, cluster=cluster)
     tt = sk.sync_refine(spec, demod, t0, f0) if refine else t0
     full = sk.sync_candidates(spec, power_sync, demod, base, n_hops, refine)
 
@@ -1361,7 +1366,7 @@ def sync_vs_plain(spec, power_sync, demod, base, n_hops, refine) -> dict:
     card = ge.sync_candidates_plain(spec, power_sync, demod, base, n_hops,
                                     refine)
     res = {"windows": power_sync.shape[0], "scores": score.numel(),
-           "top_k": spec.top_k, "refine": refine,
+           "top_k": spec.top_k, "refine": refine, "cluster": cluster,
            "score_bits_differ": _bits_differ(score, p_score),
            "nms_bits_differ": _bits_differ(nms, p_nms),
            "top_val_bits_differ": _bits_differ(top_val, p_val),
@@ -1459,9 +1464,13 @@ def sync_kernels_phase(dev, cases: dict | None = None) -> dict:
     from cwsl_digi_tpu_torch.modes import gfsk_engine as ge
 
     s_cases = sync_cases(dev, cases or gfsk_cases(dev))
+    runs = [(name, args, None) for name, args in s_cases.items()]
+    runs += [(f"{name}, 8-block clusters", s_cases[name], 8)
+             for name in ("ft8 main path pass 1",
+                          "ft8 main path pass 1 at top_k 32768")]
     checks = {}
-    for name, args in s_cases.items():
-        checks[name] = sync_vs_plain(*args)
+    for name, args, cluster in runs:
+        checks[name] = sync_vs_plain(*args, cluster=cluster)
         print(f"sync kernels vs plain, {name}: {json.dumps(checks[name])}")
         torch.cuda.empty_cache()
     bad = [name for name, c in checks.items() if not c["ok"]]
@@ -1470,6 +1479,8 @@ def sync_kernels_phase(dev, cases: dict | None = None) -> dict:
                              f"versions: {bad}")
     spec, ps, demod, base, n_hops, refine = s_cases["ft8 main path pass 1"]
     design = sync_design(spec, ps.shape[0], dev)
+    if design["select_plan_8"]["cluster"] != 8:
+        raise AssertionError(f"8-block clusters not taken: {design}")
     score, nms = sk.sync_score(spec, ps, base)
     top_val, t0, f0 = sk.sync_select(spec, score, nms)
     b = ps.shape[0]
@@ -1496,6 +1507,11 @@ def sync_kernels_phase(dev, cases: dict | None = None) -> dict:
     out["sync_select"]["library_ms"] = lib
     print(f"sync_select library yardstick: torch.topk of both maps "
           f"{lib:.4f} ms device time")
+    c8 = cuda_ms(lambda: sk.sync_select(spec, score, nms, cluster=8), 10)
+    out["sync_select"]["cluster8_ms"] = c8
+    print(f"sync_select at 8-block clusters {c8:.4f} ms device time, at the "
+          f"card's own plan ({design['select_plan']['cluster']} blocks) "
+          f"{out['sync_select']['ms']:.4f} ms")
     stage = {
         "kernels_ms": eager_ms(lambda: sk.sync_candidates(
             spec, ps, demod, base, n_hops, refine), 5),
@@ -1511,13 +1527,15 @@ def sync_design(spec, b: int, dev) -> dict:
     """What the kept sync_select and sync_score designs are on this card at
     ``spec``'s call of ``b`` windows: the selection's cut (blocks a
     cluster, threads a block, keys a block and of them on chip, dynamic
-    shared memory, the clusters the card holds at once), and each kernel's
+    shared memory, the clusters the card holds at once), also forced to
+    8-block clusters (``select_plan_8``), and each kernel's
     registers, spilled (local) bytes and static shared memory as
     ``cudaFuncGetAttributes`` gives them (ptxas's own report of every
     kernel is printed with the build).  Printed on one line."""
     from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
 
     out = {"select_plan": sk.select_plan(spec, b, dev),
+           "select_plan_8": sk.select_plan(spec, b, dev, cluster=8),
            "attrs": sk.kernel_attrs(dev, len(spec.sync_cells))}
     print(f"sync kernels' design, {spec.name} x {b} windows: "
           f"{json.dumps(out)}")

@@ -202,7 +202,8 @@ def _score_launch(spec, power_sync, base, b, h, f, n_t0, n_f0):
     return score, nms
 
 
-def sync_select(spec, score: torch.Tensor, nms: torch.Tensor
+def sync_select(spec, score: torch.Tensor, nms: torch.Tensor, *,
+                cluster: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the hybrid top-K on PyTorch's current stream: the NMS map's
     ``top_k // 2`` and the raw score's ``top_k - top_k // 2`` per window,
@@ -211,15 +212,28 @@ def sync_select(spec, score: torch.Tensor, nms: torch.Tensor
     n_t0, n_f0] float32: one launch of thread-block clusters, one a
     window and half, with a pair buffer of [B, 2, p2] int64 allocated
     here as scratch (p2 the least power of two >= the raw half's k).
-    Returns (top_val [B, top_k] float32, t0, f0 [B, top_k] int64): top_idx
-    // n_f0 and top_idx % n_f0."""
+    ``cluster`` forces the blocks a cluster, 8 or 16 (None: the card's own
+    plan, as the decode runs it).  Returns (top_val [B, top_k] float32,
+    t0, f0 [B, top_k] int64): top_idx // n_f0 and top_idx % n_f0."""
     if score.dim() != 3:
         raise ValueError("score and nms [B, n_t0, n_f0] must be 3-D")
     b, n_t0, n_f0 = score.shape
     _k_checks(spec.top_k, n_t0 * n_f0)
+    c = _cluster_arg(cluster)
     _check({"score": (score, torch.float32, (b, n_t0, n_f0)),
             "nms": (nms, torch.float32, (b, n_t0, n_f0))})
-    return _select_launch(spec, score, nms, b, n_t0 * n_f0, n_f0)
+    return _select_launch(spec, score, nms, b, n_t0 * n_f0, n_f0, c)
+
+
+def _cluster_arg(cluster: int | None) -> int:
+    """The selection's blocks a cluster as the library takes it: 0 for the
+    card's own plan (None), else 8 or 16."""
+    if cluster is None:
+        return 0
+    if cluster not in (8, 16):
+        raise ValueError(f"cluster={cluster!r}: the selection runs clusters "
+                         "of 8 or 16 blocks (None: the card's own plan)")
+    return cluster
 
 
 def _pair_stride(k_total: int) -> int:
@@ -228,7 +242,7 @@ def _pair_stride(k_total: int) -> int:
     return 1 << (k_total - k_total // 2 - 1).bit_length()
 
 
-def _select_launch(spec, score, nms, b, n, n_f0):
+def _select_launch(spec, score, nms, b, n, n_f0, cluster=0):
     k = spec.top_k
     dev = score.device
     top_val = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -237,7 +251,7 @@ def _select_launch(spec, score, nms, b, n, n_f0):
     pairs = torch.empty(b * 2 * _pair_stride(k), dtype=torch.int64,
                         device=dev)
     lib = load_library()
-    dims = (ctypes.c_int * 5)(b, n, n_f0, k // 2, k - k // 2)
+    dims = (ctypes.c_int * 6)(b, n, n_f0, k // 2, k - k // 2, cluster)
     with torch.cuda.device(dev):
         err = lib.sync_select_launch(
             ctypes.addressof(dims), nms.data_ptr(), score.data_ptr(),
@@ -251,15 +265,18 @@ def _select_launch(spec, score, nms, b, n, n_f0):
     return top_val, t0, f0
 
 
-def select_plan(spec, b: int, device) -> dict:
+def select_plan(spec, b: int, device, *, cluster: int | None = None
+                ) -> dict:
     """How ``sync_select`` cuts a call of ``b`` windows of ``spec``'s grid
-    on ``device``: blocks a cluster, threads a block, keys a block, of them
-    kept in shared memory, dynamic shared memory bytes, the pair buffer's
-    stride, and the clusters of that shape the card holds at once."""
+    on ``device`` (``cluster`` as :func:`sync_select` takes it): blocks a
+    cluster, threads a block, keys a block, of them kept in shared memory,
+    dynamic shared memory bytes, the pair buffer's stride, and the
+    clusters of that shape the card holds at once."""
     n_t0, n_f0 = grid(spec)
     k = spec.top_k
+    c = _cluster_arg(cluster)
     lib = load_library()
-    dims = (ctypes.c_int * 5)(b, n_t0 * n_f0, n_f0, k // 2, k - k // 2)
+    dims = (ctypes.c_int * 6)(b, n_t0 * n_f0, n_f0, k // 2, k - k // 2, c)
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(device):
         err = lib.sync_select_plan(ctypes.addressof(dims),
@@ -275,7 +292,8 @@ def kernel_attrs(device, n_cells: int = 21) -> dict:
     """Each sync kernel's registers a thread, spilled (local) bytes a
     thread, static shared bytes and threads a block at most, as
     ``cudaFuncGetAttributes`` gives them; ``sync_score`` for os_t = 8, os_f
-    = 4 and ``n_cells``."""
+    = 4 and ``n_cells``, ``sync_refine`` for ``n_cells`` (a count with no
+    instance of its own: the generic one)."""
     lib = load_library()
     out = {}
     for which, name in enumerate(("sync_select", "sync_score",
@@ -322,6 +340,9 @@ def _refine_checks(spec, demod: torch.Tensor, b: int, k: int) -> dict:
     if not 0 < b * k < 2 ** 31:
         raise ValueError(f"{b} x {k} candidates: the kernel takes 1 to "
                          "2**31 - 1")
+    if (h + 1) * f >= 2 ** 31:
+        raise ValueError(f"demod [{demod.shape[0]}, {h}, {f}]: the kernel "
+                         "takes (H + 1) F < 2**31")
     return {"demod": (demod, torch.complex64, (b, h, f))}
 
 

@@ -33,8 +33,13 @@
 //     once, so 48 clusters run in 7 waves of ~29 us.
 //   - sync_refine reads each candidate's 3 x 21 demod cells (8 B each, a
 //     scattered 32-byte sector apiece; ~4.7 MB of distinct cells, the raw
-//     half's neighbours sharing some) and writes tt: ~0.0015 ms of HBM,
-//     latency bound by the scattered loads.
+//     half's neighbours sharing some) and writes tt: ~0.0015 ms of HBM.
+//     What costs: a launch and the dependent round trip to t0 and f0 (a
+//     launch that does only that takes 0.0019 ms), the 774,144 scattered
+//     cell loads, a 32-byte sector each (24.8 MB, ~0.0074 ms at the HBM
+//     rate when cold; the loads alone take ~0.006 ms more), then |z|
+//     through a double square root (~0.0022 ms against a float |z|,
+//     which would lose the bits).
 //
 // The design.
 //
@@ -96,16 +101,32 @@
 //     -0.0 and NaN payloads stay).  A 16-block cluster is a non-portable
 //     size: where the card cannot hold one (cudaOccupancyMaxActiveClusters),
 //     C is 8.
-//   - sync_refine: a warp a candidate, its lanes loading the 3 x n cells at
-//     once; for d in 0..2 the sum over the cells, in order, of
-//     float(bf16(|demod[2 os_t sym + 2 t0 + d - 1, os_f tone + f0]|^2)),
-//     rows -1 and >= H read as 0 (the plain version pads a row each side);
+//   - sync_refine: a thread a (candidate, offset d in 0..2), four lanes a
+//     candidate (the fourth idle; 8 a warp), 128 threads a block: FT8's
+//     12,288 candidates are 384 blocks, one wave.  A thread loads
+//     its candidate's t0 and f0, then issues all n cell loads of its row,
+//     2 t0 + d - 1, at offsets fixed at launch (row * F + col, kernel
+//     arguments) before it uses any: one round trip to memory after t0.
+//     A row -1 or >= H loads the window's first cell and reads as 0 (a
+//     predicate, not a branch).  The kernel is a template on the cell
+//     count, with instances for 16 (FT4) and 21 (FT8, JS8) and a generic
+//     one up to 40 (16 loads in flight a round).  The thread sums, in
+//     spec order from the first cell,
+//     float(bf16(|demod[2 os_t sym + 2 t0 + d - 1, os_f tone + f0]|^2)):
 //     |z| is correctly rounded (the double square root of the exact
 //     products' sum) and squared in float32, as torch's abs() ** 2 rounds
 //     on the CPU (gfsk.cu's mag2), then rounded to bf16 to nearest even as
-//     torch's .to(bfloat16); delta = the first maximum's offset - 1
-//     (torch.argmax: NaN counts as the maximum), tt = clamp(2 t0 + delta, 0,
-//     H - 1).  No copy of |demod|^2 and no fine-grid map is made.
+//     torch's .to(bfloat16) (NaN to 0x7fc0).  Two shuffles bring the
+//     other offsets' sums to the candidate's first lane (every lane
+//     shuffles; none returns before), which takes the first maximum (NaN
+//     counts as the maximum, as torch.argmax), delta = its offset - 1,
+//     and writes tt = clamp(2 t0 + delta, 0, H - 1).  No shared memory, no
+//     copy of |demod|^2 and no fine-grid map.
+//   - sync_select's cluster can be forced to 8 blocks (the C entry's
+//     sixth dimension; 0 is the card's own plan): at FT8's grid that is
+//     57,376 keys a block, 53,976 of them on chip and the rest read from
+//     HBM again each pass, the plan a card that holds no 16-block cluster
+//     runs.  The decode never forces it.
 //
 // Times.  At FT8's 24-window pass-1 call on an H100 80GB HBM3 at 700 W
 // (chip_smoke.py's sync_kernels phase in tools/stage_kernels_ab.py,
@@ -113,7 +134,9 @@
 // (first port: a 32 x 64 tile with its halo, runtime divisions, 45
 // compares, 0.3265), sync_select 0.2034 ms (first port: one block of 1024
 // threads a window and half reading each map four times, 0.4354;
-// torch.topk of both maps ~0.47).  Measured and not kept (same card,
+// torch.topk of both maps ~0.47), and forced to 8-block clusters 0.238
+// ms; sync_refine 0.0118 ms (first port: a warp a candidate, its cells
+// through shared memory, 0.0152).  Measured and not kept (same card,
 // synthetic FT8 maps, in turns): clusters of 8 blocks with no room left
 // for the candidates (0.237 against 0.202 ms); every block reading rank
 // 0's sum through DSMEM instead of rank 0 writing its choice out (0.373
@@ -125,7 +148,19 @@
 // aligned 8-byte loads cut by a shift (0.162 against 0.147).  The
 // streaming-threshold selection (one histogram pass, a compaction over
 // many blocks, a small sort) was not built: the cluster beat both the
-// first port and torch.topk.
+// first port and torch.topk.  For the refinement (the decoder's own
+// inputs, tools/sync_refine_variants.py): three lanes a candidate, 10 a
+// warp (0.0122 against 0.0118 ms; at 786,432 candidates 0.305 against
+// 0.309); one thread a candidate with all 63 loads in flight (0.0171, 142
+// registers); the refinement in sync_select's epilogue, rank 0's thread
+// that writes a candidate loading its cells (score + selection 0.650 ms
+// against score + selection + refinement 0.367: in a block of 1024
+// threads the loads get 64 registers and spill, and the selection with
+// them).  Yardsticks that give up the bits: a launch that reads t0 and f0
+// and writes tt with no cell 0.0019 ms, the kept layout's cell loads
+// summed with no |z| 0.0080, with |z| in float 0.0093, against the kept
+// 0.0116 in the same turns; the candidates sorted by (f0, t0), so that
+// neighbours share sectors, 0.0110.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC --fmad=false -o libsync.so sync.cu
@@ -154,14 +189,17 @@ constexpr int SELECT_MAX_CLUSTER = 16;
 constexpr int SELECT_KEYS_BLOCK = 28 * SELECT_THREADS;  // keys a block aims at
 constexpr int SELECT_UNROLL = 16;      // map loads a thread has in flight
 constexpr int RADIX_BINS = 2048;       // digits of 11, 11 and 10 bits
-constexpr int REFINE_WARPS = 4;        // a warp a candidate
+constexpr int REFINE_THREADS = 128;
+constexpr int REFINE_GROUP = 4;        // a candidate's lanes: one an offset,
+                                       // the fourth idle
 constexpr unsigned FULL = 0xffffffffu;
 
-// The sync cells as offsets into a map: row = os * symbol, col = os_f * tone.
-struct Cells {
+// The refinement's sync cells: row = 2 os_t symbol, and that row's cell
+// as one offset from the candidate's own, row * F + os_f tone.
+struct RefineCells {
     int n;
     int row[MAX_CELLS];
-    int col[MAX_CELLS];
+    int off[MAX_CELLS];
 };
 
 // ... as one offset from a score's own cell: row * F + col
@@ -219,6 +257,52 @@ __device__ __forceinline__ uint32_t sort_key(float v) {
 // the larger of a and b, NaN if either is (max_pool2d's; fmaxf drops NaN)
 __device__ __forceinline__ float nan_max(float a, float b) {
     return (a > b || a != a) ? a : b;
+}
+
+// Cells c0 .. c0 + M - 1 (those below n) of one refinement offset added
+// to e in spec order, e taken from the first cell: bf16(|z|^2) of cell c
+// at src[base + off[c]] on row row[c] + r0 of h, a row outside [0, h)
+// read as 0 (the plain version pads a row each side).  The M loads are
+// issued before any is used: a cell off the map loads src[0] and drops it.
+template <int M>
+__device__ __forceinline__ float add_cells(float e,
+                                           const float2* __restrict__ src,
+                                           int r0, int base, int h,
+                                           const RefineCells& cells, int c0,
+                                           int n) {
+    float2 z[M];
+    bool in[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+        const int c = min(c0 + i, MAX_CELLS - 1);
+        in[i] = c0 + i < n && static_cast<unsigned>(cells.row[c] + r0)
+                              < static_cast<unsigned>(h);
+        z[i] = __ldg(src + (in[i] ? base + cells.off[c] : 0));
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+        if (c0 + i < n) {
+            const float v = in[i] ? bf16_round(mag2(z[i])) : 0.f;
+            e = c0 + i ? e + v : v;
+        }
+    return e;
+}
+
+constexpr int REFINE_CHUNK = 16;       // the generic instance's loads in
+                                       // flight a round
+
+// One refinement offset's energy over the NC sync cells, all NC loads in
+// flight at once; NC = 0 reads the count from cells and loads
+// REFINE_CHUNK cells a round.
+template <int NC>
+__device__ __forceinline__ float cell_energy(const float2* __restrict__ src,
+                                             int r0, int base, int h,
+                                             const RefineCells& cells) {
+    if (NC) return add_cells<NC ? NC : 1>(0.f, src, r0, base, h, cells, 0, NC);
+    float e = 0.f;
+    for (int c0 = 0; c0 < cells.n; c0 += REFINE_CHUNK)
+        e = add_cells<REFINE_CHUNK>(e, src, r0, base, h, cells, c0, cells.n);
+    return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -676,55 +760,56 @@ k_sync_select(const float* __restrict__ nms, const float* __restrict__ score,
 // ---------------------------------------------------------------------------
 // sync_refine: each candidate's half-hop offset
 
-__global__ void __launch_bounds__(REFINE_WARPS * 32)
+// NC: the cell count (0 reads it from cells); G: lanes a candidate, 3 (one
+// an offset, lanes 30 and 31 idle) or 4 (the fourth idle)
+template <int NC, int G>
+__global__ void __launch_bounds__(REFINE_THREADS)
 k_sync_refine(const float2* __restrict__ demod, const int64_t* __restrict__ t0,
-              const int64_t* __restrict__ f0, RefineDims d, Cells cells,
+              const int64_t* __restrict__ f0, RefineDims d, RefineCells cells,
               int64_t* __restrict__ tt) {
-    __shared__ float vals[REFINE_WARPS][3 * MAX_CELLS];
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int j = blockIdx.x * REFINE_WARPS + w;
-    if (j >= d.B * d.K) return;        // the whole warp
-    const int b = j / d.K, n = cells.n;
-    const int t = static_cast<int>(t0[j]), f = static_cast<int>(f0[j]);
-    const float2* src = demod + static_cast<size_t>(b) * d.H * d.F;
-    // the warp's lanes load the 3 x n cells at once
-    for (int i = lane; i < 3 * n; i += 32) {
-        const int dd = i / n, c = i % n;
-        const int row = cells.row[c] + 2 * t + dd - 1;
-        float v = 0.f;
-        if (row >= 0 && row < d.H)
-            v = bf16_round(mag2(src[static_cast<size_t>(row) * d.F + f
-                                    + cells.col[c]]));
-        vals[w][i] = v;
-    }
-    __syncwarp();
-    // lane dd sums offset dd's cells in order
+    static_assert(G == 3 || G == 4, "a lane an offset");
+    constexpr int PER_WARP = 32 / G;
+    const int lane = threadIdx.x & 31, g = lane / G, dd = lane - G * g;
+    const int j = (blockIdx.x * (REFINE_THREADS / 32) + (threadIdx.x >> 5))
+                  * PER_WARP + g;
+    const bool live = g < PER_WARP && dd < 3 && j < d.B * d.K;
+    int t = 0;
     float e = 0.f;
-    if (lane < 3)
-        for (int c = 0; c < n; ++c)
-            e = c ? e + vals[w][lane * n + c] : vals[w][lane * n];
-    const float e1 = __shfl_sync(FULL, e, 1), e2 = __shfl_sync(FULL, e, 2);
-    if (lane == 0) {
-        const float ev[3] = {e, e1, e2};
-        int best = 0;
-#pragma unroll
-        for (int dd = 1; dd < 3; ++dd) {
-            const bool nan_d = ev[dd] != ev[dd], nan_b = ev[best] != ev[best];
-            if ((nan_d && !nan_b) || (!nan_b && ev[dd] > ev[best])) best = dd;
-        }
-        const int r = 2 * t + best - 1;
-        tt[j] = r < 0 ? 0 : (r > d.H - 1 ? d.H - 1 : r);
+    if (live) {
+        t = static_cast<int>(__ldg(t0 + j));
+        const int f = static_cast<int>(__ldg(f0 + j));
+        const int r0 = 2 * t + dd - 1;
+        e = cell_energy<NC>(demod + static_cast<size_t>(j / d.K) * d.H * d.F,
+                            r0, r0 * d.F + f, d.H, cells);
     }
+    // every lane shuffles (none has returned); lane G g reads its
+    // candidate's other two offsets and takes the first maximum, NaN
+    // counting as the maximum (torch.argmax)
+    const float e1 = __shfl_down_sync(FULL, e, 1);
+    const float e2 = __shfl_down_sync(FULL, e, 2);
+    if (!live || dd != 0) return;
+    const float ev[3] = {e, e1, e2};
+    int best = 0;
+#pragma unroll
+    for (int k = 1; k < 3; ++k) {
+        const bool nan_k = ev[k] != ev[k], nan_b = ev[best] != ev[best];
+        if ((nan_k && !nan_b) || (!nan_b && ev[k] > ev[best])) best = k;
+    }
+    const int r = 2 * t + best - 1;
+    tt[j] = r < 0 ? 0 : (r > d.H - 1 ? d.H - 1 : r);
 }
 
-Cells make_cells(const int* rows, const int* cols, int n) {
-    Cells c;
-    c.n = n;
-    for (int i = 0; i < n; ++i) {
-        c.row[i] = rows[i];
-        c.col[i] = cols[i];
+using RefineKernel = void (*)(const float2*, const int64_t*, const int64_t*,
+                              RefineDims, RefineCells, int64_t*);
+
+// the refinement's instance for the cell count: FT4's 16, FT8's and JS8's
+// 21, else the generic one
+RefineKernel refine_kernel(int n_cells) {
+    switch (n_cells) {
+        case 16: return k_sync_refine<16, REFINE_GROUP>;
+        case 21: return k_sync_refine<21, REFINE_GROUP>;
+        default: return k_sync_refine<0, REFINE_GROUP>;
     }
-    return c;
 }
 
 using ScoreKernel = void (*)(const uint16_t*, const float*, ScoreDims,
@@ -795,13 +880,17 @@ cudaError_t select_setup(bool* fits16) {
     return cudaSuccess;
 }
 
-SelectPlan select_plan(const SelectDims& d, bool fits16) {
+// cluster: 0 for the card's own plan, else the blocks a cluster (8 or 16)
+SelectPlan select_plan(const SelectDims& d, bool fits16, int cluster) {
     SelectPlan p;
     const long long n = d.n;
-    int c = 1;
-    while (c < SELECT_MAX_CLUSTER && (n + c - 1) / c > SELECT_KEYS_BLOCK)
-        c <<= 1;
-    if (c == SELECT_MAX_CLUSTER && !fits16) c = SELECT_MAX_CLUSTER / 2;
+    int c = cluster;
+    if (c == 0) {
+        c = 1;
+        while (c < SELECT_MAX_CLUSTER && (n + c - 1) / c > SELECT_KEYS_BLOCK)
+            c <<= 1;
+        if (c == SELECT_MAX_CLUSTER && !fits16) c = SELECT_MAX_CLUSTER / 2;
+    }
     p.cluster = c;
     p.slice = static_cast<int>((n + c - 1) / c);
     p.cached = p.slice < SELECT_CACHE_KEYS ? p.slice : SELECT_CACHE_KEYS;
@@ -811,21 +900,25 @@ SelectPlan select_plan(const SelectDims& d, bool fits16) {
     return p;
 }
 
-// dims [5]: B, n, n_f0, k_nms, k_raw, checked; the plan and *d filled
+// dims [6]: B, n, n_f0, k_nms, k_raw and the blocks a cluster (0: the
+// card's own plan; else 8 or 16), checked; the plan and *d filled
 cudaError_t select_prepare(const int* dims, SelectDims* d, SelectPlan* p) {
     d->B = dims[0];
     d->n = dims[1];
     d->n_f0 = dims[2];
     d->k_nms = dims[3];
     d->k_raw = dims[4];
+    const int cluster = dims[5];
     if (d->B < 1 || d->n < 1 || d->n_f0 < 1 || d->k_nms < 0
         || d->k_raw < 1 || d->k_nms > SELECT_MAX_K || d->k_raw > SELECT_MAX_K
-        || d->k_nms > d->n || d->k_raw > d->n)
+        || d->k_nms > d->n || d->k_raw > d->n
+        || (cluster != 0 && cluster != SELECT_MAX_CLUSTER / 2
+            && cluster != SELECT_MAX_CLUSTER))
         return cudaErrorInvalidValue;
     bool fits16 = false;
     const cudaError_t e = select_setup(&fits16);
     if (e != cudaSuccess) return e;
-    *p = select_plan(*d, fits16);
+    *p = select_plan(*d, fits16, cluster);
     if (static_cast<long long>(d->B) * 2 * p->cluster > 2147483647LL)
         return cudaErrorInvalidValue;
     d->slice = p->slice;
@@ -884,9 +977,11 @@ int sync_score_launch(const int* dims, const int* rows, const int* cols,
 
 // The hybrid top-K of nms and score [B, n] float32 on `stream`, one launch:
 // top_val [B, k_nms + k_raw] float32, t0 and f0 [B, k_nms + k_raw] int64
-// (idx / n_f0, idx % n_f0), the NMS map's k_nms first.  dims [5]: B, n,
-// n_f0, k_nms, k_raw; pairs: scratch of B * 2 * p2 uint64, p2 the least
-// power of two >= k_raw.  Returns the cudaError_t.
+// (idx / n_f0, idx % n_f0), the NMS map's k_nms first.  dims [6]: B, n,
+// n_f0, k_nms, k_raw and the blocks a cluster (0: the card's own plan, C =
+// 16 where it holds such a cluster, else 8; or 8 or 16); pairs: scratch of
+// B * 2 * p2 uint64, p2 the least power of two >= k_raw.  Returns the
+// cudaError_t.
 int sync_select_launch(const int* dims, const void* nms, const void* score,
                        void* top_val, void* t0, void* f0, void* pairs,
                        void* stream) {
@@ -917,7 +1012,7 @@ int sync_select_launch(const int* dims, const void* nms, const void* score,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The selection's cut for dims [5] (as sync_select_launch takes them):
+// The selection's cut for dims [6] (as sync_select_launch takes them):
 // out [7] = blocks a cluster, threads a block, keys a block, of them kept
 // in shared memory, dynamic shared memory bytes, the pair buffer's stride,
 // and the clusters of that shape the card holds at once.  Returns the
@@ -951,8 +1046,9 @@ int sync_select_plan(const int* dims, int* out) {
 // A kernel's registers a thread, local (spilled) bytes a thread, static
 // shared bytes and threads a block at most (cudaFuncGetAttributes):
 // which 0 = sync_select, 1 = sync_score's instance for os_t = 8, os_f = 4
-// and n_cells (any count; the generic instance where none is compiled),
-// 2 = sync_refine.  out [4].  Returns the cudaError_t.
+// and n_cells, 2 = sync_refine's instance for n_cells (any count; the
+// generic instance where none is compiled).  out [4].  Returns the
+// cudaError_t.
 int sync_kernel_attrs(int which, int n_cells, int* out) {
     cudaFuncAttributes a;
     cudaError_t e;
@@ -961,7 +1057,7 @@ int sync_kernel_attrs(int which, int n_cells, int* out) {
     else if (which == 1)
         e = cudaFuncGetAttributes(&a, score_kernel(4, 2, n_cells));
     else if (which == 2)
-        e = cudaFuncGetAttributes(&a, k_sync_refine);
+        e = cudaFuncGetAttributes(&a, refine_kernel(n_cells));
     else
         return static_cast<int>(cudaErrorInvalidValue);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -973,9 +1069,10 @@ int sync_kernel_attrs(int which, int n_cells, int* out) {
 }
 
 // The refined start hop tt [B, K] int64 of candidates t0, f0 [B, K] int64
-// from demod [B, H, F] complex64, on `stream`, one launch.  dims [4]: B, K,
-// H, F; rows / cols [n_cells]: each sync cell's 2 * os_t * symbol and os_f
-// * tone.  Returns the cudaError_t.
+// (t0 < n_t0 and f0 < n_f0 of the grid the cells were checked for) from
+// demod [B, H, F] complex64, on `stream`, one launch.  dims [4]: B, K, H,
+// F ((H + 1) F < 2**31); rows / cols [n_cells]: each sync cell's 2 * os_t *
+// symbol (at most H) and os_f * tone (below F).  Returns the cudaError_t.
 int sync_refine_launch(const int* dims, const int* rows, const int* cols,
                        int n_cells, const void* demod, const void* t0,
                        const void* f0, void* tt, void* stream) {
@@ -985,14 +1082,25 @@ int sync_refine_launch(const int* dims, const int* rows, const int* cols,
     d.H = dims[2];
     d.F = dims[3];
     if (d.B < 1 || d.K < 1 || d.B > 2147483647 / d.K || d.H < 1 || d.F < 1
+        || static_cast<long long>(d.H + 1) * d.F > 2147483647LL
         || n_cells < 1 || n_cells > MAX_CELLS)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int n = d.B * d.K;
+    RefineCells cells = {};
+    cells.n = n_cells;
+    for (int c = 0; c < n_cells; ++c) {
+        if (rows[c] < 0 || rows[c] > d.H || cols[c] < 0 || cols[c] >= d.F)
+            return static_cast<int>(cudaErrorInvalidValue);
+        cells.row[c] = rows[c];
+        cells.off[c] = rows[c] * d.F + cols[c];
+    }
+    const long long n = static_cast<long long>(d.B) * d.K;
+    constexpr int per_block = REFINE_THREADS / 32 * (32 / REFINE_GROUP);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    k_sync_refine<<<(n + REFINE_WARPS - 1) / REFINE_WARPS, REFINE_WARPS * 32,
-                    0, st>>>(
+    refine_kernel(n_cells)<<<static_cast<unsigned>(
+                                 (n + per_block - 1) / per_block),
+                             REFINE_THREADS, 0, st>>>(
         static_cast<const float2*>(demod), static_cast<const int64_t*>(t0),
-        static_cast<const int64_t*>(f0), d, make_cells(rows, cols, n_cells),
+        static_cast<const int64_t*>(f0), d, cells,
         static_cast<int64_t*>(tt));
     return static_cast<int>(cudaGetLastError());
 }

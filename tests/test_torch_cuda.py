@@ -13,8 +13,9 @@ Q65-30 decoders on CUDA tensors against the same decoders on CPU tensors,
 the sync-search kernels ``sync_score``, ``sync_select`` and
 ``sync_refine`` against their plain versions on FT8 (noise with tone tracks,
 all-tie windows, NaN and +-inf, the pass-1 shape, top_k 32768, a grid
-smaller than a block), FT4, JS8, FST4-60 and FST4-900 maps (and no fallback,
-also when the library refuses a launch; no spills), and the
+smaller than a block), FT4, JS8, FST4-60 and FST4-900 maps, the selection
+forced to 8-block clusters (and no fallback, also when the library refuses
+a launch; no spills), and the
 parallel layer on a virtual mesh of the card against one on the CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
@@ -607,18 +608,51 @@ def test_sync_launch_refused_raises_on_card(dev, monkeypatch):
 
 
 def test_sync_kernels_do_not_spill_on_card(dev):
-    """The selection and the score (each instance the GFSK modes run) keep
-    every value in registers: no local memory a thread; the selection runs
-    as 16-block clusters at FT8's grid where the card holds one, else
-    8."""
+    """The selection, the score (each instance the GFSK modes run) and the
+    refinement (its 16- and 21-cell instances and the generic one) keep
+    every value in registers: no local memory a thread.  At FT8's grid the
+    selection runs 16-block clusters where the card holds one, else 8, and
+    forced to 8 it cuts each map into 57,376 keys a block, 53,976 of them
+    on chip."""
     attrs = sync_kernels.kernel_attrs(dev)
     assert attrs["sync_select"]["local_bytes"] == 0, attrs
     for n_cells in (16, 21, 40):
-        got = sync_kernels.kernel_attrs(dev, n_cells)["sync_score"]
-        assert got["local_bytes"] == 0, (n_cells, got)
+        got = sync_kernels.kernel_attrs(dev, n_cells)
+        assert got["sync_score"]["local_bytes"] == 0, (n_cells, got)
+        assert got["sync_refine"]["local_bytes"] == 0, (n_cells, got)
     plan = sync_kernels.select_plan(ft8.SPEC, 24, dev)
-    assert plan["cluster"] in (8, 16) and plan["max_active_clusters"] >= 1
-    assert plan["threads"] == 1024
+    fits16 = sync_kernels.select_plan(ft8.SPEC, 24, dev, cluster=16)
+    assert plan["cluster"] == (
+        16 if fits16["max_active_clusters"] >= 1 else 8), (plan, fits16)
+    assert plan["max_active_clusters"] >= 1 and plan["threads"] == 1024
+    plan8 = sync_kernels.select_plan(ft8.SPEC, 24, dev, cluster=8)
+    assert (plan8["cluster"], plan8["keys_a_block"],
+            plan8["keys_on_chip"]) == (8, 57_376, 53_976), plan8
+    assert plan8["max_active_clusters"] >= 1
+
+
+@pytest.mark.parametrize("top_k", [512, 32768])
+def test_sync_select_eight_block_clusters_match_plain_on_card(dev, top_k):
+    """The selection forced to 8-block clusters (the plan of a card that
+    holds no 16-block cluster: at FT8's grid part of each slice stays in
+    HBM and is read again each pass) at FT8's pass-1 shape, 24 windows,
+    at top_k 512 and 32768: top_val bit for bit, indices and tt identical
+    to the plain version on CPU copies, and to the wrapper's own plan.  A
+    cluster of other than 8 or 16 blocks raises before any launch."""
+    spec = dataclasses.replace(ft8.SPEC, top_k=top_k)
+    args = _sync_noise_case(spec, 19, dev, 24)
+    before = dict(sync_kernels.launches)
+    got = chip_smoke.sync_vs_plain(*args, cluster=8)
+    torch.cuda.synchronize()
+    assert got["ok"] and got["cluster"] == 8, got
+    assert sync_kernels.launches["sync_select"] == before["sync_select"] + 2
+    score = torch.zeros((24,) + sync_kernels.grid(spec),
+                        dtype=torch.float32, device=dev)
+    before = dict(sync_kernels.launches)
+    for bad in (4, 32, 0):
+        with pytest.raises(ValueError, match="8 or 16"):
+            sync_kernels.sync_select(spec, score, score, cluster=bad)
+    assert sync_kernels.launches == before
 
 
 def test_decoders_launch_the_sync_kernels_on_card(dev):

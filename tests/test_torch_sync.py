@@ -552,35 +552,83 @@ def _bf16_round(x: np.ndarray) -> np.ndarray:
     return np.where(np.isnan(x), F32(np.nan), out)
 
 
-def _refine_model(spec, demod: np.ndarray, t0: np.ndarray, f0: np.ndarray
-                  ) -> np.ndarray:
-    """sync_refine: a thread a candidate, e3[d] = the cells' bf16(|z|^2)
-    (|z| the double square root, rounded, squared in float32) summed in
-    order, rows -1 and >= H as 0; the first maximum; tt clamped."""
+def _mag2(z: np.ndarray) -> np.ndarray:
+    """|z|^2 as sync.cu's mag2: |z| the double square root of the exact
+    products' sum, rounded to float32, squared in float32."""
+    m = np.sqrt(z.real.astype(np.float64) ** 2
+                + z.imag.astype(np.float64) ** 2).astype(F32)
+    return m * m
+
+
+def _first_max(e: list[np.ndarray]) -> np.ndarray:
+    """The offset of the first maximum of e[0..2] elementwise, NaN counting
+    as the maximum (sync.cu's compare chain, torch.argmax's rule)."""
+    best = np.zeros(e[0].shape, np.int64)
+    bv = e[0]
+    for k in (1, 2):
+        nan_k, nan_b = np.isnan(e[k]), np.isnan(bv)
+        take = (nan_k & ~nan_b) | (~nan_b & (e[k] > bv))
+        best = np.where(take, k, best)
+        bv = np.where(take, e[k], bv)
+    return best
+
+
+def _offset_energy(spec, demod, t0, f0, j, dd) -> np.ndarray:
+    """One thread's sum (j the candidate, dd the offset; arrays): the sync
+    cells' bf16(|z|^2) in spec order from the first cell, rows outside
+    [0, H) as 0 (the thread loads the window's first cell there and drops
+    it)."""
+    _, h, _ = demod.shape
+    k = t0.shape[1]
+    w, t, f = j // k, t0.reshape(-1)[j], f0.reshape(-1)[j]
+    r0 = 2 * t + dd - 1
+    e = None
+    for sym, tone in spec.sync_cells:
+        r = 2 * spec.os_t * sym + r0
+        inside = (r >= 0) & (r < h)
+        z = demod[w, np.where(inside, r, 0),
+                  np.where(inside, f + spec.os_f * tone, 0)]
+        v = np.where(inside, _bf16_round(_mag2(z)), F32(0.0))
+        e = v if e is None else (e + v).astype(F32)
+    return e
+
+
+def _refine_model(spec, demod: np.ndarray, t0: np.ndarray, f0: np.ndarray,
+                  group: int = 4) -> np.ndarray:
+    """sync_refine as the kernel lays it out: ``group`` lanes a candidate
+    (4, as kept: one an offset, the fourth idle, 8 a warp; 3: 10 a warp,
+    lanes 30 and 31 idle), each live lane summing its offset's cells
+    (``_offset_energy``), dead lanes (idle, or past the last candidate in
+    the tail warp) holding 0; the candidate's first lane reads lanes +1
+    and +2 as __shfl_down_sync does (a lane past 31 reads its own) and
+    takes the first maximum, NaN as the maximum; tt = clamp(2 t0 + delta,
+    0, H - 1).  ``group`` 1: a thread a candidate, all three offsets."""
     b, h, _ = demod.shape
-    tt = np.zeros(t0.shape, np.int64)
-    for w in range(b):
-        for j in range(t0.shape[1]):
-            e = []
-            for d in range(3):
-                acc = None
-                for sym, tone in spec.sync_cells:
-                    row = 2 * spec.os_t * sym + 2 * int(t0[w, j]) + d - 1
-                    col = int(f0[w, j]) + spec.os_f * tone
-                    v = F32(0.0)
-                    if 0 <= row < h:
-                        z = demod[w, row, col]
-                        m = F32(np.sqrt(np.float64(z.real) ** 2
-                                        + np.float64(z.imag) ** 2))
-                        v = _bf16_round(np.asarray([m * m], F32))[0]
-                    acc = v if acc is None else F32(acc + v)
-                e.append(acc)
-            best = 0
-            for d in (1, 2):
-                if e[d] > e[best]:
-                    best = d
-            tt[w, j] = min(max(2 * int(t0[w, j]) + best - 1, 0), h - 1)
-    return tt
+    n = t0.size
+    t_flat = t0.reshape(-1)
+    if group == 1:
+        j = np.arange(n)
+        best = _first_max([_offset_energy(spec, demod, t0, f0, j, dd)
+                           for dd in range(3)])
+        return np.clip(2 * t_flat + best - 1, 0, h - 1).reshape(t0.shape)
+    per_warp = 32 // group
+    warps = -(-n // per_warp)
+    lane = np.arange(32)
+    g, dd = lane // group, lane % group
+    j = np.arange(warps)[:, None] * per_warp + g[None, :]       # [warps, 32]
+    live = (g < per_warp)[None, :] & (dd < 3)[None, :] & (j < n)
+    jj = np.where(live, j, 0)
+    ddd = np.broadcast_to(np.where(dd < 3, dd, 0), j.shape)
+    e = np.where(live, _offset_energy(spec, demod, t0, f0, jj, ddd),
+                 F32(0.0))
+    e1 = np.concatenate([e[:, 1:], e[:, -1:]], axis=1)
+    e2 = np.concatenate([e[:, 2:], e[:, -2:]], axis=1)
+    best = _first_max([e, e1, e2])
+    first = live & (dd == 0)[None, :]
+    tt = np.full(n, -1, np.int64)
+    tt[j[first]] = np.clip(2 * t_flat[j[first]] + best[first] - 1, 0, h - 1)
+    assert np.all(tt >= 0), "a candidate no lane wrote"
+    return tt.reshape(t0.shape)
 
 
 @pytest.mark.parametrize("name", ["ft8", "ft4", "js8"])
@@ -623,6 +671,59 @@ def test_refine_model_equals_the_plain_refinement_at_the_edges(name):
         _bf16_round(m * m),
         (torch.from_numpy(m * m).to(torch.bfloat16).to(torch.float32)
          ).numpy())
+
+
+def _refine_spec(name: str):
+    """FT8, FT4 and JS8 (the kernel's 21- and 16-cell instances) and FT8
+    cut to 20 cells (the generic instance)."""
+    if name == "ft8 20 cells":
+        return dataclasses.replace(ft8.SPEC,
+                                   sync_cells=ft8.SPEC.sync_cells[:20])
+    return _cases()[name][0]
+
+
+@pytest.mark.parametrize("count", [96, 97, 12_289])
+@pytest.mark.parametrize("name", ["ft8", "ft4", "js8", "ft8 20 cells"])
+def test_refine_lane_groups_equal_the_plain_refinement(name, count):
+    """The refinement kernel's lane layout, modelled in NumPy (four lanes a
+    candidate as kept, three, and one thread a candidate), equals
+    sync_refine_plain bit for bit on ``count`` candidates (96 as two
+    windows of 48; 97 and 12,289 in one window: the tail warp holds live
+    and dead lanes) with NaN and +inf cells (an offset's sum NaN or inf),
+    exact ties between the three offsets (a band of constant bins), t0 at
+    0 and at the last start, f0 at the last bin, on a spectrogram cut to
+    the fewest rows the plain version takes."""
+    spec = _refine_spec(name)
+    n_t0, n_f0 = _sync_kernels.grid(spec)
+    max_sym = max(s for s, _ in spec.sync_cells)
+    h = 2 * spec.os_t * max_sym + 2 * n_t0 - 1
+    b, k = (2, 48) if count == 96 else (1, count)
+    rng = np.random.default_rng(60 + count + len(spec.sync_cells))
+    n_bins = spec.bin_range[2]
+    demod = ((rng.standard_normal((b, h, n_bins))
+              + 1j * rng.standard_normal((b, h, n_bins)))
+             * 10 ** rng.uniform(-3, 3, (b, h, 1))).astype(np.complex64)
+    demod[:, :, :48] = 1.0 + 1.0j                  # |z|^2 = 2: ties
+    flat = demod.reshape(-1)
+    for val in (np.nan, np.inf):
+        flat[rng.choice(flat.size, flat.size // 400, replace=False)] = val
+    t0 = rng.integers(0, n_t0, (b, k))
+    f0 = rng.integers(0, n_f0, (b, k))
+    t0[:, :3] = 0
+    t0[:, 3:6] = n_t0 - 1
+    f0[:, 6] = n_f0 - 1
+    f0[:, 7:16] = rng.integers(0, 48 - spec.os_f * 7, (b, 9))
+    sp = dataclasses.replace(spec, top_k=k)
+    want = gfsk_engine.sync_refine_plain(
+        sp, torch.from_numpy(demod), torch.from_numpy(t0),
+        torch.from_numpy(f0)).numpy()
+    e = np.stack([_offset_energy(sp, demod, t0, f0, np.arange(b * k), d)
+                  for d in range(3)])
+    assert np.isnan(e).any() and np.isinf(e).any()
+    assert np.any((e[0] == e[1]) & (e[1] == e[2]))
+    for group in (3, 4, 1):
+        np.testing.assert_array_equal(_refine_model(sp, demod, t0, f0, group),
+                                      want, err_msg=f"{group} lanes")
 
 
 # ---------------------------------------------------------------------------
@@ -697,6 +798,22 @@ def test_sync_wrapper_refusals(no_build):
         _sync_kernels.sync_refine(spec, dem, tt, tt)
     with pytest.raises(ValueError, match="dtype"):
         _sync_kernels.sync_refine(spec, dem, tt.int(), tt)
+
+
+@pytest.mark.parametrize("cluster", [4, 32, 0, -8, True])
+def test_select_cluster_refusals(no_build, cluster):
+    """The selection's and its plan's ``cluster`` takes 8, 16 or None (the
+    card's own plan); anything else raises before any build or launch."""
+    spec = ft8.SPEC
+    score = torch.zeros((2,) + _sync_kernels.grid(spec), dtype=torch.float32)
+    before = dict(_sync_kernels.launches)
+    with pytest.raises(ValueError, match="8 or 16"):
+        _sync_kernels.sync_select(spec, score, score, cluster=cluster)
+    with pytest.raises(ValueError, match="8 or 16"):
+        _sync_kernels.select_plan(spec, 2, "cpu", cluster=cluster)
+    assert _sync_kernels.launches == before
+    with pytest.raises(ValueError, match="CUDA"):    # 8 goes on to the checks
+        _sync_kernels.sync_select(spec, score, score, cluster=8)
 
 
 def test_cpu_sync_search_runs_the_plain_version(no_build):
