@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and fails without CUDA;
-2. builds the port's four kernel libraries from ``cwsl_digi_tpu_torch``,
+2. builds the port's five kernel libraries from ``cwsl_digi_tpu_torch``,
    one nvcc each, started together: the channelizer
    (``dsp/csrc/channelizer.cu``), the LDPC kernels ``bp_minsum`` and
    ``osd`` (``modes/csrc/ldpc.cu``), the GFSK kernels
-   ``subtract_known`` and ``multisym_llrs`` (``modes/csrc/gfsk.cu``) and
+   ``subtract_known`` and ``multisym_llrs`` (``modes/csrc/gfsk.cu``),
    the sync-search kernels ``sync_score``, ``sync_select`` and
-   ``sync_refine`` (``modes/csrc/sync.cu``), printing each ptxas report;
+   ``sync_refine`` (``modes/csrc/sync.cu``) and the weak modes' kernels
+   ``wspr_beam`` and ``rs_ee`` (``modes/csrc/weak.cu``), printing each
+   ptxas report;
 3. holds the channelizer kernel against its plain PyTorch version on the
    card, at the FT8 path's 64 dials, the mixed-mode path's 5 lines, the
    weak-mode path's 3 lines and the bench's 256 channels (192 kHz, 15 s
@@ -76,6 +78,21 @@
    both maps as the selection's yardstick, and
    the whole stage issued from the host through the kernels and the plain
    version;
+4d. holds ``wspr_beam`` and ``rs_ee`` against their plain versions on the
+   card (phase ``weak_kernels``) on the decoders' own inputs: the beam
+   search's LLRs of 24 windows of the weak replay's WSPR bursts at width
+   512 (576 candidates, the first pass and the DD pass) and at the
+   ``cycles >= 10000`` width 1024 (768 candidates, the first pass and two
+   DD passes), and 96 candidates of LLRs built to tie at both widths:
+   bits identical and the metric bit for bit; JT65's Chase trials at its
+   device batch (15 windows of the weak replay's JT65 bursts, 92,160
+   trials), 64 candidates with 0, 51, 52, 60 and 63 erasures, and the
+   public ``rs_ee_decode`` on expanded words: corrected words and ``ok``
+   identical.  Then each kernel's device time at the bench's shapes beside
+   the plain version's and the bound, the beam at width 1024, each
+   kernel's registers and spills, and the serial chain that sets each
+   kernel's time (the beam's 81 steps of sort stages and barriers, the
+   RS decode's dependent Berlekamp-Massey rounds);
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
@@ -97,8 +114,10 @@
    two JT65 windows and four Q65-30 windows after the 2-minute boundary,
    8 bursts (SNR -8 dB down to about 3 dB above each mode's threshold);
    every window on its own boundary, every expected spot within 2 Hz and
-   no other, through the channelizer and WSPR's OSD through ``osd`` (none
-   of the three modes has an LDPC code or runs the GFSK engine);
+   no other, through the channelizer, WSPR's beam search through
+   ``wspr_beam`` and its OSD through ``osd``, and JT65's RS Chase through
+   ``rs_ee`` (none of the three modes has an LDPC code or runs the GFSK
+   engine);
 8. decodes one synthesized window of each long period (FST4-300/900/1800,
    FST4W-300/900/1800) through ``get_decoder`` on the card, printing the
    spectrogram branch, the decode wall and the peak device memory;
@@ -136,10 +155,11 @@
     may be one never injected), the decode of each of the 15 modes at
     batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
     share at batch 2, and prints each section's line; it must launch all
-    eight kernels;
+    ten kernels;
 15. prints a ``{"kernels": [...]}`` line (``channelize``, ``bp_minsum``,
     ``osd``, ``subtract_known``, ``multisym_llrs``, ``sync_score``,
-    ``sync_select``, ``sync_refine``, each with its launches in the App
+    ``sync_select``, ``sync_refine``, ``wspr_beam``, ``rs_ee``, each with
+    its launches in the App
     phases 5-7, 11 and 14, which set every count to 0 before they start
     and read it after), then ``{"ok": true, ...}`` last.
 
@@ -209,6 +229,11 @@ HAND_KERNELS = LDPC_KERNELS + GFSK_KERNELS + SYNC_KERNELS
 SYNC_REPLACES = {"sync_score": "cwsl_digi_tpu/modes/gfsk_engine.py:435",
                  "sync_select": "cwsl_digi_tpu/modes/gfsk_engine.py:467",
                  "sync_refine": "cwsl_digi_tpu/modes/gfsk_engine.py:517"}
+WEAK_KERNELS = ("wspr_beam", "rs_ee")
+# the XLA programs of the JAX package that the weak kernels replace
+WEAK_REPLACES = {"wspr_beam": "cwsl_digi_tpu/modes/wspr.py:526",
+                 "rs_ee": "cwsl_digi_tpu/modes/rs_device.py:118"}
+ALL_KERNELS = HAND_KERNELS + WEAK_KERNELS
 TRIG_OPS = 20            # a range-reduced float32 sin or cos, counted as
                          # this many operations in the bounds
 
@@ -1542,6 +1567,330 @@ def sync_design(spec, b: int, dev) -> dict:
     return out
 
 
+def _weak_windows(mode: str, n: int, seed: int) -> np.ndarray:
+    """``n`` 12 kHz windows of the weak replay's bursts of ``mode`` (WSPR:
+    both in every window; JT65: its windows in turn), each burst at its
+    plan's SNR over seeded unit noise, float32 [n, samples]."""
+    from cwsl_digi_tpu_torch.modes import jt65, wspr
+
+    plan = [p for p in _weak_plan() if p[0] == mode]
+    n_plan = max(p[1] for p in plan) + 1
+    rng = np.random.default_rng(seed)
+    length = int((wspr.T_R if mode == "WSPR" else jt65.T_R) * 12_000)
+    out = rng.standard_normal((n, length)).astype(np.float32)
+    for w in range(n):
+        for _, wi, text, f0, snr, dt in plan:
+            if wi != w % n_plan:
+                continue
+            # amplitude A: A**2 / 2 over the noise power in 2.5 kHz
+            amp = np.sqrt(2 * 10 ** (snr / 10) * 2500.0 / 6000.0)
+            if mode == "WSPR":
+                call, grid, dbm = text.split()
+                out[w] += wspr.synthesize(
+                    call, grid, int(dbm), f0, amplitude=amp,
+                    start_s=wspr.SIGNAL_START_S + dt).astype(np.float32)
+            else:
+                out[w] += jt65.synthesize(text, f0, amplitude=amp,
+                                          start_s=1.0 + dt).astype(np.float32)
+    return out
+
+
+def record_weak_inputs(dev) -> dict:
+    """The inputs the weak decoders hand the two kernels on the card: the
+    beam search's LLRs of 24 windows of the weak replay's WSPR bursts
+    (the bench's batch: 576 candidates) at the default width 512 (the
+    first pass and the DD pass) and at the ``cycles >= 10000`` width 1024
+    (32 candidates a window, the first pass and two DD passes), and the
+    Chase program's trials of JT65's device batch (15 windows of the weak
+    replay's JT65 bursts, at the App's 3000 Hz: 360 candidates x 256
+    trials).  {"beam": [(cfg, llr)], "rs": [(nk_fcr, syms, era)]}."""
+    from cwsl_digi_tpu_torch.modes import jt65, rs_device, wspr
+
+    rec = {"beam": [], "rs": []}
+    beam, trials = wspr._beam_decode, rs_device.rs_ee_trials
+
+    def beam_rec(cfg, llr):
+        rec["beam"].append((cfg, llr.clone()))
+        return beam(cfg, llr)
+
+    def trials_rec(nk_fcr, syms, era):
+        rec["rs"].append((nk_fcr, syms.clone(), era.clone()))
+        return trials(nk_fcr, syms, era)
+
+    wspr._beam_decode, rs_device.rs_ee_trials = beam_rec, trials_rec
+    try:
+        audio = torch.from_numpy(_weak_windows("WSPR", 24, SEED + 60)).to(dev)
+        for kw in ({}, {"cycles": 10_000}):
+            res = wspr.WSPRDecoder(device=dev, **kw).decode(audio)
+            print(f"weak kernels' WSPR inputs {kw or 'default'}: "
+                  f"{sum(len(r) for r in res)} decodes in 24 windows")
+        jd = jt65.JT65Decoder(device=dev, fmax_hz=3000.0)
+        audio = torch.from_numpy(_weak_windows(
+            "JT65", jd.max_device_batch, SEED + 61)).to(dev)
+        res = jd.decode(audio)
+        print(f"weak kernels' JT65 inputs: {sum(len(r) for r in res)} "
+              f"decodes in {jd.max_device_batch} windows")
+    finally:
+        wspr._beam_decode, rs_device.rs_ee_trials = beam, trials
+    return rec
+
+
+def beam_tie_llrs(n: int, seed: int, dev) -> torch.Tensor:
+    """[n, 81, 2] LLRs built to tie, in turn: integer values in [-3, 3],
+    all zero, and noise with a zero tail (the 31 tail steps)."""
+    rng = np.random.default_rng(seed)
+    llr = rng.integers(-3, 4, (n, 81, 2)).astype(np.float32)
+    llr[1::3] = 0.0
+    llr[2::3] = rng.standard_normal((len(llr[2::3]), 81, 2))
+    llr[2::3, 50:] = 0.0
+    return torch.from_numpy(llr).to(dev)
+
+
+def beam_vs_plain(cfg, llr: torch.Tensor) -> dict:
+    """``wspr_beam`` (through ``wspr._beam_decode``) against
+    ``_beam_decode_plain`` on the same CUDA LLRs: bits identical and the
+    normalised metric bit for bit (two NaNs count as equal).  One kernel
+    launch."""
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
+    from cwsl_digi_tpu_torch.modes import wspr
+
+    before = wk.launches["wspr_beam"]
+    bits, metric = wspr._beam_decode(cfg, llr)
+    launched = wk.launches["wspr_beam"] - before
+    pb, pm = wspr._beam_decode_plain(cfg, llr)
+    out = {"shape": list(llr.shape), "beam_width": cfg.beam_width,
+           "launches": launched,
+           "bits_differ": _bits_differ(bits, pb.cpu()),
+           "metric_bits_differ": _bits_differ(metric, pm.cpu()),
+           "max_abs_err": _abs_err(metric, pm.cpu()),
+           "dtype": str(bits.dtype)}
+    out["ok"] = (launched == 1 and out["bits_differ"] == 0
+                 and out["metric_bits_differ"] == 0
+                 and bits.dtype == pb.dtype and bits.shape == pb.shape)
+    return out
+
+
+def rs_vs_plain(nk_fcr, syms: torch.Tensor, era: torch.Tensor,
+                public: bool = False) -> dict:
+    """``rs_ee`` against the plain version on the same CUDA trials: through
+    the Chase program's entry ``rs_ee_trials`` (syms [C, n], era [C, T,
+    n]), or with ``public`` through ``rs_ee_decode`` on the expanded words
+    [C T, n]: corrected words and ok identical.  One kernel launch."""
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
+    from cwsl_digi_tpu_torch.modes import rs_device
+
+    c, t, n = era.shape
+    before = wk.launches["rs_ee"]
+    if public:
+        recv = syms[:, None].expand(c, t, n).reshape(-1, n)
+        flat = era.reshape(-1, n)
+        got = rs_device.rs_ee_decode(nk_fcr, recv, flat)
+        want = rs_device.rs_ee_decode_plain(nk_fcr, recv, flat)
+    else:
+        got = rs_device.rs_ee_trials(nk_fcr, syms, era)
+        want = rs_device.rs_ee_trials_plain(nk_fcr, syms, era)
+    launched = wk.launches["rs_ee"] - before
+    n_era = era.sum(-1)
+    out = {"trials": c * t, "entry": "rs_ee_decode" if public
+           else "rs_ee_trials", "launches": launched,
+           "erasures_min_max": [int(n_era.min()), int(n_era.max())],
+           "over_nroots": int((n_era > n - nk_fcr[1]).sum()),
+           "words_differ": int((got[0] != want[0]).any(-1).sum()),
+           "ok_differ": int((got[1] != want[1]).sum()),
+           "ok_share": float(want[1].float().mean()),
+           "max_abs_err": float((got[0].long() - want[0].long()).abs().max()),
+           "dtype": str(got[0].dtype)}
+    out["ok"] = (launched == 1 and out["words_differ"] == 0
+                 and out["ok_differ"] == 0 and got[0].dtype == want[0].dtype)
+    return out
+
+
+def rs_edge_trials(syms: torch.Tensor, seed: int) -> torch.Tensor:
+    """Erasure flags [C, 8, n] for candidates syms [C, n]: a candidate's
+    eight trials erase 0, 0, 51, 51, 52, 60, 63 and 25 random positions."""
+    c, n = syms.shape
+    counts = [0, 0, 51, 51, 52, 60, 63, 25]
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.rand((c, len(counts), n), generator=g)
+    rank = keys.argsort(-1).argsort(-1)
+    era = rank < torch.tensor(counts)[None, :, None]
+    return era.to(syms.device)
+
+
+def beam_bound_ms(n: int, w: int) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the beam search of ``n`` candidates
+    at width ``w``: the LLRs read and bits and metric written once at the
+    HBM rate; per step and expanded entry (2W of them) 6 integer
+    operations (two masks, two popcounts, two parities) and 6 float ones
+    (two signed products, two adds, the halving, the tail), the merge's 6
+    (two tail compares, two metric compares, the select, the key), each
+    survivor's 4 to take it, and the least the two orders need: the
+    stable order of the 2W tails is a stable sort of the W parents' tails
+    (W log2 W compares; a parent's two children are its tail << 1 | bit)
+    and an interleave (one operation a child), and the top W of 2W in
+    order a selection (2 compares a key) and a sort of the W kept (W log2
+    W).  Integers at INT32_OPS, floats at FP32_OPS, the two pipes side by
+    side (``ops_ms_fma_rate``: all of it at FP32_FLOPS)."""
+    e = 2 * w
+    lg = w.bit_length() - 1
+    int_step = e * 6 + e * 6 + w * 4 + 2 * w * lg + e + 2 * e
+    float_step = e * 6
+    int_ops = n * 81 * int_step
+    float_ops = n * 81 * float_step
+    n_bytes = n * (81 * 2 * 4 + 50 + 4)
+    ops_ms = max(int_ops / INT32_OPS, float_ops / FP32_OPS) * 1e3
+    return (n_bytes / HBM_BYTES_S * 1e3, ops_ms,
+            {"int_ops": int_ops, "float_ops": float_ops, "bytes": n_bytes,
+             "ops_ms_fma_rate": (int_ops + float_ops) / FP32_FLOPS * 1e3})
+
+
+def beam_steps(w: int) -> dict:
+    """The chain of dependent steps a ``wspr_beam`` block takes: 81 trellis
+    steps, each two bitonic sorts of 2W keys (their compare stages, and of
+    them the ones behind a block barrier) and 5 more block barriers."""
+    lg = (2 * w).bit_length() - 1
+    stages = lg * (lg + 1) // 2
+    block = max(1, sum(max(0, q - 5) for q in range(1, lg + 1)))
+    return {"steps": 81, "sort_stages_a_step": 2 * stages,
+            "block_barriers_a_step": 2 * block + 5,
+            "stages_total": 81 * (2 * stages + 5),
+            "block_barriers_total": 81 * (2 * block + 5)}
+
+
+def rs_bound_ms(nk_fcr, syms: torch.Tensor, era: torch.Tensor,
+                corrected: torch.Tensor) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the errors-and-erasures decode of these
+    trials, whose corrected words are ``corrected`` [C, T, n]: the symbols
+    (int64), flags, tables read and the corrected words (a byte a symbol)
+    and ok written once at the HBM rate; per trial the GF(64) products (an
+    index and an XOR each, 2 integer operations, the table read a load)
+    its data needs, each polynomial evaluated by Horner's rule: the
+    syndromes (nroots (n - 1)), the locator (i + 1 for the i-th erasure,
+    at most nroots), each BM round past the erasures (r for the
+    discrepancy, 2 (nroots + 1) for Lambda and B), and with d the
+    locator's roots, counted as the positions the trial erases or changes
+    (at most nroots, at most Lambda's degree): the Chien search (d a
+    position), Omega = S Lambda mod x^nroots (nroots - i for Lambda's
+    i-th coefficient), Omega and Lambda' at the roots only (nroots - 1 and
+    (d + 1) // 2 each), Forney's 2 a root, and the membership check as
+    S(r) XOR S(e), nroots a changed position; at INT32_OPS
+    (``ops_ms_fma_rate``: at FP32_FLOPS).  Also the dependent BM rounds a
+    trial (its serial chain)."""
+    n, k, _ = nk_fcr
+    nr = n - k
+    c, t, _ = era.shape
+    era_c = era.cpu()
+    changed = corrected.cpu().long() != syms.cpu()[:, None, :]
+    e = era_c.sum(-1).to(torch.float64)
+    ec = e.clamp(max=nr)
+    nch = changed.sum(-1).to(torch.float64)
+    d = (era_c | changed).sum(-1).to(torch.float64).clamp(max=nr)
+    loc = torch.where(e <= nr, e * (e + 1) / 2,
+                      nr * (nr + 1) / 2 + (e - nr) * nr)
+    bm = (nr * (nr + 1) - ec * (ec + 1)) / 2 + (nr - ec) * 2 * (nr + 1)
+    per = (nr * (n - 1) + loc + bm + d * n + (d + 1) * nr - d * (d + 1) / 2
+           + d * (nr - 1) + d * torch.div(d + 1, 2, rounding_mode="floor")
+           + 2 * d + nr * nch)
+    int_ops = float(2 * per.sum())
+    n_bytes = c * n * 8 + 2 * c * t * n + c * t + 4096 + 5 * 64
+    rounds = nr - ec
+    return (n_bytes / HBM_BYTES_S * 1e3, int_ops / INT32_OPS * 1e3,
+            {"int_ops": int_ops, "bytes": n_bytes,
+             "products_a_trial_mean": float(per.mean()),
+             "roots_a_trial_mean": float(d.mean()),
+             "bm_rounds_mean": float(rounds.mean()),
+             "bm_rounds_max": int(rounds.max()),
+             "ops_ms_fma_rate": int_ops / FP32_FLOPS * 1e3})
+
+
+def weak_cases(dev) -> dict:
+    """The weak kernels' cases on the card, by name: ("beam", cfg, llr) or
+    ("rs", nk_fcr, syms, era, public) (``record_weak_inputs`` plus ties
+    and erasure edges)."""
+    rec = record_weak_inputs(dev)
+    cases = {}
+    for cfg, llr in rec["beam"]:
+        w = cfg.beam_width
+        i = sum(1 for name in cases if name.startswith(f"wspr w{w}"))
+        what = "pass 1" if i == 0 else f"dd pass {i}"
+        cases[f"wspr w{w} {what}"] = ("beam", cfg, llr)
+    for w in (512, 1024):
+        cfg = dataclasses.replace(rec["beam"][0][0], beam_width=w)
+        cases[f"ties w{w}"] = ("beam", cfg, beam_tie_llrs(96, SEED + w, dev))
+    nk_fcr, syms, era = rec["rs"][0]
+    cases["jt65 device batch"] = ("rs", nk_fcr, syms, era, False)
+    cases["jt65 erasure edges"] = ("rs", nk_fcr, syms[:64],
+                                   rs_edge_trials(syms[:64], SEED + 62),
+                                   False)
+    cases["jt65 rs_ee_decode"] = ("rs", nk_fcr, syms[:32], era[:32], True)
+    return cases
+
+
+def weak_kernels_phase(dev) -> dict:
+    """``wspr_beam`` and ``rs_ee`` against their plain versions on the card
+    on the decoders' own inputs (``weak_cases``): bits and metric bit for
+    bit, corrected words and ok identical; then each kernel's device time
+    at the bench's shapes (WSPR: 576 candidates at width 512, also 768 at
+    1024; JT65: 92,160 trials) beside the plain version's and the bound,
+    and the serial chain that sets each kernel's time."""
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
+    from cwsl_digi_tpu_torch.modes import rs_device, wspr
+
+    cases = weak_cases(dev)
+    checks = {}
+    for name, case in cases.items():
+        checks[name] = (beam_vs_plain(*case[1:]) if case[0] == "beam"
+                        else rs_vs_plain(*case[1:]))
+        print(f"weak kernels vs plain, {name}: {json.dumps(checks[name])}")
+    torch.cuda.empty_cache()
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"weak kernels disagree with the plain "
+                             f"versions: {bad}")
+    attrs = {w: wk.kernel_attrs(dev, w) for w in (512, 1024)}
+    smem = {w: wk.beam_smem_bytes(w) for w in (256, 512, 1024)}
+    print(f"weak kernels' design: attributes {json.dumps(attrs)}, "
+          f"wspr_beam dynamic shared memory by width {json.dumps(smem)}")
+    _, cfg, llr = cases["wspr w512 pass 1"]
+    _, cfg_w, llr_w = cases["wspr w1024 pass 1"]
+    _, nk_fcr, syms, era, _ = cases["jt65 device batch"]
+    tables = rs_device.kernel_tables_device(nk_fcr, dev)
+    nroots = nk_fcr[0] - nk_fcr[1]
+    runs = {
+        "wspr_beam": (lambda: wk.wspr_beam(llr, cfg.beam_width),
+                      lambda: wspr._beam_decode_plain(cfg, llr), 3, 2),
+        "rs_ee": (lambda: wk.rs_ee(tables, syms, era, nroots),
+                  lambda: rs_device.rs_ee_trials_plain(nk_fcr, syms, era),
+                  5, 2)}
+    bounds = {"wspr_beam": beam_bound_ms(llr.shape[0], cfg.beam_width),
+              "rs_ee": rs_bound_ms(nk_fcr, syms, era,
+                                   wk.rs_ee(tables, syms, era, nroots)[0])}
+    errs = {"wspr_beam": max(c["max_abs_err"] for n, c in checks.items()
+                             if cases[n][0] == "beam"),
+            "rs_ee": max(c["max_abs_err"] for n, c in checks.items()
+                         if cases[n][0] == "rs")}
+    out = stage_kernel_times(
+        runs, bounds, errs,
+        {"wspr_beam": list(llr.shape), "rs_ee": list(era.shape)})
+    out["wspr_beam"]["dependent_steps"] = beam_steps(cfg.beam_width)
+    out["rs_ee"]["dependent_steps"] = {
+        k: bounds["rs_ee"][2][k] for k in ("bm_rounds_mean",
+                                           "bm_rounds_max")}
+    wide = cuda_ms(lambda: wk.wspr_beam(llr_w, 1024), 2)
+    wide_bound = beam_bound_ms(llr_w.shape[0], 1024)
+    out["wspr_beam"]["w1024"] = {
+        "shape": list(llr_w.shape), "ms": wide,
+        "bound_ms": max(wide_bound[:2]),
+        "dependent_steps": beam_steps(1024)}
+    print(f"wspr_beam at width 1024, {list(llr_w.shape)}: {wide:.4f} ms "
+          f"device time, bound {max(wide_bound[:2]):.5f} ms; chains "
+          f"{json.dumps(beam_steps(cfg.beam_width))} (w512), "
+          f"{json.dumps(beam_steps(1024))} (w1024); rs_ee "
+          f"{json.dumps(out['rs_ee']['dependent_steps'])}")
+    return {"kernels": out, "checks": checks, "attrs": attrs,
+            "beam_smem_bytes": smem}
+
+
 def _plan():
     """64 dials across the band and the bursts: (dial index, message,
     audio offset Hz, SNR dB in 2.5 kHz, dt s)."""
@@ -1692,10 +2041,11 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
 def _kernel_modules() -> tuple:
     """The port's kernel libraries, each with its ``launches`` dict."""
     from cwsl_digi_tpu_torch.dsp import _kernels
-    from cwsl_digi_tpu_torch.modes import _gfsk_kernels, _sync_kernels
+    from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, _sync_kernels,
+                                           _weak_kernels)
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
-    return _kernels, ldpc_kernels, _gfsk_kernels, _sync_kernels
+    return _kernels, ldpc_kernels, _gfsk_kernels, _sync_kernels, _weak_kernels
 
 
 def _reset_launches() -> None:
@@ -1966,11 +2316,12 @@ def _weak_plan():
 
 def weak_modes_phase(dev, workdir: Path) -> dict:
     """The port's App on the weak-mode replay (WSPR, JT65, Q65-30): WSPR's
-    OSD runs the ``osd`` kernel; none of the three has an LDPC code or
-    runs the GFSK engine, so ``bp_minsum``, ``subtract_known``,
-    ``multisym_llrs`` and the sync kernels have no launch here."""
+    beam search runs ``wspr_beam`` and its OSD ``osd``, JT65's RS Chase
+    ``rs_ee``; none of the three has an LDPC code or runs the GFSK engine,
+    so ``bp_minsum``, ``subtract_known``, ``multisym_llrs`` and the sync
+    kernels have no launch here."""
     return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
-                         _weak_plan(), SEED + 5, ("osd",))
+                         _weak_plan(), SEED + 5, ("osd",) + WEAK_KERNELS)
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -2515,7 +2866,7 @@ def bench_phase(dev) -> dict:
     missing = [k for k, r in out.items() if r.get("found_share", 1.0) <= 0]
     if missing:
         raise AssertionError(f"bench sections decoded nothing: {missing}")
-    _require_launches("bench", counts, HAND_KERNELS)
+    _require_launches("bench", counts, ALL_KERNELS)
     return {"launches": chan["kernel_launches"], "kernel_launches": counts,
             "sections": out}
 
@@ -2531,12 +2882,14 @@ def main() -> int:
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
     from cwsl_digi_tpu_torch.modes import _sync_kernels as sync_kernels
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as weak_kernels
 
     dev = cuda_device()
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
     build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels,
-                     "gfsk": gfsk_kernels, "sync": sync_kernels})
+                     "gfsk": gfsk_kernels, "sync": sync_kernels,
+                     "weak": weak_kernels})
 
     walls = {}
 
@@ -2565,6 +2918,8 @@ def main() -> int:
     ksync = phase("sync_kernels", sync_kernels_phase, dev, gcases)
     del gcases
     torch.cuda.empty_cache()
+    kweak_modes = phase("weak_kernels", weak_kernels_phase, dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2587,6 +2942,7 @@ def main() -> int:
     print(json.dumps({"ldpc_kernels": kldpc}))
     print(json.dumps({"gfsk_kernels": kgfsk}))
     print(json.dumps({"sync_kernels": ksync}))
+    print(json.dumps({"weak_kernels": kweak_modes}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
                       "weak_decode_batches": wstats["decode_batches"],
@@ -2623,6 +2979,8 @@ def main() -> int:
              for name, replaces in GFSK_REPLACES.items()]
     hand += [(name, replaces, ksync, "sync.cu")
              for name, replaces in SYNC_REPLACES.items()]
+    hand += [(name, replaces, kweak_modes, "weak.cu")
+             for name, replaces in WEAK_REPLACES.items()]
     for name, replaces, kphase, src in hand:
         k = kphase["kernels"][name]
         by_phase = {ph: st["kernel_launches"][name]

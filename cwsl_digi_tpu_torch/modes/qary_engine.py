@@ -32,7 +32,8 @@ from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
 from cwsl_digi_tpu_torch.modes.gfsk_engine import (DEVICE_BYTES_BUDGET,
                                                    _bf16_matmul, _median_rows,
                                                    _top_k, device_batch_for)
-from cwsl_digi_tpu_torch.modes.rs_device import rs_chase_program
+from cwsl_digi_tpu_torch.modes.rs_device import (kernel_tables_device,
+                                                 rs_chase_program)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +272,11 @@ class QaryDecoder:
         if self.value_demap is not None:
             self._host["value_demap"] = self.value_demap
         self._tabs = tables_to_torch(self._host, self.device)
+        if rs is not None and self.device.type == "cuda":
+            # the rs_ee kernel's tables, copied now and not in a decode
+            kernel_tables_device((len(spec.data_syms), rs.k,
+                                  getattr(rs, "fcr", 1)),
+                                 self.device)
 
     def tables(self) -> dict[str, torch.Tensor]:
         """Host tables the reference also builds (see ``convert.py``)."""

@@ -10,9 +10,12 @@ energies and keeps the best accepted trial per candidate.
   TPU serializes gathers from tiny tables); here a product is one gather
   from the 64x64 multiplication table, built once from the same
   carry-less product, so every result is the same integer.
-- Everything is masked, nothing branches on the data: Berlekamp-Massey
-  runs all 2t rounds with per-trial active masks, and the reference's
-  ``fori_loop`` s are Python loops of batched ops.
+- On CUDA tensors the decode is one launch of the ``rs_ee`` kernel
+  (``csrc/weak.cu``, a warp a trial).  Its plain version
+  (:func:`rs_ee_decode_plain`, on CPU tensors) is masked and never
+  branches on the data: Berlekamp-Massey runs all 2t rounds with
+  per-trial active masks, and the reference's ``fori_loop`` s are Python
+  loops of batched ops.
 - Validity is "the corrected word's syndromes are all zero".
 - The stochastic erasure patterns are the reference's own draws
   (``modes/threefry.py``), so the trial set, and with it the decode list,
@@ -27,13 +30,14 @@ import numpy as np
 import torch
 
 from cwsl_digi_tpu_torch.convert import tables_to_torch
-from cwsl_digi_tpu_torch.modes import threefry
+from cwsl_digi_tpu_torch.modes import _weak_kernels, threefry
 
 PRIM_POLY = 0x43      # x^6 + x + 1
 GF_M = 6
 GF_Q = 64
 
-# trials per rs_ee_decode call at most (bounds its [M, n] int64 temporaries)
+# trials per rs_ee_trials call at most (bounds the plain version's [M, n]
+# int64 temporaries and the soft score's [C, T, n, 4] ones)
 TRIALS_PER_CALL = 1 << 18
 
 
@@ -137,14 +141,85 @@ def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def kernel_tables(n: int, nroots: int, fcr: int) -> np.ndarray:
+    """The ``rs_ee`` kernel's table block, uint8 [4416]: the product table
+    [64, 64], the inverses [64], then X_i, X_i^-1 and X_i^(1-fcr) of each
+    position and alpha^(fcr+j) of each syndrome, each padded to 64."""
+    mul, inv = gf_tables()
+    syn, xi, xi_inv, _ch, xfcr = _tables(n, nroots, fcr)
+    cols = [xi, xi_inv, xfcr, syn[:, n - 2]]     # position n-2 has degree 1
+    out = [mul.reshape(-1), inv]
+    out += [np.pad(c, (0, GF_Q - len(c))) for c in cols]
+    return np.concatenate(out).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables_cached(n: int, nroots: int, fcr: int,
+                          device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(kernel_tables(n, nroots, fcr)).to(device)
+
+
+def kernel_tables_device(nk_fcr: tuple, device: torch.device | str
+                         ) -> torch.Tensor:
+    """The ``rs_ee`` kernel's table block on ``device``, copied there on
+    the first call for this code and device and cached.  The copy is a
+    host-to-device transfer: call this before capturing
+    :func:`rs_ee_trials` in a CUDA graph (``QaryDecoder`` does so when it
+    is built on a card)."""
+    n, k, fcr = nk_fcr
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _kernel_tables_cached(n, n - k, fcr, device)
+
+
 def rs_ee_decode(nk_fcr: tuple, recv: torch.Tensor, era: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched errors-and-erasures RS decode.
 
     nk_fcr = (n, k, fcr); recv [M, n] int64 received symbols; era [M, n]
     bool erasure flags.  Returns (corrected [M, n] int64, ok [M]): ok =
-    the corrected word has all-zero syndromes.
+    the corrected word has all-zero syndromes.  On CUDA tensors one launch
+    of the ``rs_ee`` kernel (``_weak_kernels``; it raises where the kernel
+    cannot run), on CPU tensors :func:`rs_ee_decode_plain`.
     """
+    if recv.device.type == "cpu":
+        return rs_ee_decode_plain(nk_fcr, recv, era)
+    m, n = recv.shape
+    corrected, ok = rs_ee_trials(nk_fcr, recv, era.reshape(m, 1, n))
+    return corrected.reshape(m, n).to(torch.int64), ok.reshape(m)
+
+
+def rs_ee_trials(nk_fcr: tuple, syms: torch.Tensor, era: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Chase program's trials: trial (c, t) decodes syms [c] ([C, n]
+    int64) with the erasure flags era [c, t] ([C, T, n] bool).  Returns
+    (corrected [C, T, n] uint8, ok [C, T]).  On CUDA tensors one launch of
+    the ``rs_ee`` kernel, which reads each candidate's row for its trials
+    (the [C T, n] int64 expansion is never built), with no host sync once
+    :func:`kernel_tables_device` has run for this code and device; on CPU
+    tensors :func:`rs_ee_trials_plain`."""
+    if syms.device.type == "cpu":
+        return rs_ee_trials_plain(nk_fcr, syms, era)
+    n, k, _fcr = nk_fcr
+    return _weak_kernels.rs_ee(kernel_tables_device(nk_fcr, syms.device),
+                               syms.contiguous(), era.contiguous(), n - k)
+
+
+def rs_ee_trials_plain(nk_fcr: tuple, syms: torch.Tensor, era: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rs_ee_trials` through :func:`rs_ee_decode_plain` on the
+    expanded words."""
+    c, t, n = era.shape
+    recv = syms[:, None, :].expand(c, t, n).reshape(-1, n)
+    corrected, ok = rs_ee_decode_plain(nk_fcr, recv, era.reshape(-1, n))
+    return corrected.reshape(c, t, n).to(torch.uint8), ok.reshape(c, t)
+
+
+def rs_ee_decode_plain(nk_fcr: tuple, recv: torch.Tensor, era: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rs_ee_decode` in plain PyTorch: the reference's loops of
+    batched GF(64) steps over [M, n] int64 tensors."""
     n, k, fcr = nk_fcr
     nroots = n - k
     dev = recv.device
@@ -276,11 +351,7 @@ def rs_chase_program(nk_fcr: tuple, n_trials: int, n_det: int,
         cc = sl.stop - c0
         u = threefry.uniform(key, (cc, n_sto, n), offset=c0 * n_sto * n)
         era = torch.cat([det[sl], u < p[sl]], dim=1)         # [cc, T, n]
-        recv = syms[sl, None, :].expand(cc, n_trials, n)
-        corrected, ok = rs_ee_decode(nk_fcr, recv.reshape(-1, n),
-                                     era.reshape(-1, n))
-        corrected = corrected.reshape(cc, n_trials, n)
-        ok = ok.reshape(cc, n_trials)
+        corrected, ok = rs_ee_trials(nk_fcr, syms[sl], era)  # uint8 words
 
         # soft re-encode score (the reference's host _soft_score, vectorized): mean
         # log(E[cw tone] / mean symbol energy), top-4 else residual floor
@@ -302,7 +373,7 @@ def rs_chase_program(nk_fcr: tuple, n_trials: int, n_det: int,
         best = score.argmax(dim=1)                           # [cc]
         bidx = torch.arange(cc, device=dev)
         best_score = score[bidx, best]
-        info = corrected[bidx, best, :k]
+        info = corrected[bidx, best, :k].to(torch.int64)
         # the all-zero word is a codeword of every RS code and wins on dead
         # air; require real content
         infos.append(info)

@@ -18,9 +18,10 @@ device decoder is the port of the reference's:
   2. sync-vector correlation over (t0, f0) and 5 drift hypotheses as
      162 signed shifted-slice sums of a sync-contrast map; top-K;
   3. coherent 1/2/3/4-symbol data LLRs with the sub-bin rotation;
-  4. the 81-step beam search with state merging (:func:`_beam_decode`),
-     decision-directed coherent passes, OSD over the (162, 50) block
-     code, and the SNR.
+  4. the 81-step beam search with state merging (:func:`_beam_decode`:
+     on the card one launch of the ``wspr_beam`` kernel,
+     ``csrc/weak.cu``), decision-directed coherent passes, OSD over the
+     (162, 50) block code, and the SNR.
 
 The trellis states are uint32 values held in int64 tensors with masks
 (``torch.uint32`` lacks most operations on CUDA); sorts and top-K keep
@@ -39,6 +40,7 @@ import torch
 from cwsl_digi_tpu_torch.constants import Mode, WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
+from cwsl_digi_tpu_torch.modes import _weak_kernels
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.gfsk import gfsk_modulate
@@ -507,10 +509,25 @@ def _beam_decode(cfg: WSPRConfig, llr: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fixed-width beam search over the 81-step rate-1/2 trellis.
 
-    llr: [N, 81, 2], positive = coded bit 0.  Returns ([N, 50] bits,
-    [N] best path metric normalized by total |llr|).  A Python loop of
-    batched steps; the survivors of each step are the reference's (stable
-    key sort, top-K lower index first on ties), so are the back-pointers.
+    llr: [N, 81, 2] float32, positive = coded bit 0.  Returns ([N, 50]
+    int8 bits, [N] best path metric normalized by total |llr|).  On a CUDA
+    tensor one launch of the ``wspr_beam`` kernel (``_weak_kernels``; it
+    raises where the kernel cannot run), on a CPU tensor
+    :func:`_beam_decode_plain`; the normalisation is the same torch op on
+    both.
+    """
+    if llr.device.type == "cpu":
+        return _beam_decode_plain(cfg, llr)
+    best, bits = _weak_kernels.wspr_beam(llr.contiguous(), cfg.beam_width)
+    norm = llr.abs().sum(dim=(1, 2)) + 1e-30
+    return bits, best / (0.5 * norm)
+
+
+def _beam_decode_plain(cfg: WSPRConfig, llr: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_beam_decode` in plain PyTorch: a Python loop of batched
+    steps; the survivors of each step are the reference's (stable key sort,
+    top-K lower index first on ties), so are the back-pointers.
     """
     n = llr.shape[0]
     w = cfg.beam_width
@@ -619,6 +636,9 @@ class WSPRDecoder:
                                                WSPRConfig.beam_width),
         })
         self.device = as_device(device)
+        if self.device.type == "cuda":
+            # the card's beam search takes powers of two from 32 to 1024
+            _weak_kernels.check_beam_width(self.cfg.beam_width)
         g, r = _code_matrices()
         # coded bit k lives at symbol position INTERLEAVE[k], so gathering
         # symbol LLRs with INTERLEAVE yields coded-bit order

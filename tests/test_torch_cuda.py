@@ -15,7 +15,11 @@ the sync-search kernels ``sync_score``, ``sync_select`` and
 all-tie windows, NaN and +-inf, the pass-1 shape, top_k 32768, a grid
 smaller than a block), FT4, JS8, FST4-60 and FST4-900 maps, the selection
 forced to 8-block clusters (and no fallback, also when the library refuses
-a launch; no spills), and the
+a launch; no spills), the weak modes' kernels ``wspr_beam`` (at widths 32
+to 1024, the 1024 one's shared memory included, on noise, ties and NaN)
+and ``rs_ee`` (through both entries, with more than 51 erasures and with
+more trials than the card's resident warps) against their plain versions (and no fallback;
+no spills; the WSPR and JT65 decoders launch them), and the
 parallel layer on a virtual mesh of the card against one on the CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
@@ -43,8 +47,10 @@ from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
 from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 from cwsl_digi_tpu_torch.modes import _sync_kernels as sync_kernels
+from cwsl_digi_tpu_torch.modes import _weak_kernels as weak_kernels
 from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, gfsk_engine, js8,
-                                       jt65, ldpc, osd, q65, subtract, wspr)
+                                       jt65, ldpc, osd, q65, rs64,
+                                       rs_device, subtract, wspr)
 from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
 from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
 from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
@@ -682,6 +688,126 @@ def test_decoders_launch_the_sync_kernels_on_card(dev):
     before = dict(sync_kernels.launches)
     wspr.WSPRDecoder(device=dev).decode(torch.from_numpy(win[None]).to(dev))
     assert sync_kernels.launches == before
+
+
+def _beam_noise(n: int, seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (2.0 * rng.standard_normal((n, 81, 2))).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("w", [32, 256, 512, 1024])
+def test_wspr_beam_matches_plain_on_card(dev, w):
+    """wspr_beam against the plain beam search on the same CUDA LLRs, at
+    every beam width the decoders run (1024 is the cycles >= 10000 width,
+    whose back-pointers take 166 KB of shared memory) and at 32: noise,
+    LLRs built to tie (integers, zeros, a zero tail) and a candidate with
+    a NaN LLR; bits identical, the metric bit for bit (NaN as NaN), and
+    the bits also the plain version's on CPU copies."""
+    cfg = wspr.WSPRConfig(beam_width=w)
+    llr = torch.cat([_beam_noise(40, w, dev),
+                     chip_smoke.beam_tie_llrs(24, w + 1, dev)])
+    llr[-1, 30, 1] = float("nan")
+    got = chip_smoke.beam_vs_plain(cfg, llr)
+    torch.cuda.synchronize()
+    assert got["ok"], got
+    bits, _ = wspr._beam_decode(cfg, llr)
+    cpu_bits, _ = wspr._beam_decode_plain(cfg, llr.cpu())
+    assert torch.equal(bits.cpu(), cpu_bits)
+
+
+def _rs_trials(dev, n_cand: int, seed: int):
+    """JT65 codewords with 0 to 20 errors a candidate, as syms [C, 63]
+    int64, and erasure flags [C, 8, 63]: 0, 0, 51, 51, 52, 60, 63 and 25
+    erased positions a candidate."""
+    rng = np.random.default_rng(seed)
+    rs = rs64.RS63(12, fcr=3)
+    syms = np.stack([rs.encode(rng.integers(0, 64, 12))
+                     for _ in range(n_cand)])
+    for r in syms:
+        pos = rng.permutation(63)[:rng.integers(0, 21)]
+        r[pos] ^= rng.integers(1, 64, len(pos))
+    syms = torch.from_numpy(syms).to(dev)
+    return syms, chip_smoke.rs_edge_trials(syms, seed)
+
+
+@pytest.mark.parametrize("n_cand", [96, 2048])
+def test_rs_ee_matches_plain_on_card(dev, n_cand):
+    """rs_ee against the plain decode on the same CUDA trials, through the
+    Chase program's entry and through rs_ee_decode: corrected words and
+    ok identical, with more than 51 erasures in a third of the trials;
+    at 16,384 trials the card's resident warps each loop over more than
+    one trial."""
+    syms, era = _rs_trials(dev, n_cand, 5)
+    nk = (63, 12, 3)
+    for public in (False, True):
+        got = chip_smoke.rs_vs_plain(nk, syms, era, public)
+        assert got["ok"] and got["over_nroots"] > 0, got
+        assert 0 < got["ok_share"] < 1, got
+    torch.cuda.synchronize()
+
+
+def test_weak_kernels_raise_without_library_on_card(dev, monkeypatch,
+                                                    tmp_path):
+    """With no nvcc and no built library, the beam search and the RS
+    decode on CUDA tensors raise; the plain versions never run and
+    nothing counts."""
+    monkeypatch.setattr(weak_kernels, "_lib", None)
+    monkeypatch.setattr(weak_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(weak_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(wspr, "_beam_decode_plain", plain)
+    for name in ("rs_ee_decode_plain", "rs_ee_trials_plain"):
+        monkeypatch.setattr(rs_device, name, plain)
+    syms, era = _rs_trials(dev, 4, 6)
+    before = dict(weak_kernels.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        wspr._beam_decode(wspr.WSPRConfig(), _beam_noise(4, 1, dev))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rs_device.rs_ee_trials((63, 12, 3), syms, era)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rs_device.rs_ee_decode((63, 12, 3), syms, era[:, 0])
+    assert weak_kernels.launches == before
+
+
+def test_weak_kernels_do_not_spill_on_card(dev):
+    """wspr_beam at widths 512 and 1024 and rs_ee keep every value in
+    registers; the width-1024 block's shared memory fits the card's 227
+    KB."""
+    for w in (512, 1024):
+        attrs = weak_kernels.kernel_attrs(dev, w)
+        assert attrs["wspr_beam"]["local_bytes"] == 0, (w, attrs)
+        assert attrs["rs_ee"]["local_bytes"] == 0, attrs
+    assert 160_000 < weak_kernels.beam_smem_bytes(1024) <= 232_448
+
+
+def test_decoders_launch_the_weak_kernels_on_card(dev):
+    """A WSPR decode of two windows runs wspr_beam once a pass (the first
+    and the DD pass), a JT65 decode runs rs_ee once for its Chase
+    program, and each decodes its message."""
+    rng = np.random.default_rng(17)
+    win = add_noise_at_snr(wspr.synthesize("K1ABC", "FN42", 37, 1500.0),
+                           -20.0, 12_000, rng).astype(np.float32)
+    before = dict(weak_kernels.launches)
+    res = wspr.WSPRDecoder(device=dev).decode(
+        torch.from_numpy(np.stack([win, win])).to(dev))
+    torch.cuda.synchronize()
+    assert [r.message for r in res[0]] == ["K1ABC FN42 37"]
+    assert weak_kernels.launches == {**before,
+                                     "wspr_beam": before["wspr_beam"] + 2}
+    win = add_noise_at_snr(jt65.synthesize("CQ W2AXR FN13", 1270.0), -15.0,
+                           12_000, rng).astype(np.float32)
+    before = dict(weak_kernels.launches)
+    res = jt65.JT65Decoder(device=dev).decode(
+        torch.from_numpy(win[None]).to(dev))
+    torch.cuda.synchronize()
+    assert [r.message for r in res[0]] == ["CQ W2AXR FN13"]
+    assert weak_kernels.launches == {**before, "rs_ee": before["rs_ee"] + 1}
 
 
 def test_one_decode_at_a_time_on_the_card(dev):

@@ -1,0 +1,593 @@
+"""The weak modes' hand kernels (``modes/csrc/weak.cu``) on the CPU: their
+plain versions against the JAX package on inputs built to tie, NumPy
+models of the kernels' algorithms bit for bit against the plain versions,
+and the wrappers' routing and refusals.
+
+- ``wspr._beam_decode_plain`` against ``jwspr._beam_decode`` at beam widths
+  256 and 1024 on integer-valued LLRs, all-zero LLRs and a zero tail: bits
+  identical, metric within 1e-5 relative (the normalising sum of |llr| in
+  another order);
+- a NumPy model of ``wspr_beam``: the two sorts as ascending sorts of its
+  composite keys (a key is unique, so any sort gives the bitonic network's
+  order), the merge by neighbours, the backtrack from the first maximum;
+  bits and metric bitwise the plain version's, NaN LLRs included; and the
+  kernel's bitonic network (its index formula, directions and the rule
+  that lets a stage wait on a warp barrier) on random keys;
+- ``rs_device.rs_ee_decode_plain`` against ``jrs.rs_ee_decode`` on 0,
+  exactly 51 and 52 or more erasures, the all-zero word and random words:
+  words and ``ok`` identical;
+- a NumPy model of ``rs_ee`` (lanes j and j + 32, the shuffles, Horner
+  chains over the table block ``rs_device.kernel_tables``) equal to the
+  plain version on the same cases;
+- the Chase program decodes through ``rs_ee_trials`` (syms [C, n], era [C,
+  T, n]), equal to the expanded route;
+- the smoke's RS bound counts the locator's roots from the trials' data;
+- the wrappers: CPU tensors run the plain versions and count no launch;
+  a wrong dtype, shape, contiguity, beam width or word length raises
+  before the library loads, a WSPR decoder for a card refuses such a
+  width when it is built; a CUDA-typed call with no nvcc raises.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cwsl_digi_tpu.modes import rs64 as jrs64
+from cwsl_digi_tpu.modes import rs_device as jrs
+from cwsl_digi_tpu.modes import wspr as jwspr
+from cwsl_digi_tpu_torch.modes import _weak_kernels, rs_device, wspr
+
+torch.set_num_threads(1)
+
+DEAD = np.float32(-1e9)
+
+
+# ---------------------------------------------------------------------------
+# wspr_beam
+
+
+def _tie_llrs(seed: int) -> np.ndarray:
+    """Three candidates built to tie: integer-valued LLRs, all-zero LLRs,
+    and random LLRs with a zero tail."""
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(-3, 4, (81, 2)).astype(np.float32)
+    tail = rng.standard_normal((81, 2)).astype(np.float32)
+    tail[wspr.N_MSG_BITS:] = 0.0
+    return np.stack([ints, np.zeros((81, 2), np.float32), tail])
+
+
+def _cfg(w: int) -> tuple:
+    cfg = wspr.WSPRConfig(beam_width=w)
+    jcfg = jwspr.WSPRConfig(**{f: getattr(cfg, f)
+                               for f in cfg.__dataclass_fields__})
+    return cfg, jcfg
+
+
+@pytest.mark.parametrize("w", [256, 1024])
+def test_plain_beam_matches_jax_on_ties(w):
+    llr = _tie_llrs(w)
+    cfg, jcfg = _cfg(w)
+    bj, mj = jwspr._beam_decode(jcfg, jnp.asarray(llr))
+    bp, mp = wspr._beam_decode_plain(cfg, torch.from_numpy(llr))
+    np.testing.assert_array_equal(bp.numpy(), np.asarray(bj))
+    np.testing.assert_allclose(mp.numpy(), np.asarray(mj), rtol=1e-5)
+
+
+def _parity(x: np.ndarray) -> np.ndarray:
+    return np.unpackbits(x.view(np.uint8), axis=-1).reshape(
+        *x.shape, 32).sum(-1) & 1
+
+
+def _desc_key(m: np.ndarray) -> np.ndarray:
+    """weak.cu's desc_key: ascending keys are descending floats, -0.0 as
+    0.0, NaN (any sign) first."""
+    u = m.view(np.uint32).copy()
+    u[(u & 0x7FFFFFFF) == 0] = 0
+    asc = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    return np.where(np.isnan(m), np.uint32(0), ~asc).astype(np.uint64)
+
+
+def _beam_model(llr: np.ndarray, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """The wspr_beam kernel's algorithm over the candidates at once:
+    (bits [N, 50] int8, the best raw metric [N] float32)."""
+    n = llr.shape[0]
+    log_w = w.bit_length() - 1
+    st = np.zeros((n, w), np.uint32)
+    met = np.full((n, w), DEAD, np.float32)
+    met[:, 0] = 0.0
+    live = np.zeros((n, w), bool)
+    live[:, 0] = True
+    bp = np.zeros((81, n, w), np.uint16)
+    ent = np.arange(2 * w, dtype=np.uint64)
+
+    def branch(s, l0, l1):
+        c1 = np.where(_parity(s & np.uint32(wspr.POLY1)), -1, 1)
+        c2 = np.where(_parity(s & np.uint32(wspr.POLY2)), -1, 1)
+        return (c1.astype(np.float32) * l0 + c2.astype(np.float32) * l1) \
+            * np.float32(0.5)
+
+    for step in range(81):
+        l0, l1 = llr[:, step, 0:1], llr[:, step, 1:2]
+        s0 = st << np.uint32(1)
+        s1 = s0 | np.uint32(1)
+        m0 = met + branch(s0, l0, l1)
+        m1 = met + branch(s1, l0, l1)
+        if step >= wspr.N_MSG_BITS:
+            m1 = m1 - np.float32(1e9)
+        am = np.concatenate([np.where(live, m0, DEAD),
+                             np.where(live, m1, DEAD)], axis=1)
+        tails = np.concatenate([s0, s1], axis=1).astype(np.uint64) \
+            & np.uint64(0x7FFFFFFF)
+        key = np.sort((tails << np.uint64(11)) | ent, axis=1)
+        tail_s, e_s = key >> np.uint64(11), key & np.uint64(0x7FF)
+        m_s = np.take_along_axis(am, e_s.astype(np.int64), axis=1)
+        same = tail_s[:, :-1] == tail_s[:, 1:]
+        drop = np.zeros_like(same, shape=m_s.shape)
+        drop[:, :-1] |= same & (m_s[:, :-1] < m_s[:, 1:])
+        drop[:, 1:] |= same & (m_s[:, 1:] <= m_s[:, :-1])
+        mm = np.where(drop, DEAD, m_s)
+        key2 = np.sort((_desc_key(mm) << np.uint64(22))
+                       | (ent << np.uint64(11)) | e_s, axis=1)[:, :w]
+        p = ((key2 >> np.uint64(11)) & np.uint64(0x7FF)).astype(np.int64)
+        e = (key2 & np.uint64(0x7FF)).astype(np.int64)
+        parent, bit = e & (w - 1), e >> log_w
+        met = np.take_along_axis(mm, p, axis=1)
+        st = (np.take_along_axis(st, parent, axis=1) << np.uint32(1)) \
+            | bit.astype(np.uint32)
+        live = np.take_along_axis(live, parent, axis=1)
+        bp[step] = parent | (bit << 15)
+    bits = np.zeros((n, wspr.N_MSG_BITS), np.int8)
+    best = np.zeros(n, np.float32)
+    for c in range(n):
+        nan = np.flatnonzero(np.isnan(met[c]))
+        idx = int(nan[0]) if nan.size else int(np.argmax(met[c]))
+        best[c] = met[c, idx]
+        for step in range(80, -1, -1):
+            v = int(bp[step, c, idx])
+            if step < wspr.N_MSG_BITS:
+                bits[c, step] = v >> 15
+            idx = v & 0x7FFF
+    return bits, best
+
+
+@pytest.mark.parametrize("w", [32, 256])
+def test_beam_kernel_model_matches_plain(w):
+    """The kernel's composite keys, merge and backtrack give the plain
+    version's bits and metric bit for bit: on ties, on noisy LLRs and on a
+    candidate with NaN LLRs (its metric NaN as the plain version's)."""
+    rng = np.random.default_rng(w + 1)
+    noisy = rng.standard_normal((3, 81, 2)).astype(np.float32) * 2
+    nan = rng.standard_normal((1, 81, 2)).astype(np.float32)
+    nan[0, 30, 1] = np.nan
+    llr = np.concatenate([_tie_llrs(w), noisy, nan])
+    cfg = wspr.WSPRConfig(beam_width=w)
+    bp, mp = wspr._beam_decode_plain(cfg, torch.from_numpy(llr))
+    bits, best = _beam_model(llr, w)
+    norm = torch.from_numpy(llr).abs().sum(dim=(1, 2)) + 1e-30
+    got = (torch.from_numpy(best) / (0.5 * norm)).numpy()
+    np.testing.assert_array_equal(bits, bp.numpy())
+    np.testing.assert_array_equal(got.view(np.uint32)[:-1],
+                                  mp.numpy().view(np.uint32)[:-1])
+    assert np.isnan(got[-1]) and np.isnan(mp.numpy()[-1])
+
+
+def _bitonic_model(keys: np.ndarray) -> tuple[np.ndarray, list]:
+    """weak.cu's bitonic_sort on keys [E] with E / 2 threads: the sorted
+    keys and, per stage, (stride, accessed index pairs a thread, whether
+    the barrier after it is a warp's)."""
+    e = keys.size
+    key = keys.copy()
+    t = np.arange(e // 2)
+    stages = []
+    k = 2
+    while k <= e:
+        j = k >> 1
+        while j > 0:
+            i = 2 * t - (t & (j - 1))
+            a, b = key[i], key[i + j]
+            up = (i & k) == 0
+            swap = (a > b) == up
+            key[i[swap]], key[i[swap] + j] = b[swap], a[swap]
+            nxt = j >> 1 if j > 1 else k
+            warp = j <= 32 and nxt <= 32 and not (k == e and j == 1)
+            stages.append((j, np.stack([i, i + j], 1), warp))
+            j >>= 1
+        k <<= 1
+    return key, stages
+
+
+@pytest.mark.parametrize("w", [32, 64, 256, 1024])
+def test_bitonic_network_sorts_and_warp_barriers_hold(w):
+    """The kernel's network sorts 2W unique keys ascending, and every
+    stage boundary it crosses on a warp barrier has each warp touch only
+    its own 64 keys on both sides."""
+    rng = np.random.default_rng(w)
+    keys = rng.permutation(np.arange(2 * w, dtype=np.uint64) * 7919 + 3)
+    got, stages = _bitonic_model(keys)
+    np.testing.assert_array_equal(got, np.sort(keys))
+    warp_of = np.arange(w) // 32
+    for (j, idx, warp), (j2, idx2, _) in zip(stages, stages[1:]):
+        if warp:
+            for ix in (idx, idx2):
+                assert np.all(ix // 64 == warp_of[:, None]), (j, j2)
+    assert not stages[-1][2]
+    n_block = sum(not s[2] for s in stages)
+    lg = (2 * w).bit_length() - 1
+    assert len(stages) == lg * (lg + 1) // 2
+    assert n_block == max(1, sum(max(0, q - 5) for q in range(1, lg + 1)))
+
+
+# ---------------------------------------------------------------------------
+# rs_ee
+
+
+def _rs_cases(rng, k: int = 12, fcr: int = 3) -> dict:
+    """Words and erasure flags by case: 0 erasures, exactly 51, 52 or more
+    (up to all 63), the all-zero word (with and without erasures), and
+    random words with errors and erasures (a fifth pure noise)."""
+    rs = jrs64.RS63(k, fcr=fcr)
+    nroots = 63 - k
+
+    def coded(m):
+        return np.stack([rs.encode(rng.integers(0, 64, k)) for _ in range(m)])
+
+    def corrupt(w, n_err):
+        w = w.copy()
+        for r in w:
+            pos = rng.permutation(63)[:n_err]
+            r[pos] ^= rng.integers(1, 64, n_err)
+        return w
+
+    def erase(m, n_era):
+        e = np.zeros((m, 63), bool)
+        for r, c in zip(e, n_era):
+            r[rng.permutation(63)[:c]] = True
+        return e
+
+    cases = {}
+    w = coded(24)
+    cases["no erasures"] = (corrupt(w, 12), np.zeros((24, 63), bool))
+    cases["no erasures, 26 errors"] = (corrupt(w, 26),
+                                       np.zeros((24, 63), bool))
+    w = coded(16)
+    cases["51 erasures"] = (corrupt(w, 20), erase(16, [nroots] * 16))
+    cases["52+ erasures"] = (corrupt(w, 20),
+                             erase(16, rng.integers(nroots + 1, 64, 16)))
+    z = np.zeros((8, 63), np.int64)
+    cases["all-zero word"] = (z, erase(8, [0, 1, 10, 51, 52, 63, 5, 30]))
+    w = coded(60)
+    n_era = rng.integers(0, 52, 60)
+    words = corrupt(w, 10)
+    words[::5] = rng.integers(0, 64, (12, 63))
+    cases["random words"] = (words, erase(60, n_era))
+    return cases
+
+
+def test_plain_rs_matches_jax_on_edge_cases():
+    cases = _rs_cases(np.random.default_rng(51))
+    words = np.concatenate([w for w, _ in cases.values()])
+    eras = np.concatenate([e for _, e in cases.values()])
+    cj, okj = jrs.rs_ee_decode((63, 12, 3), (), None,
+                               jnp.asarray(words, jnp.int32),
+                               jnp.asarray(eras))
+    cp, okp = rs_device.rs_ee_decode_plain(
+        (63, 12, 3), torch.from_numpy(words), torch.from_numpy(eras))
+    np.testing.assert_array_equal(cp.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(okp.numpy(), np.asarray(okj))
+    lo = 0
+    for name, (w, _) in cases.items():      # each case both decodes and not
+        ok = okp.numpy()[lo : lo + len(w)]
+        lo += len(w)
+        if name in ("no erasures", "51 erasures", "all-zero word"):
+            assert ok.any(), name
+        if name in ("no erasures, 26 errors", "random words"):
+            assert not ok.all(), name
+
+
+def _rs_model(tab: np.ndarray, words: np.ndarray, eras: np.ndarray,
+              n: int, nroots: int) -> tuple[np.ndarray, np.ndarray]:
+    """The rs_ee kernel's algorithm over the trials at once, on its table
+    block: registers a (index j) and b (index j + 32) of each lane, the
+    shuffles as shifts.  Returns (corrected [M, n] uint8, ok [M])."""
+    mul = tab[:4096].astype(np.int64)
+    inv = tab[4096:4160].astype(np.int64)
+    xi, xinv, xfcr, root = (tab[4160 + 64 * q : 4224 + 64 * q].astype(
+        np.int64) for q in range(4))
+    m = words.shape[0]
+    lanes = np.arange(64)                  # index j: lane j % 32, half j // 32
+
+    def gmul(a, b):
+        return mul[(a << 6) | b]
+
+    def shfl_up(x):
+        """__shfl_up_sync by 1 of both halves; lane 0 of half b takes lane
+        31 of half a, lane 0 of half a takes 0."""
+        return np.concatenate([np.zeros((x.shape[0], 1), np.int64),
+                               x[:, :-1]], axis=1)
+
+    def horner(wd, x):
+        acc = np.zeros_like(x)
+        for i in range(n):
+            acc = gmul(acc, x) ^ wd[:, i : i + 1]
+        return acc
+
+    r = np.zeros((m, 64), np.int64)
+    r[:, :n] = words & 63
+    x_root = np.broadcast_to(np.where(lanes < nroots, root, 0), (m, 64))
+    s = np.where(lanes < nroots, horner(r, x_root), 0)
+    coef = lanes <= nroots
+    lam = np.zeros((m, 64), np.int64)
+    lam[:, 0] = 1
+    for i in range(n):                     # ascending erased positions
+        step = lam ^ gmul(shfl_up(lam), xi[i])
+        lam = np.where(eras[:, i : i + 1], np.where(coef, step, 0), lam)
+    no_eras = eras.sum(axis=1)
+    b, el = lam.copy(), no_eras.copy()
+    for rr in range(1, nroots + 1):
+        act = rr > no_eras
+        sidx = np.clip(rr - 1 - lanes, 0, 63)
+        part = np.where(lanes <= rr - 1, gmul(lam, s[:, sidx]), 0)
+        d = np.bitwise_xor.reduce(part, axis=1)
+        bs = np.where(coef, shfl_up(b), 0)
+        t = lam ^ gmul(d[:, None], bs)
+        cond = (d != 0) & (2 * el <= rr - 1 + no_eras) & act
+        b = np.where(cond[:, None], gmul(lam, inv[d][:, None]),
+                     np.where(act[:, None], bs, b))
+        el = np.where(cond, rr + no_eras - el, el)
+        lam = np.where(act[:, None], t, lam)
+    om = np.zeros((m, 64), np.int64)
+    for i in range(nroots):
+        j = lanes
+        ok_j = (i <= j) & (j < nroots)
+        om ^= np.where(ok_j, gmul(lam[:, i : i + 1],
+                                  s[:, np.clip(j - i, 0, 63)]), 0)
+    x = np.broadcast_to(np.where(lanes < n, xinv, 0), (m, 64))
+    x2 = gmul(x, x)
+    ev, oe, de = (np.zeros((m, 64), np.int64) for _ in range(3))
+    for kk in range(nroots, -1, -1):
+        ev = gmul(ev, x) ^ lam[:, kk : kk + 1]
+    for kk in range(nroots - 1, -1, -1):
+        oe = gmul(oe, x) ^ om[:, kk : kk + 1]
+    for kk in range((nroots + 1) // 2 - 1, -1, -1):
+        de = gmul(de, x2) ^ lam[:, 2 * kk + 1 : 2 * kk + 2]
+    mag = gmul(gmul(oe, inv[de]), xfcr)
+    out = np.where(ev == 0, r ^ mag, r)
+    out[:, n:] = 0
+    z = np.where(lanes < nroots, horner(out, x_root), 0)
+    return out[:, :n].astype(np.uint8), ~(z != 0).any(axis=1)
+
+
+def test_kernel_tables_hold_the_plain_versions_tables():
+    n, nroots, fcr = 63, 51, 3
+    tab = rs_device.kernel_tables(n, nroots, fcr)
+    assert tab.dtype == np.uint8 and tab.size == _weak_kernels.RS_TABLE_BYTES
+    mul, inv = rs_device.gf_tables()
+    syn, xi, xi_inv, ch, xfcr = rs_device._tables(n, nroots, fcr)
+    np.testing.assert_array_equal(tab[:4096], mul.reshape(-1))
+    np.testing.assert_array_equal(tab[4096:4160], inv)
+    for q, col in enumerate((xi, xi_inv, xfcr)):
+        np.testing.assert_array_equal(tab[4160 + 64 * q : 4160 + 64 * q + n],
+                                      col)
+    root = tab[4352 : 4352 + nroots].astype(np.int64)
+    # S_j's powers are root_j ** deg_i, Chien's X_i^-d
+    for j in (0, 7, nroots - 1):
+        p = np.ones(1, np.int64)
+        for i in range(n - 1, -1, -1):
+            assert syn[j, i] == p[0]
+            p = mul[p, root[j]]
+    np.testing.assert_array_equal(ch[1], xi_inv)
+
+
+@pytest.mark.parametrize("k,fcr", [(12, 3), (45, 1)])
+def test_rs_kernel_model_matches_plain(k, fcr):
+    """The kernel's lanes, shuffles and Horner chains give the plain
+    version's corrected words and ok flags, for JT65's RS(63,12) fcr 3 and
+    an RS(63,45) fcr 1 (18 roots: locator coefficients in one half)."""
+    rng = np.random.default_rng(k)
+    if k == 12:
+        cases = _rs_cases(rng)
+        words = np.concatenate([w for w, _ in cases.values()])
+        eras = np.concatenate([e for _, e in cases.values()])
+    else:
+        rs = jrs64.RS63(k, fcr=fcr)
+        words = np.stack([rs.encode(rng.integers(0, 64, k))
+                          for _ in range(40)])
+        eras = rng.random((40, 63)) < rng.uniform(0, 0.35, (40, 1))
+        words[rng.random((40, 63)) < 0.06] ^= 5
+    nroots = 63 - k
+    cp, okp = rs_device.rs_ee_decode_plain(
+        (63, k, fcr), torch.from_numpy(words), torch.from_numpy(eras))
+    got, ok = _rs_model(rs_device.kernel_tables(63, nroots, fcr), words,
+                        eras, 63, nroots)
+    np.testing.assert_array_equal(got, cp.numpy())
+    np.testing.assert_array_equal(ok, okp.numpy())
+    assert ok.any() and not ok.all()
+
+
+def test_chase_program_decodes_through_the_trial_entry(monkeypatch):
+    """rs_chase_program hands rs_ee_trials each chunk's syms [cc, n] and
+    era [cc, T, n]; its result equals the route through the expanded
+    [cc T, n] words, chunk by chunk."""
+    rng = np.random.default_rng(65)
+    rs = jrs64.RS63(12, fcr=3)
+    c, n = 5, 63
+    syms = np.stack([rs.encode(rng.integers(0, 64, 12)) for _ in range(c)])
+    syms[rng.random((c, n)) < 0.25] ^= 9
+    margin = rng.random((c, n)).astype(np.float32)
+    top_tone = np.stack([syms, (syms + 1) % 64, (syms + 2) % 64,
+                         (syms + 3) % 64], axis=-1)
+    top_e = (rng.random((c, n, 4)) * [4.0, 1.0, 0.5, 0.25]).astype(
+        np.float32)
+    e_sum = (top_e.sum(-1) + 8.0).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (syms, margin, top_e, top_tone,
+                                          e_sum)]
+    seen = []
+    trials = rs_device.rs_ee_trials
+
+    def record(nk_fcr, s, e):
+        seen.append((tuple(s.shape), tuple(e.shape)))
+        return trials(nk_fcr, s, e)
+
+    monkeypatch.setattr(rs_device, "rs_ee_trials", record)
+    monkeypatch.setattr(rs_device, "TRIALS_PER_CALL", 64 * 2)
+    got = rs_device.rs_chase_program((63, 12, 3), 64, 6, 0.4, *args, 3)
+    assert seen == [((2, n), (2, 64, n)), ((2, n), (2, 64, n)),
+                    ((1, n), (1, 64, n))]
+
+    def expanded(nk_fcr, s, e):
+        cc, t, _ = e.shape
+        corr, ok = rs_device.rs_ee_decode_plain(
+            nk_fcr, s[:, None].expand(cc, t, n).reshape(-1, n),
+            e.reshape(-1, n))
+        return corr.reshape(cc, t, n), ok.reshape(cc, t)
+
+    monkeypatch.setattr(rs_device, "rs_ee_trials", expanded)
+    want = rs_device.rs_chase_program((63, 12, 3), 64, 6, 0.4, *args, 3)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[2].any()
+
+
+def test_rs_bound_counts_the_roots_the_data_has():
+    """The smoke's RS bound counts Forney's work at the locator's roots of
+    this run's trials: a clean word with e erasures has e roots, one with
+    k decoded errors and no erasures k, one with more erasures than roots
+    at most nroots."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    word = jrs64.RS63(12, fcr=3).encode(rng.integers(0, 64, 12))
+    syms = torch.from_numpy(np.stack([word, word, word]).astype(np.int64))
+    syms[1, [3, 17, 40]] ^= 5
+    era = torch.zeros((3, 1, 63), dtype=torch.bool)
+    era[0, 0, :20] = True
+    era[2, 0, :] = True
+    corr, ok = rs_device.rs_ee_trials_plain((63, 12, 3), syms, era)
+    assert ok[:2].all()
+    for i, roots in enumerate((20, 3, 51)):
+        got = chip_smoke.rs_bound_ms((63, 12, 3), syms[i:i + 1],
+                                     era[i:i + 1], corr[i:i + 1])
+        assert got[2]["roots_a_trial_mean"] == roots
+
+
+# ---------------------------------------------------------------------------
+# routing and refusals
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    def build():
+        raise AssertionError("the library was built")
+
+    monkeypatch.setattr(_weak_kernels, "load_library", build)
+
+
+def test_cpu_tensors_run_the_plain_versions(no_build):
+    """On CPU tensors the dispatchers run the plain versions (equal
+    results), load no library and count no launch; on another device they
+    go to the kernel wrappers, which refuse a device that is not CUDA."""
+    llr = torch.from_numpy(_tie_llrs(3))
+    cfg = wspr.WSPRConfig(beam_width=64)
+    before = dict(_weak_kernels.launches)
+    got = wspr._beam_decode(cfg, llr)
+    want = wspr._beam_decode_plain(cfg, llr)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cases = _rs_cases(np.random.default_rng(7))
+    words, eras = (torch.from_numpy(x) for x in cases["random words"])
+    got = rs_device.rs_ee_decode((63, 12, 3), words, eras)
+    want = rs_device.rs_ee_decode_plain((63, 12, 3), words, eras)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = rs_device.rs_ee_trials((63, 12, 3), words[:4],
+                                 eras[:12].reshape(4, 3, 63))
+    want = rs_device.rs_ee_trials_plain((63, 12, 3), words[:4],
+                                        eras[:12].reshape(4, 3, 63))
+    assert got[0].dtype == torch.uint8
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert _weak_kernels.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        wspr._beam_decode(cfg, llr.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        rs_device.rs_ee_decode((63, 12, 3), words.to("meta"),
+                               eras.to("meta"))
+
+
+def test_weak_wrapper_refusals(no_build):
+    """Wrong dtypes, shapes, contiguity, beam widths, word lengths and
+    root counts raise before any build."""
+    llr = torch.zeros((4, 81, 2))
+    beam = _weak_kernels.wspr_beam
+    with pytest.raises(ValueError, match="dtype"):
+        beam(llr.double(), 512)
+    with pytest.raises(ValueError, match="shape"):
+        beam(llr[:, :80], 512)
+    with pytest.raises(ValueError, match="3-D"):
+        beam(llr[0], 512)
+    with pytest.raises(ValueError, match="contiguous"):
+        beam(llr.transpose(0, 1).contiguous().transpose(0, 1), 512)
+    for w in (16, 384, 2048):
+        with pytest.raises(ValueError, match="power of two"):
+            beam(llr, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        beam(llr, 512)
+    tab = torch.from_numpy(rs_device.kernel_tables(63, 51, 3))
+    syms = torch.zeros((4, 63), dtype=torch.int64)
+    era = torch.zeros((4, 3, 63), dtype=torch.bool)
+    rs = _weak_kernels.rs_ee
+    with pytest.raises(ValueError, match="dtype"):
+        rs(tab, syms.int(), era, 51)
+    with pytest.raises(ValueError, match="dtype"):
+        rs(tab, syms, era.to(torch.uint8), 51)
+    with pytest.raises(ValueError, match="shape"):
+        rs(tab, syms, era[:2], 51)
+    with pytest.raises(ValueError, match="shape"):
+        rs(tab[:4096], syms, era, 51)
+    with pytest.raises(ValueError, match="2- and 3-D"):
+        rs(tab, syms, era[0], 51)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs(tab, syms, era.transpose(0, 1).contiguous().transpose(0, 1), 51)
+    with pytest.raises(ValueError, match="symbols"):
+        rs(tab, torch.zeros((4, 64), dtype=torch.int64),
+           torch.zeros((4, 3, 64), dtype=torch.bool), 51)
+    for nroots in (0, 63):
+        with pytest.raises(ValueError, match="nroots"):
+            rs(tab, syms, era, nroots)
+    with pytest.raises(ValueError, match="CUDA"):
+        rs(tab, syms, era, 51)
+
+
+def test_decoder_contracts_on_the_card(no_build):
+    """A WSPR decoder for a card refuses a beam width the kernel does not
+    take when it is built, not in a decode; on the CPU any width stays.
+    The RS table block is copied once a code and device, and cached."""
+    with pytest.raises(ValueError, match="power of two from 32 to 1024"):
+        wspr.WSPRDecoder(beam_width=300, device="cuda")
+    assert wspr.WSPRDecoder(beam_width=300, device="cpu").cfg.beam_width \
+        == 300
+    tab = rs_device.kernel_tables_device((63, 12, 3), "cpu")
+    assert torch.equal(tab, torch.from_numpy(
+        rs_device.kernel_tables(63, 51, 3)))
+    assert rs_device.kernel_tables_device((63, 12, 3),
+                                          torch.device("cpu")) is tab
+
+
+def test_weak_kernels_raise_without_library(monkeypatch, tmp_path):
+    """A CUDA-typed call with no nvcc and no built library raises "nvcc
+    not found" rather than running the plain version; no launch is
+    counted."""
+    monkeypatch.setattr(_weak_kernels, "_lib", None)
+    monkeypatch.setattr(_weak_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_weak_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_weak_kernels, "_check", lambda operands: None)
+    before = dict(_weak_kernels.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _weak_kernels.wspr_beam(torch.zeros((2, 81, 2)), 512)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _weak_kernels.rs_ee(torch.zeros(4416, dtype=torch.uint8),
+                            torch.zeros((2, 63), dtype=torch.int64),
+                            torch.zeros((2, 1, 63), dtype=torch.bool), 51)
+    assert _weak_kernels.launches == before

@@ -1,20 +1,22 @@
-"""Run the port's bench and FT8 decode profile for two checkouts on one
+"""Run the port's bench and decode profiles for two checkouts on one
 card, in turns.
 
     python3 tools/torch_bench_ab.py OTHER_CHECKOUT [--runs N] [--out DIR]
+                                    [--profile MODE ...]
 
 Runs ``bench_cuda.py`` of OTHER_CHECKOUT and of this checkout N times each
 (default 3) in the order other, this, this, other, other, this, ..., each
 in its own process from its own root (so each builds and uses its own
-kernels), then ``tools/torch_decode_profile.py FT8`` of each.  Every
-run's output goes to DIR (default ``build/bench_ab``, which
-``.gitignore`` lists): ``bench_<side>_<i>.json`` / ``.err`` and
-``profile_<side>.log``.  It prints one line a bench run (headline,
-``t_dec`` with its three runs, the mixed-mode capacity, the FT8 recall and
-the busy band's found share and false messages) and, last, the medians by
-checkout as one JSON object.  A failed bench exits 1 after
-the others have run.  Needs one CUDA device; OTHER_CHECKOUT is e.g.
-``git archive`` of a parent commit unpacked into a directory that
+kernels), then ``tools/torch_decode_profile.py`` of each for the modes
+``--profile`` names (default FT8).  Every run's output goes to DIR
+(default ``build/bench_ab``, which ``.gitignore`` lists):
+``bench_<side>_<i>.json`` / ``.err`` and ``profile_<side>.log``.  It
+prints one line a bench run (headline, ``t_dec`` with its three runs, the
+mixed-mode capacity, the WSPR and JT65 decode walls a window, the FT8
+recall and the busy band's found share and false messages) and, last, the
+medians by checkout as one JSON object.  A failed bench exits 1 after the
+others have run.  Needs one CUDA device; OTHER_CHECKOUT is e.g. ``git
+archive`` of a parent commit unpacked into a directory that
 ``.gitignore`` lists.
 """
 
@@ -46,6 +48,8 @@ def bench(root: Path, out: Path, tag: str) -> dict | None:
          "t_dec_runs": d["decode_production_runs"],
          "t_chan": d["channelizer_s_per_channel_second"],
          "mixed_mode": d["mixed_mode_channels_per_chip"],
+         "wspr_s": d["mode_decode_s_per_window"]["WSPR"],
+         "jt65_s": d["mode_decode_s_per_window"]["JT65"],
          "recall": d["ft8_recall_curve"], "threshold_db": d["ft8_threshold_db"],
          "busy_found_share": d["busy_found_share"],
          "busy_false": d["busy_false_messages"],
@@ -60,6 +64,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("other")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", default=str(HERE / "build" / "bench_ab"))
+    ap.add_argument("--profile", nargs="+", default=["FT8"],
+                    help="modes for tools/torch_decode_profile.py")
     args = ap.parse_args(argv)
     other = Path(args.other).resolve()
     out = Path(args.out)
@@ -79,13 +85,15 @@ def main(argv: list[str] | None = None) -> int:
     for side, root in roots.items():
         with open(out / f"profile_{side}.log", "w") as f:
             proc = subprocess.run(
-                [sys.executable, "tools/torch_decode_profile.py", "FT8"],
+                [sys.executable, "tools/torch_decode_profile.py",
+                 *args.profile],
                 cwd=root, stdout=f, stderr=subprocess.STDOUT, timeout=900)
         print(f"profile {side}: exit {proc.returncode}, "
               f"{out / f'profile_{side}.log'}", flush=True)
         failed |= proc.returncode != 0
     summary = {side: {k: statistics.median(r[k] for r in rs)
-                      for k in ("headline", "t_dec", "t_chan", "mixed_mode")}
+                      for k in ("headline", "t_dec", "t_chan", "mixed_mode",
+                                "wspr_s", "jt65_s")}
                | {"runs": len(rs)}
                for side, rs in results.items() if rs}
     print(json.dumps({"bench_ab": summary}))
