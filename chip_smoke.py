@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and fails without CUDA;
-2. builds the port's five kernel libraries from ``cwsl_digi_tpu_torch``,
+2. builds the port's seven kernel libraries from ``cwsl_digi_tpu_torch``,
    one nvcc each, started together: the channelizer
    (``dsp/csrc/channelizer.cu``), the LDPC kernels ``bp_minsum`` and
    ``osd`` (``modes/csrc/ldpc.cu``), the GFSK kernels
    ``subtract_known`` and ``multisym_llrs`` (``modes/csrc/gfsk.cu``),
    the sync-search kernels ``sync_score``, ``sync_select`` and
-   ``sync_refine`` (``modes/csrc/sync.cu``) and the weak modes' kernels
-   ``wspr_beam`` and ``rs_ee`` (``modes/csrc/weak.cu``), printing each
+   ``sync_refine`` (``modes/csrc/sync.cu``), the weak modes' kernels
+   ``wspr_beam`` and ``rs_ee`` (``modes/csrc/weak.cu``), the q-ary
+   kernels ``qra_mp`` and ``qary_sync`` (``modes/csrc/qary.cu``) and the
+   median ``median_rows`` (``modes/csrc/median.cu``), printing each
    ptxas report;
 3. holds the channelizer kernel against its plain PyTorch version on the
    card, at the FT8 path's 64 dials, the mixed-mode path's 5 lines, the
@@ -93,13 +95,38 @@
    kernel's registers and spills, and the serial chain that sets each
    kernel's time (the beam's 81 steps of sort stages and barriers, the
    RS decode's dependent Berlekamp-Massey rounds);
+4e. holds ``qra_mp``, ``median_rows`` and ``qary_sync`` against their
+   plain versions on the card (phase ``qary_kernels``) on the decoders'
+   own inputs, recorded from a 64-window Q65-30 decode and a 64-window
+   JT65 decode of the weak replay's bursts, 24 WSPR windows and 24 FT8
+   windows: the message passing on Q65's 7,680 words (where kernel and
+   plain version both converge, the symbols identical; the converged
+   counts and the flags that 60 iterations of other sums move held
+   within the plain version's own spread against the JAX package; every
+   64th word and every word whose flag moved bit for bit the NumPy model
+   of the kernel's arithmetic) and the 64 windows' decode lists through
+   it and through the plain version (identical), on 960 words of noise
+   priors and 320 benign words of a 16-window decode with -16 dB bursts
+   (every flag identical, confidence within 1e-4), every median the
+   decoders take
+   (JT65's and Q65's sync maps at their device batches, Q65's priors,
+   WSPR's map, FT8's strided view) and rows of its edges (ties, signed
+   zeros, NaN, infinities, odd and even counts, middle values that split
+   at each radix pass) bit for bit, and the selection on every recorded
+   JT65 and Q65 map and on three planted windows of each (a tie in two
+   strips, NaN scores under a finite base, every score NaN) bit for bit.
+   Then each kernel's device time at the decoders' shapes beside the
+   plain version's, the bound and the library call (``torch.median``
+   where a row's count is odd, ``torch.quantile`` where it is even and
+   takes the input, ``torch.topk`` of the score map), and each
+   kernel's registers and spills;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
    every expected spot must appear within 2 Hz and no other, through the
    channelizer, ``bp_minsum``, ``osd``, ``subtract_known``,
-   ``multisym_llrs`` and the three sync kernels, with CUDA tensors reaching
-   the decoder;
+   ``multisym_llrs``, the three sync kernels and the SNR median's
+   ``median_rows``, with CUDA tensors reaching the decoder;
 6. runs the App on seeded 192 kHz IQ with the lines a 20 m skimmer runs
    on one receiver: FT8, JS8, FT4, FST4-60 and FST4W-120.  The replay
    starts on the App's own anchor (the next UTC 15 s boundary) with noise
@@ -107,7 +134,8 @@
    windows of each (SNR -5 dB down to about 3 dB above each mode's
    threshold); every window must close on its own UTC boundary from the
    anchor on, and every expected spot (JS8's by its sender grammar) appear
-   within 2 Hz, and no other, through the eight kernels;
+   within 2 Hz, and no other, through the eight kernels and
+   ``median_rows``;
 7. runs the App on seeded 192 kHz IQ with the weak-signal lines of the
    same receiver: WSPR (14.0956 MHz), JT65 (14.076 MHz) and Q65-30
    (14.0795 MHz), written for the App's anchor as in 6: one WSPR window,
@@ -115,9 +143,11 @@
    8 bursts (SNR -8 dB down to about 3 dB above each mode's threshold);
    every window on its own boundary, every expected spot within 2 Hz and
    no other, through the channelizer, WSPR's beam search through
-   ``wspr_beam`` and its OSD through ``osd``, and JT65's RS Chase through
-   ``rs_ee`` (none of the three modes has an LDPC code or runs the GFSK
-   engine);
+   ``wspr_beam`` and its OSD through ``osd``, JT65's RS Chase through
+   ``rs_ee``, Q65's message passing through ``qra_mp``, the q-ary sync
+   search through ``qary_sync`` and every SNR and prior median through
+   ``median_rows`` (none of the three modes has an LDPC code or runs the
+   GFSK engine);
 8. decodes one synthesized window of each long period (FST4-300/900/1800,
    FST4W-300/900/1800) through ``get_decoder`` on the card, printing the
    spectrogram branch, the decode wall and the peak device memory;
@@ -136,11 +166,11 @@
     with 6 bursts a window spread over the receivers, scheduled from the
     App's anchor: every channel-window decoded, no stale drop or ingest
     overrun, every burst found on its own receiver's dials and no spot on
-    another's, CUDA audio into the decoders, through the eight kernels,
-    with the App's default pool (4 workers, one decode at a time on the
-    card) and no spot later than its 15 s deadline; it prints the pool
-    size, the latencies, the wait for the card's decode lock, stages, busy
-    fraction and peak device memory;
+    another's, CUDA audio into the decoders, through the eight kernels
+    and ``median_rows``, with the App's default pool (4 workers, one
+    decode at a time on the card) and no spot later than its 15 s
+    deadline; it prints the pool size, the latencies, the wait for the
+    card's decode lock, stages, busy fraction and peak device memory;
 12. decodes each committed live FT8 window that gave a false spot
     (``tests/torch_fixtures/ap_false``, ``tests/torch_fixtures/false_spots``)
     on the card, alone, with the live decoder's kwargs: its decode list
@@ -155,11 +185,11 @@
     may be one never injected), the decode of each of the 15 modes at
     batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
     share at batch 2, and prints each section's line; it must launch all
-    ten kernels;
+    thirteen kernels;
 15. prints a ``{"kernels": [...]}`` line (``channelize``, ``bp_minsum``,
     ``osd``, ``subtract_known``, ``multisym_llrs``, ``sync_score``,
-    ``sync_select``, ``sync_refine``, ``wspr_beam``, ``rs_ee``, each with
-    its launches in the App
+    ``sync_select``, ``sync_refine``, ``wspr_beam``, ``rs_ee``, ``qra_mp``,
+    ``median_rows``, ``qary_sync``, each with its launches in the App
     phases 5-7, 11 and 14, which set every count to 0 before they start
     and read it after), then ``{"ok": true, ...}`` last.
 
@@ -233,7 +263,32 @@ WEAK_KERNELS = ("wspr_beam", "rs_ee")
 # the XLA programs of the JAX package that the weak kernels replace
 WEAK_REPLACES = {"wspr_beam": "cwsl_digi_tpu/modes/wspr.py:526",
                  "rs_ee": "cwsl_digi_tpu/modes/rs_device.py:118"}
-ALL_KERNELS = HAND_KERNELS + WEAK_KERNELS
+QARY_KERNELS = ("qra_mp", "median_rows", "qary_sync")
+# the XLA programs of the JAX package that the q-ary kernels and the median
+# replace (the median also at qary_engine.py:168, wspr.py:507 and
+# gfsk_engine.py:676), each with its source under modes/csrc
+QARY_REPLACES = {"qra_mp": "cwsl_digi_tpu/modes/qra.py:268",
+                 "median_rows": "cwsl_digi_tpu/modes/qary_engine.py:136",
+                 "qary_sync": "cwsl_digi_tpu/modes/qary_engine.py:107"}
+QARY_SOURCES = {"qra_mp": "qary.cu", "median_rows": "median.cu",
+                "qary_sync": "qary.cu"}
+MP_CONF_TOL = 1e-4       # qra_mp vs plain, confidence of the converging
+                         # words (the transforms' sums in another order);
+                         # flags and their symbols exact
+# qra_mp vs plain on the weak replay's 7,680 Q65-30 words: 60 iterations of
+# the sums in another order move the flags of words that converge late,
+# and not evenly (tools/qra_mp_flips.py on these words: the plain version
+# on the CPU converges on 118 fewer than the JAX package, 302 flags
+# differ).  The kernel's converged count stays within that gap of the
+# plain version's and its flags differ on at most as many words.
+MP_GAP_MAX = 118
+MP_FLIPS_MAX = 302
+MP_MODEL_STRIDE = 64     # the kernel against the NumPy model of its
+                         # arithmetic, bit for bit, on every 64th word and
+                         # every word whose flag moved
+ALL_KERNELS = HAND_KERNELS + WEAK_KERNELS + QARY_KERNELS
+# the GFSK engine's paths also take their SNR median through median_rows
+GFSK_PATH_KERNELS = HAND_KERNELS + ("median_rows",)
 TRIG_OPS = 20            # a range-reduced float32 sin or cos, counted as
                          # this many operations in the bounds
 
@@ -643,8 +698,7 @@ def stage_kernel_times(runs: dict, bounds: dict, errs: dict,
               f"plain {plain_ms:.3f} ms from the host; bound {bound:.5f} ms "
               f"(bytes {bytes_ms:.5f}, ops {ops_ms:.5f}; {counts}), kernel "
               f"at {100 * bound / k_ms:.1f} % of it (at FP32_FLOPS: bound "
-              f"{bound_fma:.5f} ms, {100 * bound_fma / k_ms:.1f} %); no "
-              "single library call computes it")
+              f"{bound_fma:.5f} ms, {100 * bound_fma / k_ms:.1f} %)")
     return out
 
 
@@ -1569,14 +1623,16 @@ def sync_design(spec, b: int, dev) -> dict:
 
 def _weak_windows(mode: str, n: int, seed: int) -> np.ndarray:
     """``n`` 12 kHz windows of the weak replay's bursts of ``mode`` (WSPR:
-    both in every window; JT65: its windows in turn), each burst at its
-    plan's SNR over seeded unit noise, float32 [n, samples]."""
-    from cwsl_digi_tpu_torch.modes import jt65, wspr
+    both in every window; JT65 and Q65-30: their windows in turn), each
+    burst at its plan's SNR over seeded unit noise, float32 [n,
+    samples]."""
+    from cwsl_digi_tpu_torch.modes import jt65, q65, wspr
 
     plan = [p for p in _weak_plan() if p[0] == mode]
     n_plan = max(p[1] for p in plan) + 1
     rng = np.random.default_rng(seed)
-    length = int((wspr.T_R if mode == "WSPR" else jt65.T_R) * 12_000)
+    t_r = {"WSPR": wspr.T_R, "JT65": jt65.T_R, "Q65-30": q65.T_R}[mode]
+    length = int(t_r * 12_000)
     out = rng.standard_normal((n, length)).astype(np.float32)
     for w in range(n):
         for _, wi, text, f0, snr, dt in plan:
@@ -1589,9 +1645,13 @@ def _weak_windows(mode: str, n: int, seed: int) -> np.ndarray:
                 out[w] += wspr.synthesize(
                     call, grid, int(dbm), f0, amplitude=amp,
                     start_s=wspr.SIGNAL_START_S + dt).astype(np.float32)
-            else:
+            elif mode == "JT65":
                 out[w] += jt65.synthesize(text, f0, amplitude=amp,
                                           start_s=1.0 + dt).astype(np.float32)
+            else:
+                out[w] += q65.synthesize(
+                    text, f0, amplitude=amp,
+                    start_s=0.5 + dt).astype(np.float32)
     return out
 
 
@@ -1891,6 +1951,501 @@ def weak_kernels_phase(dev) -> dict:
             "beam_smem_bytes": smem}
 
 
+def record_qary_inputs(dev) -> dict:
+    """The inputs the decoders hand the q-ary kernels on the card: Q65-30's
+    priors of a 64-window decode of the weak replay's Q65 bursts (7,680
+    words) and its sync maps (the decoder's 30-window device batches),
+    JT65's sync maps of a 64-window decode (15-window batches), WSPR's
+    map of 24 windows, and the FT8 decode's strided SNR view of 24 busy
+    windows.  {"mp": [(decoder, probs)], "median": [(name, rows [R,
+    N])], "sync": [(name, spec, power_sync, base)]}."""
+    from cwsl_digi_tpu_torch.modes import (ft8, gfsk_engine, jt65, q65,
+                                           qary_engine, qra, wspr)
+
+    rec = {"mp": [], "median": [], "sync": []}
+    label = {"mode": ""}
+    mp_decode = qra.QaryMPDecoder.decode
+    sync = qary_engine._qary_sync
+    medians = {mod: mod._median_rows
+               for mod in (qary_engine, wspr, gfsk_engine)}
+
+    def mp_rec(self, probs):
+        rec["mp"].append((self, probs.clone()))
+        return mp_decode(self, probs)
+
+    def sync_rec(spec, power_sync, base):
+        rec["sync"].append((label["mode"], spec, power_sync.clone(),
+                            base.clone()))
+        return sync(spec, power_sync, base)
+
+    def med_rec(fn):
+        def inner(x):
+            what = "priors" if x.dim() == 2 else "map"
+            rec["median"].append((f"{label['mode']} {what}", x.reshape(
+                x.shape[0], -1).contiguous().clone()))
+            return fn(x)
+        return inner
+
+    qra.QaryMPDecoder.decode, qary_engine._qary_sync = mp_rec, sync_rec
+    for mod, fn in medians.items():
+        mod._median_rows = med_rec(fn)
+    try:
+        for mode, make, n in (
+                ("Q65-30", lambda: q65.Q65Decoder(device=dev), 64),
+                ("JT65", lambda: jt65.JT65Decoder(device=dev), 64),
+                ("WSPR", lambda: wspr.WSPRDecoder(device=dev), 24)):
+            label["mode"] = mode
+            audio = torch.from_numpy(
+                _weak_windows(mode, n, SEED + 63)).to(dev)
+            res = make().decode(audio)
+            print(f"q-ary kernels' {mode} inputs: "
+                  f"{sum(len(r) for r in res)} decodes in {n} windows")
+            del audio
+        label["mode"] = "FT8"
+        rng = np.random.default_rng(SEED + 64)
+        audio = np.stack([
+            ft8.synthesize("CQ K1ABC FN42", 700.0 + 60.0 * w)
+            + 0.3 * rng.standard_normal(180_000) for w in range(24)])
+        res = ft8.FT8Decoder(device=dev).decode(
+            torch.from_numpy(audio.astype(np.float32)).to(dev))
+        print(f"q-ary kernels' FT8 inputs: {sum(len(r) for r in res)} "
+              "decodes in 24 windows")
+    finally:
+        qra.QaryMPDecoder.decode, qary_engine._qary_sync = mp_decode, sync
+        for mod, fn in medians.items():
+            mod._median_rows = fn
+    return rec
+
+
+def _floats_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries of two float32 tensors on the card that differ by their
+    bits, two NaNs counting as equal."""
+    differ = a.view(torch.int32) != b.view(torch.int32)
+    return int((differ & ~(a.isnan() & b.isnan())).sum())
+
+
+def mp_vs_plain(dec, probs: torch.Tensor, strict: bool = False,
+                model: bool = False) -> dict:
+    """``qra_mp`` (through ``QaryMPDecoder.decode``) against
+    ``decode_plain`` on the same CUDA priors: where both converge (the
+    syndrome holds) the symbols identical.  With ``strict`` also every flag
+    identical and the converging words' confidence within MP_CONF_TOL.
+    Without it the converged counts differ by at most MP_GAP_MAX and the
+    flags on at most MP_FLIPS_MAX words, the plain version's own spread
+    against the JAX package on the weak replay's words (60 iterations of
+    the transforms' sums in another order move words that converge late,
+    ``tools/qra_mp_flips.py``); the decoder's lists are held too
+    (``q65_lists_vs_plain``).  With ``model`` the kernel's symbols, flags
+    and confidence also equal, bit for bit, the NumPy model of its
+    arithmetic (``tools/qra_mp_model.py``) on every MP_MODEL_STRIDE-th word
+    and every word whose flag moved.  One kernel launch."""
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+
+    before = qk.launches["qra_mp"]
+    hard, ok, conf = dec.decode(probs)
+    launched = qk.launches["qra_mp"] - before
+    p_hard, p_ok, p_conf = dec.decode_plain(probs)
+    both = ok & p_ok
+    word_differs = (hard != p_hard).any(-1)
+    err = (conf - p_conf).abs()[both]
+    out = {"words": probs.shape[0], "launches": launched, "strict": strict,
+           "converged": int(p_ok.sum()), "converged_kernel": int(ok.sum()),
+           "converged_both": int(both.sum()),
+           "kernel_loses": int((p_ok & ~ok).sum()),
+           "kernel_gains": int((ok & ~p_ok).sum()),
+           "ok_differ": int((ok != p_ok).sum()),
+           "hard_differ_where_both_ok": int(word_differs[both].sum()),
+           "hard_differ_elsewhere": int(word_differs[~both].sum()),
+           "max_abs_err": float(err.max()) if err.numel() else 0.0}
+    if strict:
+        held = out["ok_differ"] == 0 and out["max_abs_err"] <= MP_CONF_TOL
+    else:
+        held = (abs(out["converged_kernel"] - out["converged"]) <= MP_GAP_MAX
+                and out["ok_differ"] <= MP_FLIPS_MAX)
+    if model:
+        picks = torch.unique(torch.cat([
+            torch.arange(0, probs.shape[0], MP_MODEL_STRIDE,
+                         device=probs.device),
+            (ok != p_ok).nonzero().reshape(-1)]))
+        out.update(mp_vs_model(dec, probs[picks], hard[picks], ok[picks],
+                               conf[picks]))
+        held = held and out["model_words_differ"] == 0
+    out["ok"] = (launched == 1 and out["hard_differ_where_both_ok"] == 0
+                 and held)
+    return out
+
+
+def mp_vs_model(dec, probs: torch.Tensor, hard: torch.Tensor,
+                ok: torch.Tensor, conf: torch.Tensor) -> dict:
+    """The kernel's results on ``probs`` against the NumPy model of its
+    arithmetic (``tools/qra_mp_model.py``) on the CPU: the words whose
+    symbols, flag or confidence bits differ."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from qra_mp_model import mp_model
+
+    t = time.monotonic()
+    m_hard, m_ok, m_conf = mp_model(dec, probs.cpu().numpy())
+    differ = ((hard.cpu().numpy() != m_hard).any(-1)
+              | (ok.cpu().numpy() != m_ok)
+              | (conf.cpu().numpy().view(np.uint32) != m_conf.view(np.uint32)))
+    return {"model_words": int(probs.shape[0]),
+            "model_words_differ": int(differ.sum()),
+            "model_s": round(time.monotonic() - t, 1)}
+
+
+def benign_q65_priors(dev) -> torch.Tensor:
+    """The message-passing words of a Q65-30 decode on the card (top 4
+    candidates) of 16 windows: a -16 dB burst in each even one (four
+    messages at four frequencies), seeded unit noise in the odd ones; 320
+    words that converge within a few iterations or never, the kind the
+    CPU tests hold the kernel's model on (``q65_priors`` of
+    ``tests/test_torch_qary_kernels.py``)."""
+    from cwsl_digi_tpu_torch.modes import q65, qra
+    from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
+
+    rng = np.random.default_rng(SEED + 67)
+    msgs = ("CQ W2AXR FN13", "CQ K1ABC FN42", "K1ABC W9XYZ EN37",
+            "W9XYZ K1ABC -11")
+    wins = []
+    for w in range(16):
+        if w % 2:
+            wins.append(rng.standard_normal(len(wins[-1])))
+        else:
+            clean = q65.synthesize(msgs[w // 2 % 4], 800.0 + 400 * (w // 4))
+            wins.append(add_noise_at_snr(clean, -16.0, 12_000, rng))
+    rec = []
+    decode = qra.QaryMPDecoder.decode
+
+    def keep(self, probs):
+        rec.append(probs.clone())
+        return decode(self, probs)
+
+    qra.QaryMPDecoder.decode = keep
+    try:
+        q65.Q65Decoder(top_k=4, device=dev).decode(torch.from_numpy(
+            np.stack(wins).astype(np.float32)).to(dev))
+    finally:
+        qra.QaryMPDecoder.decode = decode
+    return rec[0]
+
+
+def q65_lists_vs_plain(dev, audio: torch.Tensor) -> dict:
+    """A Q65-30 decode of ``audio`` on the card through ``qra_mp`` and
+    again with the plain message passing: the decode lists identical
+    (message, SNR, dt, frequency and score of every entry)."""
+    from cwsl_digi_tpu_torch.modes import q65, qra
+
+    def lists(res):
+        return [[(r.message, r.snr_db, r.dt_s, r.freq_hz, r.score)
+                 for r in w] for w in res]
+
+    dec = q65.Q65Decoder(device=dev)
+    got = lists(dec.decode(audio))
+    kernel = qra.QaryMPDecoder.decode
+    qra.QaryMPDecoder.decode = qra.QaryMPDecoder.decode_plain
+    try:
+        want = lists(dec.decode(audio))
+    finally:
+        qra.QaryMPDecoder.decode = kernel
+    out = {"windows": len(want), "decodes": sum(len(w) for w in want),
+           "windows_differ": sum(a != b for a, b in zip(got, want))}
+    out["ok"] = out["windows_differ"] == 0 and out["decodes"] > 0
+    return out
+
+
+def median_vs_plain(x: torch.Tensor) -> dict:
+    """``median_rows`` (through ``gfsk_engine._median_rows``) against
+    ``_median_rows_plain`` on the same CUDA rows [R, N]: bit for bit (NaN
+    as NaN).  One kernel launch."""
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+    from cwsl_digi_tpu_torch.modes import gfsk_engine
+
+    before = mk.launches["median_rows"]
+    got = gfsk_engine._median_rows(x)
+    launched = mk.launches["median_rows"] - before
+    want = gfsk_engine._median_rows_plain(x)
+    same = (got == want) | (got.isnan() & want.isnan())
+    out = {"shape": list(x.shape), "launches": launched,
+           "bits_differ": _floats_differ(got, want),
+           "nan_rows": int(want.isnan().sum()),
+           "max_abs_err": float(torch.where(same, 0.0,
+                                            (got - want).abs()).max())}
+    out["ok"] = launched == 1 and out["bits_differ"] == 0
+    return out
+
+
+def qsync_vs_plain(spec, power_sync: torch.Tensor, base: torch.Tensor
+                   ) -> dict:
+    """``qary_sync`` (through ``qary_engine._qary_sync``) against
+    ``_qary_sync_plain`` on the same CUDA map: top_val bit for bit (NaN as
+    NaN), top_idx identical.  One kernel launch."""
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+    from cwsl_digi_tpu_torch.modes import qary_engine
+
+    before = qk.launches["qary_sync"]
+    val, idx = qary_engine._qary_sync(spec, power_sync, base)
+    launched = qk.launches["qary_sync"] - before
+    p_val, p_idx = qary_engine._qary_sync_plain(spec, power_sync, base)
+    same = (val == p_val) | (val.isnan() & p_val.isnan())
+    out = {"shape": list(power_sync.shape), "top_k": spec.top_k,
+           "launches": launched, "val_bits_differ": _floats_differ(val,
+                                                                    p_val),
+           "idx_differ": int((idx != p_idx).sum()),
+           "nan_scores": int(p_val.isnan().sum()),
+           "tied_pairs": int((p_val[:, 1:] == p_val[:, :-1]).sum()),
+           "max_abs_err": float(torch.where(same, 0.0,
+                                            (val - p_val).abs()).max())}
+    out["ok"] = (launched == 1 and out["val_bits_differ"] == 0
+                 and out["idx_differ"] == 0)
+    return out
+
+
+def planted_sync(spec, power_sync: torch.Tensor, base: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Three windows of a recorded map with planted edges: window 0's best
+    column copied into a bin seven strips away (equal scores in two
+    cells), a NaN entry in window 1 under its finite base (NaN scores in
+    one column, first), and window 2's base NaN (every score NaN)."""
+    from cwsl_digi_tpu_torch.modes import qary_engine
+
+    ps, base = power_sync[:3].clone(), base[:3].clone()
+    fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
+    n_f0 = fmax_bin - fmin_bin
+    _, idx = qary_engine._qary_sync_plain(spec, ps[:1], base[:1])
+    f = int(idx[0, 0]) % n_f0
+    ps[0, :, (f + 7 * 32) % n_f0] = ps[0, :, f]
+    ps[1, spec.os_t * spec.sync_syms[2] + 50, n_f0 // 3] = float("nan")
+    base[2] = float("nan")
+    return ps, base
+
+
+def median_edge_rows(dev) -> torch.Tensor:
+    """One-row maps [1, N] that test the median's edges, odd and even N:
+    ties, signed zeros, a NaN, infinities, two middle values apart at the
+    first pass and one ulp apart, noise."""
+    rng = np.random.default_rng(SEED + 65)
+    one = np.nextafter(np.float32(1.0), np.float32(2.0))
+    rows = [rng.integers(-3, 4, 999), rng.integers(0, 3, 1000),
+            np.where(rng.random(1000) < 0.5, -0.0, 0.0),
+            np.where(rng.random(999) < 0.5, -0.0, 0.0),
+            np.r_[rng.standard_normal(500), np.nan],
+            np.r_[np.full(5, np.inf), np.full(4, -np.inf)],
+            np.repeat([1.0, 1000.0], 300), np.repeat([1.0, one], 300),
+            rng.exponential(size=4001)]
+    return [torch.from_numpy(np.asarray(r, np.float32)[None]).to(dev)
+            for r in rows]
+
+
+def mp_bound_ms(dec, b: int) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the sum-product decode of ``b`` words:
+    the priors read and the symbols, flags and confidences written once at
+    the HBM rate; per word and iteration the float operations of the
+    algorithm on the real edges E (152) and checks: each variable's
+    product (64 E), per edge the variable-to-check message (a division,
+    an add, a clamp and a normalising division a symbol and the 64-term
+    sum: 320), two transforms (6 x 64 adds each), the scaling, clamp,
+    sum and division of the new message (4 x 64), the leave-one-out
+    products (3 r - 4 a symbol for a check of r slots); then the posterior
+    (64 E products, 63 x 3 x 64 for its sum and division, 63 x 63
+    compares), the syndrome (2 E integer operations) and the mean; at
+    FP32_OPS (``ops_ms_fma_rate``: at FP32_FLOPS)."""
+    tabs = dec._host_tables()
+    n, nc, mr, _ = dec.kernel_code
+    e = int(tabs["col_mask"].sum())
+    r = tabs["row_mask"].sum(axis=1)
+    loo = int(64 * np.maximum(3 * r - 4, 0).sum())
+    per_iter = 64 * e + e * (320 + 2 * 384 + 4 * 64) + loo
+    final = 64 * e + n * 3 * 64 + n * 63 + n
+    ops = float(b) * (dec.iters * per_iter + final)
+    n_bytes = b * (n * 64 * 4 + n * 8 + 1 + 4) + dec.kernel_tables().size
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+            {"float_ops": ops, "bytes": n_bytes, "edges": e,
+             "ops_a_word_iteration": per_iter,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
+
+
+def median_bound_ms(x: torch.Tensor) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the median of each row of x [R, N]:
+    the rows read and one float a row written at the HBM rate; one key
+    operation an entry at INT32_OPS."""
+    r, n = x.shape
+    n_bytes = r * n * 4 + r * 4
+    return (n_bytes / HBM_BYTES_S * 1e3, r * n / INT32_OPS * 1e3,
+            {"bytes": n_bytes, "ops_ms_fma_rate": r * n / FP32_FLOPS * 1e3})
+
+
+def qsync_bound_ms(spec, power_sync: torch.Tensor
+                   ) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the sync correlation and top-K of
+    these windows: the rows the scores read (the union of [os_t s, os_t s
+    + max_hops) over the sync symbols, n_f0 bins wide), the bases and the
+    K values and indices written once at the HBM rate; per score S - 1
+    adds, a division and a compare at FP32_OPS."""
+    from cwsl_digi_tpu_torch.modes import qary_engine
+
+    b = power_sync.shape[0]
+    fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
+    n_f0, n_t0, s = fmax_bin - fmin_bin, spec.max_hops, len(spec.sync_syms)
+    rows = len({spec.os_t * sym + t for sym in spec.sync_syms
+                for t in range(n_t0)})
+    n_bytes = b * (rows * n_f0 * 4 + 4 + spec.top_k * 12) + s * 4
+    ops = float(b) * n_t0 * n_f0 * (s + 1)
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+            {"bytes": n_bytes, "rows": rows, "float_ops": ops,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
+
+
+def qary_kernels_phase(dev) -> dict:
+    """``qra_mp``, ``median_rows`` and ``qary_sync`` against their plain
+    versions on the card on the decoders' own inputs
+    (``record_qary_inputs``) and on edges: on the 7,680 words of Q65's
+    64-window decode the words both converge on identical, the converged
+    counts and flags within MP_GAP_MAX and MP_FLIPS_MAX, the NumPy model
+    bit for bit on a sample and every moved word, and the decode lists
+    identical; on a batch of noise priors and on benign priors
+    (``benign_q65_priors``) every flag identical; every recorded median (JT65's and Q65's maps,
+    Q65's priors, WSPR's map, FT8's strided view) and the edge rows bit for
+    bit; the selection on every recorded JT65 and Q65 map and on three
+    planted windows of each (a tie in two strips, NaN scores, every
+    score NaN), bit for bit.  Then each kernel's device time at the
+    decoders' shapes beside the plain version's, the bound and the
+    library call (for the median ``torch.median`` where a row's count is
+    odd, the same function, and ``torch.quantile`` where it is even and
+    the map has at most 2**24 entries; ``torch.topk`` of the score map),
+    each kernel's registers and spills."""
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+    from cwsl_digi_tpu_torch.modes import gfsk_engine, qary_engine
+
+    rec = record_qary_inputs(dev)
+    checks = {}
+    dec, probs = rec["mp"][0]
+    checks["qra_mp q65 64 windows"] = mp_vs_plain(dec, probs, model=True)
+    audio = torch.from_numpy(_weak_windows("Q65-30", 64, SEED + 63)).to(dev)
+    checks["qra_mp q65 decode lists"] = q65_lists_vs_plain(dev, audio)
+    del audio
+    g = torch.Generator(device=dev).manual_seed(SEED + 66)
+    noise_e = torch.empty((8, 24, 63, 64), device=dev).exponential_(
+        generator=g)
+    noise = qary_engine._mp_priors(qary_engine.QaryDecoder.MP_VARIANTS,
+                                   noise_e).reshape(-1, 63, 64)
+    checks["qra_mp noise priors"] = mp_vs_plain(dec, noise, strict=True)
+    benign = benign_q65_priors(dev)
+    checks["qra_mp benign priors"] = mp_vs_plain(dec, benign, strict=True)
+    if not 0 < checks["qra_mp benign priors"]["converged"] < benign.shape[0]:
+        raise AssertionError("the benign Q65 priors hold no converging or "
+                             "no failing word")
+    del benign
+    for i, (name, x) in enumerate(rec["median"]):
+        checks[f"median {name} {i}"] = median_vs_plain(x)
+    for i, x in enumerate(median_edge_rows(dev)):
+        checks[f"median edge row {i}"] = median_vs_plain(x)
+    for i, (name, spec, ps, base) in enumerate(rec["sync"]):
+        checks[f"qary_sync {name} {i}"] = qsync_vs_plain(spec, ps, base)
+    for name in ("JT65", "Q65-30"):
+        _, spec, ps, base = next(c for c in rec["sync"] if c[0] == name)
+        checks[f"qary_sync {name} planted"] = qsync_vs_plain(
+            spec, *planted_sync(spec, ps, base))
+    for name, c in checks.items():
+        print(f"q-ary kernels vs plain, {name}: {json.dumps(c)}")
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"q-ary kernels disagree with the plain "
+                             f"versions: {bad}")
+    attrs = {**qk.kernel_attrs(dev), **mk.kernel_attrs(dev)}
+    smem = qk.mp_smem_bytes(*dec.kernel_code[:3])
+    print(f"q-ary kernels' design: attributes {json.dumps(attrs)}, qra_mp "
+          f"dynamic shared memory {smem} B")
+
+    # the main path's shapes: Q65's 7,680 words, JT65's map of its device
+    # batch (the costliest median and selection)
+    jt = next(c for c in rec["sync"] if c[0] == "JT65")
+    _, jspec, jps, jbase = jt
+    jflat = jps.reshape(jps.shape[0], -1)
+    runs = {"qra_mp": (lambda: dec.decode(probs),
+                       lambda: dec.decode_plain(probs), 2, 1),
+            "median_rows": (lambda: mk.median_rows(jflat),
+                            lambda: gfsk_engine._median_rows_plain(jflat),
+                            5, 2),
+            "qary_sync": (
+                lambda: qary_engine._qary_sync(jspec, jps, jbase),
+                lambda: qary_engine._qary_sync_plain(jspec, jps, jbase), 5,
+                2)}
+    bounds = {"qra_mp": mp_bound_ms(dec, probs.shape[0]),
+              "median_rows": median_bound_ms(jflat),
+              "qary_sync": qsync_bound_ms(jspec, jps)}
+    errs = {k: max(c.get("max_abs_err", 0.0) for n, c in checks.items()
+                   if n.startswith(prefix))
+            for k, prefix in (("qra_mp", "qra_mp"),
+                              ("median_rows", "median"),
+                              ("qary_sync", "qary_sync"))}
+    out = stage_kernel_times(
+        runs, bounds, errs,
+        {"qra_mp": list(probs.shape), "median_rows": list(jflat.shape),
+         "qary_sync": list(jps.shape)})
+
+    # each recorded shape once: kernel, plain, bound, library
+    shapes = {}
+    for name, x in rec["median"]:
+        key = f"{name} {list(x.shape)}"
+        if key in shapes:
+            continue
+        if x.shape[1] % 2:
+            # an odd count: torch.median computes the same function
+            got, lib_med = mk.median_rows(x), torch.median(x, dim=1).values
+            lib_call = "torch.median"
+            lib = cuda_ms(lambda: torch.median(x, dim=1), 5)
+            agree = bool(((got == lib_med)
+                          | (got.isnan() & lib_med.isnan())).all())
+        elif x.numel() <= 2 ** 24:
+            # (issued from the host: quantile checks q on the host)
+            lib_call, agree = "torch.quantile", None
+            lib = eager_ms(lambda: torch.quantile(
+                x, 0.5, dim=1, interpolation="midpoint"), 3)
+        else:
+            lib_call, lib, agree = None, None, None
+        shapes[key] = {"kernel": "median_rows",
+                       "ms": cuda_ms(lambda: mk.median_rows(x), 5),
+                       "plain_ms": eager_ms(
+                           lambda: gfsk_engine._median_rows_plain(x), 2),
+                       "bound_ms": max(median_bound_ms(x)[:2]),
+                       "library": lib_call, "library_ms": lib,
+                       "library_agrees": agree}
+    for name, spec, ps, base in rec["sync"]:
+        key = f"{name} {list(ps.shape)}"
+        if key in shapes:
+            continue
+        fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
+        acc = None
+        for sym in spec.sync_syms:
+            sl = ps[:, spec.os_t * sym : spec.os_t * sym + spec.max_hops,
+                    : fmax_bin - fmin_bin]
+            acc = sl if acc is None else acc + sl
+        score = (acc / (base + 1e-30)).reshape(ps.shape[0], -1)
+        del acc
+        shapes[key] = {"kernel": "qary_sync",
+                       "ms": cuda_ms(lambda: qary_engine._qary_sync(
+                           spec, ps, base), 5),
+                       "plain_ms": eager_ms(
+                           lambda: qary_engine._qary_sync_plain(spec, ps,
+                                                                base), 2),
+                       "bound_ms": max(qsync_bound_ms(spec, ps)[:2]),
+                       "library_ms": cuda_ms(
+                           lambda: torch.topk(score, spec.top_k, dim=1), 5)}
+    for key, v in shapes.items():
+        v["share"] = v["bound_ms"] / v["ms"]
+        print(f"q-ary {v['kernel']} at {key}: {json.dumps(v)}")
+    jkey = f"JT65 {list(jps.shape)}"
+    jmed = shapes[f"JT65 map {list(jflat.shape)}"]
+    if jmed["library_agrees"] is not True:
+        raise AssertionError(f"torch.median disagrees with median_rows at "
+                             f"JT65's map {list(jflat.shape)}")
+    out["median_rows"]["library_ms"] = jmed["library_ms"]
+    out["qary_sync"]["library_ms"] = shapes[jkey]["library_ms"]
+    return {"kernels": out, "checks": checks, "attrs": attrs,
+            "shapes": shapes}
+
+
 def _plan():
     """64 dials across the band and the bursts: (dial index, message,
     audio offset Hz, SNR dB in 2.5 kHz, dt s)."""
@@ -2041,11 +2596,13 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
 def _kernel_modules() -> tuple:
     """The port's kernel libraries, each with its ``launches`` dict."""
     from cwsl_digi_tpu_torch.dsp import _kernels
-    from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, _sync_kernels,
+    from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, _median_kernels,
+                                           _qary_kernels, _sync_kernels,
                                            _weak_kernels)
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
-    return _kernels, ldpc_kernels, _gfsk_kernels, _sync_kernels, _weak_kernels
+    return (_kernels, ldpc_kernels, _gfsk_kernels, _sync_kernels,
+            _weak_kernels, _qary_kernels, _median_kernels)
 
 
 def _reset_launches() -> None:
@@ -2107,7 +2664,8 @@ def main_path_phase(dev, workdir: Path) -> dict:
     _check_spots(run["spots"], expected)
     if run["launches"] <= 0:
         raise AssertionError("main path did not launch the channelizer kernel")
-    _require_launches("main path", run["kernel_launches"], HAND_KERNELS)
+    _require_launches("main path", run["kernel_launches"],
+                      GFSK_PATH_KERNELS)
     devices = [j[2] for j in run["jobs"]]
     if not devices or any(d != "cuda" for d in devices):
         raise AssertionError(f"decoder got non-CUDA audio: {devices}")
@@ -2283,7 +2841,7 @@ def _replay_phase(dev, workdir: Path, name: str, lines, plan, seed: int,
 def mixed_mode_phase(dev, workdir: Path) -> dict:
     """The port's App on the mixed-mode replay."""
     return _replay_phase(dev, workdir, "mixed-mode", MIXED_LINES,
-                         _mixed_plan(), SEED + 2, HAND_KERNELS)
+                         _mixed_plan(), SEED + 2, GFSK_PATH_KERNELS)
 
 
 # the weak-signal lines of the same 20 m receiver: WSPR beside FST4W on
@@ -2321,7 +2879,8 @@ def weak_modes_phase(dev, workdir: Path) -> dict:
     so ``bp_minsum``, ``subtract_known``, ``multisym_llrs`` and the sync
     kernels have no launch here."""
     return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
-                         _weak_plan(), SEED + 5, ("osd",) + WEAK_KERNELS)
+                         _weak_plan(), SEED + 5,
+                         ("osd",) + WEAK_KERNELS + QARY_KERNELS)
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -2748,7 +3307,7 @@ def live_soak_phase(dev) -> dict:
     if r["channelize_launches"] <= 0:
         raise AssertionError("live soak did not launch the channelizer "
                              "kernel")
-    _require_launches("live soak", counts, HAND_KERNELS)
+    _require_launches("live soak", counts, GFSK_PATH_KERNELS)
     return {"launches": r["channelize_launches"], "kernel_launches": counts,
             "report": {
         k: v for k, v in r.items() if k not in ("stages", "missing")}}
@@ -2881,6 +3440,8 @@ def main() -> int:
     from cwsl_digi_tpu_torch.dsp import _kernels
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+    from cwsl_digi_tpu_torch.modes import _median_kernels as median_kernels
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qary_kernels
     from cwsl_digi_tpu_torch.modes import _sync_kernels as sync_kernels
     from cwsl_digi_tpu_torch.modes import _weak_kernels as weak_kernels
 
@@ -2889,7 +3450,8 @@ def main() -> int:
           torch.cuda.get_device_name(0))
     build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels,
                      "gfsk": gfsk_kernels, "sync": sync_kernels,
-                     "weak": weak_kernels})
+                     "weak": weak_kernels, "qary": qary_kernels,
+                     "median": median_kernels})
 
     walls = {}
 
@@ -2920,6 +3482,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kweak_modes = phase("weak_kernels", weak_kernels_phase, dev)
     torch.cuda.empty_cache()
+    kqary = phase("qary_kernels", qary_kernels_phase, dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2943,6 +3507,8 @@ def main() -> int:
     print(json.dumps({"gfsk_kernels": kgfsk}))
     print(json.dumps({"sync_kernels": ksync}))
     print(json.dumps({"weak_kernels": kweak_modes}))
+    print(json.dumps({"qary_kernels": {k: v for k, v in kqary.items()
+                                       if k != "checks"}}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
                       "weak_decode_batches": wstats["decode_batches"],
@@ -2981,6 +3547,8 @@ def main() -> int:
              for name, replaces in SYNC_REPLACES.items()]
     hand += [(name, replaces, kweak_modes, "weak.cu")
              for name, replaces in WEAK_REPLACES.items()]
+    hand += [(name, replaces, kqary, QARY_SOURCES[name])
+             for name, replaces in QARY_REPLACES.items()]
     for name, replaces, kphase, src in hand:
         k = kphase["kernels"][name]
         by_phase = {ph: st["kernel_launches"][name]

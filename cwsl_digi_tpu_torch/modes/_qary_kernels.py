@@ -1,0 +1,248 @@
+"""Build, bind and launch the hand-written kernels of the q-ary modes'
+device stages: Q65's GF(64) sum-product decode (``qra_mp``) and the q-ary
+sync correlation with its top-K (``qary_sync``).  The median of their maps
+is :mod:`._median_kernels`'s.
+
+``csrc/qary.cu`` is compiled with ``nvcc`` for ``sm_90a`` and
+``--fmad=false`` into a shared library with a plain C interface, at first
+use, into ``build/`` beside this file, named by the source's hash
+(:mod:`cwsl_digi_tpu_torch.kernel_build`), and loaded with ctypes.
+Importing this module builds nothing: the CPU tests import it on machines
+with no ``nvcc``.
+
+``qra.QaryMPDecoder.decode`` calls :func:`qra_mp` on CUDA tensors and
+``qary_engine._qary_sync`` :func:`qary_sync`.  Every operand is checked
+before the library is loaded; they raise on anything the kernels do not
+take and when the library cannot be built or a launch is refused: no path
+here falls back to the plain versions (``QaryMPDecoder.decode_plain``,
+``qary_engine._qary_sync_plain``).  Neither syncs with the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from cwsl_digi_tpu_torch import kernel_build
+
+# limits of qary.cu (checked against the library when it is loaded)
+Q = 64
+MP_N_MAX = 64             # code length
+MP_NC_MAX = 63            # checks
+MP_MR_MAX = 4             # slots a check
+MP_COL_MAX = 8            # edges a variable
+SYNC_TF = 32              # bins a qary_sync block
+SYNC_T_MAX = 128          # time offsets
+SYNC_S_MAX = 128          # sync symbols
+SYNC_K_MAX = 256          # top-K
+
+SRC = Path(__file__).parent / "csrc" / "qary.cu"
+BUILD_DIR = Path(__file__).parent / "build"
+EXTRA_FLAGS = ("--fmad=false",)
+
+# launches of each kernel since the last reset (one per wrapper call that
+# launches it)
+launches = {"qra_mp": 0, "qary_sync": 0}
+
+_lock = threading.Lock()     # guards _lib and the counts
+_lib: ctypes.CDLL | None = None
+build_log = ""       # nvcc's output for the library in use (ptxas -v)
+
+
+def build_library() -> Path:
+    """Compile the kernel library unless this source's build exists."""
+    global build_log
+    out, log = kernel_build.build_library(SRC, BUILD_DIR, "qary", EXTRA_FLAGS)
+    if log is not None:
+        build_log = log
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first call) and bind the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.qra_mp_launch.argtypes = [p] * 7
+            lib.qra_mp_launch.restype = i
+            lib.qra_mp_table_bytes.argtypes = [i] * 4
+            lib.qra_mp_table_bytes.restype = i
+            lib.qra_mp_smem_bytes.argtypes = [i] * 3
+            lib.qra_mp_smem_bytes.restype = i
+            lib.qary_sync_launch.argtypes = [p] * 10
+            lib.qary_sync_launch.restype = i
+            lib.qary_kernel_attrs.argtypes = [i, p]
+            lib.qary_kernel_attrs.restype = i
+            limits = {"qary_mp_n_max": MP_N_MAX, "qary_mp_nc_max": MP_NC_MAX,
+                      "qary_mp_mr_max": MP_MR_MAX,
+                      "qary_mp_col_max": MP_COL_MAX,
+                      "qary_sync_tf": SYNC_TF, "qary_sync_t_max": SYNC_T_MAX,
+                      "qary_sync_s_max": SYNC_S_MAX,
+                      "qary_sync_k_max": SYNC_K_MAX}
+            for name, want in limits.items():
+                getattr(lib, name).restype = i
+                if getattr(lib, name)() != want:
+                    raise RuntimeError(f"qary.cu {name} disagrees")
+            _lib = lib
+        return _lib
+
+
+def _check(operands: dict) -> None:
+    """{name: (tensor, dtype, shape)}: each operand's dtype, shape and
+    contiguity, then that all lie on one CUDA device."""
+    for name, (x, dtype, shape) in operands.items():
+        if x.dtype != dtype:
+            raise ValueError(f"{name}: dtype {x.dtype}, kernel needs {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, kernel needs "
+                             f"{tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+    first = next(iter(operands.values()))[0].device
+    for name, (x, _, _) in operands.items():
+        if x.device != first or x.device.type != "cuda":
+            raise ValueError(f"{name}: on {x.device}, kernel needs every "
+                             "operand on one CUDA device")
+
+
+def _count(name: str) -> None:
+    with _lock:         # decoders run on the pool's threads
+        launches[name] += 1
+
+
+def mp_table_bytes(n: int, nc: int, mr: int, max_col: int) -> int:
+    """Bytes of ``qra_mp``'s table block (``QaryMPDecoder.kernel_tables``):
+    h_vars and h_coeff [nc mr], fwd and bwd [nc mr 64], col_slots [n
+    max_col], gf_mul [64 64]."""
+    return 2 * nc * mr + 2 * nc * mr * Q + n * max_col + Q * Q
+
+
+def check_mp_code(n: int, nc: int, mr: int, max_col: int) -> None:
+    """Raise unless ``qra_mp`` takes a code of these dimensions."""
+    if not (1 <= n <= MP_N_MAX and 1 <= nc <= MP_NC_MAX
+            and 1 <= mr <= MP_MR_MAX and 1 <= max_col <= MP_COL_MAX
+            and nc * mr <= 255):
+        raise ValueError(f"code n={n}, {nc} checks x {mr} slots, {max_col} "
+                         f"edges a variable: the kernel takes n <= {MP_N_MAX},"
+                         f" at most {MP_NC_MAX} checks of {MP_MR_MAX} slots "
+                         f"(255 slots) and {MP_COL_MAX} edges a variable")
+
+
+def qra_mp(tables: torch.Tensor, probs: torch.Tensor,
+           code: tuple[int, int, int, int], iters: int
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the sum-product decode on PyTorch's current stream, a block a
+    word: ``code`` = (n, nc, mr, max_col), ``tables`` the uint8 block of
+    ``QaryMPDecoder.kernel_tables`` on the device, probs [B, n, 64]
+    float32.  Returns (hard [B, n] int64, ok [B] bool, conf [B] float32),
+    as ``QaryMPDecoder.decode_plain``."""
+    n, nc, mr, max_col = code
+    check_mp_code(n, nc, mr, max_col)
+    if probs.dim() != 3:
+        raise ValueError("probs [B, n, 64] must be 3-D")
+    if iters < 0:
+        raise ValueError(f"iters={iters}: the kernel takes 0 or more")
+    b = probs.shape[0]
+    if not 0 < b < 2 ** 31:
+        raise ValueError(f"{b} words: the kernel takes 1 to 2**31 - 1")
+    _check({"probs": (probs, torch.float32, (b, n, Q)),
+            "tables": (tables, torch.uint8,
+                       (mp_table_bytes(n, nc, mr, max_col),))})
+    hard = torch.empty((b, n), dtype=torch.int64, device=probs.device)
+    ok = torch.empty(b, dtype=torch.bool, device=probs.device)
+    conf = torch.empty(b, dtype=torch.float32, device=probs.device)
+    lib = load_library()
+    dims = (ctypes.c_int * 6)(b, n, nc, mr, max_col, iters)
+    with torch.cuda.device(probs.device):
+        err = lib.qra_mp_launch(
+            ctypes.addressof(dims), tables.data_ptr(), probs.data_ptr(),
+            hard.data_ptr(), ok.data_ptr(), conf.data_ptr(),
+            torch.cuda.current_stream(probs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qra_mp kernel launch failed: CUDA error {err} "
+                           f"({b} words, {iters} iterations)")
+    _count("qra_mp")
+    return hard, ok, conf
+
+
+def check_sync(n_t0: int, n_sync: int, k: int) -> None:
+    """Raise unless ``qary_sync`` takes ``n_t0`` time offsets, ``n_sync``
+    sync symbols and top-``k``."""
+    if not (1 <= n_t0 <= SYNC_T_MAX and 1 <= n_sync <= SYNC_S_MAX
+            and 1 <= k <= SYNC_K_MAX):
+        raise ValueError(f"max_hops={n_t0}, {n_sync} sync symbols, top_k={k}"
+                         f": the kernel takes at most {SYNC_T_MAX} time "
+                         f"offsets, {SYNC_S_MAX} sync symbols and top_k "
+                         f"{SYNC_K_MAX}")
+
+
+def qary_sync(power_sync: torch.Tensor, base: torch.Tensor,
+              hops: torch.Tensor, n_t0: int, n_f0: int, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the sync correlation and its top-K on PyTorch's current
+    stream: power_sync [B, H, F] float32, base [B] float32 (the map's mean
+    times the sync count), hops [S] int32 (the sync symbols' first rows,
+    ascending); the score of (t0, f0) is the sum over the hops h, in order,
+    of power_sync[:, h + t0, f0], over base + 1e-30, for t0 < n_t0 and f0 <
+    n_f0.  Returns (top_val [B, k] float32, top_idx [B, k] int64), the
+    stable descending top-k of the scores flattened t0-major, as
+    ``qary_engine._qary_sync_plain``."""
+    if power_sync.dim() != 3:
+        raise ValueError("power_sync [B, H, F] must be 3-D")
+    b, h, f = power_sync.shape
+    s = hops.shape[0] if hops.dim() == 1 else 0
+    check_sync(n_t0, s, k)
+    if not (0 < b <= 65535 and 0 < n_f0 <= f and n_t0 * n_f0 >= k):
+        raise ValueError(f"{b} windows, n_f0={n_f0} of {f} bins, {n_t0} x "
+                         f"{n_f0} scores for top_k={k}: the kernel takes 1 "
+                         "to 65535 windows and top_k at most the scores")
+    _check({"power_sync": (power_sync, torch.float32, (b, h, f)),
+            "base": (base, torch.float32, (b,)),
+            "hops": (hops, torch.int32, (s,))})
+    strips = -(-n_f0 // SYNC_TF)
+    dev = power_sync.device
+    cand_key = torch.empty((b, strips, k), dtype=torch.int64, device=dev)
+    cand_val = torch.empty((b, strips, k), dtype=torch.float32, device=dev)
+    done = torch.zeros(b, dtype=torch.int32, device=dev)
+    top_val = torch.empty((b, k), dtype=torch.float32, device=dev)
+    top_idx = torch.empty((b, k), dtype=torch.int64, device=dev)
+    lib = load_library()
+    dims = (ctypes.c_int * 7)(b, h, f, n_t0, n_f0, s, k)
+    with torch.cuda.device(dev):
+        err = lib.qary_sync_launch(
+            ctypes.addressof(dims), power_sync.data_ptr(), base.data_ptr(),
+            hops.data_ptr(), cand_key.data_ptr(), cand_val.data_ptr(),
+            done.data_ptr(), top_val.data_ptr(), top_idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qary_sync kernel launch failed: CUDA error {err}"
+                           f" ({b} windows of {n_t0} x {n_f0}, top_k={k})")
+    _count("qary_sync")
+    return top_val, top_idx
+
+
+def mp_smem_bytes(n: int, nc: int, mr: int) -> int:
+    """Dynamic shared memory of a ``qra_mp`` block for this code."""
+    return load_library().qra_mp_smem_bytes(n, nc, mr)
+
+
+def kernel_attrs(device) -> dict:
+    """Each q-ary kernel's registers a thread, spilled (local) bytes a
+    thread, static shared bytes and threads a block at most, as
+    ``cudaFuncGetAttributes`` gives them."""
+    lib = load_library()
+    out = {}
+    for which, name in enumerate(("qra_mp", "qary_sync")):
+        vals = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            err = lib.qary_kernel_attrs(which, ctypes.addressof(vals))
+        if err != 0:
+            raise RuntimeError(f"qary_kernel_attrs({name}): CUDA error {err}")
+        out[name] = dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                              "max_threads"), list(vals)))
+    return out

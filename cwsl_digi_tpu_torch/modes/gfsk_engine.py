@@ -38,7 +38,8 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes import _gfsk_kernels, _sync_kernels
+from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, _median_kernels,
+                                       _sync_kernels)
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.ldpc import BPDecoder
@@ -340,13 +341,28 @@ def _shifted_sum(plane: torch.Tensor, cells, rows: int, cols: int,
 
 def _median_rows(x: torch.Tensor) -> torch.Tensor:
     """Median over all but the first axis, averaging the two middle values
-    for an even count (``jnp.median``)."""
-    flat = x.reshape(x.shape[0], -1)
+    for an even count (``jnp.median``).  On a CUDA tensor one call of the
+    ``median_rows`` kernel (``_median_kernels``, on a contiguous copy of a
+    strided view; it raises where the kernel cannot run), on a CPU tensor
+    :func:`_median_rows_plain`."""
+    if x.device.type == "cpu":
+        return _median_rows_plain(x)
+    return _median_kernels.median_rows(
+        x.reshape(x.shape[0], -1).contiguous())
+
+
+def _median_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_median_rows` by a full sort of each row: -0.0 read as 0.0
+    (as ``jnp.median``'s sort keys), and NaN for a row that holds a NaN
+    (``jnp.median`` without ``nanmedian``'s squashing)."""
+    flat = x.reshape(x.shape[0], -1) + 0.0
     n = flat.shape[1]
     srt = flat.sort(dim=1).values
     if n % 2:
-        return srt[:, n // 2]
-    return 0.5 * (srt[:, n // 2 - 1] + srt[:, n // 2])
+        med = srt[:, n // 2]
+    else:
+        med = 0.5 * (srt[:, n // 2 - 1] + srt[:, n // 2])
+    return torch.where(flat.isnan().any(dim=1), torch.nan, med)
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -7,8 +7,10 @@ symbol positions, data symbols carrying one GF(64) value as a tone index.
 Device side (:func:`qary_decode_program`): Hann sync and boxcar demod
 power spectrograms (one bf16-input DFT matmul over the kept bins, or two
 rffts where the DFT matrix would exceed ``DFT_MAT_BYTES_MAX``), sync-tone
-correlation over (t0, f0), top-K candidates, per-symbol tone-energy gather
--> best/second-best values and margins.  Then either the batched RS
+correlation over (t0, f0) and its top-K candidates (on a card one launch
+of the ``qary_sync`` kernel, ``_qary_kernels``), per-symbol tone-energy
+gather -> best/second-best values and margins, the SNR's noise median
+(``median_rows`` on a card).  Then either the batched RS
 errors-and-erasures Chase on the device (JT65, ``modes/rs_device.py``), or
 the GF(64) sum-product decoder under several prior variants (Q65,
 ``modes/qra.py``), each ending in one small packed copy to the host.
@@ -27,6 +29,7 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
+from cwsl_digi_tpu_torch.modes import _qary_kernels
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.gfsk_engine import (DEVICE_BYTES_BUDGET,
@@ -95,7 +98,6 @@ def qary_decode_program(spec: QarySpec, audio: torch.Tensor, tabs: dict
     per-tone energies ``e`` with ``spec.full_e``), as the reference.
     """
     b, n_samples = audio.shape
-    dev = audio.device
     sps, hop = spec.sps, spec.hop
     n_hops = (n_samples - sps) // hop + 1
     fmin_bin, fmax_bin, n_bins = _bin_range(spec)
@@ -121,31 +123,15 @@ def qary_decode_program(spec: QarySpec, audio: torch.Tensor, tabs: dict
         power_sync = spectrogram(tabs["window"])
         power = spectrogram(torch.ones_like(tabs["window"]))
 
-    # sync correlation at tone 0
-    n_t0 = spec.max_hops
-    n_f0 = fmax_bin - fmin_bin
-    acc = None
-    for s in spec.sync_syms:
-        h0 = spec.os_t * s
-        sl = power_sync[:, h0 : h0 + n_t0, :n_f0]
-        acc = sl if acc is None else acc + sl
+    # sync correlation at tone 0 and its top-K
     base = power_sync.mean(dim=(1, 2), keepdim=True) * len(spec.sync_syms)
-    score = acc / (base + 1e-30)
-
-    top_val, top_idx = _top_k(score.reshape(b, -1), spec.top_k)
+    top_val, top_idx = _qary_sync(spec, power_sync, base)
+    n_f0 = fmax_bin - fmin_bin
     t0 = top_idx // n_f0
     f0 = top_idx % n_f0
 
-    # data-symbol tone energies
-    sym_hops = t0[:, :, None] + spec.os_t * tabs["data_syms"].to(
-        torch.int64)[None, None, :]
-    tone_bins = (f0[:, :, None] + spec.os_f * (
-        spec.tone_offset + torch.arange(spec.n_tones, device=dev))[None, None])
-    bb = torch.arange(b, device=dev)[:, None, None, None]
-    e = power[bb, sym_hops[:, :, :, None], tone_bins[:, :, None, :]]
-    # top-4 tone hypotheses per symbol (compact soft information for the
-    # list decoders) + total energy for noise normalization
-    top_e, top_tone = _top_k(e, 4)                          # [B, K, n_data, 4]
+    e, top_e, top_tone = _symbol_energies(spec, power, t0, f0,
+                                          tabs["data_syms"])
     e_sum = e.sum(dim=-1)                                   # [B, K, n_data]
     margin = (torch.log(top_e[..., 0] + 1e-30)
               - torch.log(top_e[..., 1] + 1e-30))
@@ -170,6 +156,75 @@ def qary_decode_program(spec: QarySpec, audio: torch.Tensor, tabs: dict
     if spec.full_e:
         out["e"] = e              # [B, K, n_data, n_tones]
     return out
+
+
+def _qary_sync_plain(spec: QarySpec, power_sync: torch.Tensor,
+                     base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_qary_sync` in plain PyTorch: the sum of the sync rows'
+    shifted slices in ``spec.sync_syms`` order, over base + 1e-30, and a
+    stable descending sort of every score a window."""
+    b = power_sync.shape[0]
+    fmin_bin, fmax_bin, _ = _bin_range(spec)
+    n_t0, n_f0 = spec.max_hops, fmax_bin - fmin_bin
+    acc = None
+    for s in spec.sync_syms:
+        h0 = spec.os_t * s
+        sl = power_sync[:, h0 : h0 + n_t0, :n_f0]
+        acc = sl if acc is None else acc + sl
+    score = acc / (base + 1e-30)
+    return _top_k(score.reshape(b, -1), spec.top_k)
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_hops(sync_syms: tuple, os_t: int, device: torch.device
+               ) -> torch.Tensor:
+    """The sync symbols' first rows (os_t x symbol), int32 on ``device``,
+    copied there once a mode and device."""
+    return torch.tensor([os_t * s for s in sync_syms], dtype=torch.int32,
+                        device=device)
+
+
+def _qary_sync(spec: QarySpec, power_sync: torch.Tensor, base: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sync correlation at tone 0 over (t0 < ``spec.max_hops``, f0 <
+    n_f0), normalised by ``base`` [B, 1, 1], and its top ``spec.top_k``
+    (values [B, K], flat t0-major indices [B, K]; lower index first on
+    ties).  On a CUDA tensor one launch of the ``qary_sync`` kernel
+    (``_qary_kernels``; it raises where the kernel cannot run; the score
+    map is never written), on a CPU tensor :func:`_qary_sync_plain`."""
+    if power_sync.device.type == "cpu":
+        return _qary_sync_plain(spec, power_sync, base)
+    fmin_bin, fmax_bin, _ = _bin_range(spec)
+    hops = _sync_hops(tuple(spec.sync_syms), spec.os_t, power_sync.device)
+    return _qary_kernels.qary_sync(
+        power_sync.contiguous(), base.reshape(-1).contiguous(), hops,
+        spec.max_hops, fmax_bin - fmin_bin, spec.top_k)
+
+
+def check_sync_kernel(spec: QarySpec) -> None:
+    """Raise unless the ``qary_sync`` kernel takes this mode's search."""
+    _qary_kernels.check_sync(spec.max_hops, len(spec.sync_syms), spec.top_k)
+    if list(spec.sync_syms) != sorted(spec.sync_syms):
+        raise ValueError("qary_sync takes the sync symbols ascending")
+
+
+def _symbol_energies(spec: QarySpec, power: torch.Tensor, t0: torch.Tensor,
+                     f0: torch.Tensor, data_syms: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The data symbols' tone energies of each candidate (t0, f0 [B, K]):
+    e [B, K, n_data, n_tones] gathered from ``power``, and its top-4 tone
+    hypotheses (energies, tones) per symbol, the compact soft information
+    of the list decoders."""
+    b = power.shape[0]
+    dev = power.device
+    sym_hops = t0[:, :, None] + spec.os_t * data_syms.to(
+        torch.int64)[None, None, :]
+    tone_bins = (f0[:, :, None] + spec.os_f * (
+        spec.tone_offset + torch.arange(spec.n_tones, device=dev))[None, None])
+    bb = torch.arange(b, device=dev)[:, None, None, None]
+    e = power[bb, sym_hops[:, :, :, None], tone_bins[:, :, None, :]]
+    top_e, top_tone = _top_k(e, 4)                          # [B, K, n_data, 4]
+    return e, top_e, top_tone
 
 
 def _mp_priors(variants: tuple, e: torch.Tensor) -> torch.Tensor:
@@ -248,6 +303,10 @@ class QaryDecoder:
         self.mode = mode
         self.unpack = unpack          # (info_symbols) -> text or None
         self.device = as_device(device)
+        if self.device.type == "cuda":
+            # a search the qary_sync kernel does not take is refused now,
+            # not in a decode
+            check_sync_kernel(spec)
         # channel-domain -> codeword-domain transform (JT65: deinterleave +
         # inverse Gray code).  symbol_perm[s] = transmitted data-symbol
         # position of codeword symbol s; value_demap[tone_value] = GF value.
@@ -432,18 +491,12 @@ class QaryDecoder:
     # misled by them).
     MP_VARIANTS = ((1.0, 0), (0.7, 0), (1.35, 0), (1.0, 8), (0.7, 14))
 
-    def _decode_mp(self, out: dict) -> list:
-        """Q-ary sum-product decode path (Q65): full per-tone energies ->
-        symbol likelihoods under ``MP_VARIANTS`` -> batched GF(64) message
-        passing -> re-encode scoring, all on the device, in chunks that
-        keep the message arrays inside the device budget (a short tail
-        chunk is padded with uniform rows, exact no-ops); among converging
-        variants the best soft re-encode score wins."""
-        e = out["e"]                                   # [B, K, n_data, T]
-        bsz, top_k, n_data, n_tones = e.shape
-        n_var = len(self.MP_VARIANTS)
-        flat = _mp_priors(self.MP_VARIANTS, e).reshape(
-            bsz * top_k * n_var, n_data, n_tones)
+    def _mp_chunks(self, flat: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The plain message passing of the words ``flat`` [M, n, T] in
+        chunks that keep its message arrays inside the device budget (a
+        short tail chunk padded with uniform rows, exact no-ops)."""
+        n_data, n_tones = flat.shape[1:]
         # per-item working set is ~6 message arrays of [nc, mr, 64] f32
         nc, mr = self.mp.code.h_vars.shape
         per_item = nc * mr * 64 * 4 * 6
@@ -455,12 +508,32 @@ class QaryDecoder:
                 chunk = torch.cat([
                     chunk,
                     torch.full((mp_batch - len(chunk), n_data, n_tones),
-                               1.0 / n_tones, device=e.device)])
+                               1.0 / n_tones, device=flat.device)])
             h, o, _conf = self.mp.decode(chunk)
             hards.append(h)
             oks.append(o)
-        hard = torch.cat(hards)[: len(flat)].reshape(bsz, top_k, n_var, n_data)
-        ok = torch.cat(oks)[: len(flat)].reshape(bsz, top_k, n_var)
+        return torch.cat(hards)[: len(flat)], torch.cat(oks)[: len(flat)]
+
+    def _decode_mp(self, out: dict) -> list:
+        """Q-ary sum-product decode path (Q65): full per-tone energies ->
+        symbol likelihoods under ``MP_VARIANTS`` -> batched GF(64) message
+        passing (on a card one ``qra_mp`` launch, on the CPU the plain
+        version in chunks, ``_mp_chunks``) -> re-encode scoring, all on the
+        device; among converging variants the best soft re-encode score
+        wins."""
+        e = out["e"]                                   # [B, K, n_data, T]
+        bsz, top_k, n_data, n_tones = e.shape
+        n_var = len(self.MP_VARIANTS)
+        flat = _mp_priors(self.MP_VARIANTS, e).reshape(
+            bsz * top_k * n_var, n_data, n_tones)
+        if flat.device.type == "cuda":
+            # the qra_mp kernel keeps each word's messages in shared
+            # memory: every word in one launch
+            hard, ok, _conf = self.mp.decode(flat)
+        else:
+            hard, ok = self._mp_chunks(flat)
+        hard = hard.reshape(bsz, top_k, n_var, n_data)
+        ok = ok.reshape(bsz, top_k, n_var)
 
         # device scoring + variant selection + one packed copy
         packed = _mp_score_pack(

@@ -24,6 +24,10 @@ provides the native equivalent:
   float32 matmul (TF32 stays off: ``device.py``); GF edge coefficients
   are static permutations of the symbol axis.  Fixed iteration count, no
   data-dependent control flow.
+
+On the card the decode is one launch of the ``qra_mp`` kernel
+(``_qary_kernels``, ``csrc/qary.cu``); ``QaryMPDecoder.decode_plain`` is
+the plain version the CPU runs.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
+from cwsl_digi_tpu_torch.modes import _qary_kernels
 from cwsl_digi_tpu_torch.modes.rs64 import _tables
 
 Q = 64
@@ -273,9 +278,12 @@ class QaryMPDecoder:
         self._col_mask = col_mask
         self._h_vars = code.h_vars
         self._row_mask = code.row_mask
+        if self.device.type == "cuda":
+            _qary_kernels.check_mp_code(*self.kernel_code)
         self._tabs = {k: v.to(torch.int64) if v.dtype == torch.int32 else v
                       for k, v in tables_to_torch(self._host_tables(),
                                                   self.device).items()}
+        self._ktab: dict[torch.device, torch.Tensor] = {}   # by device
 
     def _host_tables(self) -> dict[str, np.ndarray]:
         return {"h_vars": self._h_vars, "h_coeff": self.code.h_coeff,
@@ -288,13 +296,48 @@ class QaryMPDecoder:
         """Host tables the reference also builds (see ``convert.py``)."""
         return {k: torch.from_numpy(v) for k, v in self._host_tables().items()}
 
+    @property
+    def kernel_code(self) -> tuple[int, int, int, int]:
+        """(n, checks, slots a check, edges a variable) for ``qra_mp``."""
+        nc, mr = self.code.h_vars.shape
+        return self.code.n, nc, mr, self._max_col
+
+    def kernel_tables(self) -> np.ndarray:
+        """The ``qra_mp`` kernel's table block, uint8, from the plain
+        version's tables: h_vars and h_coeff [nc, mr] (h_vars = n in a
+        padded slot), the permutations fwd and bwd [nc, mr, 64], col_slots
+        [n, max_col] (255 in a padded column slot) and gf_mul [64, 64]."""
+        t = self._host_tables()
+        col = np.where(t["col_mask"] > 0, t["col_slots"], 255)
+        parts = [t["h_vars"], t["h_coeff"], t["qra_fwd"], t["qra_bwd"], col,
+                 t["gf_mul"]]
+        return np.concatenate([np.asarray(a).reshape(-1) for a in parts]
+                              ).astype(np.uint8)
+
     def decode(self, probs: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """probs: [B, n, 64] channel symbol likelihoods (rows normalized).
 
         Returns (hard symbols [B, n] int64, syndrome_ok [B] bool,
-        posterior max-prob [B] — a confidence for acceptance gates).
+        posterior max-prob [B] — a confidence for acceptance gates).  On a
+        CUDA tensor one launch of the ``qra_mp`` kernel (``_qary_kernels``;
+        it raises where the kernel cannot run), on a CPU tensor
+        :meth:`decode_plain`.
         """
+        if probs.device.type == "cpu":
+            return self.decode_plain(probs)
+        tab = self._ktab.get(probs.device)
+        if tab is None:
+            # the kernel's table block, copied on first use on a device
+            tab = self._ktab[probs.device] = torch.from_numpy(
+                self.kernel_tables()).to(probs.device)
+        return _qary_kernels.qra_mp(tab, probs.contiguous(),
+                                    self.kernel_code, self.iters)
+
+    def decode_plain(self, probs: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`decode` in plain PyTorch: the reference's program, the
+        transforms as [64, 64] float32 matmuls."""
         bsz = probs.shape[0]
         nc, mr = self.code.h_vars.shape
         n = self.code.n

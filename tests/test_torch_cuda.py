@@ -19,8 +19,14 @@ a launch; no spills), the weak modes' kernels ``wspr_beam`` (at widths 32
 to 1024, the 1024 one's shared memory included, on noise, ties and NaN)
 and ``rs_ee`` (through both entries, with more than 51 erasures and with
 more trials than the card's resident warps) against their plain versions (and no fallback;
-no spills; the WSPR and JT65 decoders launch them), and the
-parallel layer on a virtual mesh of the card against one on the CPU.
+no spills; the WSPR and JT65 decoders launch them), the q-ary kernels
+``qra_mp`` (Q65 priors with converging and noise words), ``median_rows``
+(every edge row, a JT65-sized map) and ``qary_sync`` (JT65 and Q65 maps
+with planted ties, NaN scores and a NaN base) against their plain versions
+and the NumPy models of ``tests/test_torch_qary_kernels.py`` (and no
+fallback; no spills; the JT65, Q65-30, WSPR and FT8 decoders launch
+them), and the parallel layer on a virtual mesh of the card against one
+on the CPU.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -46,15 +52,18 @@ from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
 from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
 from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+from cwsl_digi_tpu_torch.modes import _median_kernels as median_kernels
+from cwsl_digi_tpu_torch.modes import _qary_kernels as qary_kernels
 from cwsl_digi_tpu_torch.modes import _sync_kernels as sync_kernels
 from cwsl_digi_tpu_torch.modes import _weak_kernels as weak_kernels
 from cwsl_digi_tpu_torch.modes import (fst4, ft4, ft8, gfsk_engine, js8,
-                                       jt65, ldpc, osd, q65, rs64,
-                                       rs_device, subtract, wspr)
+                                       jt65, ldpc, osd, q65, qary_engine,
+                                       rs64, rs_device, subtract, wspr)
 from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr, gfsk_modulate_iq
 from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
 from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
 from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
+import test_torch_qary_kernels as qary_models
 from test_torch_device_lock import pool_run
 from test_torch_parity import WSPRTolerance, assert_same_batch_decodes
 
@@ -808,6 +817,150 @@ def test_decoders_launch_the_weak_kernels_on_card(dev):
     torch.cuda.synchronize()
     assert [r.message for r in res[0]] == ["CQ W2AXR FN13"]
     assert weak_kernels.launches == {**before, "rs_ee": before["rs_ee"] + 1}
+
+
+def test_qra_mp_matches_plain_on_card(dev):
+    """qra_mp against the plain decode on the same CUDA priors (a Q65
+    decode's converging and noise words, tiled to 2,400 words): flags
+    identical, the converging words' symbols identical and confidence
+    within 1e-4; and bit for bit the NumPy model of its arithmetic
+    (``tools/qra_mp_model.py``) on the first 40 words: symbols, flags and
+    confidence."""
+    pr = qary_models.q65_priors()
+    dec = q65._mp(dev)
+    probs = torch.from_numpy(np.tile(pr, (60, 1, 1))).to(dev)
+    got = chip_smoke.mp_vs_plain(dec, probs, strict=True)
+    torch.cuda.synchronize()
+    assert got["ok"] and 0 < got["converged"] < got["words"], got
+    hard, ok, conf = (x.cpu().numpy() for x in dec.decode(probs[:len(pr)]))
+    m_hard, m_ok, m_conf = qary_models.mp_model(
+        q65._mp(torch.device("cpu")), pr)
+    np.testing.assert_array_equal(hard, m_hard)
+    np.testing.assert_array_equal(ok, m_ok)
+    np.testing.assert_array_equal(conf.view(np.uint32), m_conf.view(np.uint32))
+
+
+@pytest.mark.parametrize("name", list(qary_models.median_rows_cases()))
+def test_median_rows_matches_plain_on_card(dev, name):
+    """median_rows bit for bit the plain median on the card and the NumPy
+    model of its radix selection, on each edge case."""
+    x = qary_models.median_rows_cases()[name]
+    got = chip_smoke.median_vs_plain(torch.from_numpy(x).to(dev))
+    assert got["ok"], got
+    kern = gfsk_engine._median_rows(torch.from_numpy(x).to(dev)).cpu()
+    model = qary_models.median_model(x)
+    assert ((kern.numpy().view(np.uint32) == model.view(np.uint32))
+            | (np.isnan(model) & kern.isnan().numpy())).all()
+
+
+def test_median_rows_on_a_jt65_map_on_card(dev):
+    """A JT65 device batch's worth of sync map (15 windows of 1411 x 2645
+    with the zero pad rows), many blocks a row: bit for bit the plain
+    median."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.empty((15, 1411, 2645), device=dev).exponential_(generator=g)
+    x[:, :64] = 0.0
+    x[:, -64:] = 0.0
+    got = chip_smoke.median_vs_plain(x.reshape(15, -1))
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("mode", ["JT65", "Q65-30"])
+def test_qary_sync_matches_plain_on_card(dev, mode):
+    """qary_sync against the plain selection on the card and the NumPy
+    model, on maps with planted ties in two strips, NaN scores under a
+    finite base and a NaN base: top_val bit for bit, top_idx identical;
+    also at top_k 1 and 256."""
+    spec = jt65.SPEC if mode == "JT65" else q65.SPEC
+    ps, base = qary_models.planted_map(spec)
+    psd = torch.from_numpy(ps).to(dev)
+    based = torch.from_numpy(base).to(dev)
+    for k in (spec.top_k, 1, 256):
+        sp = dataclasses.replace(spec, top_k=k)
+        got = chip_smoke.qsync_vs_plain(sp, psd, based)
+        assert got["ok"], got
+    val, idx = qary_engine._qary_sync(spec, psd, based)
+    m_val, m_idx = qary_models.sync_model(spec, ps, base)
+    assert (idx.cpu().numpy() == m_idx).all()
+    assert ((val.cpu().numpy().view(np.uint32) == m_val.view(np.uint32))
+            | np.isnan(m_val)).all()
+
+
+def test_qary_kernels_raise_without_library_on_card(dev, monkeypatch,
+                                                    tmp_path):
+    """With no nvcc and no built library, the message passing, the median
+    and the sync selection on CUDA tensors raise; the plain versions
+    never run and nothing counts."""
+    dec = q65._mp(dev)
+    for mod in (qary_kernels, median_kernels):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(qary_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(type(dec), "decode_plain", plain)
+    monkeypatch.setattr(gfsk_engine, "_median_rows_plain", plain)
+    monkeypatch.setattr(qary_engine, "_qary_sync_plain", plain)
+    before = {**qary_kernels.launches, **median_kernels.launches}
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dec.decode(torch.full((2, 63, 64), 1 / 64, device=dev))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gfsk_engine._median_rows(torch.zeros((2, 5, 7), device=dev))
+    ps = torch.zeros((1, 921, 2420), device=dev)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        qary_engine._qary_sync(q65.SPEC, ps, torch.ones((1, 1, 1),
+                                                        device=dev))
+    assert {**qary_kernels.launches, **median_kernels.launches} == before
+
+
+def test_qary_kernels_do_not_spill_on_card(dev):
+    """qra_mp, median_rows and qary_sync keep every value in registers;
+    two qra_mp blocks fit an SM's 227 KB of shared memory."""
+    attrs = {**qary_kernels.kernel_attrs(dev),
+             **median_kernels.kernel_attrs(dev)}
+    assert sorted(attrs) == ["median_rows", "qary_sync", "qra_mp"]
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, attrs)
+    assert 2 * (qary_kernels.mp_smem_bytes(63, 50, 4)
+                + attrs["qra_mp"]["static_smem_bytes"]) <= 232_448
+
+
+def test_decoders_launch_the_qary_kernels_on_card(dev):
+    """A JT65 decode runs qary_sync and median_rows once each, a Q65-30
+    decode qary_sync once, median_rows twice (the SNR and the priors) and
+    qra_mp once, a WSPR and an FT8 decode median_rows; each decodes its
+    message."""
+    rng = np.random.default_rng(18)
+    cases = [
+        (jt65.JT65Decoder(device=dev), jt65.synthesize("CQ W2AXR FN13",
+                                                       1270.0), -15.0,
+         "CQ W2AXR FN13", {"qary_sync": 1, "median_rows": 1, "qra_mp": 0}),
+        (q65.Q65Decoder(device=dev), q65.synthesize("CQ W2AXR FN13",
+                                                    1200.0), -15.0,
+         "CQ W2AXR FN13", {"qary_sync": 1, "median_rows": 2, "qra_mp": 1}),
+        (wspr.WSPRDecoder(device=dev), wspr.synthesize("K1ABC", "FN42", 37,
+                                                       1500.0), -20.0,
+         "K1ABC FN42 37", None),
+        (ft8.FT8Decoder(device=dev), ft8.synthesize("CQ K1ABC FN42",
+                                                    1000.0), -10.0,
+         "CQ K1ABC FN42", None)]
+    for dec, clean, snr, msg, want in cases:
+        win = add_noise_at_snr(clean, snr, 12_000, rng).astype(np.float32)
+        before = {**qary_kernels.launches, **median_kernels.launches}
+        res = dec.decode(torch.from_numpy(win[None]).to(dev))
+        torch.cuda.synchronize()
+        assert msg in [r.message for r in res[0]], type(dec).__name__
+        after = {**qary_kernels.launches, **median_kernels.launches}
+        counts = {k: after[k] - before[k] for k in before}
+        if want is None:
+            assert counts["median_rows"] >= 1 and counts["qra_mp"] == 0, \
+                counts
+        else:
+            assert counts == want, (type(dec).__name__, counts)
 
 
 def test_one_decode_at_a_time_on_the_card(dev):

@@ -1,0 +1,564 @@
+"""The q-ary kernels (``modes/csrc/qary.cu``) and the median
+(``modes/csrc/median.cu``) on the CPU: NumPy models of the kernels'
+algorithms against their plain versions, the plain versions
+against the JAX package, and the wrappers' routing and refusals.
+
+- ``qra_mp``: a NumPy model of the kernel's arithmetic
+  (``tools/qra_mp_model.py``; the variable
+  products in column-slot order, the butterfly Walsh-Hadamard transform
+  with stride 32 first, warp sums as xor butterflies, prefix and suffix
+  leave-one-out products, the per-slot permutation tables, the posterior's
+  NaN-first argmax) against ``QaryMPDecoder.decode_plain`` on the priors
+  of a Q65 decode with converging and noise words: ``ok`` identical,
+  ``hard`` identical where ``ok`` holds, ``conf`` within 1e-4; the
+  butterflies against ``x @ H`` within float32 rounding;
+- ``median_rows``: a model of the radix selection (order keys, 11, 11 and
+  10-bit digits, the two middle ranks' prefixes apart once they split)
+  bitwise against ``_median_rows_plain`` on rows with ties, zero pad
+  rows, NaN, +-0, infinities, odd and even counts and middle values that
+  split at each pass; ``_median_rows_plain`` against ``jnp.median``;
+- ``qary_sync``: a model of the kernel (the sync rows summed in symbol
+  order, the composite keys, each 32-bin strip's top-K, the merge) bitwise
+  against ``_qary_sync_plain`` on JT65 and Q65 maps with planted equal
+  scores in different strips and NaN cells, and against the scores
+  ``qary_decode_program`` picks from a Q65 decode;
+- the kernel's table block holds the plain version's tables, whose source
+  equals the JAX package's;
+- the wrappers: CPU tensors run the plain versions and count no launch;
+  bad operands raise before the library loads; a decoder for a card
+  refuses a search the kernel does not take when it is built; a
+  CUDA-typed call with no nvcc raises.
+
+The models import no JAX, so the card's tests can hold the kernels
+against them too (``tests/test_torch_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cwsl_digi_tpu_torch.modes import (_median_kernels, _qary_kernels,
+                                       gfsk_engine, jt65, q65,
+                                       qary_engine, qra)
+from cwsl_digi_tpu_torch.modes.gfsk import add_noise_at_snr
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+from qra_mp_model import (F32, TINY, UNI, mp_model,  # noqa: E402,F401
+                          warp_sum64, wht_butterfly)
+
+torch.set_num_threads(1)
+
+
+# ---------------------------------------------------------------------------
+# qra_mp model (tools/qra_mp_model.py)
+
+
+def q65_priors(n_windows: int = 2, top_k: int = 4, seed: int = 3
+               ) -> np.ndarray:
+    """Priors [M, 63, 64] of a port Q65 decode on the CPU: a -16 dB burst
+    in the first window (its variants converge), noise in the rest."""
+    rng = np.random.default_rng(seed)
+    clean = q65.synthesize("CQ W2AXR FN13", 1200.0)
+    wins = [add_noise_at_snr(clean, -16.0, 12_000, rng)]
+    wins += [rng.standard_normal(len(clean)) for _ in range(n_windows - 1)]
+    dec = q65.Q65Decoder(top_k=top_k, device="cpu")
+    e = dec.decode_arrays(np.stack(wins).astype(F32))["e"]
+    pr = qary_engine._mp_priors(qary_engine.QaryDecoder.MP_VARIANTS,
+                                torch.from_numpy(e))
+    return pr.reshape(-1, 63, 64).numpy()
+
+
+@pytest.fixture(scope="module")
+def priors() -> np.ndarray:
+    return q65_priors()
+
+
+def assert_mp_agrees(got, want) -> None:
+    """ok identical, hard identical where ok holds, conf within 1e-4
+    there (words that do not converge end where 60 iterations of another
+    summation order take them)."""
+    hard, ok, conf = (np.asarray(x) for x in got)
+    w_hard, w_ok, w_conf = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(ok, w_ok)
+    np.testing.assert_array_equal(hard[w_ok], w_hard[w_ok])
+    np.testing.assert_allclose(conf[w_ok], w_conf[w_ok], rtol=0, atol=1e-4)
+
+
+def test_wht_butterfly_equals_the_matmul():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((256, 64)).astype(F32)
+    h = qra._wht64()
+    want = (x.astype(np.float64) @ h.astype(np.float64))
+    got = wht_butterfly(x)
+    # float32 rounding of six stages of sums of |x| <= 64 max|x|
+    tol = 6 * 2.0 ** -23 * np.abs(x).sum(-1, keepdims=True)
+    assert np.all(np.abs(got - want) <= tol)
+    np.testing.assert_allclose(got, (x @ h), rtol=0, atol=float(tol.max()))
+    # the transform is its own inverse up to 64
+    np.testing.assert_allclose(wht_butterfly(got) / 64, x, rtol=0, atol=1e-5)
+
+
+def test_mp_model_matches_plain(priors):
+    """The kernel's arithmetic against the plain decode on the priors of
+    a Q65 decode: converging and noise words, the flags identical."""
+    dec = q65._mp(torch.device("cpu"))
+    want = [x.numpy() for x in dec.decode_plain(torch.from_numpy(priors))]
+    assert want[1].any() and not want[1].all()
+    got = mp_model(dec, priors)
+    assert_mp_agrees(got, want)
+
+
+def test_mp_model_on_edge_words():
+    """Uniform words (every symbol ties: the argmax takes index 0 of each
+    posterior, the zero word, which converges), one-hot codewords, and a
+    word with a NaN prior (its posterior NaN, index of the first NaN)."""
+    dec = q65._mp(torch.device("cpu"))
+    rng = np.random.default_rng(4)
+    cw = q65._CODE.encode(rng.integers(0, 64, 13))
+    onehot = np.full((63, 64), 1e-3, F32)
+    onehot[np.arange(63), cw] = 1.0
+    onehot /= onehot.sum(-1, keepdims=True)
+    words = np.stack([np.full((63, 64), UNI, F32), onehot,
+                      np.full((63, 64), UNI, F32)])
+    words[2, 5, 7] = np.nan
+    dec10 = qra.QaryMPDecoder(dec.code, iters=10, device="cpu")
+    want = [x.numpy() for x in dec10.decode_plain(torch.from_numpy(words))]
+    got = mp_model(dec10, words)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0][:2], want[0][:2])
+    assert want[1][0] and want[1][1] and (want[0][1] == cw).all()
+    assert np.isnan(got[2][2]) and np.isnan(want[2][2])
+
+
+def test_kernel_tables_hold_the_plain_versions_tables():
+    """The qra_mp table block decodes back to the plain version's tables,
+    and the plain version's are the JAX package's."""
+    from cwsl_digi_tpu.modes import q65 as jq65
+
+    dec = q65._mp(torch.device("cpu"))
+    n, nc, mr, max_col = dec.kernel_code
+    assert (n, nc, mr, max_col) == (63, 50, 4, 4)
+    tab = dec.kernel_tables()
+    assert tab.dtype == np.uint8
+    assert tab.size == _qary_kernels.mp_table_bytes(n, nc, mr, max_col)
+    t = dec._host_tables()
+    o = 0
+    for name, size in (("h_vars", nc * mr), ("h_coeff", nc * mr),
+                       ("qra_fwd", nc * mr * 64), ("qra_bwd", nc * mr * 64)):
+        np.testing.assert_array_equal(tab[o:o + size],
+                                      t[name].reshape(-1), err_msg=name)
+        o += size
+    col = tab[o:o + n * max_col].reshape(n, max_col)
+    o += n * max_col
+    np.testing.assert_array_equal(col == 255, t["col_mask"] == 0)
+    np.testing.assert_array_equal(np.where(col == 255, 0, col),
+                                  np.where(t["col_mask"] > 0,
+                                           t["col_slots"], 0))
+    np.testing.assert_array_equal(tab[o:].reshape(64, 64), t["gf_mul"])
+    jm = jq65._mp()
+    for name, arr in (("h_vars", jm._h_vars), ("h_coeff", jm.code.h_coeff),
+                      ("qra_fwd", jm._fwd), ("qra_bwd", jm._bwd),
+                      ("col_slots", jm._col_slots),
+                      ("col_mask", jm._col_mask)):
+        np.testing.assert_array_equal(t[name], arr, err_msg=name)
+    assert dec.iters == jm.iters == 60
+
+
+# ---------------------------------------------------------------------------
+# median_rows model
+
+
+def order_keys(x: np.ndarray) -> np.ndarray:
+    """The kernels' ascending order keys of float32: -0.0 as 0.0, NaN
+    above +inf."""
+    x = np.asarray(x, F32)
+    u = np.where(x == 0, np.uint32(0), x.view(np.uint32))
+    k = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(x), np.uint32(0xFFFFFFFF), k).astype(np.uint32)
+
+
+def key_values(k: np.ndarray) -> np.ndarray:
+    k = np.asarray(k, np.uint32)
+    bits = np.where(k & np.uint32(0x80000000), k & np.uint32(0x7FFFFFFF), ~k)
+    return bits.astype(np.uint32).view(F32)
+
+
+def median_model(x: np.ndarray) -> np.ndarray:
+    """``median_rows``'s radix selection of each row of x [R, N]: a NaN
+    row's top digit bin ends it as NaN; else three passes (11, 11, 10
+    bits) find the two middle ranks' keys, each counting the entries that
+    match its own prefix."""
+    out = []
+    for row in np.asarray(x, F32):
+        n = row.size
+        keys = order_keys(row)
+        if (keys >> 21 == 2047).any():
+            out.append(F32(np.nan))
+            continue
+        prefix, rank = [0, 0], [(n - 1) // 2, n // 2]
+        for shift_lo, bits in ((21, 11), (10, 11), (0, 10)):
+            shift_hi = shift_lo + bits
+            for t in range(2):
+                sel = keys if shift_hi == 32 else keys[
+                    (keys >> shift_hi) == prefix[t]]
+                hist = np.bincount((sel >> shift_lo) & ((1 << bits) - 1),
+                                   minlength=1 << bits)
+                cum = np.cumsum(hist)
+                d = int(np.searchsorted(cum, rank[t], side="right"))
+                rank[t] -= int(cum[d - 1]) if d else 0
+                prefix[t] = (prefix[t] << bits) | d
+        a, b = key_values(np.array(prefix, np.uint32))
+        out.append(a if n % 2 else F32(0.5) * (a + b))
+    return np.array(out, F32)
+
+
+def median_rows_cases(seed: int = 11) -> dict[str, np.ndarray]:
+    """Rows of each edge the median meets, by name (float32 [R, N])."""
+    rng = np.random.default_rng(seed)
+    one = np.nextafter(F32(1.0), F32(2.0))
+    cases = {
+        "noise odd": rng.standard_normal((3, 1001)).astype(F32),
+        "noise even": rng.exponential(size=(3, 4032)).astype(F32),
+        "ties": rng.integers(-3, 4, (4, 999)).astype(F32),
+        "ties even": rng.integers(0, 3, (4, 1000)).astype(F32),
+        "split at pass 1": np.repeat(np.array([[1.0, 1000.0]], F32), 300,
+                                     axis=1),
+        "split at pass 3": np.repeat(np.array([[1.0, one]], F32), 300,
+                                     axis=1),
+        "signed zeros": np.where(rng.random((4, 64)) < 0.5, F32(-0.0),
+                                 F32(0.0)).astype(F32),
+        "infinities": np.concatenate([np.full((2, 5), np.inf, F32),
+                                      np.full((2, 4), -np.inf, F32)], 1),
+        "one value": np.array([[-2.5], [0.0]], F32),
+    }
+    nan = rng.standard_normal((3, 257)).astype(F32)
+    nan[0, 100] = np.nan
+    nan[1, :] = np.nan
+    cases["NaN"] = nan
+    zeros = rng.exponential(size=(2, 40, 37)).astype(F32)
+    zeros[:, :12] = 0.0            # a q-ary map's zero pad rows
+    zeros[:, -12:] = 0.0
+    cases["zero pad rows"] = zeros.reshape(2, -1)
+    zeros_mid = np.zeros((2, 30, 20), F32)
+    zeros_mid[:, 20:] = rng.exponential(size=(2, 10, 20))
+    cases["zero pad majority"] = zeros_mid.reshape(2, -1)
+    return cases
+
+
+@pytest.mark.parametrize("name", list(median_rows_cases()))
+def test_median_model_matches_plain(name):
+    x = median_rows_cases()[name]
+    want = gfsk_engine._median_rows_plain(torch.from_numpy(x)).numpy()
+    got = median_model(x)
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (
+        np.isnan(got) & np.isnan(want))
+    assert same.all(), (name, got, want)
+    # through the dispatcher on the CPU, with a strided view
+    np.testing.assert_array_equal(
+        gfsk_engine._median_rows(torch.from_numpy(x)).numpy(), want)
+
+
+def test_median_plain_matches_jnp_median():
+    """The plain median equals ``jnp.median`` on every case (NaN rows NaN,
+    -0.0 equal to 0.0), and on a strided view of a 3-D map."""
+    import jax.numpy as jnp
+
+    for name, x in median_rows_cases().items():
+        want = np.asarray(jnp.median(jnp.asarray(x), axis=1))
+        got = gfsk_engine._median_rows_plain(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    m = np.random.default_rng(2).exponential(size=(3, 41, 57)).astype(F32)
+    want = np.asarray(jnp.median(jnp.asarray(m)[:, ::4, ::4], axis=(1, 2)))
+    got = gfsk_engine._median_rows(torch.from_numpy(m)[:, ::4, ::4]).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# qary_sync model
+
+
+def sync_model(spec, power_sync: np.ndarray, base: np.ndarray
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """``qary_sync`` in NumPy: the sync rows summed in symbol order, over
+    base + 1e-30; keys (order key << 32 | 2**32 - 1 - index); each strip
+    of 32 bins keeps its K largest, the window the K largest of those."""
+    fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
+    n_t0, n_f0, k = spec.max_hops, fmax_bin - fmin_bin, spec.top_k
+    ps = np.asarray(power_sync, F32)
+    acc = None
+    for s in spec.sync_syms:
+        h0 = spec.os_t * s
+        sl = ps[:, h0:h0 + n_t0, :n_f0]
+        acc = sl if acc is None else acc + sl
+    den = np.asarray(base, F32).reshape(-1, 1, 1) + TINY
+    val = (acc / den).reshape(len(ps), -1)
+    idx = np.arange(n_t0 * n_f0, dtype=np.uint64)
+    keys = (order_keys(val).astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - idx)
+    f_of = (idx % n_f0).astype(np.int64)
+
+    def rounds(cells: np.ndarray, kb: np.ndarray) -> list:
+        """K rounds of the largest key below the last one taken (the
+        first round any key), as the kernel's block maxima."""
+        taken, last = [], None
+        for _ in range(k):
+            live = kb if last is None else np.where(kb < last, kb, 0)
+            best = live.max() if live.size else 0
+            if best == 0:
+                break
+            taken.append(cells[int(np.argmax(live == best))])
+            last = best
+        return taken
+
+    tv, ti = [], []
+    for b in range(len(ps)):
+        cand = []
+        for lo in range(0, n_f0, 32):
+            in_strip = np.nonzero((f_of >= lo) & (f_of < lo + 32))[0]
+            cand.extend(rounds(in_strip, keys[b, in_strip]))
+        cand = np.asarray(cand)
+        top = np.asarray(rounds(cand, keys[b, cand]))
+        tv.append(val[b, top])
+        ti.append(top)
+    return np.stack(tv), np.stack(ti).astype(np.int64)
+
+
+def planted_map(spec, n_windows: int = 3, seed: int = 5
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """A q-ary sync map [B, H, F] of exponential noise with the zero pad
+    rows, a strong sync track at (t1, f1) copied to a bin of another strip
+    (equal scores in different cells) and a column of zeros (equal scores
+    down the column), and its base [B, 1, 1] (the mean times the sync
+    count); window 1 has a NaN entry under a finite base (NaN scores in
+    one column), window 2 a NaN entry in its base too (every score NaN,
+    the first K indices win)."""
+    fmin_bin, fmax_bin, n_bins = qary_engine._bin_range(spec)
+    n_hops = (int(spec.trperiod * 12_000) - spec.sps) // spec.hop + 1
+    h = n_hops + 2 * spec.pad_hops
+    rng = np.random.default_rng(seed)
+    ps = rng.exponential(size=(n_windows, h, n_bins)).astype(F32)
+    ps[:, :spec.pad_hops] = 0.0
+    ps[:, -spec.pad_hops:] = 0.0
+    t1, f1, f2 = 37, 100, 900
+    for s in spec.sync_syms:
+        ps[:, spec.os_t * s + t1, f1] += 40.0
+    ps[:, :, f2] = ps[:, :, f1]
+    ps[:, :, 1500] = 0.0
+    base = torch.from_numpy(ps).mean(dim=(1, 2), keepdim=True).numpy() \
+        * F32(len(spec.sync_syms))
+    ps[1:, spec.os_t * spec.sync_syms[3] + 60, 333] = np.nan
+    base[2:] = np.nan
+    return ps, base
+
+
+@pytest.mark.parametrize("mode", ["JT65", "Q65-30"])
+def test_sync_model_matches_plain(mode):
+    spec = jt65.SPEC if mode == "JT65" else q65.SPEC
+    ps, base = planted_map(spec)
+    base = torch.from_numpy(base)
+    want_v, want_i = (x.numpy() for x in qary_engine._qary_sync_plain(
+        spec, torch.from_numpy(ps), base))
+    got_v, got_i = sync_model(spec, ps, base.numpy())
+    np.testing.assert_array_equal(got_i, want_i)
+    same = (got_v.view(np.uint32) == want_v.view(np.uint32)) | (
+        np.isnan(got_v) & np.isnan(want_v))
+    assert same.all()
+    n_f0 = qary_engine._bin_range(spec)[1] - qary_engine._bin_range(spec)[0]
+    # window 0: the planted track and its copy tie, the lower bin first
+    assert want_i[0, :2].tolist() == [37 * n_f0 + 100, 37 * n_f0 + 900]
+    assert want_v[0, 0] == want_v[0, 1]
+    # window 1: the NaN scores come first, by index, then the track
+    n_nan = int(np.isnan(want_v[1]).sum())
+    assert 1 < n_nan < spec.top_k and np.isnan(want_v[1, :n_nan]).all()
+    assert (np.diff(want_i[1, :n_nan]) > 0).all()
+    assert want_i[1, n_nan] == 37 * n_f0 + 100
+    # window 2: every score NaN, the first K indices
+    assert want_i[2].tolist() == list(range(spec.top_k))
+    # on the CPU the dispatcher is the plain version
+    got = qary_engine._qary_sync(spec, torch.from_numpy(ps), base)
+    np.testing.assert_array_equal(got[1].numpy(), want_i)
+
+
+def test_sync_model_matches_the_decode_program():
+    """The model on the sync map ``qary_decode_program`` builds for a Q65
+    decode gives the scores and candidates the program picks."""
+    spec = dataclasses.replace(q65.SPEC, top_k=6)
+    dec = q65.Q65Decoder(top_k=6, device="cpu")
+    rng = np.random.default_rng(8)
+    clean = q65.synthesize("VE3XYZ G4ABC IO91", 1400.0)
+    audio = np.stack([add_noise_at_snr(clean, -18.0, 12_000, rng),
+                      rng.standard_normal(len(clean))]).astype(F32)
+    seen = {}
+    sync = qary_engine._qary_sync
+
+    def rec(spec_, power_sync, base):
+        seen["ps"], seen["base"] = power_sync.clone(), base.clone()
+        return sync(spec_, power_sync, base)
+
+    qary_engine._qary_sync = rec
+    try:
+        out = dec.decode_arrays(audio)
+    finally:
+        qary_engine._qary_sync = sync
+    got_v, got_i = sync_model(spec, seen["ps"].numpy(), seen["base"].numpy())
+    fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
+    n_f0 = fmax_bin - fmin_bin
+    np.testing.assert_array_equal(out["score"], got_v)
+    np.testing.assert_array_equal(out["t0_hop"], got_i // n_f0
+                                  - spec.pad_hops)
+    np.testing.assert_array_equal(out["f0_bin"], got_i % n_f0 + fmin_bin)
+
+
+# ---------------------------------------------------------------------------
+# routing and refusals
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    def build():
+        raise AssertionError("the library was built")
+
+    monkeypatch.setattr(_qary_kernels, "load_library", build)
+    monkeypatch.setattr(_median_kernels, "load_library", build)
+
+
+def test_cpu_tensors_run_the_plain_versions(no_build, priors):
+    """On CPU tensors the dispatchers run the plain versions (equal
+    results), load no library and count no launch; on another device they
+    go to the kernel wrappers, which refuse a device that is not CUDA."""
+    before = {**_qary_kernels.launches, **_median_kernels.launches}
+    dec = q65._mp(torch.device("cpu"))
+    words = torch.from_numpy(priors[:6])
+    got, want = dec.decode(words), dec.decode_plain(words)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x = torch.from_numpy(median_rows_cases()["ties"])
+    assert torch.equal(gfsk_engine._median_rows(x),
+                       gfsk_engine._median_rows_plain(x))
+    spec = dataclasses.replace(q65.SPEC, top_k=5)
+    ps, base = (torch.from_numpy(x) for x in planted_map(spec, 2))
+    got = qary_engine._qary_sync(spec, ps, base)
+    want = qary_engine._qary_sync_plain(spec, ps, base)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(got[1], want[1])
+    assert {**_qary_kernels.launches, **_median_kernels.launches} == before
+    with pytest.raises(ValueError, match="CUDA"):
+        dec.decode(words.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        gfsk_engine._median_rows(x.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        _qary_kernels.qary_sync(ps.to("meta"), base.reshape(-1).to("meta"),
+                                torch.zeros(22, dtype=torch.int32,
+                                            device="meta"), 128, 100, 5)
+
+
+def test_qary_wrapper_refusals(no_build):
+    """Wrong dtypes, shapes, contiguity and limits raise before any
+    build."""
+    dec = q65._mp(torch.device("cpu"))
+    code = dec.kernel_code
+    tab = torch.from_numpy(dec.kernel_tables())
+    probs = torch.full((4, 63, 64), 1 / 64)
+    mp = _qary_kernels.qra_mp
+    with pytest.raises(ValueError, match="dtype"):
+        mp(tab, probs.double(), code, 60)
+    with pytest.raises(ValueError, match="shape"):
+        mp(tab, probs[:, :62], code, 60)
+    with pytest.raises(ValueError, match="shape"):
+        mp(tab[:100], probs, code, 60)
+    with pytest.raises(ValueError, match="3-D"):
+        mp(tab, probs[0], code, 60)
+    with pytest.raises(ValueError, match="contiguous"):
+        mp(tab, probs.transpose(0, 1).contiguous().transpose(0, 1), code,
+           60)
+    with pytest.raises(ValueError, match="iters"):
+        mp(tab, probs, code, -1)
+    for bad in ((65, 50, 4, 4), (63, 64, 4, 4), (63, 50, 5, 4),
+                (63, 50, 4, 9)):
+        with pytest.raises(ValueError, match="the kernel takes n"):
+            mp(tab, probs, bad, 60)
+    with pytest.raises(ValueError, match="CUDA"):
+        mp(tab, probs, code, 60)
+    med = _median_kernels.median_rows
+    x = torch.zeros((4, 100))
+    with pytest.raises(ValueError, match="dtype"):
+        med(x.double())
+    with pytest.raises(ValueError, match="2-D"):
+        med(x[None])
+    with pytest.raises(ValueError, match="contiguous"):
+        med(x.t().contiguous().t())
+    with pytest.raises(ValueError, match="rows"):
+        med(torch.zeros((0, 100)))
+    with pytest.raises(ValueError, match="values a row"):
+        med(torch.zeros((4, 0)))
+    with pytest.raises(ValueError, match="CUDA"):
+        med(x)
+    sync = _qary_kernels.qary_sync
+    ps = torch.zeros((2, 921, 2420))
+    base = torch.ones(2)
+    hops = torch.arange(22, dtype=torch.int32) * 8
+    with pytest.raises(ValueError, match="dtype"):
+        sync(ps.double(), base, hops, 128, 2160, 24)
+    with pytest.raises(ValueError, match="dtype"):
+        sync(ps, base, hops.long(), 128, 2160, 24)
+    with pytest.raises(ValueError, match="shape"):
+        sync(ps, base[:1], hops, 128, 2160, 24)
+    with pytest.raises(ValueError, match="3-D"):
+        sync(ps[0], base, hops, 128, 2160, 24)
+    with pytest.raises(ValueError, match="contiguous"):
+        sync(ps.transpose(1, 2).contiguous().transpose(1, 2), base, hops,
+             128, 2160, 24)
+    for n_t0, k in ((129, 24), (128, 257), (128, 0)):
+        with pytest.raises(ValueError, match="the kernel takes at most"):
+            sync(ps, base, hops, n_t0, 2160, k)
+    with pytest.raises(ValueError, match="n_f0"):
+        sync(ps, base, hops, 128, 2421, 24)
+    with pytest.raises(ValueError, match="top_k at most the scores"):
+        sync(ps, base, hops, 2, 10, 24)
+    with pytest.raises(ValueError, match="CUDA"):
+        sync(ps, base, hops, 128, 2160, 24)
+
+
+def test_decoder_contracts_on_the_card(no_build):
+    """A q-ary decoder for a card refuses a search the sync kernel does
+    not take when it is built; on the CPU it stays."""
+    with pytest.raises(ValueError, match="the kernel takes at most"):
+        jt65.JT65Decoder(top_k=300, device="cuda")
+    with pytest.raises(ValueError, match="the kernel takes at most"):
+        qary_engine.check_sync_kernel(dataclasses.replace(q65.SPEC,
+                                                          top_k=300))
+    assert q65.Q65Decoder(top_k=300, device="cpu").spec.top_k == 300
+    unsorted = dataclasses.replace(q65.SPEC, sync_syms=(8, 0, 11))
+    with pytest.raises(ValueError, match="ascending"):
+        qary_engine.check_sync_kernel(unsorted)
+
+
+def test_qary_kernels_raise_without_library(monkeypatch, tmp_path):
+    """A CUDA-typed call with no nvcc and no built library raises "nvcc
+    not found" rather than running the plain version; no launch is
+    counted."""
+    for mod in (_qary_kernels, _median_kernels):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(mod, "_check", lambda operands: None)
+    monkeypatch.setattr(_qary_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    before = {**_qary_kernels.launches, **_median_kernels.launches}
+    dec = q65._mp(torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _qary_kernels.qra_mp(torch.from_numpy(dec.kernel_tables()),
+                             torch.zeros((2, 63, 64)), dec.kernel_code, 60)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _median_kernels.median_rows(torch.zeros((2, 10)))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _qary_kernels.qary_sync(torch.zeros((1, 921, 2420)), torch.ones(1),
+                                torch.zeros(22, dtype=torch.int32), 128,
+                                2160, 24)
+    assert {**_qary_kernels.launches, **_median_kernels.launches} == before

@@ -12,8 +12,8 @@ kernels), then ``tools/torch_decode_profile.py`` of each for the modes
 (default ``build/bench_ab``, which ``.gitignore`` lists):
 ``bench_<side>_<i>.json`` / ``.err`` and ``profile_<side>.log``.  It
 prints one line a bench run (headline, ``t_dec`` with its three runs, the
-mixed-mode capacity, the WSPR and JT65 decode walls a window, the FT8
-recall and the busy band's found share and false messages) and, last, the
+mixed-mode capacity, the WSPR, JT65 and Q65-30 decode walls a window, the
+FT8 recall and the busy band's found share and false messages) and, last, the
 medians by checkout as one JSON object.  A failed bench exits 1 after the
 others have run.  Needs one CUDA device; OTHER_CHECKOUT is e.g. ``git
 archive`` of a parent commit unpacked into a directory that
@@ -50,6 +50,7 @@ def bench(root: Path, out: Path, tag: str) -> dict | None:
          "mixed_mode": d["mixed_mode_channels_per_chip"],
          "wspr_s": d["mode_decode_s_per_window"]["WSPR"],
          "jt65_s": d["mode_decode_s_per_window"]["JT65"],
+         "q65_s": d["mode_decode_s_per_window"]["Q65-30"],
          "recall": d["ft8_recall_curve"], "threshold_db": d["ft8_threshold_db"],
          "busy_found_share": d["busy_found_share"],
          "busy_false": d["busy_false_messages"],
@@ -93,7 +94,7 @@ def main(argv: list[str] | None = None) -> int:
         failed |= proc.returncode != 0
     summary = {side: {k: statistics.median(r[k] for r in rs)
                       for k in ("headline", "t_dec", "t_chan", "mixed_mode",
-                                "wspr_s", "jt65_s")}
+                                "wspr_s", "jt65_s", "q65_s")}
                | {"runs": len(rs)}
                for side, rs in results.items() if rs}
     print(json.dumps({"bench_ab": summary}))

@@ -153,7 +153,11 @@ def _setup(mode: str, dev):
             (wspr, "_median_rows", "SNR median (in device program)")]
         return dec, audio, stages
     dec = get_decoder(mode, device=dev, fmax_hz=3000.0)
-    stages = [(qary_engine, "qary_decode_program", "demod")]
+    stages = [(qary_engine, "qary_decode_program", "demod"),
+              (qary_engine, "_qary_sync", "sync correlation + top-K (in "
+               "demod)"),
+              (qary_engine, "_symbol_energies", "tone gather + top-4 (in "
+               "demod)")]
     if mode == "JT65":
         stages += [(qary_engine, "_median_rows", "SNR median (in demod)"),
                    (qary_engine, "rs_chase_program", "RS Chase"),
