@@ -191,7 +191,14 @@
     ``sync_select``, ``sync_refine``, ``wspr_beam``, ``rs_ee``, ``qra_mp``,
     ``median_rows``, ``qary_sync``, each with its launches in the App
     phases 5-7, 11 and 14, which set every count to 0 before they start
-    and read it after), then ``{"ok": true, ...}`` last.
+    and read it after, and ``launch_gap_ms``, the launches of the FT8,
+    mixed and weak App phases 5-7 (and, for the channelizer, of the
+    parallel phase 10) x (ms - bound), each at the shape it ran at:
+    ``LaunchShapes`` records each launch's shape and the operands of the
+    first at each shape in those phases, and replays every shape on the
+    card after the bench; the live soak and the bench run unrecorded, so
+    that recording costs their timings and deadlines nothing), then
+    ``{"ok": true, ...}`` last.
 
 Each phase prints its wall time.
 
@@ -678,7 +685,11 @@ def stage_kernel_times(runs: dict, bounds: dict, errs: dict,
     corrected rates (FP32_OPS, INT32_OPS) and at FP32_FLOPS."""
     out = {}
     for name, (kern, plain, reps, plain_reps) in runs.items():
-        ms = [cuda_ms(kern, reps)]
+        LAUNCH_SHAPES.timed = name
+        try:
+            ms = [cuda_ms(kern, reps)]
+        finally:
+            LAUNCH_SHAPES.timed = None
         plain_ms = eager_ms(plain, plain_reps)
         ms.append(cuda_ms(kern, reps))
         kern_eager = eager_ms(kern, reps)
@@ -2240,21 +2251,24 @@ def mp_bound_ms(dec, b: int) -> tuple[float, float, dict]:
     """(bytes ms, ops ms, counts) of the sum-product decode of ``b`` words:
     the priors read and the symbols, flags and confidences written once at
     the HBM rate; per word and iteration the float operations of the
-    algorithm on the real edges E (152) and checks: each variable's
-    product (64 E), per edge the variable-to-check message (a division,
-    an add, a clamp and a normalising division a symbol and the 64-term
-    sum: 320), two transforms (6 x 64 adds each), the scaling, clamp,
-    sum and division of the new message (4 x 64), the leave-one-out
-    products (3 r - 4 a symbol for a check of r slots); then the posterior
-    (64 E products, 63 x 3 x 64 for its sum and division, 63 x 63
-    compares), the syndrome (2 E integer operations) and the mean; at
-    FP32_OPS (``ops_ms_fma_rate``: at FP32_FLOPS)."""
+    algorithm on the real edges E (152) and checks: per edge of a variable
+    of d edges the variable-to-check message (d - 2 products of the other
+    messages, the channel's, the padding scale's, the underflow test's
+    product and compare, and a clamp: d + 3 a symbol), the transform (6 x
+    64 adds), its normalisation (an add, a reciprocal, 64 products), the
+    inverse transform (6 x 64), the scaling and clamp of the new message (2
+    x 64), the leave-one-out products (3 r - 4 a symbol for a check of r
+    slots); then the posterior (64 E products, 63 x 3 x 64 for its sum and
+    division, 63 x 63 compares), the syndrome (2 E integer operations) and
+    the mean; at FP32_OPS (``ops_ms_fma_rate``: at FP32_FLOPS)."""
     tabs = dec._host_tables()
     n, nc, mr, _ = dec.kernel_code
-    e = int(tabs["col_mask"].sum())
+    deg = tabs["col_mask"].sum(axis=1)
+    e = int(deg.sum())
     r = tabs["row_mask"].sum(axis=1)
     loo = int(64 * np.maximum(3 * r - 4, 0).sum())
-    per_iter = 64 * e + e * (320 + 2 * 384 + 4 * 64) + loo
+    v2c = int(64 * (deg * (deg + 3)).sum())
+    per_iter = v2c + e * (384 + 2 + 64 + 384 + 128) + loo
     final = 64 * e + n * 3 * 64 + n * 63 + n
     ops = float(b) * (dec.iters * per_iter + final)
     n_bytes = b * (n * 64 * 4 + n * 8 + 1 + 4) + dec.kernel_tables().size
@@ -2353,9 +2367,14 @@ def qary_kernels_phase(dev) -> dict:
         raise AssertionError(f"q-ary kernels disagree with the plain "
                              f"versions: {bad}")
     attrs = {**qk.kernel_attrs(dev), **mk.kernel_attrs(dev)}
-    smem = qk.mp_smem_bytes(*dec.kernel_code[:3])
+    edges = int(dec._host_tables()["row_mask"].sum())
+    smem = qk.mp_smem_bytes(dec.kernel_code[0], edges)
+    blocks = qk.mp_blocks_per_sm(dev, dec.kernel_code, edges)
     print(f"q-ary kernels' design: attributes {json.dumps(attrs)}, qra_mp "
-          f"dynamic shared memory {smem} B")
+          f"dynamic shared memory {smem} B, {blocks} blocks an SM")
+    if blocks < qk.MP_BLOCKS_SM:
+        raise AssertionError(f"qra_mp: {blocks} blocks an SM, the design "
+                             f"holds {qk.MP_BLOCKS_SM}")
 
     # the main path's shapes: Q65's 7,680 words, JT65's map of its device
     # batch (the costliest median and selection)
@@ -2607,6 +2626,7 @@ def _kernel_modules() -> tuple:
 
 def _reset_launches() -> None:
     """Set every kernel's launch count to 0."""
+    LAUNCH_SHAPES.reset_pending()
     for mod in _kernel_modules():
         for name in mod.launches:
             mod.launches[name] = 0
@@ -2615,6 +2635,7 @@ def _reset_launches() -> None:
 def _launch_counts() -> dict:
     """{kernel: launches since the last ``_reset_launches``}, every
     library's."""
+    LAUNCH_SHAPES.commit()
     return {name: n for mod in _kernel_modules()
             for name, n in mod.launches.items()}
 
@@ -2625,6 +2646,159 @@ def _require_launches(where: str, counts: dict, names) -> None:
     missing = [k for k in names if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{where} did not launch {missing}")
+
+
+def _launchers() -> dict:
+    """{kernel: (module, the function that launches and counts it)}."""
+    from cwsl_digi_tpu_torch.dsp import _kernels as ch
+    from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
+    from cwsl_digi_tpu_torch.modes import _kernels as lk
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+    from cwsl_digi_tpu_torch.modes import _sync_kernels as sk
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
+
+    return {"channelize": (ch, "channelize"), "bp_minsum": (lk, "bp_minsum"),
+            "osd": (lk, "osd"), "subtract_known": (gk, "subtract_known"),
+            "multisym_llrs": (gk, "_llr_launch"),
+            "sync_score": (sk, "_score_launch"),
+            "sync_select": (sk, "_select_launch"),
+            "sync_refine": (sk, "_refine_launch"),
+            "wspr_beam": (wk, "wspr_beam"), "rs_ee": (wk, "rs_ee"),
+            "qra_mp": (qk, "qra_mp"), "qary_sync": (qk, "qary_sync"),
+            "median_rows": (mk, "median_rows")}
+
+
+def _launch_work(name: str, args: tuple) -> int:
+    """What a launch's bound grows with: channels x outputs for the
+    channelizer, candidates for the LLRs and the refinement, else the
+    largest operand's entries."""
+    if name == "channelize":
+        return int(args[2].shape[0]) * int(args[4])
+    if name == "multisym_llrs":
+        return int(args[1].shape[0]) * int(args[2])
+    if name == "sync_refine":
+        return int(args[2].numel())
+    return max(int(a.numel()) for a in args if isinstance(a, torch.Tensor))
+
+
+def _shape_key(x):
+    """A hashable key of an argument: a tensor's shape and dtype, else the
+    value."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_shape_key(y) for y in x)
+    if isinstance(x, (int, float, str, bool, type(None))):
+        return x
+    return repr(x)
+
+
+class LaunchShapes:
+    """Each kernel's launches by shape: the functions that launch and
+    count the kernels are wrapped; while ``on`` (True, or a set of the
+    kernels to record), each call's shape (its operands' shapes, its other
+    arguments) is counted and the operands of the first call at each
+    shape kept (cloned).  The counts follow the launch counts:
+    ``_reset_launches`` drops what was recorded since the last
+    ``_launch_counts``, which adds it to the totals.  While ``timed``
+    names a kernel, the work of its last call is kept as the timed
+    shape's.  ``price`` replays each kept shape on the card."""
+
+    def __init__(self):
+        self.on: bool | set = False
+        self.timed: str | None = None
+        self.timed_work: dict[str, int] = {}
+        self.calls: dict[str, dict] = {}       # kernel: {key: first call}
+        self.pending: dict[str, dict] = {}     # kernel: {key: launches}
+        self.counted: dict[str, dict] = {}
+        self.kept_bytes = 0
+        self._lock = threading.Lock()
+        self._orig: dict[str, tuple] = {}
+
+    def install(self) -> None:
+        for name, (mod, attr) in _launchers().items():
+            fn = getattr(mod, attr)
+            self._orig[name] = (mod, attr, fn)
+            setattr(mod, attr, self._wrap(name, fn))
+
+    def uninstall(self) -> None:
+        """Put the unwrapped functions back (what was recorded stays)."""
+        for mod, attr, fn in self._orig.values():
+            setattr(mod, attr, fn)
+        self.on = False
+
+    def _wrap(self, name: str, fn):
+        def launch(*args, **kwargs):
+            if self.timed == name:
+                self.timed_work[name] = _launch_work(name, args)
+            elif self.on is True or (self.on and name in self.on):
+                self._note(name, args, kwargs)
+            return fn(*args, **kwargs)
+        return launch
+
+    def _note(self, name: str, args: tuple, kwargs: dict) -> None:
+        key = (_shape_key(args), _shape_key(sorted(kwargs.items())))
+        with self._lock:
+            p = self.pending.setdefault(name, {})
+            p[key] = p.get(key, 0) + 1
+            if key in self.calls.setdefault(name, {}):
+                return
+            self.kept_bytes += sum(a.numel() * a.element_size()
+                                   for a in [*args, *kwargs.values()]
+                                   if isinstance(a, torch.Tensor))
+
+            def keep(a):
+                return a.clone() if isinstance(a, torch.Tensor) else a
+            self.calls[name][key] = {
+                "work": _launch_work(name, args),
+                "call": (tuple(keep(a) for a in args),
+                         {k: keep(v) for k, v in kwargs.items()})}
+
+    def reset_pending(self) -> None:
+        with self._lock:
+            self.pending = {}
+
+    def commit(self) -> None:
+        with self._lock:
+            for name, p in self.pending.items():
+                c = self.counted.setdefault(name, {})
+                for key, n in p.items():
+                    c[key] = c.get(key, 0) + n
+            self.pending = {}
+
+    def price(self, timed: dict) -> dict:
+        """Each kernel's counted launches priced at their own shapes: the
+        device time of a replay of every kept shape (``cuda_ms``) against
+        the bound of the timed shape (``timed`` name: {"bound_ms"}) scaled
+        by the work.  Returns {kernel: {"launches", "shapes", "gap_ms" (the
+        sum of launches x (ms - bound)), "by_shape"}}."""
+        print(f"launch shapes: {self.kept_bytes / 2**30:.3f} GiB of "
+              f"operands kept")
+        out = {}
+        for name, counted in self.counted.items():
+            t = timed[name]
+            w_t = self.timed_work[name]
+            fn = self._orig[name][2]
+            gap, rows = 0.0, []
+            order = sorted(counted.items(), key=lambda kv: -kv[1])
+            for key, n in order:
+                c = self.calls[name][key]
+                bound = t["bound_ms"] * c["work"] / w_t
+                args, kwargs = c["call"]
+                ms = cuda_ms(lambda: fn(*args, **kwargs), 3)
+                gap += n * (ms - bound)
+                rows.append({"launches": n, "work": c["work"], "ms": ms,
+                             "bound_ms": bound})
+            out[name] = {"launches": sum(n for _, n in order),
+                         "shapes": len(order), "timed_work": w_t,
+                         "gap_ms": gap, "by_shape": rows}
+            print(f"{name} launches at their own shapes: "
+                  f"{json.dumps(out[name])}")
+        return out
+
+
+LAUNCH_SHAPES = LaunchShapes()
 
 
 def _check_spots(spots, expected) -> None:
@@ -3095,11 +3269,13 @@ def parallel_phase(dev) -> dict:
     def run(name, fn):
         torch.cuda.synchronize()
         _kernels.launches["channelize"] = 0
+        LAUNCH_SHAPES.reset_pending()
         t = time.monotonic()
         r = fn()
         torch.cuda.synchronize()
         walls[name] = time.monotonic() - t
         launches[name] = _kernels.launches["channelize"]
+        LAUNCH_SHAPES.commit()
         print(f"parallel {name}: {walls[name]:.3f} s, "
               f"{launches[name]} kernel launches")
         return r
@@ -3466,8 +3642,11 @@ def main() -> int:
     # path's 5 lines, the weak path's 3, one channel each), then the bench's
     # 256 channels
     dials, _ = _plan()
+    LAUNCH_SHAPES.install()
+    LAUNCH_SHAPES.timed = "channelize"       # the 64-channel chunk's shape
     kmain = phase("kernel_64ch", kernel_phase, dev,
                   np.asarray(dials, np.float64) - LO)
+    LAUNCH_SHAPES.timed = None
     kmixed = phase("kernel_mixed_5ch", kernel_phase, dev,
                    np.asarray([d for _, d in MIXED_LINES], np.float64) - LO)
     kweak = phase("kernel_weak_3ch", kernel_phase, dev,
@@ -3484,15 +3663,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     kqary = phase("qary_kernels", qary_kernels_phase, dev)
     torch.cuda.empty_cache()
+    # the launches the kernels line prices, by shape: the App phases and
+    # (the channelizer's) the parallel phase
+    LAUNCH_SHAPES.on = True
     with tempfile.TemporaryDirectory() as tmp:
         mstats = phase("ft8_64ch_app", main_path_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         xstats = phase("mixed_mode_app", mixed_mode_phase, dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         wstats = phase("weak_modes_app", weak_modes_phase, dev, Path(tmp))
+    LAUNCH_SHAPES.on = False
     lstats = phase("long_periods", long_period_phase, dev)
     dstats = phase("decode_walls", decode_walls_phase, dev)
+    LAUNCH_SHAPES.on = {"channelize"}
     pstats = phase("parallel", parallel_phase, dev)
+    # the soak and the bench run on the unwrapped functions
+    LAUNCH_SHAPES.uninstall()
     sstats = phase("live_soak", live_soak_phase, dev)
     astats = phase("ap_fixtures", ap_fixtures_phase, dev)
     tstats = phase("tools", tools_phase, dev)
@@ -3539,6 +3725,7 @@ def main() -> int:
         "bound_by": kmain["bound_by"],
         "library_ms": kmain["library_ms"],
     }]
+    timed = {"channelize": kmain}
     hand = [(name, replaces, kldpc, "ldpc.cu")
             for name, replaces in LDPC_REPLACES.items()]
     hand += [(name, replaces, kgfsk, "gfsk.cu")
@@ -3549,10 +3736,19 @@ def main() -> int:
              for name, replaces in WEAK_REPLACES.items()]
     hand += [(name, replaces, kqary, QARY_SOURCES[name])
              for name, replaces in QARY_REPLACES.items()]
+    for name, _, kphase, _ in hand:
+        timed[name] = kphase["kernels"][name]
+    priced = phase("launch_shapes", LAUNCH_SHAPES.price, timed)
+    # the launches recorded by shape: the App phases' (and the parallel
+    # phase's channelizer launches)
+    recorded = {"channelize": (mstats["launches"] + xstats["launches"]
+                               + wstats["launches"] + pstats["launches"])}
     for name, replaces, kphase, src in hand:
         k = kphase["kernels"][name]
         by_phase = {ph: st["kernel_launches"][name]
                     for ph, st in app_phases.items()}
+        recorded[name] = sum(by_phase[ph] for ph in (
+            "ft8_64ch_app", "mixed_mode_app", "weak_modes_app"))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cwsl_digi_tpu_torch/modes/csrc/{src}",
@@ -3562,6 +3758,18 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for k in kernels:
+        p = priced.get(k["name"], {"launches": 0, "shapes": 0,
+                                   "gap_ms": 0.0})
+        if p["launches"] != recorded[k["name"]]:
+            raise AssertionError(f"{k['name']}: {p['launches']} launches "
+                                 f"recorded by shape, "
+                                 f"{recorded[k['name']]} counted in the "
+                                 "recorded phases")
+        # launches x (ms - bound), each launch at its own shape
+        k["launch_gap_ms"] = p["gap_ms"]
+        k["launches_priced"] = p["launches"]
+        k["launch_shapes"] = p["shapes"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

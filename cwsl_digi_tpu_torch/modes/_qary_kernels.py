@@ -33,7 +33,8 @@ Q = 64
 MP_N_MAX = 64             # code length
 MP_NC_MAX = 63            # checks
 MP_MR_MAX = 4             # slots a check
-MP_COL_MAX = 8            # edges a variable
+MP_COL_MAX = 4            # edges a variable
+MP_BLOCKS_SM = 4          # qra_mp blocks an SM the design holds (Q65)
 SYNC_TF = 32              # bins a qary_sync block
 SYNC_T_MAX = 128          # time offsets
 SYNC_S_MAX = 128          # sync symbols
@@ -70,10 +71,12 @@ def load_library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.qra_mp_launch.argtypes = [p] * 7
             lib.qra_mp_launch.restype = i
-            lib.qra_mp_table_bytes.argtypes = [i] * 4
+            lib.qra_mp_table_bytes.argtypes = [i] * 5
             lib.qra_mp_table_bytes.restype = i
-            lib.qra_mp_smem_bytes.argtypes = [i] * 3
+            lib.qra_mp_smem_bytes.argtypes = [i] * 2
             lib.qra_mp_smem_bytes.restype = i
+            lib.qra_mp_blocks_per_sm.argtypes = [p, p]
+            lib.qra_mp_blocks_per_sm.restype = i
             lib.qary_sync_launch.argtypes = [p] * 10
             lib.qary_sync_launch.restype = i
             lib.qary_kernel_attrs.argtypes = [i, p]
@@ -81,6 +84,7 @@ def load_library() -> ctypes.CDLL:
             limits = {"qary_mp_n_max": MP_N_MAX, "qary_mp_nc_max": MP_NC_MAX,
                       "qary_mp_mr_max": MP_MR_MAX,
                       "qary_mp_col_max": MP_COL_MAX,
+                      "qary_mp_blocks_sm": MP_BLOCKS_SM,
                       "qary_sync_tf": SYNC_TF, "qary_sync_t_max": SYNC_T_MAX,
                       "qary_sync_s_max": SYNC_S_MAX,
                       "qary_sync_k_max": SYNC_K_MAX}
@@ -115,11 +119,12 @@ def _count(name: str) -> None:
         launches[name] += 1
 
 
-def mp_table_bytes(n: int, nc: int, mr: int, max_col: int) -> int:
+def mp_table_bytes(n: int, nc: int, mr: int, max_col: int,
+                   edges: int) -> int:
     """Bytes of ``qra_mp``'s table block (``QaryMPDecoder.kernel_tables``):
     h_vars and h_coeff [nc mr], fwd and bwd [nc mr 64], col_slots [n
-    max_col], gf_mul [64 64]."""
-    return 2 * nc * mr + 2 * nc * mr * Q + n * max_col + Q * Q
+    max_col], gf_mul [64 64], e_slot [edges]."""
+    return 2 * nc * mr + 2 * nc * mr * Q + n * max_col + Q * Q + edges
 
 
 def check_mp_code(n: int, nc: int, mr: int, max_col: int) -> None:
@@ -131,6 +136,25 @@ def check_mp_code(n: int, nc: int, mr: int, max_col: int) -> None:
                          f"edges a variable: the kernel takes n <= {MP_N_MAX},"
                          f" at most {MP_NC_MAX} checks of {MP_MR_MAX} slots "
                          f"(255 slots) and {MP_COL_MAX} edges a variable")
+
+
+def mp_edges(tables: torch.Tensor, code: tuple[int, int, int, int]) -> int:
+    """The code's edges (real slots), from the length of its table block:
+    the block ends with one byte an edge.  Raises unless ``tables`` is a
+    contiguous 1-D uint8 block of 1 to nc mr edges."""
+    n, nc, mr, max_col = code
+    if tables.dtype != torch.uint8 or tables.dim() != 1:
+        raise ValueError(f"tables: {tables.dtype} of {tuple(tables.shape)}, "
+                         "kernel needs a 1-D uint8 block")
+    if not tables.is_contiguous():
+        raise ValueError("tables: not contiguous")
+    edges = tables.numel() - mp_table_bytes(n, nc, mr, max_col, 0)
+    if not 1 <= edges <= nc * mr:
+        raise ValueError(f"tables: shape {tuple(tables.shape)}, kernel "
+                         f"needs {mp_table_bytes(n, nc, mr, max_col, 1)} to "
+                         f"{mp_table_bytes(n, nc, mr, max_col, nc * mr)} "
+                         "bytes")
+    return edges
 
 
 def qra_mp(tables: torch.Tensor, probs: torch.Tensor,
@@ -150,14 +174,15 @@ def qra_mp(tables: torch.Tensor, probs: torch.Tensor,
     b = probs.shape[0]
     if not 0 < b < 2 ** 31:
         raise ValueError(f"{b} words: the kernel takes 1 to 2**31 - 1")
+    edges = mp_edges(tables, code)
     _check({"probs": (probs, torch.float32, (b, n, Q)),
             "tables": (tables, torch.uint8,
-                       (mp_table_bytes(n, nc, mr, max_col),))})
+                       (mp_table_bytes(n, nc, mr, max_col, edges),))})
     hard = torch.empty((b, n), dtype=torch.int64, device=probs.device)
     ok = torch.empty(b, dtype=torch.bool, device=probs.device)
     conf = torch.empty(b, dtype=torch.float32, device=probs.device)
     lib = load_library()
-    dims = (ctypes.c_int * 6)(b, n, nc, mr, max_col, iters)
+    dims = (ctypes.c_int * 7)(b, n, nc, mr, max_col, edges, iters)
     with torch.cuda.device(probs.device):
         err = lib.qra_mp_launch(
             ctypes.addressof(dims), tables.data_ptr(), probs.data_ptr(),
@@ -226,9 +251,25 @@ def qary_sync(power_sync: torch.Tensor, base: torch.Tensor,
     return top_val, top_idx
 
 
-def mp_smem_bytes(n: int, nc: int, mr: int) -> int:
-    """Dynamic shared memory of a ``qra_mp`` block for this code."""
-    return load_library().qra_mp_smem_bytes(n, nc, mr)
+def mp_smem_bytes(n: int, edges: int) -> int:
+    """Dynamic shared memory of a ``qra_mp`` block for a code of ``n``
+    variables and ``edges`` edges."""
+    return load_library().qra_mp_smem_bytes(n, edges)
+
+
+def mp_blocks_per_sm(device, code: tuple[int, int, int, int],
+                     edges: int) -> int:
+    """Resident ``qra_mp`` blocks an SM of ``device`` for this code
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = load_library()
+    dims = (ctypes.c_int * 7)(1, *code, edges, 0)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.qra_mp_blocks_per_sm(ctypes.addressof(dims),
+                                       ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"qra_mp_blocks_per_sm: CUDA error {err}")
+    return out.value
 
 
 def kernel_attrs(device) -> dict:

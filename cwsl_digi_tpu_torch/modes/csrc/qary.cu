@@ -22,15 +22,18 @@
 //
 //   - qra_mp reads the priors (B x 63 x 64 float32: 124 MB at Q65's 7,680
 //     words of a 64-window decode) and writes a word's symbols, flag and
-//     confidence.  Its operations: per word and iteration, each of the
-//     152 edges' 64 symbols a product at the variable, a division, two
-//     clamps, two normalisations (a sum and a division each), two 64-point
-//     transforms (6 adds a symbol each), the leave-one-out products and a
-//     scaling, ~2.7e5 float operations; 60 iterations of 7,680 words are
-//     ~1.3e11, ~3.8 ms at the FP32 rate without FMA: operations bound it.
-//     What sets its time is the warp shuffles of the transforms and sums
-//     (~30 a slot and iteration a lane) and the 60 iterations' two block
-//     barriers each.
+//     confidence.  Its operations, per word and iteration, on each of the
+//     152 edges' 64 symbols: the variable's other messages, the channel
+//     row, the padding scale and the underflow test (d + 3 for a variable
+//     of d edges), a clamp, two 64-point transforms (6 adds a symbol each),
+//     the normalisation (a reciprocal and a product a symbol), the
+//     leave-one-out products (3 r - 4 a symbol for a check of r slots),
+//     the scaling and a clamp: ~2.2e5 float operations, ~1.0e11 for 60
+//     iterations of 7,680 words, ~3.0 ms at the FP32 rate without FMA:
+//     operations bound it.  The first port of this kernel took 40.7 ms on
+//     an H100 80GB HBM3 at 700 W: 20 warps an SM (93,952 B of shared
+//     memory a word), each slot a chain of 30 shuffles, 6 IEEE divisions
+//     and two shared-memory permutations.
 //   - qary_sync reads the sync rows its scores need (the union of the
 //     rows [8 s, 8 s + 128) over the sync symbols s, n_f0 bins wide:
 //     ~690 MB at JT65's 64 windows, ~0.21 ms) and writes K candidates a
@@ -39,33 +42,53 @@
 //
 // The design.
 //
-//   - qra_mp: a block of 10 warps a word, all iterations in one launch.
-//     The word's check-to-variable messages (50 x 4 x 64 float32, 51.2
-//     KB), its channel rows and the variable products (16 KB each) and a
-//     permutation buffer stay in shared memory for the whole decode (91 KB
-//     a block, two blocks an SM).  An iteration is two phases behind block
-//     barriers: the threads form each variable's product of its channel
-//     row and its incoming messages (the plain version's order: the
-//     messages in column-slot order, a padded slot a uniform 1/64, then
-//     the channel), then warp w updates checks w, w + 10, ... in place,
-//     lane l holding symbols l and l + 32 of each of the check's slots.
-//     A slot's variable-to-check message is the product over its own old
-//     message (+ 1e-30), clamped at 1e-30 and normalised (a warp sum as
-//     an xor butterfly); the GF(64) coefficient's permutation goes through
-//     the warp's buffer; the Walsh-Hadamard transform is six butterfly
-//     stages (stride 32 inside the lane, 16 to 1 by __shfl_xor_sync); the
-//     leave-one-out products over the check's real slots are prefix and
-//     suffix products in slot order; the inverse transform, / 64, the
-//     inverse permutation, the clamp and the normalisation give the new
-//     message.  Padded slots keep the uniform message and are never read
-//     (exact no-ops, as in the plain version).  Then the posterior (a warp
-//     a variable), its argmax (NaN first, then the first index on ties),
-//     the GF(64) syndrome (a thread a check) and the mean of the
-//     posterior maxima.  The sums run in another order than the plain
-//     version's matmuls, so a word that converges late or not at all may
-//     end elsewhere and its flag may differ from the plain version's, as
-//     the plain version's own flags differ from the JAX package's;
-//     where both converge the symbols are the plain version's.
+//   - qra_mp: a block of 8 warps a word, all iterations in one launch, four
+//     blocks an SM (32 warps).  Shared memory holds only the 152 real
+//     edges' messages (E x 64 float32, 38,912 B) and the channel rows
+//     (16,128 B): 55,040 B a word.  An iteration is two phases behind
+//     block barriers, each of which replaces the messages in place, since
+//     in each phase only one warp reads an edge: warp w takes variables w,
+//     w + 8, ..., then checks w, w + 8, ...; lane l holds symbols l and l +
+//     32 of each of the variable's or the check's edges, all of them going
+//     through each butterfly stage together (their shuffles independent).
+//     The variable phase forms each edge's variable-to-check message as the
+//     product of the variable's other messages and its channel row (no
+//     division), scaled by 1/64 for each padded column slot and set to 0
+//     where its product with the edge's own message underflows to 0 (the
+//     plain version divides the product over every edge by the own message
+//     and gets 0 there), clamped at 1e-30.  It reads the inputs at the
+//     check's permuted symbols (lane l at fwd[l]), so no permutation pass:
+//     the Walsh-Hadamard transform (stride 32 inside the lane, 16 to 1 by
+//     __shfl_xor_sync) follows directly, and its DC term, the message's
+//     sum, broadcast from lane 0, normalises it through one IEEE reciprocal.
+//     The check phase takes the leave-one-out products (prefix and suffix
+//     in slot order), the inverse transform, / 64 and the clamp, and writes
+//     lane l's symbol l to the variable's symbol fwd[l].  Its sum is the
+//     leave-one-out product's DC term, the product of normalised DC terms,
+//     1 to rounding, so it is not normalised again.  That is 21 shuffles
+//     an edge and iteration a lane (30 in the first port), one reciprocal
+//     and no division.  Then the posterior (a warp a variable), its argmax
+//     (NaN first, then the first index on ties), the GF(64) syndrome (a
+//     thread a check) and the mean of the posterior maxima.  The products
+//     and sums run in another order than the plain version's, so a word
+//     that converges late or not at all may end elsewhere and its flag may
+//     differ from the plain version's, as the plain version's own flags
+//     differ from the JAX package's; where both converge the symbols are
+//     the plain version's.  tools/qra_mp_model.py is its arithmetic.
+//     On an H100 80GB HBM3 at 700 W (tools/qra_mp_profile.py): 16.05 ms
+//     at Q65's 7,680 words, 18.7 % of the bound (the first port 40.66 ms
+//     in the same run); 56 registers, 3.92 blocks resident an SM on
+//     average (the first port 1.98); the variable phase takes 63 % of the
+//     warps' cycles, the check phase 35 %, the waits at the barriers 0.3
+//     % (the first port: its variable products 18 %, its checks' slots 81
+//     %).  An SM's shuffles fill ~36 % of its shuffle rate, so neither the
+//     shuffles nor the barriers set the time: the work inside the phases
+//     does (the gathers' loads and address arithmetic, the transforms'
+//     dependent chains), which the spans do not split further.  Dividing
+//     by the DC term in place of the reciprocal took 4.3 % longer, and
+//     normalising the check's message again by its warp sum 16.6 %, and
+//     each closed the gap to the plain version's converged words by only
+//     6 and 4 of 77 words: neither is taken.
 //   - qary_sync: a block of 8 warps a window's 32 bins and all 128 time
 //     offsets.  The sync rows pass through a 128-row ring in shared memory
 //     in the order of the sync symbols (the hops ascending, each row read
@@ -114,31 +137,44 @@ __device__ __forceinline__ u64 warp_max_u64(u64 v) {
 // ---------------------------------------------------------------------------
 // qra_mp
 
+// Profiling hooks, empty in the library: tools/qra_mp_profile.py builds this
+// file with them defined to read clock64() at the kernel's phase
+// boundaries (MP_SPAN(k) closes span k) and the block's SM and start and end
+// times.
+#ifndef MP_SPANS
+#define MP_SPAN_BEGIN()
+#define MP_SPAN(k)
+#define MP_SPAN_END()
+#endif
+
 constexpr int Q = 64;
-constexpr int MP_WARPS = 10;            // 50 checks: 5 a warp
+constexpr int MP_WARPS = 8;
 constexpr int MP_THREADS = MP_WARPS * 32;
+constexpr int MP_BLOCKS_SM = 4;         // resident blocks an SM (Q65's code)
 constexpr int MP_N_MAX = 64;            // code length
 constexpr int MP_NC_MAX = 63;           // checks
 constexpr int MP_MR = 4;                // slots a check at most
-constexpr int MP_COL_MAX = 8;           // edges a variable at most
+constexpr int MP_COL_MAX = 4;           // edges a variable at most
+constexpr int MP_SLOTS_MAX = 255;       // nc mr; 255 = no edge
 constexpr float TINY = 1e-30f;
 constexpr float UNI = 1.0f / Q;
 
 // The table block (uint8), for nc checks of mr slots, n variables of
-// max_col column slots: h_vars [nc mr] (n = a padded slot), h_coeff
-// [nc mr], fwd [nc mr 64], bwd [nc mr 64], col_slots [n max_col] (flat
-// slot c mr + s, 255 = a padded column slot), gf_mul [64 64].
+// max_col column slots and E edges (the real slots): h_vars [nc mr] (n = a
+// padded slot), h_coeff [nc mr], fwd [nc mr 64], bwd [nc mr 64], col_slots
+// [n max_col] (flat slot c mr + s, 255 = a padded column slot), gf_mul
+// [64 64], e_slot [E] (each edge's flat slot, ascending).
 struct MpDims {
-    int B, n, nc, mr, max_col, iters;
+    int B, n, nc, mr, max_col, edges, iters;
 };
 
 struct MpTabs {
     const uint8_t* h_vars;
     const uint8_t* h_coeff;
     const uint8_t* fwd;
-    const uint8_t* bwd;
     const uint8_t* col_slots;
     const uint8_t* gf_mul;
+    const uint8_t* e_slot;
 };
 
 __host__ __device__ inline MpTabs mp_tabs(const uint8_t* t, const MpDims& d) {
@@ -147,21 +183,20 @@ __host__ __device__ inline MpTabs mp_tabs(const uint8_t* t, const MpDims& d) {
     o.h_vars = t;
     o.h_coeff = o.h_vars + slots;
     o.fwd = o.h_coeff + slots;
-    o.bwd = o.fwd + slots * Q;
-    o.col_slots = o.bwd + slots * Q;
+    o.col_slots = o.fwd + 2 * slots * Q;      // past fwd and bwd
     o.gf_mul = o.col_slots + d.n * d.max_col;
+    o.e_slot = o.gf_mul + Q * Q;
     return o;
 }
 
 __host__ __device__ inline int mp_table_bytes(int n, int nc, int mr,
-                                              int max_col) {
-    return 2 * nc * mr + 2 * nc * mr * Q + n * max_col + Q * Q;
+                                              int max_col, int edges) {
+    return 2 * nc * mr + 2 * nc * mr * Q + n * max_col + Q * Q + edges;
 }
 
-// shared floats: m_cv [nc mr 64], chan [n 64], tot [n 64], the warps'
-// permutation buffers [MP_WARPS mr 64], the posterior maxima [n]
-__host__ __device__ inline int mp_smem_floats(int n, int nc, int mr) {
-    return nc * mr * Q + 2 * n * Q + MP_WARPS * mr * Q + MP_N_MAX;
+// shared floats: the edge messages [E 64] and the channel rows [n 64]
+__host__ __device__ inline int mp_smem_floats(int n, int edges) {
+    return (edges + n) * Q;
 }
 
 __device__ __forceinline__ float clamp_tiny(float x) {
@@ -177,147 +212,253 @@ __device__ __forceinline__ float warp_sum64(float a, float b) {
     return s;
 }
 
-// In-place 64-point Walsh-Hadamard transform (Sylvester order: H[t, j] =
-// (-1)^popc(t & j), the plain version's matrix) of (a, b) = symbols (l,
-// l + 32): stride 32 in the lane, then 16 to 1 across lanes; at each
-// stage the entry with the stride's bit clear becomes u + v, the other
-// u - v (u the bit-clear entry).
-__device__ __forceinline__ void wht64(float& a, float& b, int lane) {
-    const float u = a;
-    a = u + b;
-    b = u - b;
+// In-place 64-point Walsh-Hadamard transforms (Sylvester order: H[t, j] =
+// (-1)^popc(t & j), the plain version's matrix) of R messages at once, each
+// held as (a, b) = symbols (l, l + 32): stride 32 in the lane, then 16 to 1
+// across lanes, the R messages' shuffles of a stage issued together; at
+// each stage the entry with the stride's bit clear becomes u + v, the other
+// u - v (u the bit-clear entry): each lane adds its own value, negated
+// where its lane has the stride's bit, to its partner's.
+template <int R>
+__device__ __forceinline__ void wht64(float (&a)[R], float (&b)[R],
+                                      int lane) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const float u = a[j];
+        a[j] = u + b[j];
+        b[j] = u - b[j];
+    }
 #pragma unroll
     for (int h = 16; h >= 1; h >>= 1) {
-        const float pa = __shfl_xor_sync(FULL, a, h);
-        const float pb = __shfl_xor_sync(FULL, b, h);
-        const bool hi = (lane & h) != 0;
-        a = hi ? pa - a : a + pa;
-        b = hi ? pb - b : b + pb;
-    }
-}
-
-// tot[v, t] = chan[v, t] * (m_cv[col_slots[v, 0], t] * ... ) over the
-// variable's column slots in order, a padded one uniform.
-__device__ __forceinline__ void var_products(const MpDims& d,
-                                             const MpTabs& tb,
-                                             const float* m_cv,
-                                             const float* chan, float* tot) {
-    for (int i = threadIdx.x; i < d.n * Q; i += MP_THREADS) {
-        const int v = i >> 6, t = i & (Q - 1);
-        float p = 1.0f;
-        for (int j = 0; j < d.max_col; ++j) {
-            const int slot = __ldg(tb.col_slots + v * d.max_col + j);
-            const float x = slot == 255 ? UNI : m_cv[slot * Q + t];
-            p = j == 0 ? x : p * x;
+        const uint32_t neg = (lane & h) ? 0x80000000u : 0u;
+        float pa[R], pb[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            pa[j] = __shfl_xor_sync(FULL, a[j], h);
+            pb[j] = __shfl_xor_sync(FULL, b[j], h);
         }
-        tot[i] = chan[i] * p;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            a[j] = pa[j] + __uint_as_float(__float_as_uint(a[j]) ^ neg);
+            b[j] = pb[j] + __uint_as_float(__float_as_uint(b[j]) ^ neg);
+        }
     }
 }
 
-__global__ void __launch_bounds__(MP_THREADS, 2)
+// Variable v of D edges, slots[j] its column slots in order (the warp's):
+// each edge's variable-to-check message, formed in the check's symbol order
+// (lane l at symbols fwd[l], fwd[l + 32] of the edge's slot), transformed
+// and normalised, replaces the edge's check-to-variable message.  The
+// message to edge j: the product of the variable's other incoming messages
+// in column order, times the channel row, times UNI for each padded column
+// slot (`scale`); 0 where that times the edge's own message underflows to
+// 0 (the plain version's product over every edge, divided by the own
+// message, is 0 there); clamped at TINY.  Its transform's DC term, lane
+// 0's a, is its sum: the message is divided by it (+ TINY) through one
+// IEEE reciprocal.  Only this warp reads the variable's edges in this
+// phase, so the messages are replaced in place after one __syncwarp.
+template <int D>
+__device__ __forceinline__ void var_update(const MpTabs& tb, float* m,
+                                           const float* cv,
+                                           const uint8_t* slots,
+                                           const uint8_t* s_edge,
+                                           float scale, int lane) {
+    int e[D], ia[D], ib[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        const int s = __ldg(slots + j);
+        e[j] = s_edge[s] * Q;
+        ia[j] = __ldg(tb.fwd + s * Q + lane);
+        ib[j] = __ldg(tb.fwd + s * Q + lane + 32);
+    }
+    float a[D], b[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        float pa = 1.0f, pb = 1.0f;
+        bool first = true;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+            if (k == j) continue;
+            const float xa = m[e[k] + ia[j]], xb = m[e[k] + ib[j]];
+            pa = first ? xa : pa * xa;
+            pb = first ? xb : pb * xb;
+            first = false;
+        }
+        float xa = D > 1 ? cv[ia[j]] * pa : cv[ia[j]];
+        float xb = D > 1 ? cv[ib[j]] * pb : cv[ib[j]];
+        xa = xa * scale;
+        xb = xb * scale;
+        const float ta = xa * m[e[j] + ia[j]], tb2 = xb * m[e[j] + ib[j]];
+        a[j] = clamp_tiny(ta == 0.0f ? 0.0f : xa);
+        b[j] = clamp_tiny(tb2 == 0.0f ? 0.0f : xb);
+    }
+    wht64<D>(a, b, lane);
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        const float r = __frcp_rn(__shfl_sync(FULL, a[j], 0) + TINY);
+        a[j] = a[j] * r;
+        b[j] = b[j] * r;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        m[e[j] + lane] = a[j];
+        m[e[j] + lane + 32] = b[j];
+    }
+}
+
+// Check of R edges e0 .. e0 + R - 1 (the warp's): the leave-one-out
+// products of their transformed messages (prefix times suffix in slot
+// order), the inverse transforms, / 64, clamped at TINY, written back in
+// the variables' symbol order (lane l's symbol l to fwd[l]).  The sum of
+// such a message is the leave-one-out product's DC term, 1 to rounding, so
+// it is not normalised again.  Only this warp reads the check's edges in
+// this phase: in place after one __syncwarp.
+template <int R>
+__device__ __forceinline__ void check_update(const MpTabs& tb, float* m,
+                                             int e0, int lane) {
+    float a[R], b[R], la[R], lb[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        a[j] = m[(e0 + j) * Q + lane];
+        b[j] = m[(e0 + j) * Q + lane + 32];
+    }
+    float pa = 1.0f, pb = 1.0f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        la[j] = pa;
+        lb[j] = pb;
+        pa = pa * a[j];
+        pb = pb * b[j];
+    }
+    pa = 1.0f;
+    pb = 1.0f;
+#pragma unroll
+    for (int j = R - 1; j >= 0; --j) {
+        la[j] = la[j] * pa;
+        lb[j] = lb[j] * pb;
+        pa = pa * a[j];
+        pb = pb * b[j];
+    }
+    wht64<R>(la, lb, lane);
+    int ia[R], ib[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int s = __ldg(tb.e_slot + e0 + j);
+        ia[j] = __ldg(tb.fwd + s * Q + lane);
+        ib[j] = __ldg(tb.fwd + s * Q + lane + 32);
+        la[j] = clamp_tiny(la[j] * (1.0f / Q));
+        lb[j] = clamp_tiny(lb[j] * (1.0f / Q));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        m[(e0 + j) * Q + ia[j]] = la[j];
+        m[(e0 + j) * Q + ib[j]] = lb[j];
+    }
+}
+
+// Variables of up to MP_COL_MAX edges.  The messages of every edge stay
+// in shared memory in one array, in place: after the variable phase an
+// edge's entry is its transformed variable-to-check message (check order),
+// after the check phase its check-to-variable message (variable order).
+__global__ void __launch_bounds__(MP_THREADS, MP_BLOCKS_SM)
 k_qra_mp(const uint8_t* __restrict__ tables, const float* __restrict__ probs,
          MpDims d, int64_t* __restrict__ hard, uint8_t* __restrict__ ok,
          float* __restrict__ conf) {
+    MP_SPAN_BEGIN();
     extern __shared__ float smem[];
-    const MpTabs tb = mp_tabs(tables, d);
-    const int slots = d.nc * d.mr;
-    float* m_cv = smem;
-    float* chan = m_cv + slots * Q;
-    float* tot = chan + d.n * Q;
-    float* perm = tot + d.n * Q;
-    float* post_max = perm + MP_WARPS * d.mr * Q;
+    __shared__ uint8_t s_edge[MP_SLOTS_MAX + 1];   // flat slot -> edge
+    __shared__ uint8_t s_first[MP_NC_MAX], s_count[MP_NC_MAX];
+    __shared__ uint8_t s_deg[MP_N_MAX];
     __shared__ int s_hard[MP_N_MAX];
+    __shared__ float post_max[MP_N_MAX];
+    const MpTabs tb = mp_tabs(tables, d);
+    float* m = smem;
+    float* chan = m + d.edges * Q;
 
     const int word = blockIdx.x;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const float* pw = probs + static_cast<long long>(word) * d.n * Q;
     for (int i = threadIdx.x; i < d.n * Q; i += MP_THREADS) chan[i] = pw[i];
-    for (int i = threadIdx.x; i < slots * Q; i += MP_THREADS) m_cv[i] = UNI;
-    float* buf = perm + warp * d.mr * Q;
+    for (int i = threadIdx.x; i < d.edges * Q; i += MP_THREADS) m[i] = UNI;
+    for (int i = threadIdx.x; i <= MP_SLOTS_MAX; i += MP_THREADS)
+        s_edge[i] = 255;
     __syncthreads();
+    for (int e = threadIdx.x; e < d.edges; e += MP_THREADS)
+        s_edge[__ldg(tb.e_slot + e)] = static_cast<uint8_t>(e);
+    __syncthreads();
+    // each check's first edge and count (edges ascend by slot), each
+    // variable's degree (its column slots, padded ones last)
+    for (int c = threadIdx.x; c < d.nc; c += MP_THREADS) {
+        int first = 255, count = 0;
+        for (int s = 0; s < d.mr; ++s) {
+            const int e = s_edge[c * d.mr + s];
+            if (e == 255) continue;
+            first = count == 0 ? e : first;
+            ++count;
+        }
+        s_first[c] = static_cast<uint8_t>(first);
+        s_count[c] = static_cast<uint8_t>(count);
+    }
+    for (int v = threadIdx.x; v < d.n; v += MP_THREADS) {
+        int deg = 0;
+        while (deg < d.max_col
+               && __ldg(tb.col_slots + v * d.max_col + deg) != 255)
+            ++deg;
+        s_deg[v] = static_cast<uint8_t>(deg);
+    }
+    __syncthreads();
+    MP_SPAN(0);
 
     for (int it = 0; it < d.iters; ++it) {
-        var_products(d, tb, m_cv, chan, tot);
-        __syncthreads();
-        for (int c = warp; c < d.nc; c += MP_WARPS) {
-            float wa[MP_MR], wb[MP_MR];
-            bool real[MP_MR];
-            // variable -> check, permuted into the check's domain, WHT
-#pragma unroll
-            for (int s = 0; s < MP_MR; ++s) {
-                const int slot = c * d.mr + s;
-                const int v = s < d.mr ? __ldg(tb.h_vars + slot) : d.n;
-                real[s] = v < d.n;
-                wa[s] = 1.0f;
-                wb[s] = 1.0f;
-                if (!real[s]) continue;
-                float a = tot[v * Q + lane] / (m_cv[slot * Q + lane] + TINY);
-                float b = tot[v * Q + lane + 32]
-                    / (m_cv[slot * Q + lane + 32] + TINY);
-                a = clamp_tiny(a);
-                b = clamp_tiny(b);
-                const float den = warp_sum64(a, b) + TINY;
-                buf[s * Q + lane] = a / den;
-                buf[s * Q + lane + 32] = b / den;
-                __syncwarp();
-                const uint8_t* f = tb.fwd + slot * Q;
-                a = buf[s * Q + __ldg(f + lane)];
-                b = buf[s * Q + __ldg(f + lane + 32)];
-                __syncwarp();
-                wht64(a, b, lane);
-                wa[s] = a;
-                wb[s] = b;
-            }
-            // leave-one-out products over the real slots: prefix * suffix
-            float la[MP_MR], lb[MP_MR];
-            float pa = 1.0f, pb = 1.0f;
-#pragma unroll
-            for (int s = 0; s < MP_MR; ++s) {
-                la[s] = pa;
-                lb[s] = pb;
-                if (real[s]) {
-                    pa = pa * wa[s];
-                    pb = pb * wb[s];
-                }
-            }
-            pa = 1.0f;
-            pb = 1.0f;
-#pragma unroll
-            for (int s = MP_MR - 1; s >= 0; --s) {
-                if (!real[s]) continue;
-                la[s] = la[s] * pa;
-                lb[s] = lb[s] * pb;
-                pa = pa * wa[s];
-                pb = pb * wb[s];
-            }
-            // check -> variable: inverse WHT, / 64, back to the variable's
-            // domain, clamp, normalise
-#pragma unroll
-            for (int s = 0; s < MP_MR; ++s) {
-                if (!real[s]) continue;
-                const int slot = c * d.mr + s;
-                float a = la[s], b = lb[s];
-                wht64(a, b, lane);
-                buf[s * Q + lane] = a / 64.0f;
-                buf[s * Q + lane + 32] = b / 64.0f;
-                __syncwarp();
-                const uint8_t* g = tb.bwd + slot * Q;
-                a = clamp_tiny(buf[s * Q + __ldg(g + lane)]);
-                b = clamp_tiny(buf[s * Q + __ldg(g + lane + 32)]);
-                __syncwarp();
-                const float den = warp_sum64(a, b) + TINY;
-                m_cv[slot * Q + lane] = a / den;
-                m_cv[slot * Q + lane + 32] = b / den;
+        for (int v = warp; v < d.n; v += MP_WARPS) {
+            const int deg = s_deg[v];
+            const uint8_t* slots = tb.col_slots + v * d.max_col;
+            const float* cv = chan + v * Q;
+            float scale = 1.0f;
+            for (int k = deg; k < d.max_col; ++k) scale = scale * UNI;
+            switch (deg) {
+            case 1: var_update<1>(tb, m, cv, slots, s_edge, scale, lane); break;
+            case 2: var_update<2>(tb, m, cv, slots, s_edge, scale, lane); break;
+            case 3: var_update<3>(tb, m, cv, slots, s_edge, scale, lane); break;
+            case 4: var_update<4>(tb, m, cv, slots, s_edge, scale, lane); break;
+            default: break;
             }
         }
+        MP_SPAN(1);
         __syncthreads();
+        MP_SPAN(2);
+        for (int c = warp; c < d.nc; c += MP_WARPS) {
+            const int e0 = s_first[c];
+            switch (s_count[c]) {
+            case 1: check_update<1>(tb, m, e0, lane); break;
+            case 2: check_update<2>(tb, m, e0, lane); break;
+            case 3: check_update<3>(tb, m, e0, lane); break;
+            case 4: check_update<4>(tb, m, e0, lane); break;
+            default: break;
+            }
+        }
+        MP_SPAN(3);
+        __syncthreads();
+        MP_SPAN(4);
     }
 
-    // posterior, its argmax (NaN first, then the first index) and maximum
-    var_products(d, tb, m_cv, chan, tot);
-    __syncthreads();
+    // posterior (the channel row times the incoming messages in column
+    // order), its argmax (NaN first, then the first index) and maximum
     for (int v = warp; v < d.n; v += MP_WARPS) {
-        const float x0 = tot[v * Q + lane], x1 = tot[v * Q + lane + 32];
+        const int deg = s_deg[v];
+        float x0 = chan[v * Q + lane], x1 = chan[v * Q + lane + 32];
+        if (deg > 0) {
+            float p0 = 1.0f, p1 = 1.0f;
+            for (int j = 0; j < deg; ++j) {
+                const int e = s_edge[__ldg(tb.col_slots + v * d.max_col + j)];
+                p0 = j == 0 ? m[e * Q + lane] : p0 * m[e * Q + lane];
+                p1 = j == 0 ? m[e * Q + lane + 32] : p1 * m[e * Q + lane + 32];
+            }
+            x0 = x0 * p0;
+            x1 = x1 * p1;
+        }
         const float den = warp_sum64(x0, x1) + TINY;
         const float p0 = x0 / den, p1 = x1 / den;
         // lane's best of (p0 at lane, p1 at lane + 32)
@@ -354,6 +495,7 @@ k_qra_mp(const uint8_t* __restrict__ tables, const float* __restrict__ probs,
         bad = bad || syn != 0;
     }
     bad = __syncthreads_or(bad);
+    MP_SPAN_END();
     if (threadIdx.x == 0) {
         float sum = 0.0f;
         for (int v = 0; v < d.n; ++v) sum = v == 0 ? post_max[0]
@@ -363,23 +505,43 @@ k_qra_mp(const uint8_t* __restrict__ tables, const float* __restrict__ probs,
     }
 }
 
-int launch_mp(const MpDims& d, const uint8_t* tables, const float* probs,
-              int64_t* hard, uint8_t* ok, float* conf, cudaStream_t st) {
+cudaError_t mp_attrs(int dev, int bytes) {
+    // per-device dynamic shared memory set so far
     static int attr_bytes[MAX_DEVICES] = {};
-    const int bytes = mp_smem_floats(d.n, d.nc, d.mr)
-        * static_cast<int>(sizeof(float));
+    if (attr_bytes[dev] >= bytes) return cudaSuccess;
+    cudaError_t e = cudaFuncSetAttribute(
+        k_qra_mp, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    // as much of the SM's memory shared as the blocks want
+    e = cudaFuncSetAttribute(k_qra_mp,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    attr_bytes[dev] = bytes;
+    return cudaSuccess;
+}
+
+cudaError_t mp_prepare(const MpDims& d, int* bytes) {
+    *bytes = mp_smem_floats(d.n, d.edges) * static_cast<int>(sizeof(float));
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    return mp_attrs(dev, *bytes);
+}
+
+bool mp_dims_ok(const MpDims& d) {
+    return d.n >= 1 && d.n <= MP_N_MAX && d.nc >= 1 && d.nc <= MP_NC_MAX
+        && d.mr >= 1 && d.mr <= MP_MR && d.max_col >= 1
+        && d.max_col <= MP_COL_MAX && d.nc * d.mr <= MP_SLOTS_MAX
+        && d.edges >= 1 && d.edges <= d.nc * d.mr;
+}
+
+int launch_mp(const MpDims& d, const uint8_t* tables, const float* probs,
+              int64_t* hard, uint8_t* ok, float* conf, cudaStream_t st) {
+    int bytes = 0;
+    const cudaError_t e = mp_prepare(d, &bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 0 || dev >= MAX_DEVICES)
-        return static_cast<int>(cudaErrorInvalidDevice);
-    if (attr_bytes[dev] < bytes) {
-        e = cudaFuncSetAttribute(k_qra_mp,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 bytes);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        attr_bytes[dev] = bytes;
-    }
     k_qra_mp<<<d.B, MP_THREADS, bytes, st>>>(tables, probs, d, hard, ok,
                                              conf);
     return static_cast<int>(cudaGetLastError());
@@ -535,24 +697,47 @@ int qary_mp_n_max() { return MP_N_MAX; }
 int qary_mp_nc_max() { return MP_NC_MAX; }
 int qary_mp_mr_max() { return MP_MR; }
 int qary_mp_col_max() { return MP_COL_MAX; }
+int qary_mp_blocks_sm() { return MP_BLOCKS_SM; }
 int qary_sync_tf() { return SYNC_TF; }
 int qary_sync_t_max() { return SYNC_TMAX; }
 int qary_sync_s_max() { return SYNC_S_MAX; }
 int qary_sync_k_max() { return SYNC_K_MAX; }
 
 // Table bytes and dynamic shared memory bytes of qra_mp for a code of n
-// variables, nc checks of mr slots and max_col column slots.
-int qra_mp_table_bytes(int n, int nc, int mr, int max_col) {
-    return mp_table_bytes(n, nc, mr, max_col);
+// variables, nc checks of mr slots, max_col column slots and `edges` real
+// slots.
+int qra_mp_table_bytes(int n, int nc, int mr, int max_col, int edges) {
+    return mp_table_bytes(n, nc, mr, max_col, edges);
 }
-int qra_mp_smem_bytes(int n, int nc, int mr) {
-    return mp_smem_floats(n, nc, mr) * static_cast<int>(sizeof(float));
+int qra_mp_smem_bytes(int n, int edges) {
+    return mp_smem_floats(n, edges) * static_cast<int>(sizeof(float));
 }
 
-// Sum-product decode of B words: dims [6] = B, n, nc, mr, max_col, iters;
-// tables: the table block; probs [B, n, 64] float32 -> hard [B, n] int64,
-// ok [B] uint8 (the GF(64) syndrome is zero), conf [B] float32 (the mean
-// of the posterior maxima), on `stream`, one launch.  Returns the
+// Resident qra_mp blocks an SM of the current device for this code
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with its shared memory):
+// dims [7] as qra_mp_launch's (B and iters unused).  Returns the
+// cudaError_t.
+int qra_mp_blocks_per_sm(const int* dims, int* out) {
+    MpDims d;
+    d.B = 1;
+    d.n = dims[1];
+    d.nc = dims[2];
+    d.mr = dims[3];
+    d.max_col = dims[4];
+    d.edges = dims[5];
+    d.iters = 0;
+    if (!mp_dims_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+    int bytes = 0;
+    cudaError_t e = mp_prepare(d, &bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, k_qra_mp, MP_THREADS, bytes));
+}
+
+// Sum-product decode of B words: dims [7] = B, n, nc, mr, max_col, edges,
+// iters; tables: the table block; probs [B, n, 64] float32 -> hard [B, n]
+// int64, ok [B] uint8 (the GF(64) syndrome is zero), conf [B] float32 (the
+// mean of the posterior maxima), on `stream`, one launch.  Returns the
 // cudaError_t.
 int qra_mp_launch(const int* dims, const void* tables, const void* probs,
                   void* hard, void* ok, void* conf, void* stream) {
@@ -562,10 +747,9 @@ int qra_mp_launch(const int* dims, const void* tables, const void* probs,
     d.nc = dims[2];
     d.mr = dims[3];
     d.max_col = dims[4];
-    d.iters = dims[5];
-    if (d.B < 1 || d.n < 1 || d.n > MP_N_MAX || d.nc < 1
-        || d.nc > MP_NC_MAX || d.mr < 1 || d.mr > MP_MR || d.max_col < 1
-        || d.max_col > MP_COL_MAX || d.iters < 0 || d.nc * d.mr > 255)
+    d.edges = dims[5];
+    d.iters = dims[6];
+    if (d.B < 1 || d.iters < 0 || !mp_dims_ok(d))
         return static_cast<int>(cudaErrorInvalidValue);
     return launch_mp(d, static_cast<const uint8_t*>(tables),
                      static_cast<const float*>(probs),
@@ -608,8 +792,7 @@ int qary_sync_launch(const int* dims, const void* ps, const void* base,
 
 // A kernel's registers a thread, local (spilled) bytes a thread, static
 // shared bytes and threads a block at most (cudaFuncGetAttributes): which
-// 0 = qra_mp, 1 = qary_sync.  out [4].  Returns the
-// cudaError_t.
+// 0 = qra_mp, 1 = qary_sync.  out [4].  Returns the cudaError_t.
 int qary_kernel_attrs(int which, int* out) {
     cudaFuncAttributes a;
     cudaError_t e = cudaErrorInvalidValue;

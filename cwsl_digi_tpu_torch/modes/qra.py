@@ -306,11 +306,14 @@ class QaryMPDecoder:
         """The ``qra_mp`` kernel's table block, uint8, from the plain
         version's tables: h_vars and h_coeff [nc, mr] (h_vars = n in a
         padded slot), the permutations fwd and bwd [nc, mr, 64], col_slots
-        [n, max_col] (255 in a padded column slot) and gf_mul [64, 64]."""
+        [n, max_col] (255 in a padded column slot), gf_mul [64, 64] and
+        e_slot, the flat slots c mr + s of the real slots (the kernel's
+        edges), ascending: its length gives the kernel the edge count."""
         t = self._host_tables()
         col = np.where(t["col_mask"] > 0, t["col_slots"], 255)
+        e_slot = np.flatnonzero(t["row_mask"].reshape(-1) > 0)
         parts = [t["h_vars"], t["h_coeff"], t["qra_fwd"], t["qra_bwd"], col,
-                 t["gf_mul"]]
+                 t["gf_mul"], e_slot]
         return np.concatenate([np.asarray(a).reshape(-1) for a in parts]
                               ).astype(np.uint8)
 

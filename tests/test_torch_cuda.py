@@ -919,14 +919,20 @@ def test_qary_kernels_raise_without_library_on_card(dev, monkeypatch,
 
 def test_qary_kernels_do_not_spill_on_card(dev):
     """qra_mp, median_rows and qary_sync keep every value in registers;
-    two qra_mp blocks fit an SM's 227 KB of shared memory."""
+    Q65's code, whose 152 edges' messages and channel rows take 55,040 B
+    of shared memory a word, holds the design's MP_BLOCKS_SM (4) qra_mp
+    blocks of 8 warps an SM."""
     attrs = {**qary_kernels.kernel_attrs(dev),
              **median_kernels.kernel_attrs(dev)}
     assert sorted(attrs) == ["median_rows", "qary_sync", "qra_mp"]
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, attrs)
-    assert 2 * (qary_kernels.mp_smem_bytes(63, 50, 4)
-                + attrs["qra_mp"]["static_smem_bytes"]) <= 232_448
+    dec = q65._mp(dev)
+    edges = int(dec._host_tables()["row_mask"].sum())
+    assert qary_kernels.mp_smem_bytes(63, edges) == 55_040
+    assert qary_kernels.MP_BLOCKS_SM == 4
+    assert qary_kernels.mp_blocks_per_sm(dev, dec.kernel_code, edges) \
+        >= qary_kernels.MP_BLOCKS_SM, attrs
 
 
 def test_decoders_launch_the_qary_kernels_on_card(dev):

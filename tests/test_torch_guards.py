@@ -92,6 +92,7 @@ _PORT_FILES = sorted(
        "tools/torch_ap_false.py", "tools/torch_import_tables.py",
        "tools/torch_osd_calibrate.py", "tools/torch_tune_topk.py",
        "tools/torch_wspr_calibrate.py", "tools/qra_mp_model.py",
+       "tools/qra_mp_profile.py", "tools/qra_mp_variants.py",
        "tests/test_torch_cuda.py", "tests/test_torch_parity.py",
        "tests/test_torch_device_lock.py"])
 

@@ -4,14 +4,19 @@ algorithms against their plain versions, the plain versions
 against the JAX package, and the wrappers' routing and refusals.
 
 - ``qra_mp``: a NumPy model of the kernel's arithmetic
-  (``tools/qra_mp_model.py``; the variable
-  products in column-slot order, the butterfly Walsh-Hadamard transform
-  with stride 32 first, warp sums as xor butterflies, prefix and suffix
-  leave-one-out products, the per-slot permutation tables, the posterior's
-  NaN-first argmax) against ``QaryMPDecoder.decode_plain`` on the priors
-  of a Q65 decode with converging and noise words: ``ok`` identical,
-  ``hard`` identical where ``ok`` holds, ``conf`` within 1e-4; the
-  butterflies against ``x @ H`` within float32 rounding;
+  (``tools/qra_mp_model.py``; the real edges' messages, each variable's
+  message as the product of its other messages, the channel and the
+  padding scale with the plain version's underflow to 0, the butterfly
+  Walsh-Hadamard transform with stride 32 first normalised by its DC
+  term, prefix and suffix leave-one-out products, the per-edge
+  permutation tables, the posterior's NaN-first argmax) against
+  ``QaryMPDecoder.decode_plain`` on the priors of a Q65 decode with
+  converging and noise words: ``ok`` identical, ``hard`` identical where
+  ``ok`` holds, ``conf`` within 1e-4; the identities the kernel rests on
+  (the variable's message against the plain version's division, the
+  transform's DC term against the sum, the check's message summing to 1,
+  the permutations' inverses); the butterflies against ``x @ H`` within
+  float32 rounding;
 - ``median_rows``: a model of the radix selection (order keys, 11, 11 and
   10-bit digits, the two middle ranks' prefixes apart once they split)
   bitwise against ``_median_rows_plain`` on rows with ties, zero pad
@@ -104,6 +109,92 @@ def test_wht_butterfly_equals_the_matmul():
     np.testing.assert_allclose(wht_butterfly(got) / 64, x, rtol=0, atol=1e-5)
 
 
+def random_messages(rng, shape) -> np.ndarray:
+    """Normalised float32 messages [..., 64] as the message passing holds
+    them: a few symbols large, many small, some at the 1e-30 floor."""
+    x = rng.exponential(size=shape) ** 8
+    x[rng.random(shape) < 0.3] = 0.0
+    x = np.maximum(x / x.sum(-1, keepdims=True), 1e-30)
+    return (x / x.sum(-1, keepdims=True)).astype(F32)
+
+
+def test_variable_message_is_the_divided_product():
+    """The kernel's variable-to-check message (the product of the other
+    messages, the channel and the padding scale, 0 where its product with
+    the edge's own message underflows) against the plain version's
+    (the product over every edge, scale included, over own + 1e-30), on
+    random words of Q65's code: where the own message is far above the
+    floor and the product normal, within float32 rounding of the products;
+    where the plain version's product underflows to 0, the floor after the
+    clamp (but for a few entries whose product, in the kernel's order,
+    ends just above 0: far below the message's other symbols)."""
+    import qra_mp_model as mm
+
+    dec = q65._mp(torch.device("cpu"))
+    g = mm.edge_tables(dec)
+    rng = np.random.default_rng(7)
+    m = random_messages(rng, (32, g["e_var"].size, 64))
+    chan = random_messages(rng, (32, 63, 64))[:, g["e_var"]]
+    p, some = mm._products(m, g["others"])
+    ext = np.where(some[None, :, None], chan * p, chan) * g["scale"][None,
+                                                                   :, None]
+    got = mm._clamp(np.where(ext * m == 0, F32(0), ext))
+    # the plain version's: every edge of the variable in column order
+    t = dec._host_tables()
+    edge_of = np.full(t["row_mask"].size, -1)
+    edge_of[np.flatnonzero(t["row_mask"].reshape(-1) > 0)] = np.arange(
+        g["e_var"].size)
+    pall = None
+    for j in range(t["col_slots"].shape[1]):
+        x = np.where((t["col_mask"][:, j] > 0)[None, :, None],
+                     m[:, edge_of[t["col_slots"][:, j]]], UNI)
+        pall = x if pall is None else pall * x
+    tot = chan * pall[:, g["e_var"]]
+    want = mm._clamp(tot / (m + TINY))
+    deg = (g["var_edges"] >= 0).sum(1)[g["e_var"]]
+    far = (m > F32(1e-20)) & (tot >= np.finfo(F32).tiny)
+    tol = ((deg + 3) * 2.0 ** -23)[None, :, None]
+    assert far.mean() > 0.2 and (tot == 0).any()
+    assert np.all((np.abs(got - want) <= tol * want) | ~far)
+    under = got[tot == 0]
+    assert (under == TINY).mean() > 0.999 and under.max() < 1e-12
+
+
+def test_transform_dc_term_is_the_sum():
+    """Row 0 of the Walsh-Hadamard matrix is all ones, and a GF(64)
+    permutation keeps a message's sum: the butterfly transform's DC term
+    of a permuted message is its 64-term sum within float32 rounding, so
+    the kernel normalises the transformed message by it."""
+    dec = q65._mp(torch.device("cpu"))
+    fwd = dec._host_tables()["qra_fwd"].reshape(-1, 64)[:40].astype(np.int64)
+    x = random_messages(np.random.default_rng(8), (40, 64)) * F32(3.5)
+    dc = wht_butterfly(np.take_along_axis(x, fwd, -1))[:, 0]
+    want = x.astype(np.float64).sum(-1)
+    assert np.all(np.abs(dc - want) <= 6 * 2.0 ** -23 * want)
+
+
+def test_check_message_sums_to_one():
+    """A check-to-variable message needs no second normalisation: the sum
+    of the inverse transform over 64 of the leave-one-out product is its
+    DC term, the product of normalised messages' DC terms, 1; after the
+    clamp and the permutation within float32 rounding of 1."""
+    import qra_mp_model as mm
+
+    rng = np.random.default_rng(9)
+    w = wht_butterfly(random_messages(rng, (50, 3, 64)))
+    w = w * (F32(1) / (w[..., :1] + TINY))
+    assert np.all(w[..., 0] == 1)
+    loo = np.stack([w[:, 1] * w[:, 2], w[:, 0] * w[:, 2], w[:, 0] * w[:, 1]],
+                   1)
+    q = mm._clamp(wht_butterfly(loo) / F32(64))
+    np.testing.assert_allclose(q.astype(np.float64).sum(-1), 1.0, rtol=0,
+                               atol=1e-5)
+    # written back through the permutation: bwd undoes fwd on every edge
+    g = mm.edge_tables(q65._mp(torch.device("cpu")))
+    assert np.all(np.take_along_axis(g["fwd"], g["bwd"], -1)
+                  == np.arange(64))
+
+
 def test_mp_model_matches_plain(priors):
     """The kernel's arithmetic against the plain decode on the priors of
     a Q65 decode: converging and noise words, the flags identical."""
@@ -137,8 +228,9 @@ def test_mp_model_on_edge_words():
 
 
 def test_kernel_tables_hold_the_plain_versions_tables():
-    """The qra_mp table block decodes back to the plain version's tables,
-    and the plain version's are the JAX package's."""
+    """The qra_mp table block decodes back to the plain version's tables
+    and ends with the 152 real slots (the kernel's edges) in order, and
+    the plain version's tables are the JAX package's."""
     from cwsl_digi_tpu.modes import q65 as jq65
 
     dec = q65._mp(torch.device("cpu"))
@@ -146,8 +238,13 @@ def test_kernel_tables_hold_the_plain_versions_tables():
     assert (n, nc, mr, max_col) == (63, 50, 4, 4)
     tab = dec.kernel_tables()
     assert tab.dtype == np.uint8
-    assert tab.size == _qary_kernels.mp_table_bytes(n, nc, mr, max_col)
     t = dec._host_tables()
+    edges = int(t["row_mask"].sum())
+    assert edges == int(t["col_mask"].sum()) == 152
+    assert tab.size == _qary_kernels.mp_table_bytes(n, nc, mr, max_col,
+                                                    edges)
+    assert _qary_kernels.mp_edges(torch.from_numpy(tab),
+                                  dec.kernel_code) == edges
     o = 0
     for name, size in (("h_vars", nc * mr), ("h_coeff", nc * mr),
                        ("qra_fwd", nc * mr * 64), ("qra_bwd", nc * mr * 64)):
@@ -160,7 +257,11 @@ def test_kernel_tables_hold_the_plain_versions_tables():
     np.testing.assert_array_equal(np.where(col == 255, 0, col),
                                   np.where(t["col_mask"] > 0,
                                            t["col_slots"], 0))
-    np.testing.assert_array_equal(tab[o:].reshape(64, 64), t["gf_mul"])
+    np.testing.assert_array_equal(tab[o:o + 64 * 64].reshape(64, 64),
+                                  t["gf_mul"])
+    o += 64 * 64
+    np.testing.assert_array_equal(
+        tab[o:], np.flatnonzero(t["row_mask"].reshape(-1) > 0))
     jm = jq65._mp()
     for name, arr in (("h_vars", jm._h_vars), ("h_coeff", jm.code.h_coeff),
                       ("qra_fwd", jm._fwd), ("qra_bwd", jm._bwd),
@@ -480,7 +581,7 @@ def test_qary_wrapper_refusals(no_build):
     with pytest.raises(ValueError, match="iters"):
         mp(tab, probs, code, -1)
     for bad in ((65, 50, 4, 4), (63, 64, 4, 4), (63, 50, 5, 4),
-                (63, 50, 4, 9)):
+                (63, 50, 4, 5), (63, 50, 4, 9)):
         with pytest.raises(ValueError, match="the kernel takes n"):
             mp(tab, probs, bad, 60)
     with pytest.raises(ValueError, match="CUDA"):

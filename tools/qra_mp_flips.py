@@ -17,8 +17,9 @@ metadata and each run's results to ``DIR/flips.npz`` (~30 MB).  It also
 holds the kernel against the plain version on the priors the decoder made
 on the card, the smoke's check.  ``cpu`` reads that file, runs the JAX
 package and the plain version on this CPU, checks that the model gives
-here what it gave on the card's host (the first 240 words), and prints
-every pair again.  Only ``cpu`` imports JAX.
+here what it gave on the card's host (the first 240 words), prints
+every pair again and saves the JAX package's results to ``DIR/jax.npz``
+(``tools/qra_mp_variants.py`` reads them).  Only ``cpu`` imports JAX.
 
 For each pair A vs B it prints each side's converged words (the syndrome
 holds), the flags that differ split into the words A loses (B converges,
@@ -226,8 +227,11 @@ def cpu(path: Path) -> int:
     runs["jax"] = tuple(np.concatenate([p[i] for p in parts])
                         for i in range(3))
     runs["jax"] = (runs["jax"][0].astype(np.int64),) + runs["jax"][1:]
+    np.savez(path / "jax.npz", **dict(zip(("jax_hard", "jax_ok", "jax_conf"),
+                                          runs["jax"])))
     compare(runs, saved, [("kernel", "model"), ("model", "plain cpu"),
                           ("plain cpu", "jax"), ("model", "jax"),
+                          ("kernel", "jax"),
                           ("kernel", "plain card"), ("plain card", "jax"),
                           ("plain cpu", "plain card-host cpu")])
     return 0
