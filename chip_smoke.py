@@ -85,16 +85,21 @@
    search's LLRs of 24 windows of the weak replay's WSPR bursts at width
    512 (576 candidates, the first pass and the DD pass) and at the
    ``cycles >= 10000`` width 1024 (768 candidates, the first pass and two
-   DD passes), and 96 candidates of LLRs built to tie at both widths:
-   bits identical and the metric bit for bit; JT65's Chase trials at its
+   DD passes), the App's launch (48 candidates, 2 windows, at 512) and
+   96 candidates of LLRs built to tie at both widths: bits identical and
+   the metric bit for bit, in the plan the wrapper picks and in every
+   other plan of the width; JT65's Chase trials at its
    device batch (15 windows of the weak replay's JT65 bursts, 92,160
    trials), 64 candidates with 0, 51, 52, 60 and 63 erasures, and the
    public ``rs_ee_decode`` on expanded words: corrected words and ``ok``
    identical.  Then each kernel's device time at the bench's shapes beside
-   the plain version's and the bound, the beam at width 1024, each
-   kernel's registers and spills, and the serial chain that sets each
-   kernel's time (the beam's 81 steps of sort stages and barriers, the
-   RS decode's dependent Berlekamp-Massey rounds);
+   the plain version's and the bound, the beam also at the App's 48
+   candidates and at width 1024 (768 candidates), each in every plan of
+   its width, with the plan the wrapper picks, its threads, shared memory,
+   blocks an SM, registers and spills; and the serial chain that sets each
+   kernel's time (the beam's 81 steps of register, shuffle and
+   shared-memory sort stages and block barriers, the RS decode's
+   dependent Berlekamp-Massey rounds);
 4e. holds ``qra_mp``, ``median_rows`` and ``qary_sync`` against their
    plain versions on the card (phase ``qary_kernels``) on the decoders'
    own inputs, recorded from a 64-window Q65-30 decode and a 64-window
@@ -270,6 +275,8 @@ WEAK_KERNELS = ("wspr_beam", "rs_ee")
 # the XLA programs of the JAX package that the weak kernels replace
 WEAK_REPLACES = {"wspr_beam": "cwsl_digi_tpu/modes/wspr.py:526",
                  "rs_ee": "cwsl_digi_tpu/modes/rs_device.py:118"}
+# the beam search's candidates a launch in the App: 2 windows x top-24
+APP_BEAM_CANDIDATES = 48
 QARY_KERNELS = ("qra_mp", "median_rows", "qary_sync")
 # the XLA programs of the JAX package that the q-ary kernels and the median
 # replace (the median also at qary_engine.py:168, wspr.py:507 and
@@ -1718,25 +1725,37 @@ def beam_tie_llrs(n: int, seed: int, dev) -> torch.Tensor:
 
 
 def beam_vs_plain(cfg, llr: torch.Tensor) -> dict:
-    """``wspr_beam`` (through ``wspr._beam_decode``) against
-    ``_beam_decode_plain`` on the same CUDA LLRs: bits identical and the
-    normalised metric bit for bit (two NaNs count as equal).  One kernel
-    launch."""
+    """``wspr_beam`` (through ``wspr._beam_decode``, in the plan the
+    wrapper picks) against ``_beam_decode_plain`` on the same CUDA LLRs:
+    bits identical and the normalised metric bit for bit (two NaNs count
+    as equal); then the kernel in every other plan of the width
+    (``wspr_beam(..., keys=K)``) against the same.  One launch through the
+    decoder's entry."""
     from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
     from cwsl_digi_tpu_torch.modes import wspr
 
+    w = cfg.beam_width
     before = wk.launches["wspr_beam"]
     bits, metric = wspr._beam_decode(cfg, llr)
     launched = wk.launches["wspr_beam"] - before
     pb, pm = wspr._beam_decode_plain(cfg, llr)
-    out = {"shape": list(llr.shape), "beam_width": cfg.beam_width,
-           "launches": launched,
+    norm = llr.abs().sum(dim=(1, 2)) + 1e-30
+    plans = {}
+    for keys in wk.BEAM_PLANS[w]:
+        best_k, b_k = wk.wspr_beam(llr, w, keys=keys)
+        plans[keys] = (_bits_differ(b_k, pb.cpu())
+                       + _bits_differ(best_k / (0.5 * norm), pm.cpu()))
+    sms = torch.cuda.get_device_properties(llr.device).multi_processor_count
+    out = {"shape": list(llr.shape), "beam_width": w, "launches": launched,
+           "plan": wk.beam_plan(llr.shape[0], w, sms),
            "bits_differ": _bits_differ(bits, pb.cpu()),
            "metric_bits_differ": _bits_differ(metric, pm.cpu()),
+           "plans_differ": plans,
            "max_abs_err": _abs_err(metric, pm.cpu()),
            "dtype": str(bits.dtype)}
     out["ok"] = (launched == 1 and out["bits_differ"] == 0
                  and out["metric_bits_differ"] == 0
+                 and not any(plans.values())
                  and bits.dtype == pb.dtype and bits.shape == pb.shape)
     return out
 
@@ -1815,17 +1834,42 @@ def beam_bound_ms(n: int, w: int) -> tuple[float, float, dict]:
              "ops_ms_fma_rate": (int_ops + float_ops) / FP32_FLOPS * 1e3})
 
 
-def beam_steps(w: int) -> dict:
-    """The chain of dependent steps a ``wspr_beam`` block takes: 81 trellis
-    steps, each two bitonic sorts of 2W keys (their compare stages, and of
-    them the ones behind a block barrier) and 5 more block barriers."""
-    lg = (2 * w).bit_length() - 1
-    stages = lg * (lg + 1) // 2
-    block = max(1, sum(max(0, q - 5) for q in range(1, lg + 1)))
-    return {"steps": 81, "sort_stages_a_step": 2 * stages,
-            "block_barriers_a_step": 2 * block + 5,
-            "stages_total": 81 * (2 * stages + 5),
-            "block_barriers_total": 81 * (2 * block + 5)}
+def beam_steps(w: int, keys: int) -> dict:
+    """The chain of dependent steps a ``wspr_beam`` block takes at width
+    ``w`` in plan ``keys``: 81 trellis steps, each the tail sort's and the
+    top sort's compare stages (in registers, between lanes, between warps
+    through shared memory), the block barriers and the group search's
+    dependent shared loads (``_weak_kernels.beam_chain``); one more
+    barrier after the set-up."""
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
+
+    c = wk.beam_chain(w, keys)
+    return {"steps": 81, "keys_a_thread": keys, "threads": c["threads"],
+            "tail_stages": c["tail"], "top_stages": c["top"],
+            "stages_a_step": c["stages"],
+            "block_barriers_a_step": c["block_barriers"],
+            "search_loads_a_step": c["search_loads"],
+            "stages_total": 81 * c["stages"],
+            "block_barriers_total": 81 * c["block_barriers"] + 1}
+
+
+def beam_design(dev, n: int, w: int) -> dict:
+    """The plan the ``wspr_beam`` wrapper picks for ``n`` candidates at
+    width ``w`` on this card, and each plan of the width: threads, dynamic
+    shared memory, blocks an SM, registers and spills."""
+    from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {}
+    for keys in wk.BEAM_PLANS[w]:
+        a = wk.kernel_attrs(dev, w, keys)["wspr_beam"]
+        plans[keys] = {"threads": 2 * w // keys,
+                       "smem_bytes": wk.beam_smem_bytes(w, keys),
+                       "blocks_an_sm": wk.beam_blocks_per_sm(dev, w, keys),
+                       "registers": a["registers"],
+                       "local_bytes": a["local_bytes"]}
+    return {"candidates": n, "beam_width": w,
+            "plan": wk.beam_plan(n, w, sms), "sms": sms, "plans": plans}
 
 
 def rs_bound_ms(nk_fcr, syms: torch.Tensor, era: torch.Tensor,
@@ -1885,6 +1929,8 @@ def weak_cases(dev) -> dict:
         i = sum(1 for name in cases if name.startswith(f"wspr w{w}"))
         what = "pass 1" if i == 0 else f"dd pass {i}"
         cases[f"wspr w{w} {what}"] = ("beam", cfg, llr)
+    cfg, llr = rec["beam"][0]
+    cases["wspr w512 app"] = ("beam", cfg, llr[:APP_BEAM_CANDIDATES].clone())
     for w in (512, 1024):
         cfg = dataclasses.replace(rec["beam"][0][0], beam_width=w)
         cases[f"ties w{w}"] = ("beam", cfg, beam_tie_llrs(96, SEED + w, dev))
@@ -1901,9 +1947,11 @@ def weak_kernels_phase(dev) -> dict:
     """``wspr_beam`` and ``rs_ee`` against their plain versions on the card
     on the decoders' own inputs (``weak_cases``): bits and metric bit for
     bit, corrected words and ok identical; then each kernel's device time
-    at the bench's shapes (WSPR: 576 candidates at width 512, also 768 at
-    1024; JT65: 92,160 trials) beside the plain version's and the bound,
-    and the serial chain that sets each kernel's time."""
+    at the bench's shapes (WSPR: 576 candidates at width 512; JT65: 92,160
+    trials) beside the plain version's and the bound, the beam also at the
+    App's 48 candidates and at width 1024 (768), each in every plan of its
+    width, with the plan's design, and the serial chain that sets each
+    kernel's time."""
     from cwsl_digi_tpu_torch.modes import _weak_kernels as wk
     from cwsl_digi_tpu_torch.modes import rs_device, wspr
 
@@ -1918,12 +1966,17 @@ def weak_kernels_phase(dev) -> dict:
     if bad:
         raise AssertionError(f"weak kernels disagree with the plain "
                              f"versions: {bad}")
-    attrs = {w: wk.kernel_attrs(dev, w) for w in (512, 1024)}
-    smem = {w: wk.beam_smem_bytes(w) for w in (256, 512, 1024)}
-    print(f"weak kernels' design: attributes {json.dumps(attrs)}, "
-          f"wspr_beam dynamic shared memory by width {json.dumps(smem)}")
     _, cfg, llr = cases["wspr w512 pass 1"]
-    _, cfg_w, llr_w = cases["wspr w1024 pass 1"]
+    _, _, llr_app = cases["wspr w512 app"]
+    _, _, llr_w = cases["wspr w1024 pass 1"]
+    shapes = {"app": llr_app, "bench": llr, "w1024": llr_w}
+    widths = {"app": 512, "bench": 512, "w1024": 1024}
+    design = {name: beam_design(dev, x.shape[0], widths[name])
+              for name, x in shapes.items()}
+    attrs = {w: wk.kernel_attrs(dev, w, wk.BEAM_PLANS[w][-1])
+             for w in (512, 1024)}
+    print(f"weak kernels' design: wspr_beam by shape {json.dumps(design)}; "
+          f"attributes {json.dumps(attrs)}")
     _, nk_fcr, syms, era, _ = cases["jt65 device batch"]
     tables = rs_device.kernel_tables_device(nk_fcr, dev)
     nroots = nk_fcr[0] - nk_fcr[1]
@@ -1943,23 +1996,35 @@ def weak_kernels_phase(dev) -> dict:
     out = stage_kernel_times(
         runs, bounds, errs,
         {"wspr_beam": list(llr.shape), "rs_ee": list(era.shape)})
-    out["wspr_beam"]["dependent_steps"] = beam_steps(cfg.beam_width)
+    plan = design["bench"]["plan"]
+    out["wspr_beam"]["plan"] = plan
+    out["wspr_beam"]["dependent_steps"] = beam_steps(cfg.beam_width, plan)
     out["rs_ee"]["dependent_steps"] = {
         k: bounds["rs_ee"][2][k] for k in ("bm_rounds_mean",
                                            "bm_rounds_max")}
-    wide = cuda_ms(lambda: wk.wspr_beam(llr_w, 1024), 2)
-    wide_bound = beam_bound_ms(llr_w.shape[0], 1024)
-    out["wspr_beam"]["w1024"] = {
-        "shape": list(llr_w.shape), "ms": wide,
-        "bound_ms": max(wide_bound[:2]),
-        "dependent_steps": beam_steps(1024)}
-    print(f"wspr_beam at width 1024, {list(llr_w.shape)}: {wide:.4f} ms "
-          f"device time, bound {max(wide_bound[:2]):.5f} ms; chains "
-          f"{json.dumps(beam_steps(cfg.beam_width))} (w512), "
-          f"{json.dumps(beam_steps(1024))} (w1024); rs_ee "
-          f"{json.dumps(out['rs_ee']['dependent_steps'])}")
+    for name, x in shapes.items():
+        w = widths[name]
+        bound = max(beam_bound_ms(x.shape[0], w)[:2])
+        by_plan = {keys: cuda_ms(lambda: wk.wspr_beam(x, w, keys=keys),
+                                 3 if x.shape[0] < 100 else 2)
+                   for keys in wk.BEAM_PLANS[w]}
+        plan = design[name]["plan"]
+        row = {"shape": list(x.shape), "beam_width": w, "plan": plan,
+               "ms": by_plan[plan], "ms_by_plan": by_plan,
+               "bound_ms": bound,
+               "design": design[name]["plans"][plan],
+               "dependent_steps": beam_steps(w, plan)}
+        out["wspr_beam"][name] = row
+        print(f"wspr_beam {name} {list(x.shape)} at width {w}: plan K = "
+              f"{plan} ({2 * w // plan} threads a candidate), "
+              f"{by_plan[plan]:.5f} ms device time (every plan: "
+              f"{json.dumps(by_plan)}), bound {bound:.5f} ms "
+              f"({100 * bound / by_plan[plan]:.1f} %); "
+              f"{json.dumps(row['design'])}; chain "
+              f"{json.dumps(row['dependent_steps'])}")
+    print(f"rs_ee chain {json.dumps(out['rs_ee']['dependent_steps'])}")
     return {"kernels": out, "checks": checks, "attrs": attrs,
-            "beam_smem_bytes": smem}
+            "beam_design": design}
 
 
 def record_qary_inputs(dev) -> dict:

@@ -20,13 +20,11 @@
 //   - wspr_beam reads each candidate's 162 LLRs and writes 50 bits and a
 //     metric (0.4 MB at the bench's 576 candidates, ~0.1 us of HBM).  Its
 //     operations: per step and expanded entry two parities and a few float
-//     adds, the merge's neighbour compares, and two sorts of 2W keys, at
-//     least 2W log2(2W) compares each.  At W = 512 that is ~3.4 M integer
-//     operations a candidate, ~0.12 ms for 576 candidates at the INT32
-//     rate.  What sets its time is the serial chain: 81 dependent steps,
-//     each two bitonic sorts of 2W keys in shared memory (55 compare
-//     stages each at W = 512, 15 of them behind a block barrier, the rest
-//     behind a warp barrier) and 5 more block barriers.
+//     adds, the merge's neighbour compares, and the least the two orders
+//     need (a sort of the W survivors' tails, the top W of 2W keys and a
+//     sort of them): at W = 512 ~2.2 M integer operations a candidate,
+//     ~0.07 ms for 576 candidates at the INT32 rate.  What sets its time is
+//     the serial chain: 81 dependent steps, each two sorting networks.
 //   - rs_ee reads the symbols (int64, a candidate's row shared by its
 //     trials) and the erasure flags (a byte each) and writes the corrected
 //     word (a byte a symbol) and ok: ~12 MB at JT65's device batch of
@@ -40,30 +38,46 @@
 //
 // The design.
 //
-//   - wspr_beam: one block of W threads a candidate, W a template (any
-//     power of two from 32 to 1024), all 81 steps and the backtrack in one
-//     launch.  The survivors' states, metrics and live flags, the step's
-//     2W sort keys and metrics, the candidate's LLRs and every step's
-//     back-pointers stay in shared memory (the back-pointers, parent |
-//     bit << 15 in a uint16, are 81 x W x 2 B: 166 KB at W = 1024, so the
-//     launch sets the dynamic shared memory attribute).  Thread t expands
-//     survivor t into entries t (bit 0) and t + W (bit 1), with the plain
-//     version's arithmetic: ((1 - 2 b1) l0 + (1 - 2 b2) l1) * 0.5, b1 and
-//     b2 the parities (__popc) of the state under POLY1 and POLY2, added
-//     to the metric, 1e9 taken off bit 1 on the tail steps, -1e9 where the
-//     parent is not live.  The plain version's stable argsort of the 31-bit
-//     register tails is an ascending sort of the unique (tail << 11 |
-//     entry); after it each entry compares with its neighbours (drop the
-//     worse of an equal pair, the later one on a metric tie), and the
-//     stable descending top-W is an ascending sort of the unique (order
-//     key of the metric << 22 | sorted position << 11 | entry), where the
-//     order key maps -0.0 onto 0.0 and every NaN ahead of +inf, as
-//     torch.sort(descending=True) places them.  Both sorts are bitonic in
-//     shared memory, a compare-exchange a thread a stage; a stage whose
-//     stride and whose successor's stride are at most 32 keeps every warp
-//     inside its own 64 keys, so it waits on __syncwarp, not on the block.
-//     One thread then walks the back-pointers from the first maximum of
-//     the final metrics (NaN counting as the maximum).
+//   - wspr_beam: one block a candidate, all 81 steps in one launch, in a
+//     plan of K keys a thread (2W / K threads): K = 2 where the candidates
+//     leave SMs idle (the App's 48: the shortest chain a step), K = 4 where
+//     they fill the card (fewer shuffles and barriers a candidate; 8 and
+//     16 were slower at both).  A step:
+//     (1) the W survivors' tails, (low 30 bits of the state, slot), K / 2
+//         a thread, sorted.  A child's 31-bit tail is (low 30 << 1) | bit,
+//         so this one sort fixes the plain version's stable argsort of the
+//         2W tails: in a group of equal low 30 bits from rank r0 to e, rank
+//         r's bit-0 child sits at r + r0 and its bit-1 child at r + e + 1,
+//         and an equal tail beside it is the same bit's child of rank r - 1
+//         or r + 1.  The group's ends come from two binary liftings over
+//         the sorted tails in shared memory (the first and last rank a
+//         thread; the others follow their neighbour).
+//     (2) each rank's children: ((1 - 2 b1) l0 + (1 - 2 b2) l1) * 0.5 (b1,
+//         b2 the parities of the state under POLY1 and POLY2) added to the
+//         metric, 1e9 taken off bit 1 on the tail steps, -1e9 where the
+//         parent is not live; the merge drops the worse of an equal pair
+//         (the later on a metric tie) against the rank neighbours' children.
+//     (3) the 2W top keys, desc_key(metric) << 32 | position << 16 | entry
+//         (desc_key maps -0.0 onto 0.0 and every NaN ahead of +inf, as
+//         torch.sort(descending=True) places them; the key also carries
+//         -0.0 and the entry, so the survivor needs nothing else from it),
+//         K a thread, sorted; only the first W are kept, so the last
+//         phase's stages after the half-cleaner leave the upper half.
+//     (4) survivor i takes its parent's state and path register: the
+//         message bits so far, shifted in as they are chosen, and the live
+//         flag.  The best path's bits are its path register, so there are
+//         no back-pointers and no backtrack.
+//     Both sorts are bitonic networks held in registers, in the form
+//     whose every stage keeps the smaller key at the lower position (a
+//     phase opens by pairing each position with its mirror), so no stage
+//     has a direction to compute: a stage of stride below K (K / 2) runs
+//     in a thread's registers, one below 32 times that between lanes
+//     (__shfl_xor_sync), and only the wider ones cross shared memory
+//     behind a block barrier (two alternating buffers, chosen when the
+//     kernel is compiled).  At W = 512: 100 stages a step in every plan,
+//     of them 20 (K = 2) or 12 (K = 4) behind a block barrier; 37.5 KB of
+//     shared memory a block (74.4 KB at W = 1024).  The first maximum of
+//     the final metrics (NaN as the maximum) is a warp's reduction.
 //   - rs_ee: a warp a trial, the blocks looping over the trials.  Lanes j
 //     and j + 32 hold coefficient j (and j + 32) of the locator, of B and
 //     of the syndromes, and positions j and j + 32 of the word.  A GF(64)
@@ -120,6 +134,9 @@ __host__ __device__ constexpr int ilog2(int x) {
     return x <= 1 ? 0 : 1 + ilog2(x >> 1);
 }
 
+constexpr uint64_t PATH_LIVE = 1ull << 63;  // a survivor's live flag
+constexpr uint64_t KEY_NEG_ZERO = 1ull << 11;
+
 // an order key of a float metric: ascending keys are descending metrics,
 // -0.0 as 0.0, every NaN first (torch.sort(descending=True)'s order)
 __device__ __forceinline__ uint32_t desc_key(float m) {
@@ -128,6 +145,28 @@ __device__ __forceinline__ uint32_t desc_key(float m) {
     if ((u & 0x7fffffffu) == 0u) u = 0u;
     const uint32_t asc = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
     return ~asc;
+}
+
+// A top key: desc_key(m) << 32 | position << 16 | (m is -0.0) << 11 | bit
+// << 10 | slot.  Position is unique, so the key orders by (descending
+// metric, position) and carries the entry (the parent's slot and the
+// bit) and the metric itself (key_metric).
+__device__ __forceinline__ uint64_t top_key(float m, int pos, uint32_t bit,
+                                            int slot) {
+    const uint64_t neg_zero =
+        __float_as_uint(m) == 0x80000000u ? KEY_NEG_ZERO : 0ull;
+    return (static_cast<uint64_t>(desc_key(m)) << 32)
+           | (static_cast<uint64_t>(pos) << 16) | neg_zero
+           | (static_cast<uint64_t>(bit) << 10)
+           | static_cast<uint64_t>(slot);
+}
+
+// the metric of a top key, bit for bit (any NaN as 0x7fffffff)
+__device__ __forceinline__ float key_metric(uint64_t key) {
+    const uint32_t asc = ~static_cast<uint32_t>(key >> 32);
+    uint32_t u = (asc & 0x80000000u) ? (asc & 0x7fffffffu) : ~asc;
+    if (key & KEY_NEG_ZERO) u = 0x80000000u;
+    return __uint_as_float(u);
 }
 
 // the branch metric of register state s: ((1 - 2 b1) l0 + (1 - 2 b2) l1)
@@ -139,206 +178,378 @@ __device__ __forceinline__ float branch_metric(uint32_t s, float l0,
     return __fmul_rn(__fadd_rn(__fmul_rn(c1, l0), __fmul_rn(c2, l1)), 0.5f);
 }
 
-// Ascending bitonic sort of key[0, 2W) by the block's W threads, one
-// compare-exchange a thread a stage.  A stage of stride j <= 32 keeps warp
-// w inside key[64 w, 64 w + 64), so between two such stages a warp barrier
-// orders what it reads; any other stage boundary takes a block barrier.
-// Ends with a block barrier.
-template <int W>
-__device__ __forceinline__ void bitonic_sort(uint64_t* key, int t) {
-    constexpr int E = 2 * W;
-#pragma unroll 1
-    for (int k = 2; k <= E; k <<= 1) {
-#pragma unroll 1
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            const int i = 2 * t - (t & (j - 1));
-            const uint64_t a = key[i];
-            const uint64_t b = key[i + j];
-            const bool up = (i & k) == 0;
-            if ((a > b) == up) {
-                key[i] = b;
-                key[i + j] = a;
+// A plan: K keys a thread of the 2W expanded entries, K / 2 of the W
+// survivors, 2W / K threads a candidate.
+template <int W, int K>
+struct BeamPlan {
+    static constexpr int N = 2 * W;
+    static constexpr int T = N / K;
+    static constexpr int KT = K / 2;
+    static_assert(K >= 2 && (K & (K - 1)) == 0, "K a power of two");
+    static_assert(T >= 32 && T <= 1024, "a block of 32 to 1024 threads");
+};
+
+template <int W, int K>
+struct BeamSmem {
+    using P = BeamPlan<W, K>;
+    // the exchange buffers of the sorts' stages between warps (none in a
+    // one-warp plan): two of 2W keys, thread t's q-th key at q T + t
+    static constexpr size_t xb = 0;
+    static constexpr size_t path =                              // u64 [2][W]
+        xb + (P::T > 32 ? sizeof(uint64_t) * 2 * P::N : 0);
+    static constexpr size_t st = path + sizeof(uint64_t) * 2 * W;  // u32 [2][W]
+    static constexpr size_t met = st + sizeof(uint32_t) * 2 * W;   // f32 [W]
+    static constexpr size_t rlow = met + sizeof(float) * W;        // u32 [W]
+    static constexpr size_t rm = rlow + sizeof(uint32_t) * W;      // f32 [2][W]
+    static constexpr size_t llr = rm + sizeof(float) * 2 * W;      // f32 [162]
+    static constexpr size_t bytes = llr + sizeof(float) * 2 * BEAM_STEPS;
+};
+
+// The stages of a sort of NK keys held KK a thread that cross shared
+// memory (stride 32 KK or more): of phases 2^1 .. 2^LK, and in phase 2^LK
+// those before stride 2^LJ.
+__host__ __device__ constexpr int shared_stages(int nk, int kk, int lk,
+                                                 int lj) {
+    int c = 0;
+    for (int a = 1; a <= lk && (1 << a) <= nk; ++a)
+        for (int b = a - 1; b >= 0 && !(a == lk && b == lj); --b)
+            c += (1 << b) >= 32 * kk;
+    return c;
+}
+
+// One compare stage (phase k, stride j) of an ascending bitonic sort of NK
+// unique keys held KK a thread (thread t's v[q] at position t KK + q, TT =
+// NK / KK threads), in the form whose every stage keeps the smaller key at
+// the lower position: a phase's first stage (j = k / 2) pairs position i
+// with its mirror in the block of k, i ^ (k - 1), the others i with i ^ j.
+// A stage that pairs positions of one thread runs in its registers (j
+// below KK); of one warp, between lanes (__shfl_xor_sync; j below 32 KK);
+// any other, between warps through shared buffer BUF (two of STRIDE keys
+// each; consecutive such stages alternate, so a buffer is written again
+// only after the barrier that follows its last read) behind a block
+// barrier.  In the last phase of a top-TOPN selection (TOPN < NK) the
+// stages after the first leave the warps whose keys all lie past TOPN:
+// what they hold is not needed.
+template <int NK, int KK, int TOPN, int STRIDE, int k, int j, int BUF>
+__device__ __forceinline__ void sort_stage(uint64_t (&v)[KK], int t,
+                                           uint64_t* xb) {
+    constexpr int TT = NK / KK;
+    constexpr bool MIRROR = j == k / 2;
+    constexpr bool LEFT = k == NK && j < TOPN && TOPN < NK;
+    const bool on = !LEFT || (t & ~31) * KK < TOPN;       // warp-uniform
+    if constexpr (j < KK) {
+        if (on) {
+#pragma unroll
+            for (int q = 0; q < KK; ++q) {
+                const int p = MIRROR ? q ^ (k - 1) : q ^ j;
+                if (p < q) continue;
+                const uint64_t a = v[q], b = v[p];
+                v[q] = a < b ? a : b;
+                v[p] = a < b ? b : a;
             }
-            const int next = j > 1 ? j >> 1 : k;
-            if (j <= 32 && next <= 32 && !(k == E && j == 1))
-                __syncwarp();
-            else
-                __syncthreads();
+        }
+    } else {
+        // the partner thread t ^ m; thread t keeps the smaller key where
+        // it holds the lower position (bit `low` of t clear)
+        constexpr int m = MIRROR ? k / KK - 1 : j / KK;
+        constexpr int low = j / KK;
+        const bool keep_min = (t & low) == 0;
+        if constexpr (j < 32 * KK) {
+            if (on) {
+                // key q meets the partner's key q, or in a mirror stage
+                // its key KK - 1 - q: the pair (q, KK - 1 - q) goes
+                // together, so no key is sent after it changed
+#pragma unroll
+                for (int q = 0; q < (MIRROR ? (KK + 1) / 2 : KK); ++q) {
+                    const int r = MIRROR ? KK - 1 - q : q;
+                    const uint64_t oq = __shfl_xor_sync(0xffffffffu, v[r], m);
+                    const uint64_t orr =
+                        r == q ? oq : __shfl_xor_sync(0xffffffffu, v[q], m);
+                    v[q] = ((oq < v[q]) == keep_min) ? oq : v[q];
+                    if (r != q) v[r] = ((orr < v[r]) == keep_min) ? orr : v[r];
+                }
+            }
+        } else {
+            uint64_t* x = xb + BUF * STRIDE;
+            if (on) {
+#pragma unroll
+                for (int q = 0; q < KK; ++q) x[q * TT + t] = v[q];
+            }
+            __syncthreads();
+            if (on) {
+#pragma unroll
+                for (int q = 0; q < KK; ++q) {
+                    const uint64_t o =
+                        x[(MIRROR ? KK - 1 - q : q) * TT + (t ^ m)];
+                    v[q] = ((o < v[q]) == keep_min) ? o : v[q];
+                }
+            }
         }
     }
 }
 
+// The stages of phases 2^LK.. and, within phase 2^LK, strides 2^LJ..1; the
+// sort's first shared stage takes buffer B0.
+template <int NK, int KK, int TOPN, int STRIDE, int B0, int LK = 1,
+          int LJ = 0>
+__device__ __forceinline__ void block_sort(uint64_t (&v)[KK], int t,
+                                           uint64_t* xb) {
+    if constexpr (LK <= ilog2(NK)) {
+        constexpr int BUF = (B0 + shared_stages(NK, KK, LK, LJ)) & 1;
+        sort_stage<NK, KK, TOPN, STRIDE, (1 << LK), (1 << LJ), BUF>(v, t,
+                                                                    xb);
+        if constexpr (LJ > 0)
+            block_sort<NK, KK, TOPN, STRIDE, B0, LK, LJ - 1>(v, t, xb);
+        else
+            block_sort<NK, KK, TOPN, STRIDE, B0, LK + 1, LK>(v, t, xb);
+    }
+}
+
+// threadIdx.x read anew where it is called (a volatile read on the card):
+// what a trellis step computes from it (which key each sort stage keeps,
+// the ranks' and their neighbours' addresses) then stays in the step and
+// is not hoisted out of the loop and held across it, where ptxas spilled
+// it.
+__device__ __forceinline__ int fresh_tid() {
+#ifdef __CUDA_ARCH__
+    int t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+#else
+    return static_cast<int>(threadIdx.x);
+#endif
+}
+
+// The first rank whose tail (of the W sorted ones in rlow) is v, and the
+// last: binary liftings, log2 W dependent shared loads each.
 template <int W>
-struct BeamSmem {
-    static constexpr int E = 2 * W;
-    static constexpr size_t key = 0;                            // u64 [E]
-    static constexpr size_t met2 = key + sizeof(uint64_t) * E;  // f32 [E]
-    static constexpr size_t st = met2 + sizeof(float) * E;      // u32 [W]
-    static constexpr size_t met = st + sizeof(uint32_t) * W;    // f32 [W]
-    static constexpr size_t llr = met + sizeof(float) * W;      // f32 [162]
-    static constexpr size_t bp = llr + sizeof(float) * 2 * BEAM_STEPS;
-    static constexpr size_t live = bp + sizeof(uint16_t) * BEAM_STEPS * W;
-    static constexpr size_t bytes = live + W;                   // u8 [W]
-};
+__device__ __forceinline__ int first_rank(const uint32_t* rlow, uint32_t v) {
+    int c = 0;
+#pragma unroll
+    for (int b = W / 2; b > 0; b >>= 1)
+        if (rlow[c + b - 1] < v) c += b;
+    return c;
+}
 
 template <int W>
-__global__ void __launch_bounds__(W)
+__device__ __forceinline__ int last_rank(const uint32_t* rlow, uint32_t v) {
+    int e = 0;
+#pragma unroll
+    for (int b = W / 2; b > 0; b >>= 1)
+        if (rlow[e + b] <= v) e += b;
+    return e;
+}
+
+template <int W, int K>
+__global__ void __launch_bounds__(BeamPlan<W, K>::T)
 k_wspr_beam(const float* __restrict__ llr, float* __restrict__ best,
             int8_t* __restrict__ bits) {
-    using S = BeamSmem<W>;
-    constexpr int E = 2 * W;
-    constexpr int LOG_W = ilog2(W);
+    using P = BeamPlan<W, K>;
+    using S = BeamSmem<W, K>;
+    constexpr int N = P::N, T = P::T, KT = P::KT;
     extern __shared__ __align__(16) unsigned char smem[];
-    uint64_t* key = reinterpret_cast<uint64_t*>(smem + S::key);
-    float* met2 = reinterpret_cast<float*>(smem + S::met2);
-    uint32_t* st = reinterpret_cast<uint32_t*>(smem + S::st);
-    float* met = reinterpret_cast<float*>(smem + S::met);
+    uint64_t* xb = reinterpret_cast<uint64_t*>(smem + S::xb);
+    uint64_t* spath = reinterpret_cast<uint64_t*>(smem + S::path);
+    uint32_t* sst = reinterpret_cast<uint32_t*>(smem + S::st);
+    float* smet = reinterpret_cast<float*>(smem + S::met);
+    uint32_t* rlow = reinterpret_cast<uint32_t*>(smem + S::rlow);
+    float* rm = reinterpret_cast<float*>(smem + S::rm);
     float* sl = reinterpret_cast<float*>(smem + S::llr);
-    uint16_t* bp = reinterpret_cast<uint16_t*>(smem + S::bp);
-    uint8_t* live = smem + S::live;
 
     const int t = threadIdx.x;
     const long long cand = blockIdx.x;
-    for (int i = t; i < 2 * BEAM_STEPS; i += W)
+    for (int i = t; i < 2 * BEAM_STEPS; i += T)
         sl[i] = llr[cand * 2 * BEAM_STEPS + i];
-    st[t] = 0u;
-    met[t] = t == 0 ? 0.0f : DEAD;             // one live root
-    live[t] = t == 0;
+    for (int s = t; s < W; s += T) {
+        sst[s] = 0u;
+        smet[s] = s == 0 ? 0.0f : DEAD;        // one live root
+        spath[s] = s == 0 ? PATH_LIVE : 0ull;
+    }
     __syncthreads();
 
+    constexpr int TAIL_SHARED = shared_stages(W, KT, ilog2(W) + 1, 0);
+    static_assert(TAIL_SHARED == shared_stages(N, K, ilog2(N) + 1, 0),
+                  "the two sorts cross shared memory equally often");
+    int cur = 0;
 #pragma unroll 1
     for (int step = 0; step < BEAM_STEPS; ++step) {
-        // expand survivor t into entry t (bit 0) and t + W (bit 1)
-        {
-            const float l0 = sl[2 * step], l1 = sl[2 * step + 1];
-            const uint32_t s0 = st[t] << 1;
-            const uint32_t s1 = s0 | 1u;
-            const float m = met[t];
-            float m0 = __fadd_rn(m, branch_metric(s0, l0, l1));
-            float m1 = __fadd_rn(m, branch_metric(s1, l0, l1));
+        const int t = fresh_tid();             // not hoisted: fresh_tid
+        const uint32_t* st_c = sst + cur * W;
+        const uint64_t* pa_c = spath + cur * W;
+
+        // the survivors' tails: slot s = t KT + q keyed (low 30 bits of
+        // its state, s), bit 30 riding below the slot; sorted, thread t
+        // holds ranks t KT .. t KT + KT - 1
+        uint64_t tk[KT];
+#pragma unroll
+        for (int q = 0; q < KT; ++q) {
+            const int s = t * KT + q;
+            const uint32_t u = st_c[s];
+            tk[q] = (static_cast<uint64_t>(u & 0x3fffffffu) << 32)
+                    | (static_cast<uint64_t>(s) << 1) | ((u >> 30) & 1u);
+        }
+        block_sort<W, KT, W, N, 0>(tk, t, xb);
+
+        // each rank's two children: metric, -1e9 off bit 1 on the tail
+        // steps, DEAD where the parent is not live; by rank to rlow / rm
+        const float l0 = sl[2 * step], l1 = sl[2 * step + 1];
+        uint32_t low[KT];
+        int slot[KT];
+        float c0[KT], c1[KT];
+#pragma unroll
+        for (int q = 0; q < KT; ++q) {
+            low[q] = static_cast<uint32_t>(tk[q] >> 32);
+            slot[q] = static_cast<int>((tk[q] >> 1) & 0x3ff);
+            const uint32_t s0 =
+                (low[q] | (static_cast<uint32_t>(tk[q] & 1u) << 30)) << 1;
+            const float m = smet[slot[q]];
+            const bool lv = (pa_c[slot[q]] & PATH_LIVE) != 0;
+            const float m0 = __fadd_rn(m, branch_metric(s0, l0, l1));
+            float m1 = __fadd_rn(m, branch_metric(s0 | 1u, l0, l1));
             if (step >= BEAM_MSG_BITS) m1 = __fsub_rn(m1, 1e9f);
-            const bool lv = live[t] != 0;
-            met2[t] = lv ? m0 : DEAD;
-            met2[t + W] = lv ? m1 : DEAD;
-            key[t] = (static_cast<uint64_t>(s0 & 0x7fffffffu) << 11)
-                     | static_cast<uint64_t>(t);
-            key[t + W] = (static_cast<uint64_t>(s1 & 0x7fffffffu) << 11)
-                         | static_cast<uint64_t>(t + W);
+            c0[q] = lv ? m0 : DEAD;
+            c1[q] = lv ? m1 : DEAD;
+            const int r = t * KT + q;
+            rlow[r] = low[q];
+            rm[r] = c0[q];
+            rm[W + r] = c1[q];
         }
         __syncthreads();
-        bitonic_sort<W>(key, t);
 
-        // merge equal register tails: drop the worse of an adjacent equal
-        // pair (the later on a metric tie), on the metrics as sorted
-        uint64_t nk[2];
-        float nm[2];
+        // the group of equal low 30 bits around rank r, ranks r0 .. e: the
+        // thread's first and last rank search rlow, the others follow
+        // their neighbour in the thread.  In the stable order of the 2W
+        // tails, r's bit-0 child is at r + r0 and its bit-1 child at
+        // r + e + 1; an equal tail next to it there is the child of the
+        // same bit of rank r - 1 or r + 1 of the group: merge (drop the
+        // worse of an equal pair, the later on a metric tie)
+        int r0[KT], e[KT];
+        r0[0] = first_rank<W>(rlow, low[0]);
+        e[KT - 1] = last_rank<W>(rlow, low[KT - 1]);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int p = t + h * W;
-            const uint64_t kp = key[p];
-            const uint64_t tail = kp >> 11;
-            const int e = static_cast<int>(kp & 0x7ff);
-            const float mp = met2[e];
-            bool drop = false;
-            if (p + 1 < E) {
-                const uint64_t kn = key[p + 1];
-                if ((kn >> 11) == tail && mp < met2[kn & 0x7ff]) drop = true;
-            }
-            if (p > 0) {
-                const uint64_t kq = key[p - 1];
-                if ((kq >> 11) == tail && mp <= met2[kq & 0x7ff]) drop = true;
-            }
-            nm[h] = drop ? DEAD : mp;
-            nk[h] = (static_cast<uint64_t>(desc_key(nm[h])) << 22)
-                    | (static_cast<uint64_t>(p) << 11)
-                    | static_cast<uint64_t>(e);
-        }
-        __syncthreads();
+        for (int q = 1; q < KT; ++q)
+            r0[q] = low[q] == low[q - 1] ? r0[q - 1] : t * KT + q;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            key[t + h * W] = nk[h];
-            met2[t + h * W] = nm[h];            // by sorted position
+        for (int q = KT - 2; q >= 0; --q)
+            e[q] = low[q] == low[q + 1] ? e[q + 1] : t * KT + q;
+        uint64_t key[K];
+#pragma unroll
+        for (int q = 0; q < KT; ++q) {
+            const int r = t * KT + q;
+            const bool nx = r < e[q], pv = r > r0[q];
+            const int rn = nx ? r + 1 : r, rp = pv ? r - 1 : r;
+            float n0 = c0[q], n1 = c1[q];
+            if ((nx && c0[q] < rm[rn]) || (pv && c0[q] <= rm[rp])) n0 = DEAD;
+            if ((nx && c1[q] < rm[W + rn]) || (pv && c1[q] <= rm[W + rp]))
+                n1 = DEAD;
+            key[2 * q] = top_key(n0, r + r0[q], 0u, slot[q]);
+            key[2 * q + 1] = top_key(n1, r + e[q] + 1, 1u, slot[q]);
         }
-        __syncthreads();
-        bitonic_sort<W>(key, t);
+        // (the tail sort and the top sort cross shared memory equally
+        // often, so a step ends on the buffer it began with)
+        block_sort<N, K, W, N, TAIL_SHARED & 1>(key, t, xb);
 
-        // the top W: survivor t is entry e of sorted position p
-        {
-            const uint64_t kk = key[t];
-            const int p = static_cast<int>((kk >> 11) & 0x7ff);
-            const int e = static_cast<int>(kk & 0x7ff);
-            const int parent = e & (W - 1);
-            const uint32_t bit = static_cast<uint32_t>(e >> LOG_W);
-            const float m = met2[p];
-            const uint32_t s = (st[parent] << 1) | bit;
-            const uint8_t lv = live[parent];
-            bp[step * W + t] = static_cast<uint16_t>(parent | (bit << 15));
-            __syncthreads();
-            st[t] = s;
-            met[t] = m;
-            live[t] = lv;
-            __syncthreads();
+        // the top W, positions t K .. t K + K - 1 < W: each takes its
+        // parent's state and path register (the message bits, live flag)
+        if (t * K < W) {
+            uint32_t* st_n = sst + (cur ^ 1) * W;
+            uint64_t* pa_n = spath + (cur ^ 1) * W;
+#pragma unroll
+            for (int q = 0; q < K; ++q) {
+                const int i = t * K + q;
+                const uint64_t kk = key[q];
+                const int s = static_cast<int>(kk & 0x3ff);
+                const uint32_t b = static_cast<uint32_t>(kk >> 10) & 1u;
+                st_n[i] = (st_c[s] << 1) | b;
+                smet[i] = key_metric(kk);
+                const uint64_t pp = pa_c[s];
+                pa_n[i] = step < BEAM_MSG_BITS
+                    ? (pp & PATH_LIVE) | ((pp & ~PATH_LIVE) << 1) | b : pp;
+            }
         }
+        __syncthreads();
+        cur ^= 1;
     }
 
-    if (t == 0) {
-        // the first maximum of the final metrics, NaN as the maximum
-        int idx = 0;
-        float mx = met[0];
-        for (int i = 1; i < W && mx == mx; ++i) {
-            const float v = met[i];
+    if (t < 32) {
+        // the first maximum of the final metrics, NaN as the maximum: each
+        // lane its W / 32 in order, then the lanes in order
+        constexpr int PER = W / 32;
+        int idx = t * PER;
+        float mx = smet[idx];
+        for (int i = 1; i < PER && mx == mx; ++i) {
+            const float v = smet[t * PER + i];
             if (v != v || v > mx) {
                 mx = v;
-                idx = i;
+                idx = t * PER + i;
             }
         }
-        best[cand] = mx;
-        for (int step = BEAM_STEPS - 1; step >= 0; --step) {
-            const uint16_t v = bp[step * W + idx];
-            if (step < BEAM_MSG_BITS)
-                bits[cand * BEAM_MSG_BITS + step] =
-                    static_cast<int8_t>(v >> 15);
-            idx = v & 0x7fff;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const float om = __shfl_down_sync(0xffffffffu, mx, off);
+            const int oi = __shfl_down_sync(0xffffffffu, idx, off);
+            const bool take = t + off < 32 && mx == mx && (om != om || om > mx);
+            if (take) {
+                mx = om;
+                idx = oi;
+            }
         }
+        idx = __shfl_sync(0xffffffffu, idx, 0);
+        const uint64_t path = spath[cur * W + idx];
+        if (t == 0) best[cand] = mx;
+        for (int s = t; s < BEAM_MSG_BITS; s += 32)
+            bits[cand * BEAM_MSG_BITS + s] =
+                static_cast<int8_t>((path >> (BEAM_MSG_BITS - 1 - s)) & 1u);
     }
 }
 
-// Sets the instance's dynamic shared memory attribute on the first launch
-// of each device (a launch captured in a CUDA graph after a warm-up one
-// makes no such call).
-// f(std::integral_constant<int, W>{}) for the instance of beam width w (a
-// power of two from 32 to 1024); `refused` for any other width.
+// f(std::integral_constant<int, W>{}, std::integral_constant<int, K>{})
+// for the instance of beam width w and plan k (BEAM_PLANS in
+// _weak_kernels.py); `refused` for any other pair.
 template <class F>
-int with_width(int w, int refused, F&& f) {
-    switch (w) {
-        case 32: return f(std::integral_constant<int, 32>{});
-        case 64: return f(std::integral_constant<int, 64>{});
-        case 128: return f(std::integral_constant<int, 128>{});
-        case 256: return f(std::integral_constant<int, 256>{});
-        case 512: return f(std::integral_constant<int, 512>{});
-        case 1024: return f(std::integral_constant<int, 1024>{});
-        default: return refused;
-    }
+int with_plan(int w, int k, int refused, F&& f) {
+#define BEAM_PLAN(W_, K_) \
+    if (w == W_ && k == K_) \
+        return f(std::integral_constant<int, W_>{}, \
+                 std::integral_constant<int, K_>{});
+    BEAM_PLAN(32, 2)
+    BEAM_PLAN(64, 2) BEAM_PLAN(64, 4)
+    BEAM_PLAN(128, 2) BEAM_PLAN(128, 4)
+    BEAM_PLAN(256, 2) BEAM_PLAN(256, 4)
+    BEAM_PLAN(512, 2) BEAM_PLAN(512, 4)
+    BEAM_PLAN(1024, 2) BEAM_PLAN(1024, 4)
+#undef BEAM_PLAN
+    return refused;
 }
 
-template <int W>
-int launch_beam(int n, const float* llr, float* best, int8_t* bits,
-                cudaStream_t st) {
+// Sets the instance's dynamic shared memory attribute once a device (a
+// launch captured in a CUDA graph after a warm-up one makes no such call).
+// Returns the cudaError_t.
+template <int W, int K>
+int beam_smem_attr() {
     static bool attr_set[MAX_DEVICES] = {};
-    const int bytes = static_cast<int>(BeamSmem<W>::bytes);
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < 0 || dev >= MAX_DEVICES)
         return static_cast<int>(cudaErrorInvalidDevice);
     if (!attr_set[dev]) {
-        e = cudaFuncSetAttribute(k_wspr_beam<W>,
+        e = cudaFuncSetAttribute(k_wspr_beam<W, K>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 bytes);
+                                 static_cast<int>(BeamSmem<W, K>::bytes));
         if (e != cudaSuccess) return static_cast<int>(e);
         attr_set[dev] = true;
     }
-    k_wspr_beam<W><<<n, W, bytes, st>>>(llr, best, bits);
+    return 0;
+}
+
+template <int W, int K>
+int launch_beam(int n, const float* llr, float* best, int8_t* bits,
+                cudaStream_t st) {
+    const int e = beam_smem_attr<W, K>();
+    if (e != 0) return e;
+    k_wspr_beam<W, K><<<n, BeamPlan<W, K>::T, BeamSmem<W, K>::bytes, st>>>(
+        llr, best, bits);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -557,23 +768,42 @@ int weak_beam_steps() { return BEAM_STEPS; }
 int weak_rs_n_max() { return RS_N_MAX; }
 int weak_rs_table_bytes() { return RS_TAB_BYTES; }
 
-// Dynamic shared memory bytes of wspr_beam at beam width w (a power of two
-// from 32 to 1024), or -1.
-int wspr_beam_smem_bytes(int w) {
-    return with_width(w, -1, [](auto c) {
-        return static_cast<int>(BeamSmem<decltype(c)::value>::bytes);
+// Dynamic shared memory bytes of wspr_beam at beam width w and plan k, or
+// -1.
+int wspr_beam_smem_bytes(int w, int k) {
+    return with_plan(w, k, -1, [](auto cw, auto ck) {
+        return static_cast<int>(
+            BeamSmem<decltype(cw)::value, decltype(ck)::value>::bytes);
     });
 }
 
-// Beam search of n candidates at width w: llr [n, 81, 2] float32 (positive
-// = coded bit 0) to best [n] float32 (the best path's raw metric) and bits
-// [n, 50] int8, on `stream`, one launch.  Returns the cudaError_t.
-int wspr_beam_launch(int n, int w, const void* llr, void* best, void* bits,
-                     void* stream) {
+// The wspr_beam blocks an SM holds at beam width w and plan k
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory),
+// or a negative cudaError_t.
+int wspr_beam_blocks_per_sm(int w, int k) {
+    int blocks = 0;
+    const int e = with_plan(w, k, static_cast<int>(cudaErrorInvalidValue),
+                            [&](auto cw, auto ck) {
+        constexpr int W = decltype(cw)::value, K = decltype(ck)::value;
+        const int err = beam_smem_attr<W, K>();
+        if (err != 0) return err;
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, k_wspr_beam<W, K>, BeamPlan<W, K>::T,
+            BeamSmem<W, K>::bytes));
+    });
+    return e != 0 ? -e : blocks;
+}
+
+// Beam search of n candidates at width w in plan k: llr [n, 81, 2] float32
+// (positive = coded bit 0) to best [n] float32 (the best path's raw
+// metric) and bits [n, 50] int8, on `stream`, one launch.  Returns the
+// cudaError_t.
+int wspr_beam_launch(int n, int w, int k, const void* llr, void* best,
+                     void* bits, void* stream) {
     if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-    return with_width(w, static_cast<int>(cudaErrorInvalidValue),
-                      [&](auto c) {
-        return launch_beam<decltype(c)::value>(
+    return with_plan(w, k, static_cast<int>(cudaErrorInvalidValue),
+                     [&](auto cw, auto ck) {
+        return launch_beam<decltype(cw)::value, decltype(ck)::value>(
             n, static_cast<const float*>(llr), static_cast<float*>(best),
             static_cast<int8_t*>(bits), static_cast<cudaStream_t>(stream));
     });
@@ -624,14 +854,15 @@ int rs_ee_launch(const int* dims, const void* tables, const void* syms,
 
 // A kernel's registers a thread, local (spilled) bytes a thread, static
 // shared bytes and threads a block at most (cudaFuncGetAttributes): which 0
-// = wspr_beam at width w, 1 = rs_ee.  out [4].  Returns the cudaError_t.
-int weak_kernel_attrs(int which, int w, int* out) {
+// = wspr_beam at width w in plan k, 1 = rs_ee.  out [4].  Returns the
+// cudaError_t.
+int weak_kernel_attrs(int which, int w, int k, int* out) {
     cudaFuncAttributes a;
     int e = static_cast<int>(cudaErrorInvalidValue);
     if (which == 0)
-        e = with_width(w, e, [&](auto c) {
-            return static_cast<int>(
-                cudaFuncGetAttributes(&a, k_wspr_beam<decltype(c)::value>));
+        e = with_plan(w, k, e, [&](auto cw, auto ck) {
+            return static_cast<int>(cudaFuncGetAttributes(
+                &a, k_wspr_beam<decltype(cw)::value, decltype(ck)::value>));
         });
     else if (which == 1)
         e = static_cast<int>(cudaFuncGetAttributes(&a, k_rs_ee));

@@ -16,7 +16,8 @@ all-tie windows, NaN and +-inf, the pass-1 shape, top_k 32768, a grid
 smaller than a block), FT4, JS8, FST4-60 and FST4-900 maps, the selection
 forced to 8-block clusters (and no fallback, also when the library refuses
 a launch; no spills), the weak modes' kernels ``wspr_beam`` (at widths 32
-to 1024, the 1024 one's shared memory included, on noise, ties and NaN)
+to 1024 in every plan, its shared memory and blocks an SM included, on
+noise, ties and NaN)
 and ``rs_ee`` (through both entries, with more than 51 erasures and with
 more trials than the card's resident warps) against their plain versions (and no fallback;
 no spills; the WSPR and JT65 decoders launch them), the q-ary kernels
@@ -708,11 +709,12 @@ def _beam_noise(n: int, seed: int, dev) -> torch.Tensor:
 @pytest.mark.parametrize("w", [32, 256, 512, 1024])
 def test_wspr_beam_matches_plain_on_card(dev, w):
     """wspr_beam against the plain beam search on the same CUDA LLRs, at
-    every beam width the decoders run (1024 is the cycles >= 10000 width,
-    whose back-pointers take 166 KB of shared memory) and at 32: noise,
-    LLRs built to tie (integers, zeros, a zero tail) and a candidate with
-    a NaN LLR; bits identical, the metric bit for bit (NaN as NaN), and
-    the bits also the plain version's on CPU copies."""
+    every beam width the decoders run (1024 is the cycles >= 10000 width)
+    and at 32, in the wrapper's plan and in every other plan of the width
+    (``chip_smoke.beam_vs_plain``): noise, LLRs built to tie (integers,
+    zeros, a zero tail) and a candidate with a NaN LLR; bits identical,
+    the metric bit for bit (NaN as NaN), and the bits also the plain
+    version's on CPU copies."""
     cfg = wspr.WSPRConfig(beam_width=w)
     llr = torch.cat([_beam_noise(40, w, dev),
                      chip_smoke.beam_tie_llrs(24, w + 1, dev)])
@@ -785,14 +787,22 @@ def test_weak_kernels_raise_without_library_on_card(dev, monkeypatch,
 
 
 def test_weak_kernels_do_not_spill_on_card(dev):
-    """wspr_beam at widths 512 and 1024 and rs_ee keep every value in
-    registers; the width-1024 block's shared memory fits the card's 227
-    KB."""
-    for w in (512, 1024):
-        attrs = weak_kernels.kernel_attrs(dev, w)
-        assert attrs["wspr_beam"]["local_bytes"] == 0, (w, attrs)
-        assert attrs["rs_ee"]["local_bytes"] == 0, attrs
-    assert 160_000 < weak_kernels.beam_smem_bytes(1024) <= 232_448
+    """wspr_beam in every plan of every width and rs_ee keep every value
+    in registers; with the back-pointers gone from shared memory a block
+    holds the survivors, the tails by rank and the sort's exchange
+    buffers, 72 W + 648 bytes (74,376 at W = 1024), so an SM holds three
+    width-1024 blocks and at least five width-512 ones in the plan of a
+    launch that fills the card."""
+    for w, plans in weak_kernels.BEAM_PLANS.items():
+        for keys in plans:
+            attrs = weak_kernels.kernel_attrs(dev, w, keys)
+            assert attrs["wspr_beam"]["local_bytes"] == 0, (w, keys, attrs)
+            assert attrs["rs_ee"]["local_bytes"] == 0, attrs
+            smem = weak_kernels.beam_smem_bytes(w, keys)
+            assert smem <= 72 * w + 648, (w, keys, smem)
+    assert weak_kernels.beam_smem_bytes(1024, 4) == 74_376
+    assert weak_kernels.beam_blocks_per_sm(dev, 1024, 4) >= 3
+    assert weak_kernels.beam_blocks_per_sm(dev, 512, 4) >= 5
 
 
 def test_decoders_launch_the_weak_kernels_on_card(dev):

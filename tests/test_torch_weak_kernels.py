@@ -90,18 +90,86 @@ def _desc_key(m: np.ndarray) -> np.ndarray:
     return np.where(np.isnan(m), np.uint32(0), ~asc).astype(np.uint64)
 
 
-def _beam_model(llr: np.ndarray, w: int) -> tuple[np.ndarray, np.ndarray]:
-    """The wspr_beam kernel's algorithm over the candidates at once:
-    (bits [N, 50] int8, the best raw metric [N] float32)."""
+def _key_metric(key: np.ndarray) -> np.ndarray:
+    """weak.cu's key_metric: the metric of a top key (desc_key inverted,
+    -0.0 from its flag, NaN as 0x7fffffff)."""
+    asc = ~(key >> np.uint64(32)).astype(np.uint32)
+    u = np.where(asc & 0x80000000, asc & 0x7FFFFFFF, ~asc).astype(np.uint32)
+    u = np.where(key & np.uint64(1 << 11), np.uint32(0x80000000), u)
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _lift_first(rlow: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """weak.cu's first_rank: the ranks whose tail is below v, by binary
+    lifting over the W sorted tails (rows of rlow; v is one of them)."""
+    w = rlow.shape[-1]
+    c = np.zeros(v.shape, np.int64)
+    b = w // 2
+    while b:
+        c += np.where(np.take_along_axis(rlow, c + b - 1, -1) < v, b, 0)
+        b //= 2
+    return c
+
+
+def _lift_last(rlow: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """weak.cu's last_rank: the last rank whose tail is at most v."""
+    w = rlow.shape[-1]
+    e = np.zeros(v.shape, np.int64)
+    b = w // 2
+    while b:
+        e += np.where(np.take_along_axis(rlow, e + b, -1) <= v, b, 0)
+        b //= 2
+    return e
+
+
+def _children_positions(low30: np.ndarray, keys: int
+                        ) -> tuple[np.ndarray, ...]:
+    """The kernel's tail order of one step: the W survivors' sorted tail
+    keys (low 30 bits << 32 | slot << 1), and by rank r the slot, the first
+    and last rank of r's group of equal low 30 bits (the group bounds of
+    the thread's first and last rank by lifting, the rest from its
+    neighbours in the thread, ``keys`` // 2 ranks a thread) and the
+    positions of r's bit-0 and bit-1 children in the stable order of the
+    2W tails: r + r0 and r + e + 1."""
+    w = low30.shape[-1]
+    kt = max(1, keys // 2)
+    slot = np.arange(w, dtype=np.uint64)
+    tk = np.sort((low30.astype(np.uint64) << np.uint64(32))
+                 | (slot << np.uint64(1)), axis=-1)
+    v = (tk >> np.uint64(32)).astype(np.int64)
+    s = ((tk >> np.uint64(1)) & np.uint64(0x3FF)).astype(np.int64)
+    r = np.arange(w)
+    lead = r % kt == 0
+    trail = r % kt == kt - 1
+    r0 = np.where(lead, _lift_first(v, v), r)
+    e = np.where(trail, _lift_last(v, v), r)
+    for q in range(1, kt):          # forward within the thread
+        same = (r % kt == q) & (v == np.roll(v, 1, -1))
+        r0 = np.where(same, np.roll(r0, 1, -1), r0)
+    for q in range(kt - 2, -1, -1):  # backward within the thread
+        same = (r % kt == q) & (v == np.roll(v, -1, -1))
+        e = np.where(same, np.roll(e, -1, -1), e)
+    return v, s, r0, e, r + r0, r + e + 1
+
+
+def _beam_model(llr: np.ndarray, w: int, keys: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The wspr_beam kernel's algorithm over the candidates at once, at
+    ``keys`` top keys a thread: (bits [N, 50] int8, the best raw metric
+    [N] float32).  A step: the W survivors sorted by (low 30 bits, slot);
+    each rank's children at r + r0 and r + e + 1 of the 2W tail order;
+    the merge against the rank neighbours in the group; the 2W keys
+    (desc_key << 32 | position << 16 | -0.0 << 11 | bit << 10 | slot)
+    sorted, the first W the survivors (a key is unique, so any sort gives
+    the network's order); each survivor's path register (its message bits,
+    the live flag in bit 63) taken from its parent."""
     n = llr.shape[0]
-    log_w = w.bit_length() - 1
     st = np.zeros((n, w), np.uint32)
     met = np.full((n, w), DEAD, np.float32)
     met[:, 0] = 0.0
-    live = np.zeros((n, w), bool)
-    live[:, 0] = True
-    bp = np.zeros((81, n, w), np.uint16)
-    ent = np.arange(2 * w, dtype=np.uint64)
+    path = np.zeros((n, w), np.uint64)
+    live_bit = np.uint64(1 << 63)
+    path[:, 0] = live_bit
 
     def branch(s, l0, l1):
         c1 = np.where(_parity(s & np.uint32(wspr.POLY1)), -1, 1)
@@ -109,55 +177,62 @@ def _beam_model(llr: np.ndarray, w: int) -> tuple[np.ndarray, np.ndarray]:
         return (c1.astype(np.float32) * l0 + c2.astype(np.float32) * l1) \
             * np.float32(0.5)
 
+    def take(a, i):
+        return np.take_along_axis(a, i, axis=1)
+
     for step in range(81):
         l0, l1 = llr[:, step, 0:1], llr[:, step, 1:2]
-        s0 = st << np.uint32(1)
-        s1 = s0 | np.uint32(1)
-        m0 = met + branch(s0, l0, l1)
-        m1 = met + branch(s1, l0, l1)
+        v, s, r0, e, p0, p1 = _children_positions(st & 0x3FFFFFFF, keys)
+        st31 = take(st, s) & np.uint32(0x7FFFFFFF)
+        s0 = st31 << np.uint32(1)
+        lv = (take(path, s) & live_bit) != 0
+        m = take(met, s)
+        m0 = m + branch(s0, l0, l1)
+        m1 = m + branch(s0 | np.uint32(1), l0, l1)
         if step >= wspr.N_MSG_BITS:
             m1 = m1 - np.float32(1e9)
-        am = np.concatenate([np.where(live, m0, DEAD),
-                             np.where(live, m1, DEAD)], axis=1)
-        tails = np.concatenate([s0, s1], axis=1).astype(np.uint64) \
-            & np.uint64(0x7FFFFFFF)
-        key = np.sort((tails << np.uint64(11)) | ent, axis=1)
-        tail_s, e_s = key >> np.uint64(11), key & np.uint64(0x7FF)
-        m_s = np.take_along_axis(am, e_s.astype(np.int64), axis=1)
-        same = tail_s[:, :-1] == tail_s[:, 1:]
-        drop = np.zeros_like(same, shape=m_s.shape)
-        drop[:, :-1] |= same & (m_s[:, :-1] < m_s[:, 1:])
-        drop[:, 1:] |= same & (m_s[:, 1:] <= m_s[:, :-1])
-        mm = np.where(drop, DEAD, m_s)
-        key2 = np.sort((_desc_key(mm) << np.uint64(22))
-                       | (ent << np.uint64(11)) | e_s, axis=1)[:, :w]
-        p = ((key2 >> np.uint64(11)) & np.uint64(0x7FF)).astype(np.int64)
-        e = (key2 & np.uint64(0x7FF)).astype(np.int64)
-        parent, bit = e & (w - 1), e >> log_w
-        met = np.take_along_axis(mm, p, axis=1)
-        st = (np.take_along_axis(st, parent, axis=1) << np.uint32(1)) \
-            | bit.astype(np.uint32)
-        live = np.take_along_axis(live, parent, axis=1)
-        bp[step] = parent | (bit << 15)
+        c = [np.where(lv, m0, DEAD), np.where(lv, m1, DEAD)]
+        r = np.arange(w)
+        has_next, has_prev = r < e, r > r0
+        top = []
+        for b, (cb, p) in enumerate(zip(c, (p0, p1))):
+            nxt = take(cb, np.minimum(r + 1, w - 1)[None].repeat(n, 0))
+            prv = take(cb, np.maximum(r - 1, 0)[None].repeat(n, 0))
+            drop = (has_next & (cb < nxt)) | (has_prev & (cb <= prv))
+            nb = np.where(drop, DEAD, cb)
+            negz = (nb.view(np.uint32) == 0x80000000).astype(np.uint64)
+            top.append((_desc_key(nb) << np.uint64(32))
+                       | (p.astype(np.uint64) << np.uint64(16))
+                       | (negz << np.uint64(11))
+                       | np.uint64(b << 10) | s.astype(np.uint64))
+        key = np.sort(np.concatenate(top, axis=1), axis=1)[:, :w]
+        parent = (key & np.uint64(0x3FF)).astype(np.int64)
+        bit = ((key >> np.uint64(10)) & np.uint64(1)).astype(np.uint32)
+        met = _key_metric(key)
+        st = (take(st, parent) << np.uint32(1)) | bit
+        pp = take(path, parent)
+        if step < wspr.N_MSG_BITS:
+            pp = (pp & live_bit) | ((pp & ~live_bit) << np.uint64(1)) \
+                | bit.astype(np.uint64)
+        path = pp
     bits = np.zeros((n, wspr.N_MSG_BITS), np.int8)
     best = np.zeros(n, np.float32)
-    for c in range(n):
-        nan = np.flatnonzero(np.isnan(met[c]))
-        idx = int(nan[0]) if nan.size else int(np.argmax(met[c]))
-        best[c] = met[c, idx]
-        for step in range(80, -1, -1):
-            v = int(bp[step, c, idx])
-            if step < wspr.N_MSG_BITS:
-                bits[c, step] = v >> 15
-            idx = v & 0x7FFF
+    for c_ in range(n):
+        nan = np.flatnonzero(np.isnan(met[c_]))
+        idx = int(nan[0]) if nan.size else int(np.argmax(met[c_]))
+        best[c_] = met[c_, idx]
+        for step in range(wspr.N_MSG_BITS):
+            bits[c_, step] = int(path[c_, idx]) >> (49 - step) & 1
     return bits, best
 
 
 @pytest.mark.parametrize("w", [32, 256])
 def test_beam_kernel_model_matches_plain(w):
-    """The kernel's composite keys, merge and backtrack give the plain
-    version's bits and metric bit for bit: on ties, on noisy LLRs and on a
-    candidate with NaN LLRs (its metric NaN as the plain version's)."""
+    """The kernel's steps (the W-key tail sort and the interleave, the
+    merge against the rank neighbours, the top W of the 2W keys, the path
+    registers) give the plain version's bits and metric bit for bit, at
+    every plan of the width: on ties, on noisy LLRs and on a candidate
+    with NaN LLRs (its metric NaN as the plain version's)."""
     rng = np.random.default_rng(w + 1)
     noisy = rng.standard_normal((3, 81, 2)).astype(np.float32) * 2
     nan = rng.standard_normal((1, 81, 2)).astype(np.float32)
@@ -165,59 +240,139 @@ def test_beam_kernel_model_matches_plain(w):
     llr = np.concatenate([_tie_llrs(w), noisy, nan])
     cfg = wspr.WSPRConfig(beam_width=w)
     bp, mp = wspr._beam_decode_plain(cfg, torch.from_numpy(llr))
-    bits, best = _beam_model(llr, w)
     norm = torch.from_numpy(llr).abs().sum(dim=(1, 2)) + 1e-30
-    got = (torch.from_numpy(best) / (0.5 * norm)).numpy()
-    np.testing.assert_array_equal(bits, bp.numpy())
-    np.testing.assert_array_equal(got.view(np.uint32)[:-1],
-                                  mp.numpy().view(np.uint32)[:-1])
-    assert np.isnan(got[-1]) and np.isnan(mp.numpy()[-1])
+    for keys in _weak_kernels.BEAM_PLANS[w]:
+        bits, best = _beam_model(llr, w, keys)
+        got = (torch.from_numpy(best) / (0.5 * norm)).numpy()
+        np.testing.assert_array_equal(bits, bp.numpy())
+        np.testing.assert_array_equal(got.view(np.uint32)[:-1],
+                                      mp.numpy().view(np.uint32)[:-1])
+        assert np.isnan(got[-1]) and np.isnan(mp.numpy()[-1])
 
 
-def _bitonic_model(keys: np.ndarray) -> tuple[np.ndarray, list]:
-    """weak.cu's bitonic_sort on keys [E] with E / 2 threads: the sorted
-    keys and, per stage, (stride, accessed index pairs a thread, whether
-    the barrier after it is a warp's)."""
-    e = keys.size
-    key = keys.copy()
-    t = np.arange(e // 2)
-    stages = []
-    k = 2
-    while k <= e:
-        j = k >> 1
-        while j > 0:
-            i = 2 * t - (t & (j - 1))
-            a, b = key[i], key[i + j]
-            up = (i & k) == 0
-            swap = (a > b) == up
-            key[i[swap]], key[i[swap] + j] = b[swap], a[swap]
-            nxt = j >> 1 if j > 1 else k
-            warp = j <= 32 and nxt <= 32 and not (k == e and j == 1)
-            stages.append((j, np.stack([i, i + j], 1), warp))
-            j >>= 1
-        k <<= 1
-    return key, stages
+@pytest.mark.parametrize("keys", [2, 4, 8, 16])
+def test_interleave_gives_the_stable_tail_order(keys):
+    """A survivor of rank r in the sort of the W survivors by (low 30
+    bits, slot), in a group of m equal low 30 bits from rank r0 to e, has
+    its bit-0 child at r + r0 and its bit-1 child at r + e + 1 of the
+    stable order of the 2W children's 31-bit tails, for groups of 1 to 4
+    (and the one group of all W of the first step), whatever ranks a
+    thread holds; the metric survives its top key bit for bit (-0.0, the
+    infinities and the extremes), NaN as NaN."""
+    rng = np.random.default_rng(keys)
+    w = 64
+    for trial in range(40):
+        if trial == 0:
+            low = np.zeros(w, np.uint32)
+        else:
+            sizes = []
+            while sum(sizes) < w:
+                sizes.append(int(rng.integers(1, 5)))
+            sizes[-1] -= sum(sizes) - w
+            vals = rng.choice(2 ** 30, len(sizes), replace=False)
+            low = rng.permutation(np.repeat(vals, sizes)).astype(np.uint32)
+        hi = rng.integers(0, 4, w).astype(np.uint32) << np.uint32(30)
+        st = low | hi
+        _, s, r0, e, p0, p1 = _children_positions(low[None], keys)
+        m = e - r0 + 1
+        assert m.max() <= (w if trial == 0 else 4)
+        tails = np.concatenate([(st << np.uint32(1)),
+                                (st << np.uint32(1)) | np.uint32(1)]
+                               ).astype(np.int64) & 0x7FFFFFFF
+        order = np.argsort(tails, kind="stable")
+        pos = np.empty(2 * w, np.int64)
+        pos[order] = np.arange(2 * w)
+        np.testing.assert_array_equal(p0[0], pos[s[0]])
+        np.testing.assert_array_equal(p1[0], pos[w + s[0]])
+    m = np.array([0.0, -0.0, 1.5, -1.5, np.inf, -np.inf, 3.4e38, -1e9,
+                  1e-45, -1e-45, np.nan], np.float32)
+    negz = (m.view(np.uint32) == 0x80000000).astype(np.uint64)
+    back = _key_metric((_desc_key(m) << np.uint64(32))
+                       | (negz << np.uint64(11)))
+    np.testing.assert_array_equal(back[:-1].view(np.uint32),
+                                  m[:-1].view(np.uint32))
+    assert np.isnan(back[-1])
+
+
+def _network_model(keys: np.ndarray, kk: int, topn: int
+                   ) -> tuple[np.ndarray, list]:
+    """weak.cu's block_sort of the keys [NK] held kk a thread (thread t
+    positions t kk .. t kk + kk - 1): every stage keeps the smaller key at
+    the lower position, a phase's first stage pairing i with its mirror i ^
+    (k - 1), the others i with i ^ j; the positions from topn on are left
+    in the last phase.  Returns (the keys as held [NK], each stage's (k, j,
+    kind, shared buffer or None)).  Asserts, stage by stage, what each
+    kind's barrier covers: a register stage pairs two keys of one thread,
+    a shuffle stage two lanes of one warp with every lane of the warp
+    taking part, a shared stage two warps that both take part; the shared
+    stages alternate their buffer."""
+    nk = keys.size
+    tt = nk // kk
+    v = keys.reshape(tt, kk).copy()
+    t = np.arange(tt)
+    q = np.arange(kk)
+    stages, buf, k = [], 0, 2
+    while k <= nk:
+        j = k // 2
+        while j:
+            mirror = j == k // 2
+            left = k == nk and j < topn < nk
+            on = (((t >> 5) << 5) * kk < topn) | (not left)
+            pos = t[:, None] * kk + q[None, :]
+            part = pos ^ (k - 1) if mirror else pos ^ j
+            pt, pq = part // kk, part % kk
+            if j < kk:
+                kind, used = "register", None
+                assert np.all(pt == t[:, None])
+            elif j < 32 * kk:
+                kind, used = "shuffle", None
+                assert np.all(pt >> 5 == (t >> 5)[:, None])
+                warp_on = on.reshape(-1, min(32, tt))
+                assert np.all(warp_on.all(1) | ~warp_on.any(1))
+            else:
+                kind, used = "shared", buf
+                buf ^= 1
+                assert np.all(pt >> 5 != (t >> 5)[:, None])
+            assert np.all(on[pt] == on[:, None])
+            o = v[pt, pq]
+            new = np.where(pos < part, np.minimum(v, o), np.maximum(v, o))
+            v = np.where(on[:, None], new, v)
+            stages.append((k, j, kind, used))
+            j //= 2
+        k *= 2
+    shared = [s[3] for s in stages if s[2] == "shared"]
+    assert all(a != b for a, b in zip(shared, shared[1:]))
+    return v.reshape(-1), stages
 
 
 @pytest.mark.parametrize("w", [32, 64, 256, 1024])
 def test_bitonic_network_sorts_and_warp_barriers_hold(w):
-    """The kernel's network sorts 2W unique keys ascending, and every
-    stage boundary it crosses on a warp barrier has each warp touch only
-    its own 64 keys on both sides."""
+    """At every plan of the width, the kernel's tail sort (W keys, K/2 a
+    thread) sorts ascending and its top sort (2W keys, K a thread) puts
+    the W least in order in front; register stages stay in a thread,
+    shuffle stages in a warp, the rest cross shared memory behind a
+    barrier (``_network_model``'s checks); the stage counts are
+    ``_weak_kernels.beam_chain``'s."""
     rng = np.random.default_rng(w)
-    keys = rng.permutation(np.arange(2 * w, dtype=np.uint64) * 7919 + 3)
-    got, stages = _bitonic_model(keys)
-    np.testing.assert_array_equal(got, np.sort(keys))
-    warp_of = np.arange(w) // 32
-    for (j, idx, warp), (j2, idx2, _) in zip(stages, stages[1:]):
-        if warp:
-            for ix in (idx, idx2):
-                assert np.all(ix // 64 == warp_of[:, None]), (j, j2)
-    assert not stages[-1][2]
-    n_block = sum(not s[2] for s in stages)
-    lg = (2 * w).bit_length() - 1
-    assert len(stages) == lg * (lg + 1) // 2
-    assert n_block == max(1, sum(max(0, q - 5) for q in range(1, lg + 1)))
+    for keys in _weak_kernels.BEAM_PLANS[w]:
+        chain = _weak_kernels.beam_chain(w, keys)
+        got = {}
+        for name, nk, kk, topn in (("tail", w, max(1, keys // 2), w),
+                                   ("top", 2 * w, keys, w)):
+            vals = rng.permutation(np.arange(nk, dtype=np.uint64) * 7919
+                                   + 3)
+            out, stages = _network_model(vals, kk, topn)
+            np.testing.assert_array_equal(out[:topn], np.sort(vals)[:topn])
+            lg = nk.bit_length() - 1
+            assert len(stages) == lg * (lg + 1) // 2
+            got[name] = {kind: sum(s[2] == kind for s in stages)
+                         for kind in ("register", "shuffle", "shared")}
+        assert got == {name: chain[name] for name in ("tail", "top")}
+        # a step ends on the exchange buffer it began with, which lets the
+        # kernel choose each stage's buffer when it is compiled
+        assert got["tail"]["shared"] == got["top"]["shared"]
+        assert chain["block_barriers"] == (got["tail"]["shared"]
+                                           + got["top"]["shared"] + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +685,9 @@ def test_weak_wrapper_refusals(no_build):
     for w in (16, 384, 2048):
         with pytest.raises(ValueError, match="power of two"):
             beam(llr, w)
+    for w, keys in ((512, 8), (512, 16), (32, 4), (1024, 3)):
+        with pytest.raises(ValueError, match="is built for"):
+            beam(llr, w, keys=keys)
     with pytest.raises(ValueError, match="CUDA"):
         beam(llr, 512)
     tab = torch.from_numpy(rs_device.kernel_tables(63, 51, 3))
