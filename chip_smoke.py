@@ -115,12 +115,18 @@
    (every flag identical, confidence within 1e-4), every median the
    decoders take
    (JT65's and Q65's sync maps at their device batches, Q65's priors,
-   WSPR's map, FT8's strided view) and rows of its edges (ties, signed
-   zeros, NaN, infinities, odd and even counts, middle values that split
-   at each radix pass) bit for bit, and the selection on every recorded
+   WSPR's map, FT8's rows, also as the strided view the decoder passes)
+   and rows of its edges (ties, signed zeros, NaN, infinities, odd and
+   even counts, middle values that split at each radix pass, noise one
+   key either side of each plan's limits, the large plan's ties at its
+   sample's keys, sample miss and candidate overflow) bit for bit, with a
+   ``median_design`` line for each plan the recorded medians run in
+   (threads, shared memory, cluster, registers, spills, blocks an SM),
+   and the selection on every recorded
    JT65 and Q65 map and on three planted windows of each (a tie in two
    strips, NaN scores under a finite base, every score NaN) bit for bit.
-   Then each kernel's device time at the decoders' shapes beside the
+   Then each kernel's device time at the decoders' shapes (the median
+   with the plan it ran in) beside the
    plain version's, the bound and the library call (``torch.median``
    where a row's count is odd, ``torch.quantile`` where it is even and
    takes the input, ``torch.topk`` of the score map), and each
@@ -2034,11 +2040,12 @@ def record_qary_inputs(dev) -> dict:
     JT65's sync maps of a 64-window decode (15-window batches), WSPR's
     map of 24 windows, and the FT8 decode's strided SNR view of 24 busy
     windows.  {"mp": [(decoder, probs)], "median": [(name, rows [R,
-    N])], "sync": [(name, spec, power_sync, base)]}."""
+    N])], "median_view": [(name, the strided view [R, A, B] as the decoder
+    passed it)], "sync": [(name, spec, power_sync, base)]}."""
     from cwsl_digi_tpu_torch.modes import (ft8, gfsk_engine, jt65, q65,
                                            qary_engine, qra, wspr)
 
-    rec = {"mp": [], "median": [], "sync": []}
+    rec = {"mp": [], "median": [], "median_view": [], "sync": []}
     label = {"mode": ""}
     mp_decode = qra.QaryMPDecoder.decode
     sync = qary_engine._qary_sync
@@ -2059,6 +2066,9 @@ def record_qary_inputs(dev) -> dict:
             what = "priors" if x.dim() == 2 else "map"
             rec["median"].append((f"{label['mode']} {what}", x.reshape(
                 x.shape[0], -1).contiguous().clone()))
+            if not x.is_contiguous():
+                # the view itself (it keeps its power map alive)
+                rec["median_view"].append((f"{label['mode']} view", x))
             return fn(x)
         return inner
 
@@ -2298,7 +2308,9 @@ def planted_sync(spec, power_sync: torch.Tensor, base: torch.Tensor
 def median_edge_rows(dev) -> torch.Tensor:
     """One-row maps [1, N] that test the median's edges, odd and even N:
     ties, signed zeros, a NaN, infinities, two middle values apart at the
-    first pass and one ulp apart, noise."""
+    first pass and one ulp apart, noise; noise one key either side of each
+    plan's limits; and the large plan's ties at its sample's keys, sample
+    miss and candidate overflow."""
     rng = np.random.default_rng(SEED + 65)
     one = np.nextafter(np.float32(1.0), np.float32(2.0))
     rows = [rng.integers(-3, 4, 999), rng.integers(0, 3, 1000),
@@ -2308,8 +2320,31 @@ def median_edge_rows(dev) -> torch.Tensor:
             np.r_[np.full(5, np.inf), np.full(4, -np.inf)],
             np.repeat([1.0, 1000.0], 300), np.repeat([1.0, one], 300),
             rng.exponential(size=4001)]
+    rows += [rng.exponential(size=n) for n in median_limit_lengths()]
+    # the large plan: ties at its sample's keys, a sample that misses the
+    # middle, candidates past their buffer (both then the whole row again)
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+
+    n = mk.ONCHIP_MAX + 1
+    pos = mk.sample_positions(n)
+    miss = rng.exponential(size=n) + 10.0
+    miss[pos] = -1.0
+    over = np.full(n, 0.5)
+    over[pos] = rng.permutation(mk.SAMPLE) - 8000.0
+    rows += [rng.integers(0, 5, n), miss, over]
     return [torch.from_numpy(np.asarray(r, np.float32)[None]).to(dev)
             for r in rows]
+
+
+def median_limit_lengths() -> list[int]:
+    """Row lengths one key either side of each ``median_rows`` plan's
+    limits: one block (KEYS_BLOCK), a cluster's growth (2 and 16
+    KEYS_BLOCK), the on-chip plans' end (ONCHIP_MAX)."""
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+
+    kb, mx = mk.KEYS_BLOCK, mk.ONCHIP_MAX
+    return [kb, kb + 1, 2 * kb, 2 * kb + 1, 16 * kb, 16 * kb + 1, mx,
+            mx + 1]
 
 
 def mp_bound_ms(dec, b: int) -> tuple[float, float, dict]:
@@ -2351,6 +2386,45 @@ def median_bound_ms(x: torch.Tensor) -> tuple[float, float, dict]:
     n_bytes = r * n * 4 + r * 4
     return (n_bytes / HBM_BYTES_S * 1e3, r * n / INT32_OPS * 1e3,
             {"bytes": n_bytes, "ops_ms_fma_rate": r * n / FP32_FLOPS * 1e3})
+
+
+def median_plan_of(dev, x: torch.Tensor) -> dict:
+    """The ``median_rows`` plan the wrapper picks for rows x [R, ...]."""
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+
+    return mk.median_plan(x[0].numel(), mk.fits16(dev), rows=x.shape[0])
+
+
+def median_design(dev, rec: dict) -> list[dict]:
+    """Each ``median_rows`` plan the recorded medians run in, at the first
+    shape that runs it: threads, dynamic shared memory and blocks a
+    cluster (or the large plan's sample, candidate buffer and stream
+    blocks), each kernel's registers, spills and static shared memory,
+    blocks an SM and clusters the card holds at once."""
+    from cwsl_digi_tpu_torch.modes import _median_kernels as mk
+
+    attrs = mk.instance_attrs(dev)
+    rows, seen = [], set()
+    for name, x in rec["median"]:
+        p = median_plan_of(dev, x)
+        if p["plan"] in seen:
+            continue
+        seen.add(p["plan"])
+        if p["plan"] == "large":
+            kernels = {
+                "large_sample": (mk.SAMPLE_THREADS, mk.SAMPLE_SMEM_BYTES,
+                                 mk.SAMPLE_CLUSTER),
+                "large_stream": (mk.STREAM_THREADS, 0, 1),
+                "large_finish": (mk.FINISH_THREADS, mk.FINISH_SMEM_BYTES,
+                                 mk.FINISH_CLUSTER)}
+        else:
+            kernels = {f"onchip_{p['plan']}": (p["threads"], p["smem_bytes"],
+                                               p["cluster"])}
+        rows.append({"plan": p, "shape": list(x.shape), "kernels": {
+            k: {**attrs[k], "threads": t, "dynamic_smem_bytes": sm,
+                "cluster": c, **mk.occupancy(dev, k, t, sm, c)}
+            for k, (t, sm, c) in kernels.items()}})
+    return rows
 
 
 def qsync_bound_ms(spec, power_sync: torch.Tensor
@@ -2417,6 +2491,8 @@ def qary_kernels_phase(dev) -> dict:
     del benign
     for i, (name, x) in enumerate(rec["median"]):
         checks[f"median {name} {i}"] = median_vs_plain(x)
+    for i, (name, x) in enumerate(rec["median_view"]):
+        checks[f"median {name} {i}"] = median_vs_plain(x)
     for i, x in enumerate(median_edge_rows(dev)):
         checks[f"median edge row {i}"] = median_vs_plain(x)
     for i, (name, spec, ps, base) in enumerate(rec["sync"]):
@@ -2432,6 +2508,8 @@ def qary_kernels_phase(dev) -> dict:
         raise AssertionError(f"q-ary kernels disagree with the plain "
                              f"versions: {bad}")
     attrs = {**qk.kernel_attrs(dev), **mk.kernel_attrs(dev)}
+    for row in median_design(dev, rec):
+        print(f"median_design {json.dumps(row)}")
     edges = int(dec._host_tables()["row_mask"].sum())
     smem = qk.mp_smem_bytes(dec.kernel_code[0], edges)
     blocks = qk.mp_blocks_per_sm(dev, dec.kernel_code, edges)
@@ -2489,12 +2567,26 @@ def qary_kernels_phase(dev) -> dict:
         else:
             lib_call, lib, agree = None, None, None
         shapes[key] = {"kernel": "median_rows",
+                       "plan": median_plan_of(dev, x),
                        "ms": cuda_ms(lambda: mk.median_rows(x), 5),
                        "plain_ms": eager_ms(
                            lambda: gfsk_engine._median_rows_plain(x), 2),
                        "bound_ms": max(median_bound_ms(x)[:2]),
                        "library": lib_call, "library_ms": lib,
                        "library_agrees": agree}
+    for name, x in rec["median_view"]:
+        key = f"{name} {list(x.shape)}"
+        if key in shapes:
+            continue
+        shapes[key] = {"kernel": "median_rows",
+                       "plan": median_plan_of(dev, x),
+                       "ms": cuda_ms(lambda: gfsk_engine._median_rows(x), 5),
+                       "plain_ms": eager_ms(
+                           lambda: gfsk_engine._median_rows_plain(x), 2),
+                       "bound_ms": max(median_bound_ms(
+                           x.reshape(x.shape[0], -1))[:2]),
+                       "library": None, "library_ms": None,
+                       "library_agrees": None}
     for name, spec, ps, base in rec["sync"]:
         key = f"{name} {list(ps.shape)}"
         if key in shapes:

@@ -342,11 +342,16 @@ def _shifted_sum(plane: torch.Tensor, cells, rows: int, cols: int,
 def _median_rows(x: torch.Tensor) -> torch.Tensor:
     """Median over all but the first axis, averaging the two middle values
     for an even count (``jnp.median``).  On a CUDA tensor one call of the
-    ``median_rows`` kernel (``_median_kernels``, on a contiguous copy of a
-    strided view; it raises where the kernel cannot run), on a CPU tensor
+    ``median_rows`` kernel (``_median_kernels``; it raises where the kernel
+    cannot run): a strided 3-D view (FT8's ``[:, ::4, ::4]``) as it lies
+    where its rows fit the on-chip plans, anything else as contiguous rows
+    (a copy where they are not).  On a CPU tensor
     :func:`_median_rows_plain`."""
     if x.device.type == "cpu":
         return _median_rows_plain(x)
+    if (x.dim() == 3 and not x.is_contiguous()
+            and x.shape[1] * x.shape[2] <= _median_kernels.ONCHIP_MAX):
+        return _median_kernels.median_rows(x)
     return _median_kernels.median_rows(
         x.reshape(x.shape[0], -1).contiguous())
 

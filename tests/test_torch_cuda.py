@@ -22,8 +22,9 @@ and ``rs_ee`` (through both entries, with more than 51 erasures and with
 more trials than the card's resident warps) against their plain versions (and no fallback;
 no spills; the WSPR and JT65 decoders launch them), the q-ary kernels
 ``qra_mp`` (Q65 priors with converging and noise words), ``median_rows``
-(every edge row, a JT65-sized map) and ``qary_sync`` (JT65 and Q65 maps
-with planted ties, NaN scores and a NaN base) against their plain versions
+(every edge row in every plan, FT8's strided view, a JT65-sized map) and
+``qary_sync`` (JT65 and Q65 maps with planted ties, NaN scores and a NaN
+base) against their plain versions
 and the NumPy models of ``tests/test_torch_qary_kernels.py`` (and no
 fallback; no spills; the JT65, Q65-30, WSPR and FT8 decoders launch
 them), and the parallel layer on a virtual mesh of the card against one
@@ -850,17 +851,66 @@ def test_qra_mp_matches_plain_on_card(dev):
     np.testing.assert_array_equal(conf.view(np.uint32), m_conf.view(np.uint32))
 
 
+def _median_plans(n: int) -> list[tuple[str | None, int]]:
+    """Each (plan, cluster) the kernel can run rows of n in: the wrapper's
+    own, one block where the row fits its shared memory, each cluster
+    size that fits, the large plan above its sample."""
+    mk = median_kernels
+    plans: list[tuple[str | None, int]] = [(None, 0)]
+    for c in (1, 2, 4, 8, 16):
+        try:
+            mk.median_plan(n, cluster=c)
+        except ValueError:
+            continue
+        plans.append(("small" if c == 1 else "mid", c))
+    if n > mk.SAMPLE:
+        plans.append(("large", 0))
+    return plans
+
+
 @pytest.mark.parametrize("name", list(qary_models.median_rows_cases()))
 def test_median_rows_matches_plain_on_card(dev, name):
     """median_rows bit for bit the plain median on the card and the NumPy
-    model of its radix selection, on each edge case."""
+    model of its selection, on each edge case, in the plan the wrapper
+    picks and in every other plan and cluster size that takes the row."""
     x = qary_models.median_rows_cases()[name]
-    got = chip_smoke.median_vs_plain(torch.from_numpy(x).to(dev))
+    xd = torch.from_numpy(x).to(dev)
+    got = chip_smoke.median_vs_plain(xd)
     assert got["ok"], got
-    kern = gfsk_engine._median_rows(torch.from_numpy(x).to(dev)).cpu()
+    kern = gfsk_engine._median_rows(xd).cpu()
     model = qary_models.median_model(x)
     assert ((kern.numpy().view(np.uint32) == model.view(np.uint32))
             | (np.isnan(model) & kern.isnan().numpy())).all()
+    want = gfsk_engine._median_rows_plain(xd)
+    for plan, cluster in _median_plans(x.shape[1]):
+        out = median_kernels.median_rows(xd, plan=plan, cluster=cluster)
+        assert chip_smoke._floats_differ(out, want) == 0, (plan, cluster)
+
+
+def test_median_rows_takes_the_strided_view_on_card(dev, monkeypatch):
+    """FT8's SNR median hands the kernel the ``[:, ::4, ::4]`` view of its
+    power map as it lies (no copy; the mid plan) and gets the plain
+    median's bits, at the decoder's row length and at a few windows."""
+    seen = []
+    launch = median_kernels.median_rows
+
+    def spy(x, *args, **kwargs):
+        seen.append((x.is_contiguous(), tuple(x.shape)))
+        return launch(x, *args, **kwargs)
+
+    monkeypatch.setattr(median_kernels, "median_rows", spy)
+    m = torch.from_numpy(qary_models.ft8_view_map()).to(dev)
+    for b in (1, 2):
+        view = m[:b, ::4, ::4]
+        got = chip_smoke.median_vs_plain(view)
+        assert got["ok"], got
+    assert seen == [(False, (1, 186, 457)), (False, (2, 186, 457))]
+    want = gfsk_engine._median_rows_plain(m[:, ::4, ::4].contiguous())
+    for cluster in (2, 4, 8, 16):
+        out = launch(m[:, ::4, ::4], plan="mid", cluster=cluster)
+        assert chip_smoke._floats_differ(out, want) == 0, cluster
+    got = chip_smoke.median_vs_plain(m.transpose(1, 2)[:, ::3, ::5])
+    assert got["ok"], got
 
 
 def test_median_rows_on_a_jt65_map_on_card(dev):
@@ -928,7 +978,8 @@ def test_qary_kernels_raise_without_library_on_card(dev, monkeypatch,
 
 
 def test_qary_kernels_do_not_spill_on_card(dev):
-    """qra_mp, median_rows and qary_sync keep every value in registers;
+    """qra_mp, median_rows (each plan's kernels) and qary_sync keep every
+    value in registers;
     Q65's code, whose 152 edges' messages and channel rows take 55,040 B
     of shared memory a word, holds the design's MP_BLOCKS_SM (4) qra_mp
     blocks of 8 warps an SM."""
@@ -937,6 +988,10 @@ def test_qary_kernels_do_not_spill_on_card(dev):
     assert sorted(attrs) == ["median_rows", "qary_sync", "qra_mp"]
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, attrs)
+    plans = median_kernels.instance_attrs(dev)
+    assert sorted(plans) == sorted(median_kernels.KERNELS)
+    for name, a in plans.items():
+        assert a["local_bytes"] == 0, (name, plans)
     dec = q65._mp(dev)
     edges = int(dec._host_tables()["row_mask"].sum())
     assert qary_kernels.mp_smem_bytes(63, edges) == 55_040

@@ -17,11 +17,16 @@ against the JAX package, and the wrappers' routing and refusals.
   transform's DC term against the sum, the check's message summing to 1,
   the permutations' inverses); the butterflies against ``x @ H`` within
   float32 rounding;
-- ``median_rows``: a model of the radix selection (order keys, 11, 11 and
-  10-bit digits, the two middle ranks' prefixes apart once they split)
-  bitwise against ``_median_rows_plain`` on rows with ties, zero pad
-  rows, NaN, +-0, infinities, odd and even counts and middle values that
-  split at each pass; ``_median_rows_plain`` against ``jnp.median``;
+- ``median_rows``: a model of its plans (the plan a row length gets;
+  the selection's order keys, 11-bit digits, max and min where the two
+  middle ranks part, sorted last keys; the large plan's stratified sample,
+  its keys lo and hi, the stream's counts and candidates and the finish's
+  places and fallback) bitwise against ``_median_rows_plain`` on rows
+  with ties, zero pad rows, NaN (first, last, in the median's bin), +-0,
+  infinities, 1 to 3 values, odd and even counts, middle values that
+  split at each pass, a first digit over half the row, each plan's
+  limits, the large plan's sample misses and candidate overflow, and
+  FT8's strided view; ``_median_rows_plain`` against ``jnp.median``;
 - ``qary_sync``: a model of the kernel (the sync rows summed in symbol
   order, the composite keys, each 32-bin strip's top-K, the merge) bitwise
   against ``_qary_sync_plain`` on JT65 and Q65 maps with planted equal
@@ -41,6 +46,7 @@ against them too (``tests/test_torch_cuda.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 from pathlib import Path
 
@@ -290,37 +296,152 @@ def key_values(k: np.ndarray) -> np.ndarray:
     return bits.astype(np.uint32).view(F32)
 
 
-def median_model(x: np.ndarray) -> np.ndarray:
-    """``median_rows``'s radix selection of each row of x [R, N]: a NaN
-    row's top digit bin ends it as NaN; else three passes (11, 11, 10
-    bits) find the two middle ranks' keys, each counting the entries that
-    match its own prefix."""
+def high_mask(low: int) -> int:
+    """The key bits above ``low`` (none at 32)."""
+    return 0 if low >= 32 else (0xFFFFFFFF << low) & 0xFFFFFFFF
+
+
+def select_model(keys: np.ndarray, prefix: int, low: int, r0: int,
+                 even: bool, trace: list | None = None) -> tuple[int, int]:
+    """``median.cu``'s ``select_loop``: the keys of ranks r0 (and r0 + 1
+    where ``even``) among the keys under ``prefix`` (its bits above
+    ``low``) by digits of 11 bits (fewer where fewer are left) from the
+    top.  Each pass counts the digits and takes the digit of each wanted
+    rank; two digits apart end it by the max under the lower one's prefix
+    and the min under the upper one's; a digit of at most FIN_CAP keys
+    ends it by sorting them; the last digit ends it.  (Where the mid plan
+    gathers a digit's keys into one block, the same passes run there.)
+    ``trace`` gets each pass's state."""
+    keys = np.asarray(keys, np.uint32)
+    while True:
+        bits = min(low, 11)
+        shift = low - bits
+        sel = keys[(keys & np.uint32(high_mask(low))) == np.uint32(prefix)]
+        hist = np.bincount((sel >> np.uint32(shift)) & np.uint32(
+            (1 << bits) - 1), minlength=1 << bits)
+        cum = np.cumsum(hist)
+        d0 = int(np.searchsorted(cum, r0, side="right"))
+        d1 = int(np.searchsorted(cum, r0 + 1, side="right")) if even else d0
+        below = int(cum[d0 - 1]) if d0 else 0
+        count = int(hist[d0])
+        p0, p1 = prefix | (d0 << shift), prefix | (d1 << shift)
+        hn = np.uint32(high_mask(shift))
+        if d1 != d0:
+            if trace is not None:
+                trace.append("split")
+            return (int(keys[(keys & hn) == p0].max()),
+                    int(keys[(keys & hn) == p1].min()))
+        prefix, low, r0 = p0, shift, r0 - below
+        if low == 0:
+            if trace is not None:
+                trace.append("done")
+            return prefix, prefix
+        if count <= _median_kernels.FIN_CAP:
+            if trace is not None:
+                trace.append("finish")
+            fin = np.sort(keys[(keys & hn) == prefix])
+            assert fin.size == count
+            return int(fin[r0]), int(fin[r0 + 1] if even else fin[r0])
+        if trace is not None:
+            trace.append("go")
+
+
+def cand_digit(lo: int, hi: int) -> tuple[int, int]:
+    """(prefix, low) of the candidates (lo < key < hi): the bits lo and hi
+    share, above ``low``."""
+    low = 0 if lo == hi else (lo ^ hi).bit_length()
+    return lo & high_mask(low), low
+
+
+def large_model(keys: np.ndarray, trace: list) -> tuple[int, int]:
+    """The large plan on one row's keys (no NaN): the sample's keys lo and
+    hi MARGIN ranks outside the middle ranks' places, the stream's counts
+    and candidates (lo < key < hi), and the finish: each middle rank on
+    lo, on hi or among the candidates (selected under lo's and hi's common
+    bits), else (or where the candidates overflow the buffer) the whole
+    row again."""
+    n = keys.size
+    s, margin = _median_kernels.SAMPLE, _median_kernels.MARGIN
+    samp = keys[_median_kernels.sample_positions(n)]
+    r0, r1 = (n - 1) // 2, n // 2
+    a = max(0, r0 * s // n - margin)
+    b = min(s - 1, r1 * s // n + margin)
+    lo = select_model(samp, 0, 32, a, False)[0]
+    hi = select_model(samp, 0, 32, b, False)[0]
+    below = int((keys < lo).sum())
+    eqlo = int((keys == lo).sum())
+    eqhi = int((keys == hi).sum()) if hi != lo else 0
+    inside = keys[(keys > lo) & (keys < hi)]
+    cap = -(-n // _median_kernels.LARGE_CAP_DIV)
+
+    def place(r):
+        t = r - below
+        if t < 0:
+            return 0, 0
+        if t < eqlo:
+            return 1, 0
+        t -= eqlo
+        if t < inside.size:
+            return 2, t
+        t -= inside.size
+        return (3, 0) if t < eqhi else (4, 0)
+
+    (p0, q0), (p1, q1) = place(r0), place(r1)
+    k = [lo if p0 == 1 else hi, lo if p1 == 1 else hi]
+    trace.append({"lo": lo, "hi": hi, "below": below, "eqlo": eqlo,
+                  "eqhi": eqhi, "inside": int(inside.size),
+                  "places": (p0, p1)})
+    if 0 in (p0, p1) or 4 in (p0, p1) or (
+            2 in (p0, p1) and inside.size > cap):
+        trace.append("fallback")
+        return select_model(keys, 0, 32, r0, n % 2 == 0, trace=trace)
+    if 2 in (p0, p1):
+        prefix, low = cand_digit(lo, hi)
+        both = p0 == 2 and p1 == 2
+        got = select_model(inside, prefix, low, q0 if p0 == 2 else q1,
+                           both and q1 != q0, trace=trace)
+        if both:
+            k = list(got)
+        elif p0 == 2:
+            k[0] = got[0]
+        else:
+            k[1] = got[0]
+    return k[0], k[1]
+
+
+def median_model(x: np.ndarray, plan: str | None = None,
+                 traces: list | None = None) -> np.ndarray:
+    """``median_rows`` on each row of x [R, N] (or [R, A, B]) in the plan
+    ``median_plan`` picks (or ``plan``): NaN for a row that holds a NaN;
+    else the on-chip plans' selection of the two middle keys over the row
+    (its blocks' slices change no count) or the large plan's; the value
+    of the lower middle key for an odd count, 0.5 * (a + b) in float32 for
+    an even one.  ``traces`` gets each row's (plan, states)."""
+    x = np.asarray(x, F32).reshape(len(x), -1)
+    n = x.shape[1]
+    p = _median_kernels.median_plan(n, plan=plan)["plan"]
     out = []
-    for row in np.asarray(x, F32):
-        n = row.size
+    for row in x:
         keys = order_keys(row)
-        if (keys >> 21 == 2047).any():
+        trace: list = [p]
+        if np.isnan(row).any():
+            trace.append("nan")
             out.append(F32(np.nan))
-            continue
-        prefix, rank = [0, 0], [(n - 1) // 2, n // 2]
-        for shift_lo, bits in ((21, 11), (10, 11), (0, 10)):
-            shift_hi = shift_lo + bits
-            for t in range(2):
-                sel = keys if shift_hi == 32 else keys[
-                    (keys >> shift_hi) == prefix[t]]
-                hist = np.bincount((sel >> shift_lo) & ((1 << bits) - 1),
-                                   minlength=1 << bits)
-                cum = np.cumsum(hist)
-                d = int(np.searchsorted(cum, rank[t], side="right"))
-                rank[t] -= int(cum[d - 1]) if d else 0
-                prefix[t] = (prefix[t] << bits) | d
-        a, b = key_values(np.array(prefix, np.uint32))
-        out.append(a if n % 2 else F32(0.5) * (a + b))
+        else:
+            if p == "large":
+                k0, k1 = large_model(keys, trace)
+            else:
+                k0, k1 = select_model(keys, 0, 32, (n - 1) // 2, n % 2 == 0,
+                                      trace=trace)
+            a, b = key_values(np.array([k0, k1], np.uint32))
+            out.append(a if n % 2 else F32(0.5) * (a + b))
+        if traces is not None:
+            traces.append(trace)
     return np.array(out, F32)
 
 
-def median_rows_cases(seed: int = 11) -> dict[str, np.ndarray]:
-    """Rows of each edge the median meets, by name (float32 [R, N])."""
+@functools.lru_cache(maxsize=1)
+def _median_cases(seed: int) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     one = np.nextafter(F32(1.0), F32(2.0))
     cases = {
@@ -337,11 +458,24 @@ def median_rows_cases(seed: int = 11) -> dict[str, np.ndarray]:
         "infinities": np.concatenate([np.full((2, 5), np.inf, F32),
                                       np.full((2, 4), -np.inf, F32)], 1),
         "one value": np.array([[-2.5], [0.0]], F32),
+        "two values": np.array([[3.0, -1.0], [-0.0, 0.0], [2.0, 2.0]], F32),
+        "three values": np.array([[3.0, -1.0, 7.5], [np.inf, 0.0, -0.0]],
+                                 F32),
+        "all equal": np.full((2, 5000), F32(0.75)),
+        "mostly signed zeros": np.where(
+            rng.random((2, 6001)) < 0.9,
+            np.where(rng.random((2, 6001)) < 0.5, F32(-0.0), F32(0.0)),
+            rng.standard_normal((2, 6001))).astype(F32),
     }
     nan = rng.standard_normal((3, 257)).astype(F32)
     nan[0, 100] = np.nan
     nan[1, :] = np.nan
     cases["NaN"] = nan
+    nan_at = rng.exponential(size=(3, 20001)).astype(F32)
+    nan_at[0, 0] = np.nan                         # first
+    nan_at[1, -1] = np.nan                        # last
+    nan_at[2, np.argsort(nan_at[2])[10000]] = np.nan   # the median's bin
+    cases["NaN first, last, in the median's bin"] = nan_at
     zeros = rng.exponential(size=(2, 40, 37)).astype(F32)
     zeros[:, :12] = 0.0            # a q-ary map's zero pad rows
     zeros[:, -12:] = 0.0
@@ -349,7 +483,46 @@ def median_rows_cases(seed: int = 11) -> dict[str, np.ndarray]:
     zeros_mid = np.zeros((2, 30, 20), F32)
     zeros_mid[:, 20:] = rng.exponential(size=(2, 10, 20))
     cases["zero pad majority"] = zeros_mid.reshape(2, -1)
+    # a first digit that holds more than half the row: values in [1, 1.19)
+    # share their top 11 bits
+    big_bin = (1.0 + 0.18 * rng.random((2, 30001))).astype(F32)
+    big_bin[:, :9000] = rng.exponential(size=(2, 9000)) * 100.0
+    cases["candidate bin over half the row"] = big_bin
+    # one key either side of each plan's limits: small / mid at
+    # KEYS_BLOCK, the cluster's growth, mid / large at ONCHIP_MAX
+    kb, mx = _median_kernels.KEYS_BLOCK, _median_kernels.ONCHIP_MAX
+    for n in (kb, kb + 1, 2 * kb, 2 * kb + 1, 16 * kb, 16 * kb + 1, mx,
+              mx + 1):
+        cases[f"limit {n}"] = rng.exponential(size=(1, n)).astype(F32)
+    # the large plan: ranks on lo and hi (a few values, many ties), a
+    # sample that stands for nothing (a bracket miss), candidates beyond
+    # the buffer
+    n = mx + 1
+    cases["large ties"] = rng.integers(0, 5, (1, n)).astype(F32)
+    miss = rng.exponential(size=(1, n)).astype(F32) + 10.0
+    miss[0, _median_kernels.sample_positions(n)] = -1.0
+    cases["large sample misses"] = miss
+    over = np.full((1, n), F32(0.5))
+    over[0, _median_kernels.sample_positions(n)] = rng.permutation(
+        _median_kernels.SAMPLE).astype(F32) - 8000.0
+    cases["large candidates overflow"] = over
     return cases
+
+
+def median_rows_cases(seed: int = 11) -> dict[str, np.ndarray]:
+    """Rows of each edge the median meets, by name (float32 [R, N]): ties,
+    signed zeros, NaN, infinities, 1 to 3 values, middle values apart at
+    each pass, a first digit over half the row, the rows either side of
+    each plan's limits, and the large plan's ties at its sample's keys,
+    sample miss and candidate overflow."""
+    return _median_cases(seed)
+
+
+def ft8_view_map(seed: int = 12) -> np.ndarray:
+    """An FT8-shaped power map [2, 743, 1825] whose ``[:, ::4, ::4]`` view
+    is the SNR median's [2, 186, 457] rows (85,002 values)."""
+    rng = np.random.default_rng(seed)
+    return rng.exponential(size=(2, 743, 1825)).astype(F32)
 
 
 @pytest.mark.parametrize("name", list(median_rows_cases()))
@@ -360,9 +533,118 @@ def test_median_model_matches_plain(name):
     same = (got.view(np.uint32) == want.view(np.uint32)) | (
         np.isnan(got) & np.isnan(want))
     assert same.all(), (name, got, want)
-    # through the dispatcher on the CPU, with a strided view
+    # through the dispatcher on the CPU
     np.testing.assert_array_equal(
         gfsk_engine._median_rows(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("plan", ["small", "mid", "large"])
+def test_median_model_in_each_plan(plan):
+    """Each plan's model bit for bit the plain median on rows it does not
+    pick by itself: even and odd noise with ties and signed zeros."""
+    rng = np.random.default_rng(21)
+    n = 20_000 if plan != "large" else 40_001
+    x = rng.exponential(size=(2, n)).astype(F32)
+    x[0, ::7] = 0.0
+    x[1, ::5] = -0.0
+    x[1, 1::5] = x[1, 2::5][: x[1, 1::5].size]
+    if plan == "large":
+        x = x[:, :-1] if n % 2 else x
+    want = gfsk_engine._median_rows_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(
+        median_model(x, plan=plan).view(np.uint32), want.view(np.uint32))
+
+
+def test_median_plans_by_row_length():
+    """The plan for each length and row count the decoders hand the
+    kernel, and at the plans' limits: one block of 256 threads up to
+    KEYS_BLOCK keys; above, a cluster of 512-thread blocks, 16 (8 where
+    the card holds no 16) halved while the rows take more than
+    MID_WAVE_BLOCKS blocks, at least as many as leave a block
+    KEYS_BLOCK_MID_MAX keys; above ONCHIP_MAX the large plan, whose
+    candidate buffer is an eighth of a row."""
+    plan = _median_kernels.median_plan
+    kb, mx = _median_kernels.KEYS_BLOCK, _median_kernels.ONCHIP_MAX
+    cases = {(1, 4032): ("small", 1, 4032), (1536, 4032): ("small", 1, 4032),
+             (1, kb): ("small", 1, kb), (1, kb + 1): ("mid", 16, 513),
+             (1, 21_297): ("mid", 16, 1332), (26, 43_229): ("mid", 4, 10_808),
+             (1, 85_002): ("mid", 16, 5313), (8, 85_002): ("mid", 16, 5313),
+             (16, 85_002): ("mid", 8, 10_626),
+             (24, 85_002): ("mid", 4, 21_251),
+             (64, 85_002): ("mid", 4, 21_251),
+             (24, 214_684): ("mid", 8, 26_836),
+             (64, 214_684): ("mid", 8, 26_836), (1, mx): ("mid", 16, 32_768)}
+    for (rows, n), (name, c, kpb) in cases.items():
+        p = plan(n, rows=rows)
+        assert (p["plan"], p["cluster"], p["keys_a_block"]) == (name, c,
+                                                                 kpb), n
+        assert p["threads"] == (256 if c == 1 else 512)
+        cand = 0 if c == 1 else min(16_384, max(2048, -(-n // 10)))
+        assert (p["cand"], p["smem_bytes"]) == (cand, 4 * (kpb + cand))
+    assert plan(85_002, fits16=False)["cluster"] == 8
+    assert plan(mx, fits16=False)["plan"] == "large"
+    assert plan(mx // 2, fits16=False)["keys_a_block"] == 32_768
+    for n in (mx + 1, 2_228_820, 3_732_095):
+        p = plan(n)
+        assert p == {"plan": "large", "sample": 16_384, "cap": -(-n // 8),
+                     "chunks": -(-n // 16_384)}
+    assert plan(85_002, cluster=4)["keys_a_block"] == 21_251
+    assert plan(4032, plan="mid")["cluster"] == 16
+    assert plan(50_000, plan="small")["cluster"] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(100_000, plan="small")
+    with pytest.raises(ValueError, match="more than"):
+        plan(16_384, plan="large")
+    with pytest.raises(ValueError, match="cluster"):
+        plan(4032, plan="small", cluster=2)
+
+
+def test_median_model_takes_each_path():
+    """The cases reach every end of the selection: a digit of at most
+    FIN_CAP keys ranked directly, two middle keys apart (max and min), the
+    last digit, several passes (a first digit over half the row), NaN; in
+    the large plan ranks on lo and on hi, among the candidates, a sample
+    miss and a candidate overflow (each then the whole row again)."""
+    cases = median_rows_cases()
+    ends = {}
+    for name in cases:
+        traces: list = []
+        median_model(cases[name], traces=traces)
+        ends[name] = traces
+    flat = [t for tr in ends.values() for row in tr for t in row
+            if isinstance(t, str)]
+    for state in ("small", "mid", "large", "finish", "split", "done", "go",
+                  "nan", "fallback"):
+        assert state in flat, state
+    assert "go" in ends["candidate bin over half the row"][0]
+    large = {name: [r[1] for r in tr] for name, tr in ends.items()
+             if tr[0][0] == "large"}
+    assert set(large) == {f"limit {_median_kernels.ONCHIP_MAX + 1}",
+                          "large ties", "large sample misses",
+                          "large candidates overflow"}
+    assert large["large ties"][0]["places"] in ((1, 1), (3, 3), (1, 3))
+    assert large[f"limit {_median_kernels.ONCHIP_MAX + 1}"][0][
+        "places"] == (2, 2)
+    assert 0.02 < large[f"limit {_median_kernels.ONCHIP_MAX + 1}"][0][
+        "inside"] / (_median_kernels.ONCHIP_MAX + 1) < 0.08
+    assert "fallback" in ends["large sample misses"][0]
+    assert ends["large candidates overflow"][0][1]["inside"] > -(
+        -(_median_kernels.ONCHIP_MAX + 1) // 8)
+    assert "fallback" in ends["large candidates overflow"][0]
+
+
+def test_median_strided_view_matches_plain():
+    """FT8's SNR median reads the ``[:, ::4, ::4]`` view of its power map
+    (85,002 values a row, the mid plan): the model on the view's values
+    and the dispatcher on the view itself equal the plain median of a
+    contiguous copy."""
+    m = torch.from_numpy(ft8_view_map())
+    view = m[:, ::4, ::4]
+    assert not view.is_contiguous() and view[0].numel() == 85_002
+    want = gfsk_engine._median_rows_plain(view.contiguous()).numpy()
+    np.testing.assert_array_equal(gfsk_engine._median_rows(view).numpy(),
+                                  want)
+    np.testing.assert_array_equal(median_model(view.numpy()), want)
 
 
 def test_median_plain_matches_jnp_median():
@@ -591,7 +873,9 @@ def test_qary_wrapper_refusals(no_build):
     with pytest.raises(ValueError, match="dtype"):
         med(x.double())
     with pytest.raises(ValueError, match="2-D"):
-        med(x[None])
+        med(x[None, None])
+    with pytest.raises(ValueError, match="contiguous"):
+        med(torch.zeros((2, 1_200_000, 1))[:, ::2])
     with pytest.raises(ValueError, match="contiguous"):
         med(x.t().contiguous().t())
     with pytest.raises(ValueError, match="rows"):
