@@ -1883,20 +1883,22 @@ def rs_bound_ms(nk_fcr, syms: torch.Tensor, era: torch.Tensor,
     """(bytes ms, ops ms, counts) of the errors-and-erasures decode of these
     trials, whose corrected words are ``corrected`` [C, T, n]: the symbols
     (int64), flags, tables read and the corrected words (a byte a symbol)
-    and ok written once at the HBM rate; per trial the GF(64) products (an
-    index and an XOR each, 2 integer operations, the table read a load)
-    its data needs, each polynomial evaluated by Horner's rule: the
-    syndromes (nroots (n - 1)), the locator (i + 1 for the i-th erasure,
-    at most nroots), each BM round past the erasures (r for the
-    discrepancy, 2 (nroots + 1) for Lambda and B), and with d the
-    locator's roots, counted as the positions the trial erases or changes
-    (at most nroots, at most Lambda's degree): the Chien search (d a
-    position), Omega = S Lambda mod x^nroots (nroots - i for Lambda's
-    i-th coefficient), Omega and Lambda' at the roots only (nroots - 1 and
-    (d + 1) // 2 each), Forney's 2 a root, and the membership check as
-    S(r) XOR S(e), nroots a changed position; at INT32_OPS
-    (``ops_ms_fma_rate``: at FP32_FLOPS).  Also the dependent BM rounds a
-    trial (its serial chain)."""
+    and ok written once at the HBM rate; the GF(64) products (an index
+    and an XOR each, 2 integer operations, the table read a load) the data
+    needs, each polynomial evaluated by Horner's rule: a candidate's
+    syndromes once for all its trials (nroots (n - 1)), and per trial the
+    locator (i + 1 for the i-th erasure, at most nroots), each BM round
+    past the erasures (r for the discrepancy, 2 (nroots + 1) for Lambda and
+    B), and with d the locator's roots, counted as the positions the trial
+    erases or changes (at most nroots, at most Lambda's degree): the Chien
+    search (d a position), Omega = S Lambda mod x^nroots (nroots - i for
+    Lambda's i-th coefficient), Omega and Lambda' at the roots only
+    (nroots - 1 and (d + 1) // 2 each), Forney's 2 a root, and the
+    membership check as S(r) XOR S(e), nroots a changed position; at
+    INT32_OPS (``ops_ms_fma_rate``: at FP32_FLOPS; ``int_ops_syndromes_a_
+    trial``: the count with a trial's own syndromes, as the first port
+    computed them).  Also the dependent BM rounds a trial (its serial
+    chain)."""
     n, k, _ = nk_fcr
     nr = n - k
     c, t, _ = era.shape
@@ -1909,19 +1911,56 @@ def rs_bound_ms(nk_fcr, syms: torch.Tensor, era: torch.Tensor,
     loc = torch.where(e <= nr, e * (e + 1) / 2,
                       nr * (nr + 1) / 2 + (e - nr) * nr)
     bm = (nr * (nr + 1) - ec * (ec + 1)) / 2 + (nr - ec) * 2 * (nr + 1)
-    per = (nr * (n - 1) + loc + bm + d * n + (d + 1) * nr - d * (d + 1) / 2
+    per = (loc + bm + d * n + (d + 1) * nr - d * (d + 1) / 2
            + d * (nr - 1) + d * torch.div(d + 1, 2, rounding_mode="floor")
            + 2 * d + nr * nch)
-    int_ops = float(2 * per.sum())
+    syn = nr * (n - 1)
+    int_ops = float(2 * (per.sum() + c * syn))
     n_bytes = c * n * 8 + 2 * c * t * n + c * t + 4096 + 5 * 64
     rounds = nr - ec
     return (n_bytes / HBM_BYTES_S * 1e3, int_ops / INT32_OPS * 1e3,
             {"int_ops": int_ops, "bytes": n_bytes,
-             "products_a_trial_mean": float(per.mean()),
+             "int_ops_syndromes_a_trial": float(2 * (per.sum()
+                                                    + c * t * syn)),
+             "products_a_trial_mean": float(per.mean()) + syn / t,
              "roots_a_trial_mean": float(d.mean()),
              "bm_rounds_mean": float(rounds.mean()),
              "bm_rounds_max": int(rounds.max()),
              "ops_ms_fma_rate": int_ops / FP32_FLOPS * 1e3})
+
+
+def rs_shared_loads(nk_fcr, syms: torch.Tensor, era: torch.Tensor,
+                    corrected: torch.Tensor) -> dict:
+    """Shared-memory loads a warp issues a trial of these trials, means:
+    ``loads`` (every shared load instruction) and ``random_rows`` (the
+    GF(64) products whose table row differs from lane to lane, ~3.5
+    wavefronts each where the other loads take one), for the kernel (a
+    candidate's syndromes once; each erasure's locator step 3; a BM round
+    at most 9, 2 of them random rows; Omega 5 a coefficient; the
+    evaluations 7 a coefficient; Forney 8, 4 of them random rows; S(e) 3
+    a changed position; zero coefficients counted as if they were not
+    skipped) and for the first port (the syndromes twice, 3 a position,
+    random rows; the locator 3 an erasure; the same BM; Omega 5 a
+    coefficient; each of a lane's two positions' Horner chains 2 a step:
+    2 nroots + 1 + (nroots + 1) // 2 steps)."""
+    n, k, _ = nk_fcr
+    nr = n - k
+    c, t, _ = era.shape
+    e = era.cpu().sum(-1).to(torch.float64)
+    rounds = (nr - e).clamp(min=0)
+    nch = (corrected.cpu().long() != syms.cpu()[:, None, :]).sum(-1).to(
+        torch.float64)
+    syn_once = 4 * n / t
+    new = (syn_once + 3 * e + 9 * rounds + 5 * nr + 7 * (nr + 1) + 8
+           + 3 * nch)
+    new_rand = 2 * rounds + 4
+    chain = 2 * nr + 1 + (nr + 1) // 2
+    old = (2 * 3 * n + 3 * e + 9 * rounds + 5 * nr + 2 * (2 * chain + 6))
+    old_rand = 2 * 2 * n + 2 * e + 6 * rounds + 2 * (chain + 3)
+    return {"loads": float(new.mean()), "random_rows": float(
+                new_rand.mean()),
+            "first_port_loads": float(old.mean()),
+            "first_port_random_rows": float(old_rand.mean())}
 
 
 def weak_cases(dev) -> dict:
@@ -2029,8 +2068,20 @@ def weak_kernels_phase(dev) -> dict:
               f"{json.dumps(row['design'])}; chain "
               f"{json.dumps(row['dependent_steps'])}")
     print(f"rs_ee chain {json.dumps(out['rs_ee']['dependent_steps'])}")
+    corrected = wk.rs_ee(tables, syms, era, nroots)[0]
+    rs_design = {**attrs[512]["rs_ee"],
+                 "threads": 256, "blocks_an_sm": wk.rs_blocks_per_sm(dev),
+                 "sms": torch.cuda.get_device_properties(
+                     dev).multi_processor_count,
+                 "shared_loads_a_trial": rs_shared_loads(nk_fcr, syms, era,
+                                                         corrected)}
+    print(f"rs_design {json.dumps(rs_design)}")
+    r = out["rs_ee"]
+    times = {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"rs_ee at {list(era.shape)}: {json.dumps(times)}, share "
+          f"{r['bound_ms'] / r['ms']:.3f}")
     return {"kernels": out, "checks": checks, "attrs": attrs,
-            "beam_design": design}
+            "beam_design": design, "rs_design": rs_design}
 
 
 def record_qary_inputs(dev) -> dict:
@@ -2274,8 +2325,8 @@ def qsync_vs_plain(spec, power_sync: torch.Tensor, base: torch.Tensor
     p_val, p_idx = qary_engine._qary_sync_plain(spec, power_sync, base)
     same = (val == p_val) | (val.isnan() & p_val.isnan())
     out = {"shape": list(power_sync.shape), "top_k": spec.top_k,
-           "launches": launched, "val_bits_differ": _floats_differ(val,
-                                                                    p_val),
+           "launches": launched,
+           "val_bits_differ": _floats_differ(val, p_val),
            "idx_differ": int((idx != p_idx).sum()),
            "nan_scores": int(p_val.isnan().sum()),
            "tied_pairs": int((p_val[:, 1:] == p_val[:, :-1]).sum()),
@@ -2303,6 +2354,79 @@ def planted_sync(spec, power_sync: torch.Tensor, base: torch.Tensor
     ps[1, spec.os_t * spec.sync_syms[2] + 50, n_f0 // 3] = float("nan")
     base[2] = float("nan")
     return ps, base
+
+
+def qsync_edge_cases(dev) -> dict:
+    """``qary_sync``'s edges by name: (spec, map [2, H, F], base [2, 1,
+    1]) on the card: ties everywhere (integers 0 to 2), every score equal
+    across three warps, top-K 1 and 256, 50 time offsets, one sync
+    symbol, a gap between sync symbols past the ring, hops not all
+    congruent mod 8 (os_t 3: the block's shared ring), and n_f0 one bin
+    either side of a strip's width (32 bins) and twice it."""
+    from cwsl_digi_tpu_torch.modes import jt65, q65, qary_engine
+
+    def spec_of(spec, n_f0, **kw):
+        return dataclasses.replace(spec, fmin_hz=0.0,
+                                   fmax_hz=(n_f0 + 0.5) * spec.bin_hz, **kw)
+
+    jt, q = jt65.SPEC, q65.SPEC
+    cases = {"ties": (spec_of(jt, 100), "ints"),
+             "all equal": (spec_of(jt, 10), "ones"),
+             "k1": (spec_of(q, 200, top_k=1), "noise"),
+             "k256": (spec_of(q, 200, top_k=256), "ints"),
+             "n_t0 50": (spec_of(q, 150, max_hops=50), "noise"),
+             "one symbol": (spec_of(q, 90, sync_syms=(5,)), "noise"),
+             "gap past the ring": (
+                 spec_of(q, 70, sync_syms=(2, 40, 41, 90)), "ints"),
+             "os_t 3": (spec_of(q, 120, os_t=3), "noise"),
+             "os_t 3 gap past the ring": (
+                 spec_of(q, 70, os_t=3, sync_syms=(2, 40, 41, 150)),
+                 "ints")}
+    for n_f0 in (31, 33, 63, 65):
+        cases[f"n_f0 {n_f0}"] = (spec_of(q, n_f0), "noise")
+    rng = np.random.default_rng(SEED + 67)
+    out = {}
+    for name, (spec, kind) in cases.items():
+        _, _, n_bins = qary_engine._bin_range(spec)
+        h = spec.os_t * max(spec.sync_syms) + spec.max_hops + 8
+        shape = (2, h, n_bins)
+        ps = (rng.exponential(size=shape) if kind == "noise"
+              else rng.integers(0, 3, shape) if kind == "ints"
+              else np.ones(shape)).astype(np.float32)
+        base = ps.mean(axis=(1, 2), keepdims=True).astype(np.float32) \
+            * np.float32(len(spec.sync_syms))
+        out[name] = (spec, torch.from_numpy(ps).to(dev),
+                     torch.from_numpy(base).to(dev))
+    return out
+
+
+def qsync_design(dev, shapes: dict) -> dict:
+    """The ``qary_sync`` launch at each of ``shapes`` ({name: (spec,
+    map)}): the strips and lists (blocks) a window, the blocks, the
+    kernel's registers, spills and shared memory, the blocks an SM and the
+    waves, and the look-ahead of a warp's own ring (the path of hops
+    congruent mod 8: class rows past the window summed, and the bytes a
+    block may have in flight)."""
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+    from cwsl_digi_tpu_torch.modes import qary_engine
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    attrs = qk.kernel_attrs(dev)["qary_sync"]
+    out = {}
+    for name, (spec, ps) in shapes.items():
+        fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
+        b = ps.shape[0]
+        plan = qk.sync_plan(fmax_bin - fmin_bin, spec.top_k)
+        occ = qk.sync_occupancy(dev, spec.top_k, plan["lists"])
+        blocks = plan["lists"] * b
+        ahead = 32 - 16          # a warp's ring less a window's class rows
+        out[name] = {"shape": list(ps.shape), **plan, "blocks": blocks,
+                     **occ, **attrs, "threads": 256,
+                     "waves": blocks / (occ["blocks_an_sm"] * sms),
+                     "class_rows_ahead": ahead,
+                     "bytes_in_flight_a_block": 8 * ahead * 32 * 4}
+        print(f"qsync_design {name}: {json.dumps(out[name])}")
+    return out
 
 
 def median_edge_rows(dev) -> torch.Tensor:
@@ -2501,6 +2625,8 @@ def qary_kernels_phase(dev) -> dict:
         _, spec, ps, base = next(c for c in rec["sync"] if c[0] == name)
         checks[f"qary_sync {name} planted"] = qsync_vs_plain(
             spec, *planted_sync(spec, ps, base))
+    for name, (spec, ps, base) in qsync_edge_cases(dev).items():
+        checks[f"qary_sync edge {name}"] = qsync_vs_plain(spec, ps, base)
     for name, c in checks.items():
         print(f"q-ary kernels vs plain, {name}: {json.dumps(c)}")
     bad = [name for name, c in checks.items() if not c["ok"]]
@@ -2515,6 +2641,13 @@ def qary_kernels_phase(dev) -> dict:
     blocks = qk.mp_blocks_per_sm(dev, dec.kernel_code, edges)
     print(f"q-ary kernels' design: attributes {json.dumps(attrs)}, qra_mp "
           f"dynamic shared memory {smem} B, {blocks} blocks an SM")
+    design_shapes = {}
+    for name, spec, ps, _ in rec["sync"]:
+        design_shapes.setdefault(f"{name} {list(ps.shape)}", (spec, ps))
+    for name, spec, ps, _ in rec["sync"]:
+        design_shapes.setdefault(f"{name} app {[4, *ps.shape[1:]]}",
+                                 (spec, ps[:4]))
+    sync_design = qsync_design(dev, design_shapes)
     if blocks < qk.MP_BLOCKS_SM:
         raise AssertionError(f"qra_mp: {blocks} blocks an SM, the design "
                              f"holds {qk.MP_BLOCKS_SM}")
@@ -2619,7 +2752,7 @@ def qary_kernels_phase(dev) -> dict:
     out["median_rows"]["library_ms"] = jmed["library_ms"]
     out["qary_sync"]["library_ms"] = shapes[jkey]["library_ms"]
     return {"kernels": out, "checks": checks, "attrs": attrs,
-            "shapes": shapes}
+            "shapes": shapes, "qsync_design": sync_design}
 
 
 def _plan():

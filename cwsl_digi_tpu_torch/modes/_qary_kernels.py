@@ -35,7 +35,10 @@ MP_NC_MAX = 63            # checks
 MP_MR_MAX = 4             # slots a check
 MP_COL_MAX = 4            # edges a variable
 MP_BLOCKS_SM = 4          # qra_mp blocks an SM the design holds (Q65)
-SYNC_TF = 32              # bins a qary_sync block
+SYNC_TF = 32              # bins a qary_sync strip
+SYNC_RING = 256           # rows of a block's ring
+SYNC_AHEAD = 8            # windows whose rows load ahead of the sum
+SYNC_LIST_CAP = 4096      # candidates a window's merge holds
 SYNC_T_MAX = 128          # time offsets
 SYNC_S_MAX = 128          # sync symbols
 SYNC_K_MAX = 256          # top-K
@@ -77,15 +80,20 @@ def load_library() -> ctypes.CDLL:
             lib.qra_mp_smem_bytes.restype = i
             lib.qra_mp_blocks_per_sm.argtypes = [p, p]
             lib.qra_mp_blocks_per_sm.restype = i
-            lib.qary_sync_launch.argtypes = [p] * 10
+            lib.qary_sync_launch.argtypes = [p] * 9
             lib.qary_sync_launch.restype = i
+            lib.qary_sync_occupancy.argtypes = [i, i, p]
+            lib.qary_sync_occupancy.restype = i
             lib.qary_kernel_attrs.argtypes = [i, p]
             lib.qary_kernel_attrs.restype = i
             limits = {"qary_mp_n_max": MP_N_MAX, "qary_mp_nc_max": MP_NC_MAX,
                       "qary_mp_mr_max": MP_MR_MAX,
                       "qary_mp_col_max": MP_COL_MAX,
                       "qary_mp_blocks_sm": MP_BLOCKS_SM,
-                      "qary_sync_tf": SYNC_TF, "qary_sync_t_max": SYNC_T_MAX,
+                      "qary_sync_tf": SYNC_TF, "qary_sync_ring": SYNC_RING,
+                      "qary_sync_ahead": SYNC_AHEAD,
+                      "qary_sync_list_cap": SYNC_LIST_CAP,
+                      "qary_sync_t_max": SYNC_T_MAX,
                       "qary_sync_s_max": SYNC_S_MAX,
                       "qary_sync_k_max": SYNC_K_MAX}
             for name, want in limits.items():
@@ -206,17 +214,40 @@ def check_sync(n_t0: int, n_sync: int, k: int) -> None:
                          f"{SYNC_K_MAX}")
 
 
+def sync_lists(k: int) -> int:
+    """The lists (blocks) a window's ``qary_sync`` merge takes at most at
+    top-``k``: k candidates of each fit SYNC_LIST_CAP."""
+    return max(1, SYNC_LIST_CAP // k)
+
+
+def sync_pool_cap(k: int) -> int:
+    """Candidates a ``qary_sync`` strip's pool holds at most: the block's
+    list of ``k`` and the cells of the ``k`` threads whose maxima reach
+    the strip's threshold (every thread's where k reaches the block's
+    256 threads)."""
+    return k + min(k, 256) * 16
+
+
+def sync_plan(n_f0: int, k: int) -> dict:
+    """The ``qary_sync`` launch for windows of ``n_f0`` bins at top-``k``:
+    the strips of SYNC_TF bins and the lists (blocks) a window; each block
+    takes every ``lists``-th strip."""
+    strips = -(-n_f0 // SYNC_TF)
+    return {"strips": strips, "lists": min(strips, sync_lists(k))}
+
+
 def qary_sync(power_sync: torch.Tensor, base: torch.Tensor,
               hops: torch.Tensor, n_t0: int, n_f0: int, k: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the sync correlation and its top-K on PyTorch's current
     stream: power_sync [B, H, F] float32, base [B] float32 (the map's mean
     times the sync count), hops [S] int32 (the sync symbols' first rows,
-    ascending); the score of (t0, f0) is the sum over the hops h, in order,
-    of power_sync[:, h + t0, f0], over base + 1e-30, for t0 < n_t0 and f0 <
-    n_f0.  Returns (top_val [B, k] float32, top_idx [B, k] int64), the
-    stable descending top-k of the scores flattened t0-major, as
-    ``qary_engine._qary_sync_plain``."""
+    ascending, hops[-1] + n_t0 <= H); the score of (t0, f0) is the sum
+    over the hops h, in order, of power_sync[:, h + t0, f0], over base +
+    1e-30, for t0 < n_t0 and f0 < n_f0.  Returns (top_val [B, k] float32,
+    top_idx [B, k] int64), the stable descending top-k of the scores
+    flattened t0-major, as ``qary_engine._qary_sync_plain``.  One
+    launch."""
     if power_sync.dim() != 3:
         raise ValueError("power_sync [B, H, F] must be 3-D")
     b, h, f = power_sync.shape
@@ -229,26 +260,40 @@ def qary_sync(power_sync: torch.Tensor, base: torch.Tensor,
     _check({"power_sync": (power_sync, torch.float32, (b, h, f)),
             "base": (base, torch.float32, (b,)),
             "hops": (hops, torch.int32, (s,))})
-    strips = -(-n_f0 // SYNC_TF)
     dev = power_sync.device
-    cand_key = torch.empty((b, strips, k), dtype=torch.int64, device=dev)
-    cand_val = torch.empty((b, strips, k), dtype=torch.float32, device=dev)
-    done = torch.zeros(b, dtype=torch.int32, device=dev)
+    plan = sync_plan(n_f0, k)
+    cand_key = torch.empty((b, plan["lists"], k), dtype=torch.int64,
+                           device=dev)
+    cand_val = torch.empty((b, plan["lists"], k), dtype=torch.float32,
+                           device=dev)
     top_val = torch.empty((b, k), dtype=torch.float32, device=dev)
     top_idx = torch.empty((b, k), dtype=torch.int64, device=dev)
     lib = load_library()
-    dims = (ctypes.c_int * 7)(b, h, f, n_t0, n_f0, s, k)
+    dims = (ctypes.c_int * 8)(b, h, f, n_t0, n_f0, s, k, plan["lists"])
     with torch.cuda.device(dev):
         err = lib.qary_sync_launch(
             ctypes.addressof(dims), power_sync.data_ptr(), base.data_ptr(),
             hops.data_ptr(), cand_key.data_ptr(), cand_val.data_ptr(),
-            done.data_ptr(), top_val.data_ptr(), top_idx.data_ptr(),
+            top_val.data_ptr(), top_idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"qary_sync kernel launch failed: CUDA error {err}"
                            f" ({b} windows of {n_t0} x {n_f0}, top_k={k})")
     _count("qary_sync")
     return top_val, top_idx
+
+
+def sync_occupancy(device, k: int, lists: int) -> dict:
+    """A ``qary_sync`` block's dynamic shared memory at top-``k`` and
+    ``lists`` lists a window, and the blocks an SM of ``device`` holds at
+    it."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = load_library().qary_sync_occupancy(k, lists,
+                                                 ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"qary_sync_occupancy: CUDA error {err}")
+    return {"dynamic_smem_bytes": out[0], "blocks_an_sm": out[1]}
 
 
 def mp_smem_bytes(n: int, edges: int) -> int:

@@ -82,6 +82,8 @@ def load_library() -> ctypes.CDLL:
             lib.wspr_beam_blocks_per_sm.restype = i
             lib.rs_ee_launch.argtypes = [p] * 7
             lib.rs_ee_launch.restype = i
+            lib.rs_ee_blocks_per_sm.argtypes = []
+            lib.rs_ee_blocks_per_sm.restype = i
             lib.weak_kernel_attrs.argtypes = [i, i, i, p]
             lib.weak_kernel_attrs.restype = i
             limits = {"weak_beam_w_min": BEAM_W_MIN,
@@ -227,9 +229,11 @@ def rs_ee(tables: torch.Tensor, syms: torch.Tensor, era: torch.Tensor,
     """Launch the errors-and-erasures decode on PyTorch's current stream:
     trial (c, t) decodes the word syms [c] (int64 symbols 0..63; the
     kernel reads each mod 64) with the erasure flags era [c, t], for syms
-    [C, n] and era [C, T, n] bool, C T < 2**31, a warp a trial; ``tables`` is ``rs_device.kernel_tables``'s uint8 block on
-    the device; the blocks, as many as the card holds at once, loop over
-    the trials.  Returns (corrected [C, T, n] uint8, ok [C, T] bool), as
+    [C, n] and era [C, T, n] bool, C T < 2**31, a warp a trial;
+    ``tables`` is ``rs_device.kernel_tables``'s uint8 block on the device;
+    the blocks, as many as the card holds at once, split the trials into
+    a contiguous share a warp, so that a candidate's syndromes serve all
+    its trials in the share.  Returns (corrected [C, T, n] uint8, ok [C, T] bool), as
     ``rs_device.rs_ee_decode_plain`` computes them for each trial."""
     if syms.dim() != 2 or era.dim() != 3:
         raise ValueError("syms [C, n] and era [C, T, n] must be 2- and 3-D")
@@ -259,6 +263,15 @@ def rs_ee(tables: torch.Tensor, syms: torch.Tensor, era: torch.Tensor,
                            f"({c} x {t} trials of RS({n}, {n - nroots}))")
     _count("rs_ee")
     return corrected, ok
+
+
+def rs_blocks_per_sm(device) -> int:
+    """The ``rs_ee`` blocks an SM of ``device`` holds at once."""
+    with torch.cuda.device(device):
+        got = load_library().rs_ee_blocks_per_sm()
+    if got < 0:
+        raise RuntimeError(f"rs_ee_blocks_per_sm: CUDA error {-got}")
+    return got
 
 
 def _plan_keys(beam_width: int, keys: int | None) -> int:

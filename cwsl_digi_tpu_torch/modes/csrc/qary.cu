@@ -36,9 +36,12 @@
 //     and two shared-memory permutations.
 //   - qary_sync reads the sync rows its scores need (the union of the
 //     rows [8 s, 8 s + 128) over the sync symbols s, n_f0 bins wide:
-//     ~690 MB at JT65's 64 windows, ~0.21 ms) and writes K candidates a
-//     window.  Its operations, 63 adds and a division a score, are ~0.04
-//     ms: bytes bound it.
+//     161 MB at JT65's 15-window batch, 0.048 ms) and writes K candidates
+//     a window.  Its operations, 63 adds and a division a score, are
+//     ~0.04 ms: bytes bound it.  Each value read is added to 16 windows'
+//     cells or fewer, so the cells' adds read shared memory once each:
+//     ~0.04 ms of the SMs' shared-memory bandwidth at that shape, the
+//     floor beside the bytes.
 //
 // The design.
 //
@@ -89,18 +92,41 @@
 //     normalising the check's message again by its warp sum 16.6 %, and
 //     each closed the gap to the plain version's converged words by only
 //     6 and 4 of 77 words: neither is taken.
-//   - qary_sync: a block of 8 warps a window's 32 bins and all 128 time
-//     offsets.  The sync rows pass through a 128-row ring in shared memory
-//     in the order of the sync symbols (the hops ascending, each row read
-//     once from device memory); a thread sums its 16 cells' rows in that
-//     order (the plain version's adds, bitwise), divides by base + 1e-30f
-//     and keys each score as (order key << 32 | ~index): the order key
-//     puts NaN first and reads -0.0 as 0.0, the low word the lower index
-//     first on ties, so a larger key is the earlier entry of the stable
-//     descending sort.  The block's K largest keys are taken by K rounds
-//     of a block maximum below the last one taken; the window's last block
-//     (a ticket counter) merges the strips' candidates the same way and
-//     writes top_val and top_idx.  The score map is never written.
+//   - qary_sync: a block of 8 warps takes a window's strips of 32 bins
+//     and all 128 time offsets (warp w offsets w + 8 j, lane l bin l), in
+//     turn every L-th strip (L = the lists a window, at most 4096 / K).
+//     Where every hop is h0 plus a multiple of 8 (every mode's, os_t =
+//     8), warp w reads only rows h0 + w + 8 m, its class rows m: each
+//     lane copies the values it reads (cp.async, 4 bytes) into the warp's
+//     own ring of 32 class rows, the first 20 mirrored past its end, so
+//     no block barrier; a step waits only for its own copies, sums two
+//     windows (each row once from shared memory into registers where the
+//     two are at most 4 class rows apart) and issues the class rows of
+//     the windows 8 to 9 ahead.  Other hops take a 256-row ring shared by
+//     the block, one barrier a window.  A cell adds its rows in window
+//     order from -0.0 (the identity), as the plain version's adds, bitwise;
+//     it divides by base + 1e-30f and keys the score as (order key << 32
+//     | ~index): the order key puts NaN first and reads -0.0 as 0.0, the
+//     low word the lower index first on ties, so a larger key is the
+//     earlier entry of the stable descending sort.  The strip's top K: the
+//     keys at or above the K-th largest thread maximum (each warp sorts its
+//     32 maxima with a bitonic network on shuffles, a binary search a
+//     warp ranks each; at least K keys reach it, at most K threads hold
+//     one) and above the block's list's K-th join a pool with the list,
+//     and each takes its rank (the pool's keys above it) in the new list.
+//     The window's last block (a counter in device memory that it resets,
+//     so one launch and no memset) merges the lists' keys at or above the
+//     K-th largest head the same way.  The score map is never written.
+//     On an H100 80GB HBM3 at 700 W (tools/sync_rs_profile.py, in turns
+//     with the first port): 0.1167-0.1195 ms at JT65's [15, 1411, 2645]
+//     (first port 0.3479-0.3495), 41 % of the bound; the App's JT65
+//     [4, 1411, 2645] 0.0490-0.0500 (0.1500-0.1521) and Q65-30 [4, 921,
+//     2420] 0.0323-0.0334 (0.0909-0.0918).  64 registers, 53,536 B of
+//     dynamic shared memory at top-24, 4 blocks an SM; a warp spends ~70 %
+//     of its cycles in the correlation (an eighth of them waiting for its
+//     copies), ~18-24 % in the strip's selection, and the last block
+//     ~8 % more in the merge.  64-bin strips (two bins a lane, 2 blocks an
+//     SM) were as fast or slower at every shape: not kept.
 //
 // Built with --fmad=false and without fast math (IEEE divisions,
 // denormals kept), so the sums and products are the IEEE float operations
@@ -124,14 +150,6 @@ __device__ __forceinline__ uint32_t order_key(float x) {
     if (x != x) return 0xffffffffu;
     const uint32_t u = x == 0.0f ? 0u : __float_as_uint(x);
     return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ u64 warp_max_u64(u64 v) {
-    const uint32_t hi = static_cast<uint32_t>(v >> 32);
-    const uint32_t mhi = __reduce_max_sync(FULL, hi);
-    const uint32_t mlo = __reduce_max_sync(
-        FULL, hi == mhi ? static_cast<uint32_t>(v) : 0u);
-    return (static_cast<u64>(mhi) << 32) | mlo;
 }
 
 // ---------------------------------------------------------------------------
@@ -550,143 +568,624 @@ int launch_mp(const MpDims& d, const uint8_t* tables, const float* probs,
 // ---------------------------------------------------------------------------
 // qary_sync
 
+// Profiling hooks, empty in the library: tools/sync_rs_profile.py builds
+// this file with them defined to read clock64() at the kernel's phase
+// boundaries (QSYNC_SPAN(k) closes span k).
+#ifndef QSYNC_SPANS
+#define QSYNC_SPAN_BEGIN()
+#define QSYNC_SPAN(k)
+#define QSYNC_SPAN_END()
+#endif
+
 constexpr int SYNC_WARPS = 8;
 constexpr int SYNC_THREADS = SYNC_WARPS * 32;
-constexpr int SYNC_TF = 32;              // bins a block
-constexpr int SYNC_TMAX = 128;           // time offsets at most; ring rows
-constexpr int SYNC_CELLS = SYNC_TMAX / SYNC_WARPS;   // 16 a thread
+constexpr int SYNC_TF = 32;              // bins a strip (a block's, in turn)
+constexpr int SYNC_TMAX = 128;           // time offsets at most
+constexpr int SYNC_CELLS = SYNC_TMAX / SYNC_WARPS;   // 16 offsets a thread
+constexpr int SYNC_RING = 256;           // the block's ring rows (2^k)
+constexpr int SYNC_AHEAD = 8;            // windows whose rows load ahead
+// the path of hops all congruent mod 8 (every mode's: os_t = 8): a warp's
+// own ring of class rows (row h0 + warp + 8 m is class row m)
+constexpr int SYNC_WRING = 32;           // class rows a warp's ring holds
+constexpr int SYNC_PAIR_GAP = 4;         // class rows between a pair's
+                                         // windows summed from registers
+constexpr int SYNC_WMIRROR = SYNC_CELLS + SYNC_PAIR_GAP;  // slots mirrored
+                                                          // past its end
+constexpr int SYNC_WAHEAD = 4;           // steps whose rows load ahead
 constexpr int SYNC_S_MAX = 128;          // sync symbols at most
 constexpr int SYNC_K_MAX = 256;
+constexpr int SYNC_LIST_CAP = 4096;      // a window's listed candidates
+static_assert(SYNC_AHEAD == 8, "the wait's switch takes 0 to 7 groups");
+static_assert(SYNC_WAHEAD == 4, "the warp path's switch takes 0 to 3");
+static_assert(SYNC_PAIR_GAP == 4, "the pair's switch takes gaps 0 to 4");
+// rows of ring the block's region holds: the block's ring or the warps'
+constexpr int SYNC_RING_ROWS =
+    (SYNC_WRING + SYNC_WMIRROR) * SYNC_WARPS > SYNC_RING
+        ? (SYNC_WRING + SYNC_WMIRROR) * SYNC_WARPS : SYNC_RING;
+constexpr int SYNC_SMEM_MAX = 112 * 1024;   // dynamic shared bytes at most
+
+// Each window's count of finished blocks: zero when the library loads, and
+// the window's last block sets it back to zero, so no launch needs a
+// memset.  Launches on one device run in stream order (the decoders' device
+// lock, modes/base.py, keeps one decode at a time on a device), so no two
+// launches share a counter at once.
+__device__ unsigned int g_sync_done[65535];
 
 struct SyncDims {
-    int B, H, F, n_t0, n_f0, S, K;
+    int B, H, F, n_t0, n_f0, S, K, strips;
 };
 
-// Block maximum of the threads' keys (every thread gets it); `buf` [2][8]
-// alternates between calls, so one barrier a call suffices.
-__device__ __forceinline__ u64 block_max_u64(u64 v, u64* buf,
-                                                  int round) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    v = warp_max_u64(v);
-    u64* b = buf + (round & 1) * SYNC_WARPS;
-    if (lane == 0) b[warp] = v;
-    __syncthreads();
-    u64 m = b[0];
-#pragma unroll
-    for (int w = 1; w < SYNC_WARPS; ++w) m = b[w] > m ? b[w] : m;
-    return m;
+// Candidates a strip's pool holds at most: the block's list (K) and the
+// cells of the K threads whose maxima reach the threshold (all cells when
+// K >= the threads).
+__host__ __device__ __forceinline__ int sync_pool_cap(int K) {
+    return K + (K < SYNC_THREADS ? K : SYNC_THREADS) * SYNC_CELLS;
 }
 
-__global__ void __launch_bounds__(SYNC_THREADS)
+// The dynamic shared memory a block's first region takes, the ring or a
+// pool (16-byte multiple), and its list of K keys and values after it.
+__host__ __device__ __forceinline__ int sync_region_bytes(int K, int L) {
+    const int ring = SYNC_RING_ROWS * SYNC_TF * 4;
+    const int strip = sync_pool_cap(K) * 12;
+    const int merge = ((L + 1) & ~1) * 8 + L * K * 12;
+    int r = ring > strip ? ring : strip;
+    r = r > merge ? r : merge;
+    return (r + 15) & ~15;
+}
+
+__host__ __device__ __forceinline__ int sync_smem_bytes(int K, int L) {
+    return sync_region_bytes(K, L) + K * 12;
+}
+
+// Lists (blocks) a window at most: K of each fit the merge's pool.
+__host__ __device__ __forceinline__ int sync_lists(int K) {
+    const int l = SYNC_LIST_CAP / K;
+    return l > 0 ? l : 1;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(full ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A key's low word: ~(t0 n_f0 + f0), so a lower index wins a tie.
+__device__ __forceinline__ uint32_t sync_low(int t, int f,
+                                             const SyncDims& d) {
+    return 0xffffffffu - (static_cast<uint32_t>(t)
+                          * static_cast<uint32_t>(d.n_f0)
+                          + static_cast<uint32_t>(f));
+}
+
+// A cell's key: (order key << 32) | ~(t0 n_f0 + f0), 0 = no cell.
+__device__ __forceinline__ u64 sync_key(float v, int t, int f,
+                                        const SyncDims& d) {
+    return (t < d.n_t0 && f < d.n_f0)
+        ? (static_cast<u64>(order_key(v)) << 32) | sync_low(t, f, d)
+        : 0ull;
+}
+
+// The warp's 32 keys sorted descending (lane p holds the p-th largest): a
+// bitonic network on shuffles.
+__device__ __forceinline__ u64 warp_sort_desc(u64 v) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            const u64 o = __shfl_xor_sync(FULL, v, j);
+            const bool keep_max = ((lane & k) == 0) == ((lane & j) == 0);
+            v = keep_max ? (o > v ? o : v) : (o < v ? o : v);
+        }
+    return v;
+}
+
+// Entries of a descending list of 32 keys above x (binary lifting).
+__device__ __forceinline__ int count_above(const u64* list, u64 x) {
+    int c = 0;
+#pragma unroll
+    for (int step = 32; step > 0; step >>= 1)
+        if (c + step <= 32 && list[c + step - 1] > x) c += step;
+    return c;
+}
+
+// Keys of keys [0, n) above x, read two at a time (keys 16-byte aligned).
+__device__ __forceinline__ int keys_above(const u64* keys, int n, u64 x) {
+    int above = 0, u = 0;
+#pragma unroll 4
+    for (; u + 2 <= n; u += 2) {
+        const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(keys + u);
+        above += (v.x > x) + (v.y > x);
+    }
+    if (u < n) above += keys[u] > x;
+    return above;
+}
+
+// Issues the copies of the rows in [next, X) that lie in a window [hops[w],
+// hops[w] + n_t0) (the union of the windows, in row order; rows between
+// windows are skipped) into the block's ring, the warps taking rows in
+// turn, lane l bin l of its strip.  next and wnext (the first window that
+// ends past next) advance; every thread runs the same schedule.
+__device__ __forceinline__ void sync_issue(int& next, int& wnext, int X,
+                                           const int* s_hops,
+                                           const SyncDims& d,
+                                           const float* src, bool bin_ok,
+                                           float* ring) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (;;) {
+        while (wnext < d.S && s_hops[wnext] + d.n_t0 <= next) ++wnext;
+        if (wnext == d.S) return;
+        const int lo = max(next, s_hops[wnext]);
+        if (lo >= X) return;
+        const int hi = min(s_hops[wnext] + d.n_t0, X);
+        for (int r = lo + warp; r < hi; r += SYNC_WARPS) {
+            const bool full = r < d.H && bin_ok;
+            const float* s = src + (full ? static_cast<long long>(r) * d.F
+                                           + lane : 0ll);
+            cp_async4(ring + (r & (SYNC_RING - 1)) * SYNC_TF + lane, s,
+                      full);
+        }
+        next = hi;
+    }
+}
+
+// The correlation of a strip on a ring shared by the block (any ascending
+// hops): window i is the rows [hops[i], hops[i] + n_t0); a cell adds its
+// rows in window order, from -0.0 (the identity: the first add gives the
+// first row's value bit for bit).  While window i is summed, the rows up
+// to window i + SYNC_AHEAD's end are issued as far as the ring's slots
+// past window i reach; a window waits only for the groups up to the one
+// that holds its last row (gnext[q]: the rows issued up to the group
+// committed q groups back).  One block barrier a window, two where a gap
+// between windows outruns the ring.
+__device__ __forceinline__ void sync_sum_block(float* acc, const int* s_hops,
+                                               const SyncDims& d,
+                                               const float* src,
+                                               bool bin_ok, float* ring) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int h0 = s_hops[0];
+    int next = h0, wnext = 0;
+    int gnext[SYNC_AHEAD];
+#pragma unroll
+    for (int q = 0; q < SYNC_AHEAD; ++q) gnext[q] = h0;
+#pragma unroll
+    for (int g = 0; g < SYNC_AHEAD; ++g) {
+        sync_issue(next, wnext,
+                   min(h0 + SYNC_RING, s_hops[min(g, d.S - 1)] + d.n_t0),
+                   s_hops, d, src, bin_ok, ring);
+        cp_async_commit();
+#pragma unroll
+        for (int q = SYNC_AHEAD - 1; q > 0; --q) gnext[q] = gnext[q - 1];
+        gnext[0] = next;
+    }
+#pragma unroll 1
+    for (int i = 0; i < d.S; ++i) {
+        const int h = s_hops[i], need = h + d.n_t0;
+        int pending = -1;       // groups that may stay in flight
+#pragma unroll
+        for (int q = 0; q < SYNC_AHEAD; ++q)
+            if (gnext[q] >= need) pending = q;
+        QSYNC_SPAN(1);
+        if (pending < 0) {
+            // a gap outran the ring: the rest of window i once window
+            // i - 1 is summed
+            __syncthreads();
+            sync_issue(next, wnext, need, s_hops, d, src, bin_ok, ring);
+            cp_async_commit();
+#pragma unroll
+            for (int q = SYNC_AHEAD - 1; q > 0; --q) gnext[q] = gnext[q - 1];
+            gnext[0] = next;
+            pending = 0;
+        }
+        switch (pending) {
+            case 0: cp_async_wait<0>(); break;
+            case 1: cp_async_wait<1>(); break;
+            case 2: cp_async_wait<2>(); break;
+            case 3: cp_async_wait<3>(); break;
+            case 4: cp_async_wait<4>(); break;
+            case 5: cp_async_wait<5>(); break;
+            case 6: cp_async_wait<6>(); break;
+            default: cp_async_wait<SYNC_AHEAD - 1>(); break;
+        }
+        __syncthreads();
+        QSYNC_SPAN(5);
+        sync_issue(next, wnext,
+                   min(h + SYNC_RING,
+                       s_hops[min(i + SYNC_AHEAD, d.S - 1)] + d.n_t0),
+                   s_hops, d, src, bin_ok, ring);
+        cp_async_commit();
+#pragma unroll
+        for (int q = SYNC_AHEAD - 1; q > 0; --q) gnext[q] = gnext[q - 1];
+        gnext[0] = next;
+#pragma unroll
+        for (int j = 0; j < SYNC_CELLS; ++j) {
+            const int t = warp + SYNC_WARPS * j;
+            if (t < d.n_t0)
+                acc[j] += ring[((h + t) & (SYNC_RING - 1)) * SYNC_TF + lane];
+        }
+    }
+}
+
+// Adds a window's J class rows (a warp's ring from the window's first
+// slot, contiguous through the mirror) to the thread's offsets.
+__device__ __forceinline__ void sync_add_window(float* acc, const float* w,
+                                                int J) {
+    if (J == SYNC_CELLS) {
+#pragma unroll
+        for (int j = 0; j < SYNC_CELLS; ++j) acc[j] += w[j * SYNC_TF];
+    } else {
+#pragma unroll
+        for (int j = 0; j < SYNC_CELLS; ++j)
+            if (j < J) acc[j] += w[j * SYNC_TF];
+    }
+}
+
+// Adds two windows G class rows apart, each row read once: the union's
+// 16 + G class rows into registers, then window i's and window i + 1's
+// adds in that order (a cell's order), from the first window's slot,
+// contiguous through the mirror.
+template <int G>
+__device__ __forceinline__ void sync_add_pair(float* acc, const float* w) {
+    float v[SYNC_CELLS + G];
+#pragma unroll
+    for (int u = 0; u < SYNC_CELLS + G; ++u) v[u] = w[u * SYNC_TF];
+#pragma unroll
+    for (int j = 0; j < SYNC_CELLS; ++j) acc[j] += v[j];
+#pragma unroll
+    for (int j = 0; j < SYNC_CELLS; ++j) acc[j] += v[j + G];
+}
+
+// Copies warp w's class rows [mnext, X) (row h0 + w + 8 m; class rows past
+// m_last, the last below H, read as 0) into its ring at slot m mod
+// SYNC_WRING, and at the slots below SYNC_WMIRROR again past its end;
+// lane l takes bin l.  gp points at class row mnext's value and advances
+// with it; a copy that reads nothing is given the strip's first value.
+__device__ __forceinline__ void sync_issue_warp(int& mnext, const float*& gp,
+                                                int X, int m_last,
+                                                long long step, bool bin_ok,
+                                                const float* safe,
+                                                float* wring) {
+    for (; mnext < X; ++mnext, gp += step) {
+        const bool full = mnext <= m_last && bin_ok;
+        const float* sp = full ? gp : safe;
+        const int slot = mnext & (SYNC_WRING - 1);
+        cp_async4(wring + slot * SYNC_TF, sp, full);
+        if (slot < SYNC_WMIRROR)
+            cp_async4(wring + (slot + SYNC_WRING) * SYNC_TF, sp, full);
+    }
+}
+
+// The correlation of a strip where every hop is h0 plus a multiple of 8:
+// warp w sums offsets w + 8 j, whose rows h0 + w + 8 m are its own class
+// rows m, so each lane copies the values it reads into the warp's own
+// ring (slot m mod SYNC_WRING, the first SYNC_WMIRROR slots again past its
+// end, so a window's 16 class rows are contiguous): no block barrier, a
+// thread waits only for its own copies.  Window i is class rows [c_i, c_i
+// + J) (c_i = (hops[i] - h0) / 8, J the warp's offsets below n_t0).  A
+// step sums two windows where both fit the ring (one wait and one issue
+// for the two; where they are at most SYNC_PAIR_GAP class rows apart,
+// each of their rows read from the ring once); while it does, the class rows up to window i + 2
+// SYNC_WAHEAD + 1's end are issued as far as the ring's slots past window
+// i reach (every class row from 0 on: rows between windows far apart are
+// read too).
+__device__ __forceinline__ void sync_sum_warp(float* acc, const int* s_hops,
+                                              const SyncDims& d,
+                                              const float* src, bool bin_ok,
+                                              float* ring) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int h0 = s_hops[0];
+    const int J = d.n_t0 > warp ? (d.n_t0 - warp + SYNC_WARPS - 1) >> 3 : 0;
+    float* wring = ring + warp * (SYNC_WRING + SYNC_WMIRROR) * SYNC_TF
+        + lane;
+    // class row m's value at (the first) + m step
+    const float* gp = src + static_cast<long long>(h0 + warp) * d.F + lane;
+    const long long step = static_cast<long long>(SYNC_WARPS) * d.F;
+    const int m_last = d.H > h0 + warp ? (d.H - 1 - h0 - warp) >> 3 : -1;
+    int mnext = 0;
+    int gn[SYNC_WAHEAD];
+#pragma unroll
+    for (int q = 0; q < SYNC_WAHEAD; ++q) gn[q] = 0;
+#pragma unroll
+    for (int g = 0; g < SYNC_WAHEAD; ++g) {
+        sync_issue_warp(mnext, gp,
+                        min(SYNC_WRING,
+                            ((s_hops[min(2 * g + 1, d.S - 1)] - h0) >> 3)
+                            + J),
+                        m_last, step, bin_ok, src, wring);
+        cp_async_commit();
+#pragma unroll
+        for (int q = SYNC_WAHEAD - 1; q > 0; --q) gn[q] = gn[q - 1];
+        gn[0] = mnext;
+    }
+#pragma unroll 1
+    for (int i = 0; i < d.S;) {
+        const int c = (s_hops[i] - h0) >> 3;
+        const int c2 = i + 1 < d.S ? (s_hops[i + 1] - h0) >> 3 : c;
+        const bool two = i + 1 < d.S && c2 + J - c <= SYNC_WRING;
+        const int need = (two ? c2 : c) + J;
+        int pending = -1;
+#pragma unroll
+        for (int q = 0; q < SYNC_WAHEAD; ++q)
+            if (gn[q] >= need) pending = q;
+        QSYNC_SPAN(1);
+        if (pending < 0) {
+            // a gap outran the ring: the rest of the step's windows now
+            // (their slots hold no row still to be read)
+            sync_issue_warp(mnext, gp, need, m_last, step, bin_ok, src,
+                            wring);
+            cp_async_commit();
+#pragma unroll
+            for (int q = SYNC_WAHEAD - 1; q > 0; --q) gn[q] = gn[q - 1];
+            gn[0] = mnext;
+            pending = 0;
+        }
+        switch (pending) {
+            case 0: cp_async_wait<0>(); break;
+            case 1: cp_async_wait<1>(); break;
+            case 2: cp_async_wait<2>(); break;
+            default: cp_async_wait<SYNC_WAHEAD - 1>(); break;
+        }
+        QSYNC_SPAN(5);
+        sync_issue_warp(
+            mnext, gp,
+            min(c + SYNC_WRING,
+                ((s_hops[min(i + 2 * SYNC_WAHEAD + 1, d.S - 1)] - h0) >> 3)
+                + J),
+            m_last, step, bin_ok, src, wring);
+        cp_async_commit();
+#pragma unroll
+        for (int q = SYNC_WAHEAD - 1; q > 0; --q) gn[q] = gn[q - 1];
+        gn[0] = mnext;
+        const float* w = wring + (c & (SYNC_WRING - 1)) * SYNC_TF;
+        const int g = c2 - c;
+        if (two && J == SYNC_CELLS && g <= SYNC_PAIR_GAP) {
+            switch (g) {
+                case 0: sync_add_pair<0>(acc, w); break;
+                case 1: sync_add_pair<1>(acc, w); break;
+                case 2: sync_add_pair<2>(acc, w); break;
+                case 3: sync_add_pair<3>(acc, w); break;
+                default: sync_add_pair<SYNC_PAIR_GAP>(acc, w); break;
+            }
+        } else {
+            sync_add_window(acc, w, J);
+            if (two)
+                sync_add_window(
+                    acc, wring + (c2 & (SYNC_WRING - 1)) * SYNC_TF, J);
+        }
+        i += two ? 2 : 1;
+    }
+}
+
+__global__ void __launch_bounds__(SYNC_THREADS, 4)
 k_qary_sync(const float* __restrict__ ps, const float* __restrict__ base,
             const int* __restrict__ hops, SyncDims d,
             u64* __restrict__ cand_key, float* __restrict__ cand_val,
-            uint32_t* __restrict__ done, float* __restrict__ top_val,
-            int64_t* __restrict__ top_idx) {
-    __shared__ float ring[SYNC_TMAX][SYNC_TF];
+            float* __restrict__ top_val, int64_t* __restrict__ top_idx) {
+    extern __shared__ __align__(16) unsigned char sync_smem[];
     __shared__ int s_hops[SYNC_S_MAX];
-    __shared__ u64 s_max[2 * SYNC_WARPS];
+    __shared__ u64 s_max[SYNC_THREADS];
+    __shared__ u64 s_tau;
+    __shared__ int s_count;
     __shared__ int s_last;
-    const int b = blockIdx.y, strip = blockIdx.x;
+    __shared__ int s_cong;          // every hop h0 plus a multiple of 8
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int f = strip * SYNC_TF + lane;
+    const int b = blockIdx.y, L = gridDim.x, K = d.K;
+    QSYNC_SPAN_BEGIN();
+    const int region = sync_region_bytes(K, L);
+    const int cap = sync_pool_cap(K);
+    float* ring = reinterpret_cast<float*>(sync_smem);
+    u64* pool_key = reinterpret_cast<u64*>(sync_smem);
+    float* pool_val = reinterpret_cast<float*>(sync_smem + 8 * cap);
+    u64* list_key = reinterpret_cast<u64*>(sync_smem + region);
+    float* list_val = reinterpret_cast<float*>(sync_smem + region + 8 * K);
     const float* pb = ps + static_cast<long long>(b) * d.H * d.F;
     for (int i = threadIdx.x; i < d.S; i += SYNC_THREADS) s_hops[i] = hops[i];
+    if (threadIdx.x == 0) s_cong = 1;
     __syncthreads();
+    if (threadIdx.x < d.S
+        && ((s_hops[threadIdx.x] - s_hops[0]) & (SYNC_WARPS - 1)) != 0)
+        s_cong = 0;
+    __syncthreads();
+    QSYNC_SPAN(0);
+    const float den = base[b] + TINY;
+    int n_run = 0;              // the block's list: its top keys so far
 
-    // the correlation: the sync rows in the order of the sync symbols
-    float acc[SYNC_CELLS];
+    for (int strip = blockIdx.x; strip < d.strips; strip += L) {
+        const int f_base = strip * SYNC_TF;
+        const int f = f_base + lane;
+        const bool bin_ok = f < d.n_f0;
+        const float* src = pb + f_base;
+        float acc[SYNC_CELLS];
 #pragma unroll
-    for (int j = 0; j < SYNC_CELLS; ++j) acc[j] = 0.0f;
-    int next = s_hops[0];
-    for (int i = 0; i < d.S; ++i) {
-        const int h = s_hops[i];
-        const int hi = h + d.n_t0;
-        for (int r = (next > h ? next : h) + warp; r < hi; r += SYNC_WARPS)
-            ring[r & (SYNC_TMAX - 1)][lane] =
-                f < d.n_f0 ? __ldg(pb + static_cast<long long>(r) * d.F + f)
-                           : 0.0f;
-        next = hi > next ? hi : next;
-        __syncthreads();
+        for (int j = 0; j < SYNC_CELLS; ++j) acc[j] = -0.0f;
+        if (s_cong)
+            sync_sum_warp(acc, s_hops, d, src, bin_ok, ring);
+        else
+            sync_sum_block(acc, s_hops, d, src, bin_ok, ring);
+        cp_async_wait<0>();
+        QSYNC_SPAN(1);
+
+        // scores and the thread's largest key: the largest order key, the
+        // first offset on ties (the lowest index)
+        uint32_t best = 0u;
+        int best_t = 0;
 #pragma unroll
         for (int j = 0; j < SYNC_CELLS; ++j) {
-            const float v = ring[(h + warp + SYNC_WARPS * j)
-                                 & (SYNC_TMAX - 1)][lane];
-            acc[j] = i == 0 ? v : acc[j] + v;
-        }
-        __syncthreads();
-    }
-
-    // scores and keys: (order key << 32) | ~(t0 n_f0 + f0); 0 = no cell
-    const float den = base[b] + TINY;
-    float val[SYNC_CELLS];
-    u64 key[SYNC_CELLS];
-#pragma unroll
-    for (int j = 0; j < SYNC_CELLS; ++j) {
-        const int t = warp + SYNC_WARPS * j;
-        val[j] = acc[j] / den;
-        const bool cell = t < d.n_t0 && f < d.n_f0;
-        const uint32_t idx = static_cast<uint32_t>(t * d.n_f0 + f);
-        key[j] = cell ? (static_cast<u64>(order_key(val[j])) << 32)
-                        | (0xffffffffu - idx)
-                      : 0ull;
-    }
-
-    // the strip's K largest keys, largest first
-    const long long slot0 = (static_cast<long long>(b) * gridDim.x + strip)
-        * d.K;
-    // (the first round takes any key: ~0 is a NaN score at index 0)
-    u64 last = ~0ull;
-    for (int r = 0; r < d.K; ++r) {
-        u64 best = 0ull;
-#pragma unroll
-        for (int j = 0; j < SYNC_CELLS; ++j)
-            best = ((r == 0 || key[j] < last) && key[j] > best) ? key[j]
-                                                               : best;
-        const u64 m = block_max_u64(best, s_max, r);
-        if (m != 0ull) {
-#pragma unroll
-            for (int j = 0; j < SYNC_CELLS; ++j)
-                if (key[j] == m) {
-                    cand_key[slot0 + r] = m;
-                    cand_val[slot0 + r] = val[j];
-                }
-        } else if (threadIdx.x == 0) {
-            cand_key[slot0 + r] = 0ull;
-        }
-        last = m;
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0)
-        s_last = atomicAdd(done + b, 1u) == gridDim.x - 1;
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-
-    // the window's last block: the top K of the strips' candidates
-    const long long c0 = static_cast<long long>(b) * gridDim.x * d.K;
-    const int n_c = gridDim.x * d.K;
-    last = ~0ull;
-    for (int r = 0; r < d.K; ++r) {
-        u64 best = 0ull;
-        int at = -1;
-        for (int i = threadIdx.x; i < n_c; i += SYNC_THREADS) {
-            const u64 k = __ldcg(cand_key + c0 + i);
-            if ((r == 0 || k < last) && k > best) {
-                best = k;
-                at = i;
+            acc[j] = acc[j] / den;
+            const int t = warp + SYNC_WARPS * j;
+            const uint32_t ok = t < d.n_t0 && bin_ok ? order_key(acc[j]) : 0u;
+            if (ok > best) {
+                best = ok;
+                best_t = t;
             }
         }
-        const u64 m = block_max_u64(best, s_max, r);
-        if (m != 0ull && best == m) {
-            top_val[static_cast<long long>(b) * d.K + r] =
-                __ldcg(cand_val + c0 + at);
-            top_idx[static_cast<long long>(b) * d.K + r] =
-                static_cast<int64_t>(0xffffffffu - static_cast<uint32_t>(m));
+        const u64 m = best ? (static_cast<u64>(best) << 32)
+                                 | sync_low(best_t, f, d)
+                           : 0ull;
+        // a key enters the list only above its K-th (floor), and only at
+        // or above the K-th largest thread maximum (tau): K threads hold a
+        // key at least that large.  Each warp sorts its 32 maxima; a
+        // maximum's rank is its place in its warp's list and the maxima
+        // above it in the other seven (a binary search each).
+        const u64 floor_key = n_run == K ? list_key[K - 1] + 1 : 1ull;
+        const u64 srt = warp_sort_desc(m);
+        QSYNC_SPAN(2);
+        __syncthreads();        // the ring is read: the pool takes its place
+        QSYNC_SPAN(6);
+        s_max[threadIdx.x] = srt;
+        if (threadIdx.x == 0) {
+            s_tau = floor_key;
+            s_count = n_run;
         }
-        last = m;
+        for (int i = threadIdx.x; i < n_run; i += SYNC_THREADS) {
+            pool_key[i] = list_key[i];
+            pool_val[i] = list_val[i];
+        }
+        __syncthreads();
+        if (srt >= floor_key) {
+            int above = lane;
+#pragma unroll
+            for (int w2 = 0; w2 < SYNC_WARPS; ++w2)
+                if (w2 != warp) above += count_above(s_max + 32 * w2, srt);
+            if (above == K - 1) s_tau = srt;
+        }
+        __syncthreads();
+        // the keys at tau join the pool (at most K threads hold one)
+        const u64 tau = s_tau;
+        if (m >= tau) {
+#pragma unroll
+            for (int j = 0; j < SYNC_CELLS; ++j) {
+                const u64 k = sync_key(acc[j], warp + SYNC_WARPS * j, f, d);
+                if (k >= tau) {
+                    const int at = atomicAdd(&s_count, 1);
+                    pool_key[at] = k;
+                    pool_val[at] = acc[j];
+                }
+            }
+        }
+        __syncthreads();
+        // the pool's K largest keys, placed by their ranks, are the list
+        const int n_pool = s_count;
+        for (int p = threadIdx.x; p < n_pool; p += SYNC_THREADS) {
+            const u64 k = pool_key[p];
+            const int above = keys_above(pool_key, n_pool, k);
+            if (above < K) {
+                list_key[above] = k;
+                list_val[above] = pool_val[p];
+            }
+        }
+        n_run = min(K, n_pool);
+        __syncthreads();
+        QSYNC_SPAN(2);
     }
+
+    // the block's list, zero keys past its end
+    const long long slot0 = (static_cast<long long>(b) * L + blockIdx.x) * K;
+    for (int i = threadIdx.x; i < K; i += SYNC_THREADS) {
+        cand_key[slot0 + i] = i < n_run ? list_key[i] : 0ull;
+        cand_val[slot0 + i] = i < n_run ? list_val[i] : 0.0f;
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        s_last = atomicAdd(g_sync_done + b, 1u)
+                 == static_cast<unsigned>(L - 1);
+        if (s_last) g_sync_done[b] = 0u;    // every block has counted
+    }
+    __syncthreads();
+    QSYNC_SPAN(3);
+    if (!s_last) {
+        QSYNC_SPAN_END();
+        return;
+    }
+    __threadfence();
+
+    // the window's last block: the candidates at or above the K-th largest
+    // head of the lists (tau) hold the top K; each is placed by its rank
+    // among them
+    const long long c0 = static_cast<long long>(b) * L * K;
+    const int n_c = L * K;
+    u64* heads = reinterpret_cast<u64*>(sync_smem);
+    u64* mkey = heads + ((L + 1) & ~1);      // 16-byte aligned
+    float* mval = reinterpret_cast<float*>(mkey + n_c);
+    for (int l = threadIdx.x; l < L; l += SYNC_THREADS)
+        heads[l] = __ldcg(cand_key + c0 + static_cast<long long>(l) * K);
+    if (threadIdx.x == 0) {
+        s_tau = 1ull;
+        s_count = 0;
+    }
+    __syncthreads();
+    for (int l = threadIdx.x; l < L; l += SYNC_THREADS) {
+        const u64 hk = heads[l];
+        if (hk != 0ull && keys_above(heads, L, hk) == K - 1) s_tau = hk;
+    }
+    __syncthreads();
+    const u64 tau = s_tau;
+    constexpr int MB = 8;           // list entries a thread loads at once
+    for (int i0 = 0; i0 < n_c; i0 += SYNC_THREADS * MB) {
+        u64 kk[MB];
+#pragma unroll
+        for (int u = 0; u < MB; ++u) {
+            const int i = i0 + u * SYNC_THREADS + threadIdx.x;
+            kk[u] = i < n_c ? __ldcg(cand_key + c0 + i) : 0ull;
+        }
+#pragma unroll
+        for (int u = 0; u < MB; ++u) {
+            const int i = i0 + u * SYNC_THREADS + threadIdx.x;
+            const bool take = i < n_c && kk[u] >= tau;
+            const unsigned bal = __ballot_sync(FULL, take);
+            int at = 0;
+            if (lane == 0 && bal) at = atomicAdd(&s_count, __popc(bal));
+            at = __shfl_sync(FULL, at, 0)
+                + __popc(bal & ((1u << lane) - 1u));
+            if (take) {
+                mkey[at] = kk[u];
+                mval[at] = __ldcg(cand_val + c0 + i);
+            }
+        }
+    }
+    __syncthreads();
+    const int n_pool = s_count;
+    for (int p = threadIdx.x; p < n_pool; p += SYNC_THREADS) {
+        const u64 k = mkey[p];
+        const int above = keys_above(mkey, n_pool, k);
+        if (above < K) {
+            top_val[static_cast<long long>(b) * K + above] = mval[p];
+            top_idx[static_cast<long long>(b) * K + above] =
+                static_cast<int64_t>(0xffffffffu - static_cast<uint32_t>(k));
+        }
+    }
+    QSYNC_SPAN(4);
+    QSYNC_SPAN_END();
+}
+
+// Sets the kernel's dynamic shared memory limit once a device.  Returns
+// the cudaError_t.
+int sync_attr() {
+    static bool attr_set[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 0 || dev >= MAX_DEVICES)
+        return static_cast<int>(cudaErrorInvalidDevice);
+    if (!attr_set[dev]) {
+        e = cudaFuncSetAttribute(k_qary_sync,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SYNC_SMEM_MAX);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        attr_set[dev] = true;
+    }
+    return 0;
 }
 
 }  // namespace
@@ -699,6 +1198,9 @@ int qary_mp_mr_max() { return MP_MR; }
 int qary_mp_col_max() { return MP_COL_MAX; }
 int qary_mp_blocks_sm() { return MP_BLOCKS_SM; }
 int qary_sync_tf() { return SYNC_TF; }
+int qary_sync_ring() { return SYNC_RING; }
+int qary_sync_ahead() { return SYNC_AHEAD; }
+int qary_sync_list_cap() { return SYNC_LIST_CAP; }
 int qary_sync_t_max() { return SYNC_TMAX; }
 int qary_sync_s_max() { return SYNC_S_MAX; }
 int qary_sync_k_max() { return SYNC_K_MAX; }
@@ -758,15 +1260,16 @@ int qra_mp_launch(const int* dims, const void* tables, const void* probs,
                      static_cast<cudaStream_t>(stream));
 }
 
-// Sync correlation and top-K of B windows: dims [7] = B, H, F, n_t0, n_f0,
-// S, K; ps [B, H, F] float32, base [B] float32, hops [S] int32 (os_t x the
-// sync symbols, ascending); cand_key [B, strips, K] and cand_val [B,
-// strips, K] scratch (strips = ceil(n_f0 / 32)), done [B] uint32 zeroed by
-// the caller; top_val [B, K] float32, top_idx [B, K] int64, one launch on
-// `stream`.  Returns the cudaError_t.
+// Sync correlation and top-K of B windows: dims [8] = B, H, F, n_t0, n_f0,
+// S, K, L (lists a window: min(strips, max(1, SYNC_LIST_CAP / K)), strips
+// = ceil(n_f0 / 32)); ps [B, H, F] float32, base [B] float32, hops [S]
+// int32 (os_t x the sync symbols, ascending, hops[S - 1] + n_t0 <= H; rows
+// past H read as 0); cand_key [B, L, K] uint64 and cand_val [B, L, K]
+// float32 scratch; top_val [B, K] float32, top_idx [B, K] int64, one
+// launch on `stream`.  Returns the cudaError_t.
 int qary_sync_launch(const int* dims, const void* ps, const void* base,
                      const void* hops, void* cand_key, void* cand_val,
-                     void* done, void* top_val, void* top_idx, void* stream) {
+                     void* top_val, void* top_idx, void* stream) {
     SyncDims d;
     d.B = dims[0];
     d.H = dims[1];
@@ -775,19 +1278,38 @@ int qary_sync_launch(const int* dims, const void* ps, const void* base,
     d.n_f0 = dims[4];
     d.S = dims[5];
     d.K = dims[6];
+    const int L = dims[7];
     if (d.B < 1 || d.B > 65535 || d.n_t0 < 1 || d.n_t0 > SYNC_TMAX
         || d.n_f0 < 1 || d.n_f0 > d.F || d.S < 1 || d.S > SYNC_S_MAX
         || d.K < 1 || d.K > SYNC_K_MAX
         || static_cast<long long>(d.n_t0) * d.n_f0 < d.K)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int strips = (d.n_f0 + SYNC_TF - 1) / SYNC_TF;
-    k_qary_sync<<<dim3(strips, d.B), SYNC_THREADS, 0,
+    d.strips = (d.n_f0 + SYNC_TF - 1) / SYNC_TF;
+    if (L != (d.strips < sync_lists(d.K) ? d.strips : sync_lists(d.K)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int e = sync_attr();
+    if (e != 0) return e;
+    k_qary_sync<<<dim3(L, d.B), SYNC_THREADS, sync_smem_bytes(d.K, L),
                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ps), static_cast<const float*>(base),
         static_cast<const int*>(hops), d, static_cast<u64*>(cand_key),
-        static_cast<float*>(cand_val), static_cast<uint32_t*>(done),
-        static_cast<float*>(top_val), static_cast<int64_t*>(top_idx));
+        static_cast<float*>(cand_val), static_cast<float*>(top_val),
+        static_cast<int64_t*>(top_idx));
     return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory bytes of a qary_sync block at top-k and L lists a
+// window, and the blocks an SM holds at it
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out [2].  Returns the
+// cudaError_t.
+int qary_sync_occupancy(int k, int lists, int* out) {
+    if (k < 1 || k > SYNC_K_MAX || lists < 1 || lists > sync_lists(k))
+        return static_cast<int>(cudaErrorInvalidValue);
+    out[0] = sync_smem_bytes(k, lists);
+    const int e = sync_attr();
+    if (e != 0) return e;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, k_qary_sync, SYNC_THREADS, out[0]));
 }
 
 // A kernel's registers a thread, local (spilled) bytes a thread, static

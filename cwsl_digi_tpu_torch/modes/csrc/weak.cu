@@ -29,12 +29,12 @@
 //     trials) and the erasure flags (a byte each) and writes the corrected
 //     word (a byte a symbol) and ok: ~12 MB at JT65's device batch of
 //     92,160 trials, ~0.004 ms of HBM.  Its operations are GF(64) products
-//     (a table lookup and an XOR each): two syndrome sets, the locator,
-//     the BM rounds, Omega and three polynomial evaluations at every
-//     position, ~17,000 a trial, ~0.2 ms at the INT32 rate: operations
-//     bound it.  Its serial chain: the 51 dependent BM rounds (a shuffle,
-//     a product and an XOR reduction across the warp each) between two
-//     63-step Horner chains.
+//     (a table lookup and an XOR each) that the data needs: a candidate's
+//     syndromes once for all its trials, and per trial the locator, the
+//     BM rounds, Omega, the Chien search, Omega and Lambda' at the roots,
+//     Forney and S(e): ~10,450 a trial, 0.115 ms at the INT32 rate
+//     (chip_smoke.rs_bound_ms): operations bound it.  What sets its time
+//     is the shared-memory pipe: every product is a load.
 //
 // The design.
 //
@@ -78,20 +78,33 @@
 //     of them 20 (K = 2) or 12 (K = 4) behind a block barrier; 37.5 KB of
 //     shared memory a block (74.4 KB at W = 1024).  The first maximum of
 //     the final metrics (NaN as the maximum) is a warp's reduction.
-//   - rs_ee: a warp a trial, the blocks looping over the trials.  Lanes j
-//     and j + 32 hold coefficient j (and j + 32) of the locator, of B and
-//     of the syndromes, and positions j and j + 32 of the word.  A GF(64)
-//     product is one byte of the 64 x 64 table in shared memory (with the
-//     inverse table, the positions' powers and the syndrome roots, 4.4 KB a
-//     block).  The syndromes and the evaluations at X_i^-1 run as Horner
-//     chains, the same field elements as the plain version's sums of
-//     table powers; the locator multiplies in (1 + X_i x) for each erased
-//     position in ascending order, truncated to nroots + 1 coefficients as
-//     the plain version's; each BM round's discrepancy is one
-//     __reduce_xor_sync and the shift of B and Lambda a __shfl_up_sync.
-//     The trial's candidate row is read once a trial from syms [C, n]
-//     int64 (the expanded [C T, n] int64 word is never built), the
-//     erasure flags from era [C, T, n] bool.
+//   - rs_ee: a warp a contiguous share of the trials (as many blocks as
+//     the card holds at once), so that a candidate's syndromes S(r),
+//     computed when the share reaches it, serve all its trials in the
+//     share.  A GF(64) product is one byte of the 64 x 64 table in shared
+//     memory; where its row is the same in every lane (a locator step's
+//     X_i, BM's discrepancy and its inverse, Omega's lambda_i, the
+//     evaluations' coefficients, S(e)'s e_i, S(r)'s r_i) the warp reads
+//     within one 64-byte row, one wavefront (the first port read random
+//     rows, ~3.5 wavefronts a product, ~660 a trial).  Lane l holds
+//     coefficients 2 l and 2 l + 1 of the locator, of B and of Omega (one
+//     shuffle a locator step or BM shift) and positions l and l + 32.  The
+//     locator multiplies in (1 + X_i x) for each erased position in
+//     ascending order and keeps nroots + 1 coefficients at the end (a
+//     coefficient takes only lower ones); each BM round's discrepancy is
+//     one __reduce_xor_sync.  Lambda's even and odd terms and Omega at
+//     X_i^-1 are sums of c_k pw [k][i] over a table of the positions'
+//     powers that each block builds (no Horner chain); Lambda' X_i^-1 is
+//     the odd terms' sum, so Forney's magnitude is Omega inv(odd) fc_i,
+//     fc_i = X_i^-1 X_i^(1 - fcr).  The corrected word's syndromes are
+//     S(r) XOR S(e) over the changed positions (syndromes are linear), so
+//     ok is the plain version's "all vanish".  ~910 shared loads a trial
+//     (the first port ~1,380), 25 of them random rows (chip_smoke.
+//     rs_shared_loads).  On an H100 80GB HBM3 at 700 W
+//     (tools/sync_rs_profile.py): 0.5420-0.5446 ms at JT65's 92,160 trials
+//     in turns with the first port's 1.0661-1.0671, 21 % of the bound; the
+//     evaluations, Omega and the locator take ~22 % of a warp's cycles
+//     each, BM 10 %, the check 10 %, the candidates' syndromes 8 %.
 //
 // Both are built with --fmad=false, so the beam's metric arithmetic is the
 // plain version's sequence of IEEE float operations.
@@ -556,6 +569,18 @@ int launch_beam(int n, const float* llr, float* best, int8_t* bits,
 // ---------------------------------------------------------------------------
 // rs_ee
 
+// Profiling hooks, empty in the library: tools/sync_rs_profile.py builds
+// this file with them defined to read clock64() at the kernel's phase
+// boundaries (RS_SPAN(k) closes span k).
+#ifndef RS_SPANS
+#define RS_SPAN_BEGIN()
+#define RS_SPAN(k)
+#define RS_SPAN_END()
+#endif
+
+// a GF(64) product: one byte of the 64 x 64 table in shared memory.  Where
+// the row a is the same in every lane of the warp, the lanes read within
+// one 64-byte row, 16 words in 16 banks: one wavefront whatever the b.
 __device__ __forceinline__ uint32_t gf_mul(const uint8_t* mul, uint32_t a,
                                            uint32_t b) {
     return mul[(a << 6) | b];
@@ -565,197 +590,266 @@ struct RsDims {
     int C, T, n, nroots;
 };
 
-// Received symbol r at position i corrected: Lambda, Omega and Lambda'
-// (its odd coefficients, in x^2) evaluated at X_i^-1 by Horner's rule, and
-// where Lambda vanishes r XOR Omega / Lambda' X_i^(1 - fcr) (Forney).
-__device__ __forceinline__ uint32_t corrected_at(const uint8_t* tab,
-                                                 const uint8_t* lm,
-                                                 const uint8_t* om,
-                                                 int nroots, int i,
-                                                 uint32_t r) {
-    const uint8_t* mul = tab + RS_TAB_MUL;
-    const uint32_t x = tab[RS_TAB_XINV + i];
-    const uint32_t x2 = gf_mul(mul, x, x);
-    uint32_t ev = 0, oe = 0, de = 0;
-    for (int k = nroots; k >= 0; --k) ev = gf_mul(mul, ev, x) ^ lm[k];
-    for (int k = nroots - 1; k >= 0; --k) oe = gf_mul(mul, oe, x) ^ om[k];
-    for (int k = (nroots + 1) / 2 - 1; k >= 0; --k)
-        de = gf_mul(mul, de, x2) ^ lm[2 * k + 1];
-    const uint32_t mag = gf_mul(
-        mul, gf_mul(mul, oe, tab[RS_TAB_INV + de]), tab[RS_TAB_XFCR + i]);
-    return ev == 0 ? (r ^ mag) : r;
-}
+// the block's tables past the table block: pw [k][l] = (X_i^-1)^k of the
+// positions i = l and l + 32 (the low and the high byte), the positions'
+// powers for the evaluations (k <= nroots), syn [i][j] = alpha^((fcr + j)
+// deg_i), the syndromes' powers (j < nroots, 0 past), and fc [i] = X_i^-1
+// X_i^(1 - fcr), Forney's constant a position
+struct RsSmem {
+    uint8_t tab[RS_TAB_BYTES];
+    uint16_t pw[RS_N_MAX + 1][32];
+    uint8_t syn[64][64];
+    uint8_t fc[64];
+    uint8_t word[RS_WARPS][64];        // the warp's candidate row
+    uint16_t sy[RS_WARPS][66];         // S_(x-1) | S_x << 8 at x + 1, S(r)
+    uint8_t lam[RS_WARPS][64];         // the trial's Lambda
+    uint16_t lo[RS_WARPS][64];         // Lambda_k | Omega_k << 8
+};
 
 __global__ void __launch_bounds__(RS_THREADS)
 k_rs_ee(const uint8_t* __restrict__ tables, const int64_t* __restrict__ syms,
         const uint8_t* __restrict__ era, RsDims d,
         uint8_t* __restrict__ corrected, uint8_t* __restrict__ ok) {
-    __shared__ uint8_t tab[RS_TAB_BYTES];
-    __shared__ uint8_t word[RS_WARPS][64];
-    __shared__ uint8_t syn[RS_WARPS][64];
-    __shared__ uint8_t lam[RS_WARPS][64];
-    __shared__ uint8_t omg[RS_WARPS][64];
+    __shared__ __align__(16) RsSmem sm;
+    RS_SPAN_BEGIN();
     for (int i = threadIdx.x; i < RS_TAB_BYTES; i += RS_THREADS)
-        tab[i] = tables[i];
+        sm.tab[i] = tables[i];
     __syncthreads();
-    const uint8_t* mul = tab + RS_TAB_MUL;
-    const uint8_t* inv = tab + RS_TAB_INV;
+    const uint8_t* mul = sm.tab + RS_TAB_MUL;
+    const uint8_t* inv = sm.tab + RS_TAB_INV;
+    const int n = d.n, nroots = d.nroots;
+    {
+        // threads 0-31 build two positions' powers, 64-127 a syndrome's,
+        // 128-191 a position's Forney constant, by repeated products
+        const int t = threadIdx.x;
+        if (t < 32) {
+            const int u = t + 32;
+            const uint32_t x = t < n ? sm.tab[RS_TAB_XINV + t] : 0u;
+            const uint32_t y = u < n ? sm.tab[RS_TAB_XINV + u] : 0u;
+            uint32_t p = t < n ? 1u : 0u, q = u < n ? 1u : 0u;
+            for (int k = 0; k <= nroots; ++k) {
+                sm.pw[k][t] = static_cast<uint16_t>(p | (q << 8));
+                p = gf_mul(mul, p, x);
+                q = gf_mul(mul, q, y);
+            }
+        } else if (t >= 64 && t < 128) {
+            const int j = t - 64;
+            const uint32_t x = j < nroots ? sm.tab[RS_TAB_ROOT + j] : 0u;
+            uint32_t p = j < nroots ? 1u : 0u;
+            for (int i = 63; i >= 0; --i) {
+                sm.syn[i][j] = static_cast<uint8_t>(i < n ? p : 0u);
+                if (i < n) p = gf_mul(mul, p, x);
+            }
+        } else if (t >= 128 && t < 192) {
+            const int i = t - 128;
+            sm.fc[i] = static_cast<uint8_t>(
+                i < n ? gf_mul(mul, sm.tab[RS_TAB_XINV + i],
+                               sm.tab[RS_TAB_XFCR + i]) : 0u);
+        }
+    }
+    __syncthreads();
+    RS_SPAN(0);
     const unsigned FULL = 0xffffffffu;
     const int lane = threadIdx.x & 31;
     const int w = threadIdx.x >> 5;
-    const int n = d.n, nroots = d.nroots;
-    const int ia = lane, ib = lane + 32;        // this lane's two indices
-    const bool pa = ia < n, pb = ib < n;        // positions in the word
-    const bool ca = ia <= nroots, cb = ib <= nroots;  // locator coefficients
-    const unsigned total = d.C * d.T;        // < 2**31 (checked at launch)
-    uint8_t* wd = word[w];
-    uint8_t* sy = syn[w];
-    uint8_t* lm = lam[w];
-    uint8_t* om = omg[w];
+    const int ia = lane, ib = lane + 32;        // this lane's two positions
+    const bool pa = ia < n, pb = ib < n;
+    const int j0 = 2 * lane, j1 = 2 * lane + 1;  // and two coefficients
+    const bool c0 = j0 <= nroots, c1 = j1 <= nroots;
+    uint8_t* wd = sm.word[w];
+    uint16_t* sy = sm.sy[w];
+    uint8_t* lm = sm.lam[w];
+    uint16_t* lo = sm.lo[w];
 
-    // 32-bit trial indices: a 64-bit division would be a call, whose
-    // saved registers spill
-    for (unsigned m = blockIdx.x * RS_WARPS + w; m < total;
-         m += gridDim.x * RS_WARPS) {
-        const unsigned c = m / static_cast<unsigned>(d.T);
-        const int64_t* row = syms + static_cast<long long>(c) * n;
-        const uint8_t* er = era + static_cast<long long>(m) * n;
-        const uint32_t ra = pa ? static_cast<uint32_t>(row[ia]) & 63u : 0u;
-        const uint32_t rb = pb ? static_cast<uint32_t>(row[ib]) & 63u : 0u;
-        const unsigned ea = __ballot_sync(FULL, pa && er[ia] != 0);
-        const unsigned eb = __ballot_sync(FULL, pb && er[ib] != 0);
-        wd[ia] = static_cast<uint8_t>(ra);
-        wd[ib] = static_cast<uint8_t>(rb);
-        __syncwarp();
+    // the warp's trials: a contiguous share of the C T, so that a
+    // candidate's syndromes serve all its trials in the share (32-bit
+    // indices: a 64-bit division would be a call, whose saved registers
+    // spill)
+    const unsigned total = static_cast<unsigned>(d.C) * d.T;
+    const unsigned warps = gridDim.x * RS_WARPS;
+    const unsigned gw = blockIdx.x * RS_WARPS + w;
+    const unsigned per = total / warps, rem = total % warps;
+    const unsigned m0 = gw * per + (gw < rem ? gw : rem);
+    const unsigned m1 = m0 + per + (gw < rem ? 1u : 0u);
+    unsigned c = m0 / static_cast<unsigned>(d.T);
+    unsigned t = m0 - c * static_cast<unsigned>(d.T);
+    unsigned c_row = 0xffffffffu;
+    uint32_t ra = 0, rb = 0, s0 = 0, s1 = 0;
 
-        // syndromes S_j = r(alpha^(fcr + j)), Horner from word[0] (the
-        // highest power), j = ia and ib
-        uint32_t sa = 0, sb = 0;
-        {
-            const uint32_t xa = ia < nroots ? tab[RS_TAB_ROOT + ia] : 0u;
-            const uint32_t xb = ib < nroots ? tab[RS_TAB_ROOT + ib] : 0u;
+    for (unsigned m = m0; m < m1; ++m) {
+        if (c != c_row) {
+            // the candidate's row and its syndromes S_j = sum_i r_i
+            // alpha^((fcr + j) deg_i), j = j0 and j1 (r_i the same in
+            // every lane: one wavefront a product)
+            const int64_t* row = syms + static_cast<long long>(c) * n;
+            ra = pa ? static_cast<uint32_t>(row[ia]) & 63u : 0u;
+            rb = pb ? static_cast<uint32_t>(row[ib]) & 63u : 0u;
+            __syncwarp();
+            wd[ia] = static_cast<uint8_t>(ra);
+            wd[ib] = static_cast<uint8_t>(rb);
+            __syncwarp();
+            s0 = 0;
+            s1 = 0;
             for (int i = 0; i < n; ++i) {
                 const uint32_t r = wd[i];
-                sa = gf_mul(mul, sa, xa) ^ r;
-                sb = gf_mul(mul, sb, xb) ^ r;
+                const uint32_t pair = *reinterpret_cast<const uint16_t*>(
+                    &sm.syn[i][j0]);
+                s0 ^= gf_mul(mul, r, pair & 63u);
+                s1 ^= gf_mul(mul, r, pair >> 8);
             }
-            if (ia >= nroots) sa = 0;
-            if (ib >= nroots) sb = 0;
+            // sy [x + 1] = S_(x - 1) | S_x << 8 (S_-1 = S_64 = 0)
+            const uint32_t sm1 = __shfl_up_sync(FULL, s1, 1);
+            sy[j0 + 1] = static_cast<uint16_t>((lane ? sm1 : 0u) | (s0 << 8));
+            sy[j1 + 1] = static_cast<uint16_t>(s0 | (s1 << 8));
+            if (lane == 0) sy[0] = 0;
+            c_row = c;
         }
-        sy[ia] = static_cast<uint8_t>(sa);
-        sy[ib] = static_cast<uint8_t>(sb);
+        RS_SPAN(1);
+        const uint8_t* er = era + static_cast<long long>(m) * n;
+        const unsigned ea = __ballot_sync(FULL, pa && er[ia] != 0);
+        const unsigned eb = __ballot_sync(FULL, pb && er[ib] != 0);
+        const int no_eras = __popc(ea) + __popc(eb);
 
         // erasure locator prod (1 + X_i x) over the erased positions in
-        // ascending order, nroots + 1 coefficients kept
-        uint32_t la = lane == 0 ? 1u : 0u, lb = 0u;
-        const int no_eras = __popc(ea) + __popc(eb);
+        // ascending order (X_i the same in every lane), nroots + 1
+        // coefficients kept: coefficient k takes only lower ones, so the
+        // coefficients past nroots are dropped once, at the end
+        uint32_t l0 = lane == 0 ? 1u : 0u, l1 = 0u;
         for (int half = 0; half < 2; ++half) {
             unsigned mask = half ? eb : ea;
             while (mask) {
                 const int i = __ffs(mask) - 1 + 32 * half;
                 mask &= mask - 1;
-                const uint32_t x = tab[RS_TAB_XI + i];
-                uint32_t prev_a = __shfl_up_sync(FULL, la, 1);
-                uint32_t prev_b = __shfl_up_sync(FULL, lb, 1);
-                const uint32_t top_a = __shfl_sync(FULL, la, 31);
-                if (lane == 0) {
-                    prev_a = 0;
-                    prev_b = top_a;
-                }
-                la ^= gf_mul(mul, prev_a, x);
-                lb ^= gf_mul(mul, prev_b, x);
-                if (!ca) la = 0;
-                if (!cb) lb = 0;
+                const uint32_t x = sm.tab[RS_TAB_XI + i];
+                uint32_t prev = __shfl_up_sync(FULL, l1, 1);
+                if (lane == 0) prev = 0;
+                l1 ^= gf_mul(mul, x, l0);
+                l0 ^= gf_mul(mul, x, prev);
             }
         }
+        if (!c0) l0 = 0;
+        if (!c1) l1 = 0;
         __syncwarp();
+        RS_SPAN(2);
 
         // Berlekamp-Massey with erasures (Karn's decode_rs recursion), the
         // rounds r > no_eras
         {
-            uint32_t ba = la, bb = lb;
+            uint32_t b0 = l0, b1 = l1;
             int el = no_eras;
             for (int r = no_eras + 1; r <= nroots; ++r) {
-                // discrepancy: XOR over i < r of lambda_i S_(r-1-i)
+                // discrepancy: XOR over i < r of lambda_i S_(r-1-i): x = r
+                // - 1 - j0, sy [x + 1] = S_(x-1) (j1's) | S_x << 8 (j0's)
                 uint32_t part = 0;
-                if (ia <= r - 1) part ^= gf_mul(mul, la, sy[r - 1 - ia]);
-                if (ib <= r - 1) part ^= gf_mul(mul, lb, sy[r - 1 - ib]);
-                const uint32_t dd = __reduce_xor_sync(FULL, part);
-                uint32_t bsa = __shfl_up_sync(FULL, ba, 1);
-                uint32_t bsb = __shfl_up_sync(FULL, bb, 1);
-                const uint32_t top_b = __shfl_sync(FULL, ba, 31);
-                if (lane == 0) {
-                    bsa = 0;
-                    bsb = top_b;
+                if (j0 <= r - 1) {
+                    const uint32_t v = sy[r - j0];
+                    part = gf_mul(mul, l0, v >> 8) ^ gf_mul(mul, l1, v & 63u);
                 }
-                if (!ca) bsa = 0;
-                if (!cb) bsb = 0;
-                const uint32_t ta = la ^ gf_mul(mul, dd, bsa);
-                const uint32_t tb = lb ^ gf_mul(mul, dd, bsb);
+                const uint32_t dd = __reduce_xor_sync(FULL, part);
+                uint32_t bs0 = __shfl_up_sync(FULL, b1, 1);
+                if (lane == 0 || !c0) bs0 = 0;
+                const uint32_t bs1 = c1 ? b0 : 0u;
+                const uint32_t t0 = l0 ^ gf_mul(mul, dd, bs0);
+                const uint32_t t1 = l1 ^ gf_mul(mul, dd, bs1);
                 if (dd != 0 && 2 * el <= (r - 1) + no_eras) {
                     const uint32_t id = inv[dd];
-                    ba = gf_mul(mul, la, id);
-                    bb = gf_mul(mul, lb, id);
+                    b0 = gf_mul(mul, id, l0);
+                    b1 = gf_mul(mul, id, l1);
                     el = r + no_eras - el;
                 } else {
-                    ba = bsa;
-                    bb = bsb;
+                    b0 = bs0;
+                    b1 = bs1;
                 }
-                la = ta;
-                lb = tb;
+                l0 = t0;
+                l1 = t1;
             }
         }
-        lm[ia] = static_cast<uint8_t>(la);
-        lm[ib] = static_cast<uint8_t>(lb);
+        lm[j0] = static_cast<uint8_t>(l0);
+        lm[j1] = static_cast<uint8_t>(l1);
         __syncwarp();
+        RS_SPAN(3);
 
         // Omega = S Lambda mod x^nroots: omega_j = XOR over i <= j of
-        // lambda_i S_(j-i)
-        {
-            uint32_t oa = 0, ob = 0;
-            for (int i = 0; i < nroots; ++i) {
-                const uint32_t li = lm[i];
-                if (i <= ia && ia < nroots)
-                    oa ^= gf_mul(mul, li, sy[ia - i]);
-                if (i <= ib && ib < nroots)
-                    ob ^= gf_mul(mul, li, sy[ib - i]);
-            }
-            om[ia] = static_cast<uint8_t>(oa);
-            om[ib] = static_cast<uint8_t>(ob);
+        // lambda_i S_(j-i), j = j0 and j1 (lambda_i the same in every lane)
+        uint32_t o0 = 0, o1 = 0;
+        for (int i = 0; i < nroots; ++i) {
+            const uint32_t li = lm[i];
+            if (li == 0 || i > j1) continue;
+            // sy [j1 - i + 1] = S_(j0-i) (0 at i = j1) | S_(j1-i) << 8
+            const uint32_t v = sy[j1 - i + 1];
+            o0 ^= gf_mul(mul, li, v & 63u);
+            o1 ^= gf_mul(mul, li, v >> 8);
         }
+        if (j0 >= nroots) o0 = 0;
+        if (j1 >= nroots) o1 = 0;
+        lo[j0] = static_cast<uint16_t>(l0 | (o0 << 8));
+        lo[j1] = static_cast<uint16_t>(l1 | (o1 << 8));
         __syncwarp();
+        RS_SPAN(4);
 
-        // Chien, Omega and Lambda' at X_i^-1 and Forney at positions ia
-        // and ib
-        const uint32_t fa =
-            pa ? corrected_at(tab, lm, om, nroots, ia, ra) : 0u;
-        const uint32_t fb =
-            pb ? corrected_at(tab, lm, om, nroots, ib, rb) : 0u;
-        __syncwarp();
-        wd[ia] = static_cast<uint8_t>(fa);
-        wd[ib] = static_cast<uint8_t>(fb);
-        __syncwarp();
-
-        // the corrected word's syndromes must all vanish
-        uint32_t za = 0, zb = 0;
-        {
-            const uint32_t xa = ia < nroots ? tab[RS_TAB_ROOT + ia] : 0u;
-            const uint32_t xb = ib < nroots ? tab[RS_TAB_ROOT + ib] : 0u;
-            for (int i = 0; i < n; ++i) {
-                const uint32_t r = wd[i];
-                za = gf_mul(mul, za, xa) ^ r;
-                zb = gf_mul(mul, zb, xb) ^ r;
+        // Lambda's even and odd terms and Omega at X_i^-1 of positions ia
+        // and ib, each term lambda_k (X_i^-1)^k (lambda_k the same in every
+        // lane); Lambda' X_i^-1 is the odd terms' sum, so Forney's
+        // Omega / Lambda' X_i^(1 - fcr) is Omega / odd x fc_i
+        uint32_t ea0 = 0, oa0 = 0, wa0 = 0, eb0 = 0, ob0 = 0, wb0 = 0;
+        for (int k = 0; k <= nroots; k += 2) {
+            // k's and k + 1's coefficients a broadcast
+            const uint32_t vv = reinterpret_cast<const uint32_t*>(lo)[k >> 1];
+            const uint32_t v = vv & 0xffffu;
+            if (v != 0) {
+                const uint32_t pk = sm.pw[k][lane];
+                const uint32_t pka = pk & 63u, pkb = pk >> 8;
+                const uint32_t lk = v & 63u, ok_ = v >> 8;
+                ea0 ^= gf_mul(mul, lk, pka);
+                eb0 ^= gf_mul(mul, lk, pkb);
+                wa0 ^= gf_mul(mul, ok_, pka);
+                wb0 ^= gf_mul(mul, ok_, pkb);
             }
-            if (ia >= nroots) za = 0;
-            if (ib >= nroots) zb = 0;
+            const uint32_t u = k + 1 <= nroots ? vv >> 16 : 0u;
+            if (u != 0) {
+                const uint32_t pk = sm.pw[k + 1][lane];
+                const uint32_t pka = pk & 63u, pkb = pk >> 8;
+                const uint32_t lk = u & 63u, ok_ = u >> 8;
+                oa0 ^= gf_mul(mul, lk, pka);
+                ob0 ^= gf_mul(mul, lk, pkb);
+                wa0 ^= gf_mul(mul, ok_, pka);
+                wb0 ^= gf_mul(mul, ok_, pkb);
+            }
         }
-        const bool bad = __any_sync(FULL, (za | zb) != 0);
+        const uint32_t maga = gf_mul(mul, gf_mul(mul, wa0, inv[oa0]), sm.fc[ia]);
+        const uint32_t magb = gf_mul(mul, gf_mul(mul, wb0, inv[ob0]), sm.fc[ib]);
+        const uint32_t fa = pa && (ea0 ^ oa0) == 0 ? ra ^ maga : ra;
+        const uint32_t fb = pb && (eb0 ^ ob0) == 0 ? rb ^ magb : rb;
+        RS_SPAN(5);
+
+        // the corrected word's syndromes are S(r) XOR S(e), e = the
+        // changes: they must all vanish (e_i the same in every lane)
+        const uint32_t da = fa ^ ra, db = fb ^ rb;
+        uint32_t z0 = s0, z1 = s1;
+        for (int half = 0; half < 2; ++half) {
+            unsigned mask = __ballot_sync(FULL, (half ? db : da) != 0);
+            while (mask) {
+                const int src = __ffs(mask) - 1;
+                mask &= mask - 1;
+                const uint32_t e = __shfl_sync(FULL, half ? db : da, src);
+                const uint32_t pair = *reinterpret_cast<const uint16_t*>(
+                    &sm.syn[src + 32 * half][j0]);
+                z0 ^= gf_mul(mul, e, pair & 63u);
+                z1 ^= gf_mul(mul, e, pair >> 8);
+            }
+        }
+        const bool bad = __any_sync(FULL, (z0 | z1) != 0);
         uint8_t* out = corrected + static_cast<long long>(m) * n;
         if (pa) out[ia] = static_cast<uint8_t>(fa);
         if (pb) out[ib] = static_cast<uint8_t>(fb);
         if (lane == 0) ok[m] = bad ? 0 : 1;
-        __syncwarp();
+        if (++t == static_cast<unsigned>(d.T)) {
+            t = 0;
+            ++c;
+        }
+        RS_SPAN(6);
     }
+    RS_SPAN_END();
 }
 
 }  // namespace
@@ -809,12 +903,22 @@ int wspr_beam_launch(int n, int w, int k, const void* llr, void* best,
     });
 }
 
+// The rs_ee blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or a negative cudaError_t.
+int rs_ee_blocks_per_sm() {
+    int blocks = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, k_rs_ee, RS_THREADS, 0);
+    return e != cudaSuccess ? -static_cast<int>(e) : blocks;
+}
+
 // Errors-and-erasures decode of C x T < 2**31 trials: trial (c, t) is the
 // word syms [c] (int64, values taken mod 64) with the erasure flags era
 // [c, t] (bool); corrected [C, T, n] uint8 and ok [C, T] bool (all the
 // corrected word's syndromes zero), on `stream`, one launch of at most as
-// many blocks as the card holds at once.  dims [4]: C, T, n, nroots; tables: the
-// RS_TAB_BYTES table block.  Returns the cudaError_t.
+// many blocks as the card holds at once, each warp a contiguous share of
+// the trials.  dims [4]: C, T, n, nroots; tables: the RS_TAB_BYTES table
+// block.  Returns the cudaError_t.
 int rs_ee_launch(const int* dims, const void* tables, const void* syms,
                  const void* era, void* corrected, void* ok, void* stream) {
     RsDims d;

@@ -756,6 +756,11 @@ def test_rs_ee_matches_plain_on_card(dev, n_cand):
         got = chip_smoke.rs_vs_plain(nk, syms, era, public)
         assert got["ok"] and got["over_nroots"] > 0, got
         assert 0 < got["ok_share"] < 1, got
+    # the all-zero word, clean and with errors, under each pattern
+    zero = torch.zeros((2, 63), dtype=torch.int64, device=dev)
+    zero[1, [4, 30, 50]] = 7
+    got = chip_smoke.rs_vs_plain(nk, zero, era[:2].clone())
+    assert got["ok"], got
     torch.cuda.synchronize()
 
 
@@ -789,7 +794,8 @@ def test_weak_kernels_raise_without_library_on_card(dev, monkeypatch,
 
 def test_weak_kernels_do_not_spill_on_card(dev):
     """wspr_beam in every plan of every width and rs_ee keep every value
-    in registers; with the back-pointers gone from shared memory a block
+    in registers (rs_ee's tables and per-warp rows in 15,776 B of static
+    shared memory, at least four blocks an SM); with the back-pointers gone from shared memory a block
     holds the survivors, the tails by rank and the sort's exchange
     buffers, 72 W + 648 bytes (74,376 at W = 1024), so an SM holds three
     width-1024 blocks and at least five width-512 ones in the plan of a
@@ -804,6 +810,10 @@ def test_weak_kernels_do_not_spill_on_card(dev):
     assert weak_kernels.beam_smem_bytes(1024, 4) == 74_376
     assert weak_kernels.beam_blocks_per_sm(dev, 1024, 4) >= 3
     assert weak_kernels.beam_blocks_per_sm(dev, 512, 4) >= 5
+    # rs_ee: 15,776 B of tables and per-warp rows a block, at least four
+    # blocks an SM
+    assert attrs["rs_ee"]["static_smem_bytes"] == 15_776, attrs
+    assert weak_kernels.rs_blocks_per_sm(dev) >= 4
 
 
 def test_decoders_launch_the_weak_kernels_on_card(dev):
@@ -930,7 +940,7 @@ def test_qary_sync_matches_plain_on_card(dev, mode):
     """qary_sync against the plain selection on the card and the NumPy
     model, on maps with planted ties in two strips, NaN scores under a
     finite base and a NaN base: top_val bit for bit, top_idx identical;
-    also at top_k 1 and 256."""
+    also at top_k 1 and 256; one launch a call."""
     spec = jt65.SPEC if mode == "JT65" else q65.SPEC
     ps, base = qary_models.planted_map(spec)
     psd = torch.from_numpy(ps).to(dev)
@@ -944,6 +954,22 @@ def test_qary_sync_matches_plain_on_card(dev, mode):
     assert (idx.cpu().numpy() == m_idx).all()
     assert ((val.cpu().numpy().view(np.uint32) == m_val.view(np.uint32))
             | np.isnan(m_val)).all()
+
+
+@pytest.mark.parametrize("name", list(qary_models.sync_edge_cases()))
+def test_qary_sync_edge_cases_on_card(dev, name):
+    """qary_sync against the plain selection on each of the model's edges
+    (ties across strips and warps, every score equal, n_f0 either side of a
+    strip's width, top-K 1 and 256, 50 time offsets, one sync symbol, gaps
+    past the look-ahead and the ring, hops not congruent mod 8): bit for
+    bit, and the same twice (the window counters reset)."""
+    spec, ps, base = qary_models.sync_edge_cases()[name]
+    psd = torch.from_numpy(ps).to(dev)
+    based = torch.from_numpy(base).to(dev)
+    for _ in range(2):
+        got = chip_smoke.qsync_vs_plain(spec, psd, based)
+        assert got["ok"], got
+    torch.cuda.synchronize()
 
 
 def test_qary_kernels_raise_without_library_on_card(dev, monkeypatch,
@@ -979,7 +1005,8 @@ def test_qary_kernels_raise_without_library_on_card(dev, monkeypatch,
 
 def test_qary_kernels_do_not_spill_on_card(dev):
     """qra_mp, median_rows (each plan's kernels) and qary_sync keep every
-    value in registers;
+    value in registers; a qary_sync block at top-24 takes 53,536 B of
+    dynamic shared memory (its warps' rings) and an SM holds four;
     Q65's code, whose 152 edges' messages and channel rows take 55,040 B
     of shared memory a word, holds the design's MP_BLOCKS_SM (4) qra_mp
     blocks of 8 warps an SM."""
@@ -998,6 +1025,9 @@ def test_qary_kernels_do_not_spill_on_card(dev):
     assert qary_kernels.MP_BLOCKS_SM == 4
     assert qary_kernels.mp_blocks_per_sm(dev, dec.kernel_code, edges) \
         >= qary_kernels.MP_BLOCKS_SM, attrs
+    occ = qary_kernels.sync_occupancy(dev, 24, 75)
+    assert occ["dynamic_smem_bytes"] == 53_536, occ
+    assert occ["blocks_an_sm"] >= 4, occ
 
 
 def test_decoders_launch_the_qary_kernels_on_card(dev):

@@ -666,50 +666,280 @@ def test_median_plain_matches_jnp_median():
 # qary_sync model
 
 
-def sync_model(spec, power_sync: np.ndarray, base: np.ndarray
+SYNC_WARPS, SYNC_THREADS, SYNC_CELLS = 8, 256, 16
+
+
+def sync_schedule(hops, n_t0: int, ring: int = _qary_kernels.SYNC_RING,
+                  ahead: int = _qary_kernels.SYNC_AHEAD) -> dict:
+    """The ``qary_sync`` block's load schedule, as every thread runs it:
+    the prologue's ``ahead`` groups (the union rows up to window g's end,
+    below hops[0] + ring), then at window i the wait (for the groups up to
+    the newest one committed at least q groups back whose rows reach
+    window i's end, q at most ``ahead`` - 1; where none does, a gap
+    outran the ring: a barrier, the missing rows as a group of their own
+    and a wait for every group), the barrier, and the rows up to window
+    i + ``ahead``'s end below hops[i] + ring.  Returns the events:
+    ("issue", rows, group) and ("sum", window, groups complete), issues
+    before the window they overlap is summed, as the kernel runs them.
+    Raises where the kernel's invariants fail: a row issued twice or
+    outside the windows, a slot overwritten while a row in it is still to
+    be read, a window summed before its rows' groups are complete."""
+    s = len(hops)
+    hops = [int(h) for h in hops]
+    st = {"next": hops[0], "wnext": 0, "events": [], "issued": {},
+          "gnext": [], "barriers": 0}
+
+    def issue(x: int, first_read: int) -> None:
+        rows = []
+        while True:
+            while st["wnext"] < s and hops[st["wnext"]] + n_t0 <= st["next"]:
+                st["wnext"] += 1
+            if st["wnext"] == s:
+                break
+            lo = max(st["next"], hops[st["wnext"]])
+            if lo >= x:
+                break
+            hi = min(hops[st["wnext"]] + n_t0, x)
+            rows += range(lo, hi)
+            st["next"] = hi
+        live = {r for w in range(first_read, s)
+                for r in range(hops[w], hops[w] + n_t0)}
+        for r in rows:
+            assert r not in st["issued"], f"row {r} issued twice"
+            assert r in live, f"row {r} in no window left"
+            for old in st["issued"]:
+                assert not (old % ring == r % ring and old in live), \
+                    f"row {r} overwrites row {old}, still to be read"
+            st["issued"][r] = len(st["gnext"])
+        st["events"].append(("issue", rows, len(st["gnext"])))
+        st["gnext"].append(st["next"])        # the commit
+
+    for g in range(ahead):
+        issue(min(hops[0] + ring, hops[min(g, s - 1)] + n_t0), 0)
+    for i in range(s):
+        h = hops[i]
+        need = h + n_t0
+        newest = st["gnext"][::-1]
+        pending = max((q for q in range(ahead) if newest[q] >= need),
+                      default=-1)
+        if pending < 0:
+            st["barriers"] += 1
+            issue(need, i)
+            pending = 0
+        complete = len(st["gnext"]) - pending
+        st["barriers"] += 1
+        for r in range(h, need):
+            assert r in st["issued"] and st["issued"][r] < complete, \
+                f"window {i}: row {r} not complete"
+        issue(min(h + ring, hops[min(i + ahead, s - 1)] + n_t0), i)
+        st["events"].append(("sum", i, complete))
+    union = {r for h in hops for r in range(h, h + n_t0)}
+    assert set(st["issued"]) == union
+    return {"events": st["events"], "barriers": st["barriers"],
+            "rows": len(union),
+            "ahead_rows": max(len(e[1]) for e in st["events"]
+                              if e[0] == "issue")}
+
+
+def sync_warp_schedule(hops, n_t0: int, warp: int,
+                       ring: int = 32, mirror: int = 20,
+                       ahead: int = 4) -> dict:
+    """The load schedule of warp ``warp`` on ``qary_sync``'s path for hops
+    all congruent mod 8: its class rows m (row hops[0] + warp + 8 m) in
+    its own ring (slot m mod ``ring``, slots below ``mirror`` again past
+    its end), every class row from 0 in order; window i is class rows
+    [c_i, c_i + J) (c_i = (hops[i] - hops[0]) / 8, J its offsets below
+    n_t0); a step sums windows i and i + 1 where both fit the ring, else
+    window i.  The prologue's ``ahead`` groups (up to window 2 g + 1's
+    end), then at a step the wait (the groups up to the newest one
+    committed at least q groups back that reaches the step's last window's
+    end, q < ``ahead``; a gap that outran the ring: its rows now, a wait
+    for all), then the class rows up to window i + 2 ``ahead`` + 1's end
+    below c_i + ``ring``.  Returns the events, ("issue",
+    class rows, group) and ("sum", window, groups complete, the step's
+    first window).  Raises where
+    a class row is issued twice, a slot (or its mirror) is written while
+    its row is still to be read, or a window is summed before its rows'
+    groups are complete."""
+    s = len(hops)
+    h0 = int(hops[0])
+    cls = [(int(h) - h0) // 8 for h in hops]
+    j_n = max(0, -(-(n_t0 - warp) // 8))
+    st = {"next": 0, "events": [], "issued": {}, "gn": []}
+
+    def slots(m):
+        sl = m % ring
+        return {sl, sl + ring} if sl < mirror else {sl}
+
+    def issue(x: int, first_read: int) -> None:
+        rows = list(range(st["next"], x))
+        st["next"] = max(st["next"], x)
+        live = {m for w in range(first_read, s)
+                for m in range(cls[w], cls[w] + j_n)}
+        for m in rows:
+            assert m not in st["issued"], m
+            for old in st["issued"]:
+                assert not (slots(old) & slots(m) and old in live), \
+                    f"class row {m} overwrites {old}, still to be read"
+            st["issued"][m] = len(st["gn"])
+        st["events"].append(("issue", rows, len(st["gn"])))
+        st["gn"].append(st["next"])
+
+    for g in range(ahead):
+        issue(min(ring, cls[min(2 * g + 1, s - 1)] + j_n), 0)
+    i = 0
+    while i < s:
+        c = cls[i]
+        two = i + 1 < s and cls[i + 1] + j_n - c <= ring
+        windows = [i, i + 1] if two else [i]
+        need = cls[windows[-1]] + j_n
+        newest = st["gn"][::-1]
+        pending = max((q for q in range(ahead) if newest[q] >= need),
+                      default=-1)
+        if pending < 0:
+            issue(need, i)
+            pending = 0
+        complete = len(st["gn"]) - pending
+        for w in windows:
+            for m in range(cls[w], cls[w] + j_n):
+                assert st["issued"][m] < complete, f"window {w}: {m}"
+        issue(min(c + ring, cls[min(i + 2 * ahead + 1, s - 1)] + j_n), i)
+        for w in windows:
+            st["events"].append(("sum", w, complete, i))
+        i += len(windows)
+    assert set(st["issued"]) == set(range(cls[-1] + j_n))
+    return {"events": st["events"], "j": j_n}
+
+
+def sync_congruent(hops) -> bool:
+    """Whether ``qary_sync`` takes its warps' path: every hop hops[0]
+    plus a multiple of 8."""
+    return all((int(h) - int(hops[0])) % 8 == 0 for h in hops)
+
+
+def _order_key64(val: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    return (order_keys(val).astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - idx.astype(np.uint64))
+
+
+def _top_by_rank(keys: np.ndarray, k: int) -> np.ndarray:
+    """The positions of the ``k`` largest keys, largest first: the kernel
+    places each key at its rank (the keys above it); the keys are unique,
+    so that is their descending order."""
+    assert len(np.unique(keys)) == len(keys)
+    return np.argsort(keys)[::-1][:k]
+
+
+def sync_model(spec, power_sync: np.ndarray, base: np.ndarray,
+               stats: dict | None = None
                ) -> tuple[np.ndarray, np.ndarray]:
-    """``qary_sync`` in NumPy: the sync rows summed in symbol order, over
-    base + 1e-30; keys (order key << 32 | 2**32 - 1 - index); each strip
-    of 32 bins keeps its K largest, the window the K largest of those."""
+    """``qary_sync`` in NumPy.  The rings of
+    ``sync_warp_schedule`` (hops congruent mod 8) or of ``sync_schedule``
+    (others): their rows written when issued, each cell adding its
+    window's rows in window order from -0.0, over base + 1e-30; keys
+    (order key << 32 | 2**32 - 1 - index).  A block takes every L-th strip
+    (L = ``sync_plan``'s lists); a thread holds offsets w, w + 8, ... of
+    bin l of a strip of 32; a strip's threshold is the K-th largest thread
+    maximum, at least the key past the block's list; the pool (list and
+    the keys at the threshold) gives the new list by rank.  The window's
+    last block: the candidates at the K-th largest head of the lists, by
+    rank.  ``stats`` collects the pools' sizes against their caps."""
     fmin_bin, fmax_bin, _ = qary_engine._bin_range(spec)
     n_t0, n_f0, k = spec.max_hops, fmax_bin - fmin_bin, spec.top_k
     ps = np.asarray(power_sync, F32)
-    acc = None
-    for s in spec.sync_syms:
-        h0 = spec.os_t * s
-        sl = ps[:, h0:h0 + n_t0, :n_f0]
-        acc = sl if acc is None else acc + sl
-    den = np.asarray(base, F32).reshape(-1, 1, 1) + TINY
-    val = (acc / den).reshape(len(ps), -1)
-    idx = np.arange(n_t0 * n_f0, dtype=np.uint64)
-    keys = (order_keys(val).astype(np.uint64) << np.uint64(32)) | (
-        np.uint64(0xFFFFFFFF) - idx)
-    f_of = (idx % n_f0).astype(np.int64)
-
-    def rounds(cells: np.ndarray, kb: np.ndarray) -> list:
-        """K rounds of the largest key below the last one taken (the
-        first round any key), as the kernel's block maxima."""
-        taken, last = [], None
-        for _ in range(k):
-            live = kb if last is None else np.where(kb < last, kb, 0)
-            best = live.max() if live.size else 0
-            if best == 0:
-                break
-            taken.append(cells[int(np.argmax(live == best))])
-            last = best
-        return taken
-
+    nb, h_rows, _ = ps.shape
+    plan = _qary_kernels.sync_plan(n_f0, k)
+    strips, lists = plan["strips"], plan["lists"]
+    bins = _qary_kernels.SYNC_TF
+    width = strips * bins
+    ring_n = _qary_kernels.SYNC_RING
+    hops = [spec.os_t * sym for sym in spec.sync_syms]
+    src = np.zeros((nb, h_rows, width), F32)
+    src[:, :, :n_f0] = ps[:, :, :n_f0]
+    acc = np.full((SYNC_CELLS * SYNC_WARPS, nb, width), -0.0, F32)
+    if sync_congruent(hops):
+        for w in range(SYNC_WARPS):
+            wring = np.zeros((52, nb, width), F32)
+            sched = sync_warp_schedule(hops, n_t0, w)
+            for ev in sched["events"]:
+                if ev[0] == "issue":
+                    for m in ev[1]:
+                        r = hops[0] + w + 8 * m
+                        for sl in ([m % 32, m % 32 + 32] if m % 32 < 20
+                                   else [m % 32]):
+                            wring[sl] = src[:, r] if r < h_rows else 0.0
+                else:
+                    # a pair <= 4 class rows apart reads from the first
+                    # window's slot through the mirror
+                    c = (hops[ev[1]] - hops[0]) // 8
+                    first = ev[3] if ev[3] is not None else ev[1]
+                    c1 = (hops[first] - hops[0]) // 8
+                    at = c1 % 32 + (c - c1) if (
+                        sched["j"] == 16 and c - c1 <= 4) else c % 32
+                    for j in range(sched["j"]):
+                        t = w + 8 * j
+                        acc[t] = acc[t] + wring[at + j]
+    else:
+        ring = np.zeros((ring_n, nb, width), F32)
+        for ev in sync_schedule(hops, n_t0)["events"]:
+            if ev[0] == "issue":
+                for r in ev[1]:
+                    ring[r % ring_n] = src[:, r] if r < h_rows else 0.0
+            else:
+                h = hops[ev[1]]
+                for t in range(n_t0):
+                    acc[t] = acc[t] + ring[(h + t) % ring_n]
+    den = np.asarray(base, F32).reshape(-1) + TINY
+    val = acc / den[None, :, None]                     # [t, B, f]
+    t_i = np.arange(SYNC_CELLS * SYNC_WARPS)[:, None]
+    f_i = np.arange(width)[None, :]
+    cell = (t_i < n_t0) & (f_i < n_f0)
+    idx = (t_i * n_f0 + f_i).astype(np.uint64)
+    cap = _qary_kernels.sync_pool_cap(k)
+    st = stats if stats is not None else {}
+    st.setdefault("strip_pool", []), st.setdefault("merge_pool", [])
     tv, ti = [], []
-    for b in range(len(ps)):
-        cand = []
-        for lo in range(0, n_f0, 32):
-            in_strip = np.nonzero((f_of >= lo) & (f_of < lo + 32))[0]
-            cand.extend(rounds(in_strip, keys[b, in_strip]))
-        cand = np.asarray(cand)
-        top = np.asarray(rounds(cand, keys[b, cand]))
-        tv.append(val[b, top])
-        ti.append(top)
-    return np.stack(tv), np.stack(ti).astype(np.int64)
+    for b in range(nb):
+        keys = np.where(cell, _order_key64(val[:, b], idx), np.uint64(0))
+        lk, lv = [], []
+        for blk in range(lists):
+            list_k = np.zeros(0, np.uint64)
+            list_v = np.zeros(0, F32)
+            for strip in range(blk, strips, lists):
+                sl = slice(strip * bins, (strip + 1) * bins)
+                kk, vv = keys[:, sl], val[:, b, sl]
+                # thread (warp w, lane l): offsets w + 8 j of bin l
+                thr = kk.reshape(SYNC_CELLS, SYNC_WARPS, 32)
+                thr = thr.transpose(1, 2, 0).reshape(SYNC_THREADS, -1)
+                maxima = np.sort(thr.max(axis=1))[::-1]
+                floor = (list_k[k - 1] + np.uint64(1) if len(list_k) == k
+                         else np.uint64(1))
+                tau = floor
+                if k <= SYNC_THREADS and maxima[k - 1] >= floor:
+                    tau = maxima[k - 1]
+                take = kk >= tau
+                pool_k = np.concatenate([list_k, kk[take]])
+                pool_v = np.concatenate([list_v, vv[take]])
+                assert len(pool_k) <= cap
+                st["strip_pool"].append(len(pool_k))
+                top = _top_by_rank(pool_k, k)
+                list_k, list_v = pool_k[top], pool_v[top]
+            pad = k - len(list_k)
+            lk.append(np.concatenate([list_k, np.zeros(pad, np.uint64)]))
+            lv.append(np.concatenate([list_v, np.zeros(pad, F32)]))
+        lk, lv = np.stack(lk), np.stack(lv)
+        heads = np.sort(lk[:, 0])[::-1]
+        tau_w = (heads[k - 1] if len(heads) >= k and heads[k - 1] != 0
+                 else np.uint64(1))
+        take = lk >= tau_w
+        pool_k, pool_v = lk[take], lv[take]
+        assert len(pool_k) <= lists * k
+        st["merge_pool"].append(len(pool_k))
+        top = _top_by_rank(pool_k, k)
+        tv.append(pool_v[top])
+        ti.append((np.uint64(0xFFFFFFFF)
+                   - (pool_k[top] & np.uint64(0xFFFFFFFF))).astype(np.int64))
+    return np.stack(tv), np.stack(ti)
 
 
 def planted_map(spec, n_windows: int = 3, seed: int = 5
@@ -740,8 +970,15 @@ def planted_map(spec, n_windows: int = 3, seed: int = 5
     return ps, base
 
 
+def _same_vals(got: np.ndarray, want: np.ndarray) -> bool:
+    return bool(((got.view(np.uint32) == want.view(np.uint32))
+                 | (np.isnan(got) & np.isnan(want))).all())
+
+
 @pytest.mark.parametrize("mode", ["JT65", "Q65-30"])
 def test_sync_model_matches_plain(mode):
+    """The model is bit for bit the plain version on planted maps: ties
+    in two strips, NaN scores first, a NaN base (every score NaN)."""
     spec = jt65.SPEC if mode == "JT65" else q65.SPEC
     ps, base = planted_map(spec)
     base = torch.from_numpy(base)
@@ -749,9 +986,7 @@ def test_sync_model_matches_plain(mode):
         spec, torch.from_numpy(ps), base))
     got_v, got_i = sync_model(spec, ps, base.numpy())
     np.testing.assert_array_equal(got_i, want_i)
-    same = (got_v.view(np.uint32) == want_v.view(np.uint32)) | (
-        np.isnan(got_v) & np.isnan(want_v))
-    assert same.all()
+    assert _same_vals(got_v, want_v)
     n_f0 = qary_engine._bin_range(spec)[1] - qary_engine._bin_range(spec)[0]
     # window 0: the planted track and its copy tie, the lower bin first
     assert want_i[0, :2].tolist() == [37 * n_f0 + 100, 37 * n_f0 + 900]
@@ -766,6 +1001,115 @@ def test_sync_model_matches_plain(mode):
     # on the CPU the dispatcher is the plain version
     got = qary_engine._qary_sync(spec, torch.from_numpy(ps), base)
     np.testing.assert_array_equal(got[1].numpy(), want_i)
+
+
+def sync_spec(spec, n_f0: int, **kw):
+    """``spec`` searched over bins [0, n_f0) (and ``kw`` replaced)."""
+    return dataclasses.replace(spec, fmin_hz=0.0,
+                               fmax_hz=(n_f0 + 0.5) * spec.bin_hz, **kw)
+
+
+def sync_map(spec, n_windows: int, seed: int, kind: str = "noise"
+             ) -> tuple[np.ndarray, np.ndarray]:
+    """A map [B, H, F] for ``spec`` (H = the last window's end + 8, F the
+    bins with headroom) and its base [B, 1, 1]: exponential noise,
+    integers 0 to 2 (ties everywhere) or ones (every score equal)."""
+    _, _, n_bins = qary_engine._bin_range(spec)
+    h = spec.os_t * max(spec.sync_syms) + spec.max_hops + 8
+    rng = np.random.default_rng(seed)
+    shape = (n_windows, h, n_bins)
+    if kind == "noise":
+        ps = rng.exponential(size=shape)
+    elif kind == "ints":
+        ps = rng.integers(0, 3, shape)
+    else:
+        ps = np.ones(shape)
+    ps = ps.astype(F32)
+    base = ps.mean(axis=(1, 2), keepdims=True).astype(F32) * F32(
+        len(spec.sync_syms))
+    return ps, base
+
+
+def sync_edge_cases() -> dict:
+    """The selection's edges by name: (spec, map, base).  Ties in every
+    strip and across a strip's warps, every score equal across three
+    warps, n_f0 one bin either side of each strip width, top-K 1 and 256,
+    fewer time offsets than a block's 128, one sync symbol, gaps between
+    sync symbols past the ring's look-ahead and past the ring, and hops
+    that are not all congruent mod 8 (os_t 3: the block's shared ring)."""
+    jt, q = jt65.SPEC, q65.SPEC
+    cases = {
+        "ties": (sync_spec(jt, 100), "ints"),
+        "all equal": (sync_spec(jt, 10), "ones"),
+        "k1": (sync_spec(q, 200, top_k=1), "noise"),
+        "k256": (sync_spec(q, 200, top_k=256), "ints"),
+        "k256 all equal": (sync_spec(q, 40, top_k=256), "ones"),
+        "n_t0 50": (sync_spec(q, 150, max_hops=50), "noise"),
+        "one symbol": (sync_spec(q, 90, sync_syms=(5,)), "noise"),
+        "gap past the look-ahead": (
+            sync_spec(q, 70, sync_syms=(0, 1, 20, 21, 50)), "noise"),
+        "gap past the ring": (
+            sync_spec(q, 70, sync_syms=(2, 40, 41, 90)), "ints"),
+        # hops not all congruent mod 8: the block's shared ring
+        "os_t 3": (sync_spec(q, 120, os_t=3), "noise"),
+        "os_t 3 gap past the ring": (
+            sync_spec(q, 70, os_t=3, sync_syms=(2, 40, 41, 150)), "ints"),
+    }
+    for n_f0 in (31, 32, 33, 63, 64, 65):
+        cases[f"n_f0 {n_f0}"] = (sync_spec(q, n_f0), "noise")
+    out = {}
+    for i, (name, (spec, kind)) in enumerate(cases.items()):
+        ps, base = sync_map(spec, 2, 40 + i, kind)
+        out[name] = (spec, ps, base)
+    return out
+
+
+@pytest.mark.parametrize("name", list(sync_edge_cases()))
+def test_sync_model_on_edge_cases(name):
+    """The model is bit for bit the plain version on each edge; its pools
+    stay within their caps."""
+    spec, ps, base = sync_edge_cases()[name]
+    want_v, want_i = (x.numpy() for x in qary_engine._qary_sync_plain(
+        spec, torch.from_numpy(ps), torch.from_numpy(base)))
+    got_v, got_i = sync_model(spec, ps, base)
+    np.testing.assert_array_equal(got_i, want_i)
+    assert _same_vals(got_v, want_v)
+    if name == "all equal":
+        # the first 24 indices: offsets 0 to 2, three warps
+        assert want_i[0].tolist() == list(range(24))
+
+
+@pytest.mark.parametrize("name", ["JT65", "Q65-30", "n_t0 50", "one symbol",
+                                  "gap past the look-ahead",
+                                  "gap past the ring", "os_t 3",
+                                  "os_t 3 gap past the ring"])
+def test_sync_schedule_holds_its_invariants(name):
+    """Both load schedules issue each row of the windows' union once and
+    no other, never overwrite a slot whose row is still to be read, and
+    sum a window only once its rows' groups are complete: the block's
+    shared ring for any hops (JT65's and Q65's windows with a barrier a
+    window), and each warp's own ring where the hops are congruent mod 8
+    (every mode's)."""
+    if name in ("JT65", "Q65-30"):
+        spec = jt65.SPEC if name == "JT65" else q65.SPEC
+    else:
+        spec = sync_edge_cases()[name][0]
+    hops = [spec.os_t * s for s in spec.sync_syms]
+    got = sync_schedule(hops, spec.max_hops)
+    sums = [e for e in got["events"] if e[0] == "sum"]
+    assert [e[1] for e in sums] == list(range(len(hops)))
+    if name == "JT65":
+        assert got["rows"] == 1128 and got["barriers"] == 63
+    elif name == "Q65-30":
+        assert got["rows"] == 800 and got["barriers"] == 22
+    elif name.endswith("gap past the ring"):
+        assert got["barriers"] > len(hops)
+    assert sync_congruent(hops) == (spec.os_t == 8)
+    if sync_congruent(hops):
+        for w in range(SYNC_WARPS):
+            got = sync_warp_schedule(hops, spec.max_hops, w)
+            sums = [e for e in got["events"] if e[0] == "sum"]
+            assert [e[1] for e in sums] == list(range(len(hops)))
 
 
 def test_sync_model_matches_the_decode_program():

@@ -442,77 +442,104 @@ def test_plain_rs_matches_jax_on_edge_cases():
             assert not ok.all(), name
 
 
-def _rs_model(tab: np.ndarray, words: np.ndarray, eras: np.ndarray,
-              n: int, nroots: int) -> tuple[np.ndarray, np.ndarray]:
-    """The rs_ee kernel's algorithm over the trials at once, on its table
-    block: registers a (index j) and b (index j + 32) of each lane, the
-    shuffles as shifts.  Returns (corrected [M, n] uint8, ok [M])."""
-    mul = tab[:4096].astype(np.int64)
-    inv = tab[4096:4160].astype(np.int64)
+def _rs_block_tables(tab: np.ndarray, n: int, nroots: int) -> dict:
+    """The tables an rs_ee block builds from the table block by repeated
+    products: pw [k, i] = (X_i^-1)^k (k <= nroots), syn [i, j] =
+    alpha^((fcr + j) deg_i) (j < nroots, 0 past), fc [i] = X_i^-1
+    X_i^(1 - fcr); positions past n hold 0."""
+    mul = tab[:4096].astype(np.int64).reshape(64, 64)
     xi, xinv, xfcr, root = (tab[4160 + 64 * q : 4224 + 64 * q].astype(
         np.int64) for q in range(4))
-    m = words.shape[0]
-    lanes = np.arange(64)                  # index j: lane j % 32, half j // 32
+    pos = np.arange(64) < n
+    pw = np.zeros((64, 64), np.int64)
+    p = pos.astype(np.int64)
+    x = np.where(pos, xinv, 0)
+    for k in range(nroots + 1):
+        pw[k] = p
+        p = mul[p, x]
+    syn = np.zeros((64, 64), np.int64)
+    col = (np.arange(64) < nroots).astype(np.int64)
+    r = np.where(np.arange(64) < nroots, root, 0)
+    for i in range(n - 1, -1, -1):
+        syn[i] = col
+        col = mul[col, r]
+    fc = np.where(pos, mul[xinv, xfcr], 0)
+    return {"mul": mul, "xi": xi, "pw": pw, "syn": syn, "fc": fc}
 
-    def gmul(a, b):
-        return mul[(a << 6) | b]
 
-    def shfl_up(x):
-        """__shfl_up_sync by 1 of both halves; lane 0 of half b takes lane
-        31 of half a, lane 0 of half a takes 0."""
+def _rs_model(tab: np.ndarray, syms: np.ndarray, eras: np.ndarray,
+              n: int, nroots: int) -> tuple[np.ndarray, np.ndarray]:
+    """The rs_ee kernel's algorithm over trials syms [C, n] x eras [C, T,
+    n] at once, on its table block and the tables its blocks build
+    (``_rs_block_tables``): a candidate's syndromes once, as sums of r_i
+    syn [i, j]; the erasure locator and Berlekamp-Massey on coefficient
+    slots j (lane j // 2), the shuffle as a shift; Omega; Lambda's even
+    and odd terms and Omega at each position as sums of c_k pw [k, i];
+    Forney as Omega inv(odd) fc_i; the check as S(r) XOR S(e) over the
+    changed positions.  Returns (corrected [C, T, n] uint8, ok [C, T])."""
+    t = _rs_block_tables(tab, n, nroots)
+    mul, pw, syn, fc = t["mul"], t["pw"], t["syn"], t["fc"]
+    inv = tab[4096:4160].astype(np.int64)
+    c, nt, _ = eras.shape
+    j = np.arange(64)
+    coef = j <= nroots
+    r_c = np.zeros((c, 64), np.int64)
+    r_c[:, :n] = syms & 63
+    s_c = np.zeros((c, 64), np.int64)
+    for i in range(n):                     # r_i the same in every lane
+        s_c ^= mul[r_c[:, i : i + 1], syn[i][None, :]]
+    r = np.repeat(r_c, nt, axis=0)
+    s = np.repeat(s_c, nt, axis=0)
+    era = eras.reshape(-1, n)
+    m = len(era)
+
+    def shift(x):
         return np.concatenate([np.zeros((x.shape[0], 1), np.int64),
                                x[:, :-1]], axis=1)
 
-    def horner(wd, x):
-        acc = np.zeros_like(x)
-        for i in range(n):
-            acc = gmul(acc, x) ^ wd[:, i : i + 1]
-        return acc
-
-    r = np.zeros((m, 64), np.int64)
-    r[:, :n] = words & 63
-    x_root = np.broadcast_to(np.where(lanes < nroots, root, 0), (m, 64))
-    s = np.where(lanes < nroots, horner(r, x_root), 0)
-    coef = lanes <= nroots
     lam = np.zeros((m, 64), np.int64)
     lam[:, 0] = 1
     for i in range(n):                     # ascending erased positions
-        step = lam ^ gmul(shfl_up(lam), xi[i])
-        lam = np.where(eras[:, i : i + 1], np.where(coef, step, 0), lam)
-    no_eras = eras.sum(axis=1)
+        step = lam ^ mul[t["xi"][i], shift(lam)]
+        lam = np.where(era[:, i : i + 1], step, lam)
+    lam = np.where(coef, lam, 0)           # past nroots dropped once
+    no_eras = era.sum(axis=1)
     b, el = lam.copy(), no_eras.copy()
     for rr in range(1, nroots + 1):
         act = rr > no_eras
-        sidx = np.clip(rr - 1 - lanes, 0, 63)
-        part = np.where(lanes <= rr - 1, gmul(lam, s[:, sidx]), 0)
+        sidx = np.clip(rr - 1 - j, 0, 63)
+        part = np.where(j <= rr - 1, mul[lam, s[np.arange(m)[:, None],
+                                                  sidx]], 0)
         d = np.bitwise_xor.reduce(part, axis=1)
-        bs = np.where(coef, shfl_up(b), 0)
-        t = lam ^ gmul(d[:, None], bs)
+        bs = np.where(coef, shift(b), 0)
+        tt = lam ^ mul[d[:, None], bs]
         cond = (d != 0) & (2 * el <= rr - 1 + no_eras) & act
-        b = np.where(cond[:, None], gmul(lam, inv[d][:, None]),
+        b = np.where(cond[:, None], mul[inv[d][:, None], lam],
                      np.where(act[:, None], bs, b))
         el = np.where(cond, rr + no_eras - el, el)
-        lam = np.where(act[:, None], t, lam)
+        lam = np.where(act[:, None], tt, lam)
     om = np.zeros((m, 64), np.int64)
-    for i in range(nroots):
-        j = lanes
-        ok_j = (i <= j) & (j < nroots)
-        om ^= np.where(ok_j, gmul(lam[:, i : i + 1],
-                                  s[:, np.clip(j - i, 0, 63)]), 0)
-    x = np.broadcast_to(np.where(lanes < n, xinv, 0), (m, 64))
-    x2 = gmul(x, x)
-    ev, oe, de = (np.zeros((m, 64), np.int64) for _ in range(3))
-    for kk in range(nroots, -1, -1):
-        ev = gmul(ev, x) ^ lam[:, kk : kk + 1]
-    for kk in range(nroots - 1, -1, -1):
-        oe = gmul(oe, x) ^ om[:, kk : kk + 1]
-    for kk in range((nroots + 1) // 2 - 1, -1, -1):
-        de = gmul(de, x2) ^ lam[:, 2 * kk + 1 : 2 * kk + 2]
-    mag = gmul(gmul(oe, inv[de]), xfcr)
-    out = np.where(ev == 0, r ^ mag, r)
+    for i in range(nroots):                # lambda_i the same in every lane
+        om ^= np.where((i <= j) & (j < nroots),
+                       mul[lam[:, i : i + 1], s[np.arange(m)[:, None],
+                                                np.clip(j - i, 0, 63)]], 0)
+    even, odd, w = (np.zeros((m, 64), np.int64) for _ in range(3))
+    for k in range(nroots + 1):            # lanes: positions i and i + 32
+        term = mul[lam[:, k : k + 1], pw[k][None, :]]
+        if k % 2:
+            odd ^= term
+        else:
+            even ^= term
+        w ^= mul[om[:, k : k + 1], pw[k][None, :]]
+    mag = mul[mul[w, inv[odd]], fc[None, :]]
+    out = np.where((even ^ odd) == 0, r ^ mag, r)
     out[:, n:] = 0
-    z = np.where(lanes < nroots, horner(out, x_root), 0)
-    return out[:, :n].astype(np.uint8), ~(z != 0).any(axis=1)
+    z = s.copy()
+    delta = out ^ r
+    for i in range(n):                     # the changes, e_i in every lane
+        z ^= mul[delta[:, i : i + 1], syn[i][None, :]]
+    return (out[:, :n].astype(np.uint8).reshape(c, nt, n),
+            ~(z != 0).any(axis=1).reshape(c, nt))
 
 
 def test_kernel_tables_hold_the_plain_versions_tables():
@@ -538,9 +565,12 @@ def test_kernel_tables_hold_the_plain_versions_tables():
 
 @pytest.mark.parametrize("k,fcr", [(12, 3), (45, 1)])
 def test_rs_kernel_model_matches_plain(k, fcr):
-    """The kernel's lanes, shuffles and Horner chains give the plain
-    version's corrected words and ok flags, for JT65's RS(63,12) fcr 3 and
-    an RS(63,45) fcr 1 (18 roots: locator coefficients in one half)."""
+    """The kernel's algorithm gives the plain version's corrected words
+    and ok flags, for JT65's RS(63,12) fcr 3 and an RS(63,45) fcr 1 (18
+    roots: the locator's coefficients in nine lanes): every ``_rs_cases``
+    case (0, exactly 51 and more than 51 erasures, the all-zero word), each
+    word a candidate of one trial; and the words as candidates of several
+    trials each (their syndromes once)."""
     rng = np.random.default_rng(k)
     if k == 12:
         cases = _rs_cases(rng)
@@ -553,13 +583,21 @@ def test_rs_kernel_model_matches_plain(k, fcr):
         eras = rng.random((40, 63)) < rng.uniform(0, 0.35, (40, 1))
         words[rng.random((40, 63)) < 0.06] ^= 5
     nroots = 63 - k
+    tab = rs_device.kernel_tables(63, nroots, fcr)
     cp, okp = rs_device.rs_ee_decode_plain(
         (63, k, fcr), torch.from_numpy(words), torch.from_numpy(eras))
-    got, ok = _rs_model(rs_device.kernel_tables(63, nroots, fcr), words,
-                        eras, 63, nroots)
+    got, ok = _rs_model(tab, words, eras[:, None], 63, nroots)
+    np.testing.assert_array_equal(got[:, 0], cp.numpy())
+    np.testing.assert_array_equal(ok[:, 0], okp.numpy())
+    assert ok.any() and not ok.all()
+    # candidates of eight trials each: the first eight words' patterns
+    syms = words[:: 8][: len(words) // 8]
+    era8 = eras[: 8 * len(syms)].reshape(len(syms), 8, 63)
+    cp, okp = rs_device.rs_ee_trials_plain(
+        (63, k, fcr), torch.from_numpy(syms), torch.from_numpy(era8))
+    got, ok = _rs_model(tab, syms, era8, 63, nroots)
     np.testing.assert_array_equal(got, cp.numpy())
     np.testing.assert_array_equal(ok, okp.numpy())
-    assert ok.any() and not ok.all()
 
 
 def test_chase_program_decodes_through_the_trial_entry(monkeypatch):
@@ -610,7 +648,7 @@ def test_rs_bound_counts_the_roots_the_data_has():
     """The smoke's RS bound counts Forney's work at the locator's roots of
     this run's trials: a clean word with e erasures has e roots, one with
     k decoded errors and no erasures k, one with more erasures than roots
-    at most nroots."""
+    at most nroots; and a candidate's syndromes once for its trials."""
     import chip_smoke
 
     rng = np.random.default_rng(5)
@@ -626,6 +664,15 @@ def test_rs_bound_counts_the_roots_the_data_has():
         got = chip_smoke.rs_bound_ms((63, 12, 3), syms[i:i + 1],
                                      era[i:i + 1], corr[i:i + 1])
         assert got[2]["roots_a_trial_mean"] == roots
+    # a candidate's syndromes count once for all its trials: two trials of
+    # one candidate cost twice one trial less one syndrome set (51 x 62
+    # products of 2 operations)
+    one = chip_smoke.rs_bound_ms((63, 12, 3), syms[:1], era[:1], corr[:1])
+    two = chip_smoke.rs_bound_ms((63, 12, 3), syms[:1],
+                                 era[:1].expand(1, 2, 63).contiguous(),
+                                 corr[:1].expand(1, 2, 63).contiguous())
+    assert two[2]["int_ops"] == 2 * one[2]["int_ops"] - 2 * 51 * 62
+    assert two[2]["int_ops_syndromes_a_trial"] == 2 * one[2]["int_ops"]
 
 
 # ---------------------------------------------------------------------------
