@@ -167,11 +167,15 @@
    64-window WSPR batch);
 10. runs the parallel layer on ``cuda:0``: the channel-sharded skim of the
     64 dials (bursts in 8) on a virtual 4-entry mesh against a 1-entry
-    mesh, a 900 s 192 kHz window time-sharded 4 ways (4 channels) against
-    one device's whole window and the plain version with its FST4W-900
-    burst decoded, the kernel against the plain version at the shards'
-    offsets, ``entry()``, ``dryrun_multichip`` on a virtual 4-entry mesh
-    and the skim through a one-rank NCCL process group;
+    mesh, the same skim in two worker processes on the card (its wall,
+    start-up and the workers' own launches printed) bit for bit against
+    a 2-entry mesh in this process, and the arrays in which a 32-channel
+    batch's decode parts from the 64's, stage by stage, a 900 s 192 kHz
+    window time-sharded 4 ways (4 channels) against one device's whole
+    window and the plain version with its FST4W-900 burst decoded, the
+    kernel against the plain version at the shards' offsets, ``entry()``,
+    ``dryrun_multichip`` on a virtual 4-entry mesh and the skim through a
+    one-rank NCCL process group;
 11. runs the port's App live (``tools/torch_soak.py``) at 512 FT8 channels
     as 8 synthetic real-time 192 kHz receivers of 64 dials, for 3 windows
     with 6 bursts a window spread over the receivers, scheduled from the
@@ -2930,6 +2934,12 @@ def _launch_counts() -> dict:
             for name, n in mod.launches.items()}
 
 
+def _launch_totals() -> dict:
+    """{kernel: launches}, every library's, read without a reset."""
+    return {name: n for mod in _kernel_modules()
+            for name, n in mod.launches.items()}
+
+
 def _require_launches(where: str, counts: dict, names) -> None:
     """Fail unless each kernel of ``names`` was launched in ``where``."""
     print(f"{where}: kernel launches {counts}")
@@ -3525,6 +3535,101 @@ def same_decodes(a: dict, b: dict) -> bool:
             and np.all(np.abs(a["t0_hop"][v] - b["t0_hop"][v]) <= 1))
 
 
+class WorkerSkim:
+    """The skim's worker code (``skim_worker`` served by ``CardWorkers``,
+    the pool that a mesh of several cards takes) in ``n`` worker processes
+    on ``dev``, a position of an n-entry mesh each, warmed up on a window
+    of ``warm_len`` samples: the pool on one card.  :meth:`step` returns
+    the rows merged in position order and keeps the workers' kernel
+    launches in that step, summed, in ``launches``; ``start_s`` is the
+    pool's start-up (spawn, build, warm-up)."""
+
+    def __init__(self, dev, n: int, fs: int, freqs, spec,
+                 warm_len: int) -> None:
+        from cwsl_digi_tpu_torch.dsp.channelizer import ChannelizerSpec
+        from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
+        from cwsl_digi_tpu_torch.parallel.pipeline import (
+            build_skim_libraries, skim_worker)
+        from cwsl_digi_tpu_torch.parallel.workers import CardWorkers
+
+        if len(freqs) % n:
+            raise ValueError(f"{len(freqs)} channels over {n} workers")
+        self._bs = ChannelizerSpec(fs, len(freqs)).block_size
+        blocks = make_mesh(n, devices=[dev] * n).blocks("ch", len(freqs))
+        if torch.device(dev).type == "cuda":
+            build_skim_libraries()
+        t = time.monotonic()
+        self.pool = CardWorkers(
+            [dev] * n, skim_worker,
+            [(fs, {p: list(freqs[b])}, spec, warm_len // self._bs * self._bs)
+             for p, b in enumerate(blocks)])
+        self.start_s = time.monotonic() - t
+        self.launches: dict[str, int] = {}
+
+    def step(self, iq: np.ndarray) -> dict[str, np.ndarray]:
+        res = self.pool.step(np.ascontiguousarray(
+            iq[: len(iq) // self._bs * self._bs], np.complex64))
+        self.launches = {}
+        for r in res:
+            for k, n in r["launches"].items():
+                self.launches[k] = self.launches.get(k, 0) + n
+        rows = [r["rows"][p] for p, r in enumerate(res)]
+        return {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+
+
+def batch_split_stages(dev, fs: int, freqs, iq) -> dict[str, list[str]]:
+    """Where the decode of the first half of the channels as a batch of
+    their own (a 2-entry mesh's position) parts from the whole bank's
+    batch (the 1-entry mesh): the outputs that differ in those channels'
+    rows, stage by stage, each stage given the same inputs in both
+    batches: the channelizer's audio, the spectrograms (the Hann power
+    map, the boxcar demod), the power map's row means (``base``), the
+    sync search (top_val, t0, f0, tt), the SNR's noise median, and the
+    decode's arrays."""
+    from cwsl_digi_tpu_torch.dsp.channelizer import (BatchChannelizer,
+                                                     ChannelizerSpec)
+    from cwsl_digi_tpu_torch.modes import ft8, gfsk_engine
+
+    def differ(names, a, b) -> list[str]:
+        return [n for n, x, y in zip(names, a, b)
+                if isinstance(x, torch.Tensor)
+                and not torch.equal(x[: y.shape[0]], y)]
+
+    half = len(freqs) // 2
+    bs = ChannelizerSpec(fs, len(freqs)).block_size
+    x = torch.from_numpy(np.ascontiguousarray(
+        iq[: len(iq) // bs * bs], np.complex64)).to(dev)
+    a_half = BatchChannelizer(fs, freqs[:half], device=dev).process_window(x)
+    a_all = BatchChannelizer(fs, freqs, device=dev).process_window(x)
+    out = {"audio": differ(["audio"], [a_all], [a_half])}
+    a_all = torch.cat([a_half, a_all[half:]])     # the same audio from here
+    a_half = a_all[:half]
+    dec = ft8.FT8Decoder(device=dev)
+    spec, tabs = dec.spec, dec._tabs
+    ps, demod, refine = gfsk_engine.spectrograms(spec, a_all, tabs)
+    out["spectrograms"] = differ(
+        ["power_sync", "demod"], (ps, demod),
+        gfsk_engine.spectrograms(spec, a_half, tabs))
+    n_hops = (a_all.shape[1] - spec.sps) // spec.hop + 1
+    rows = ps[:, spec.pad_hops : spec.pad_hops + n_hops].to(torch.float32)
+    base = rows.mean(dim=(1, 2), keepdim=True) * len(spec.sync_cells)
+    out["base"] = differ(["base"], [base], [
+        rows[:half].mean(dim=(1, 2), keepdim=True) * len(spec.sync_cells)])
+    out["sync"] = differ(
+        ["top_val", "t0", "f0", "tt"],
+        gfsk_engine.sync_candidates(spec, ps, demod, base, n_hops, refine),
+        gfsk_engine.sync_candidates(spec, ps[:half], demod[:half],
+                                    base[:half], n_hops, refine))
+    out["noise_median"] = differ(
+        ["noise"], [gfsk_engine._median_rows(rows[:, ::4, ::4])],
+        [gfsk_engine._median_rows(rows[:half, ::4, ::4])])
+    d_all = dec.decode_arrays_device(a_all)
+    d_half = dec.decode_arrays_device(a_half)
+    out["decode"] = differ(list(d_half), [d_all[k] for k in d_half],
+                           list(d_half.values()))
+    return out
+
+
 def _free_port() -> int:
     import socket
 
@@ -3536,19 +3641,25 @@ def _free_port() -> int:
 def parallel_phase(dev) -> dict:
     """The parallel layer on ``cuda:0``: the channel-sharded skim of the
     64 FT8 dials on a virtual 4-entry mesh (16 channels a shard) against a
-    1-entry mesh; a 900 s window at 192 kHz time-sharded 4 ways over 4
-    channels against one device's ``process_window`` and the plain
-    version, its FST4W-900 burst decoded through ``get_decoder``; the
-    kernel against the plain version at the shards' blocks; ``entry()``
-    once; ``dryrun_multichip`` on a virtual 4-entry mesh; the skim through
-    a one-rank NCCL process group.  Each part's kernel launches are counted
-    from 0 just before it and read just after, its comparisons outside."""
+    1-entry mesh; the skim in two worker processes on the card (the
+    worker path that drives several cards from one process) against the
+    same 2-entry mesh in this process, bit for bit, and the 1-entry mesh
+    (the part's launches are the workers', returned by them), and where a
+    32-channel batch's decode parts from the 64's; a 900 s
+    window at 192 kHz time-sharded 4 ways over 4 channels against one
+    device's ``process_window`` and the plain version, its FST4W-900
+    burst decoded through ``get_decoder``; the kernel against the plain
+    version at the shards' blocks; ``entry()`` once; ``dryrun_multichip``
+    on a virtual 4-entry mesh; the skim through a one-rank NCCL process
+    group.  Each part's kernel launches are counted from 0 just before it
+    and read just after, its comparisons outside."""
     import torch.distributed as dist
 
     from cwsl_digi_tpu_torch.dsp import _kernels
     from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
     from cwsl_digi_tpu_torch.entry import (dryrun_multichip, entry,
                                            long_window_iq)
+    from cwsl_digi_tpu_torch.modes import ft8
     from cwsl_digi_tpu_torch.modes.base import get_decoder
     from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
     from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
@@ -3595,6 +3706,47 @@ def parallel_phase(dev) -> dict:
         b = _plain_block(chan, torch.cat([x.new_zeros(h), x]), -h, 0)
         err = max(err, float((a - b).abs().max()))
     errs["skim_shards"] = err
+
+    # --- the skim's worker code: two worker processes on cuda:0, 32
+    # channels each, every array bit for bit the same 2-entry mesh's in
+    # this process, the decodes those of the 1-entry mesh
+    stepw = WorkerSkim(dev, 2, FS, freqs, ft8.SPEC, len(iq))
+    try:
+        run("skim_2_workers_first", lambda: stepw.step(iq))
+        outw = run("skim_2_workers", lambda: stepw.step(iq))
+    finally:
+        stepw.pool.close()
+    step2 = ShardedSkimStep(FS, freqs, make_mesh(2, devices=[dev] * 2))
+    before = _launch_totals()
+    out2 = step2.step(iq)
+    torch.cuda.synchronize()
+    after = _launch_totals()
+    in_process = {k: after[k] - before[k] for k in after
+                  if after[k] > before[k]}
+    print(f"parallel skim_2_workers: start-up {stepw.start_s:.3f} s (spawn, "
+          f"build, warm-up); the part's kernel launches are the workers': "
+          f"{stepw.launches}")
+    differ = [k for k in out2 if not np.array_equal(outw[k], out2[k])]
+    if differ:
+        raise AssertionError(f"2-worker skim differs from the same mesh in "
+                             f"this process in {differ}")
+    if skim_decodes(step2, outw) != want or not same_decodes(outw, out1):
+        raise AssertionError("2-worker skim disagrees with the 1-entry mesh")
+    if {k: n for k, n in stepw.launches.items() if n} != in_process \
+            or in_process["channelize"] != 2:
+        raise AssertionError(f"workers' launches {stepw.launches}, "
+                             f"in this process {in_process}")
+    split = batch_split_stages(dev, FS, freqs, iq)
+    print("skim_2_workers: every array bit for bit the 2-entry mesh's in "
+          "this process; valid/payload equal to the 1-entry mesh's, bitwise "
+          f"{all(np.array_equal(outw[k], out1[k]) for k in out1)} (differ: "
+          f"{[k for k in out1 if not np.array_equal(outw[k], out1[k])]}); "
+          f"a 32-channel batch against the 64's, arrays that differ: {split}")
+    worker_part = {"wall_s": walls["skim_2_workers"],
+                   "first_wall_s": walls["skim_2_workers_first"],
+                   "start_s": stepw.start_s,
+                   "worker_launches": stepw.launches,
+                   "batch_split_differ": split}
 
     # --- time shards: 900 s at 192 kHz, 4 channels, 4 shards
     tfreqs = freqs[[8, 24, 40, 56]]
@@ -3700,6 +3852,7 @@ def parallel_phase(dev) -> dict:
     if not max(errs.values()) <= CHAN_TOL:
         raise AssertionError(f"parallel channelizer disagrees: {errs}")
     want_launches = {"skim_4x16_first": 4, "skim_4x16": 4,
+                     "skim_2_workers_first": 0, "skim_2_workers": 0,
                      "timeshard_900s": 4,
                      "fst4w900_decode": 0, "entry": 0,
                      "skim_nccl_1rank": 1}
@@ -3712,7 +3865,8 @@ def parallel_phase(dev) -> dict:
                              f"{launches['dryrun_multichip']} times")
     return {"launches": sum(launches.values()), "by_part": launches,
             "walls_s": walls, "max_abs_err": max(errs.values()),
-            "errs": errs, "shard_launch": shard_ms}
+            "errs": errs, "shard_launch": shard_ms,
+            "skim_2_workers": worker_part}
 
 
 # the live site: 8 receivers x 64 FT8 dials, 3 windows, 6 bursts a window

@@ -11,7 +11,8 @@ Counterpart of ``__graft_entry__.py``:
   (channelized across the ``t`` axis, then decoded) and, for an even
   ``n_devices >= 4``, the time-sharded channelizer on a 2-D ``ch x t``
   mesh.  It runs on the visible CUDA devices, or on the entries of
-  ``devices`` (a virtual mesh when it repeats one device).
+  ``devices`` (a virtual mesh when it repeats one device); on several
+  cards the skim runs a worker process a card.
 """
 
 from __future__ import annotations
@@ -105,7 +106,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         ft8.SPS * fs // WAVE_SR, fs, ft8.TONE_SPACING)
     start = int(0.5 * fs)
     iq[start : start + len(burst)] += 0.1 * burst
-    results = step.decode_window(iq.astype(np.complex64))
+    try:
+        results = step.decode_window(iq.astype(np.complex64))
+    finally:
+        step.close()        # its worker processes, on several cards
     got = {ch: [r.message for r in rl]
            for ch, rl in zip(step.local_channels, results)}
     if text not in got.get(target, []):

@@ -13,7 +13,9 @@ owns it.  The reference's ``channel_sharding``/``replicated`` shardings have
 no PyTorch meaning; their job, which rows and which positions of an axis an
 entry owns, is done by :meth:`Mesh.blocks` and :meth:`Mesh.owners`, and
 :meth:`Mesh.run` runs a function on this process's positions (one host
-thread per distinct device, positions that share a device in turn).
+thread per distinct device, positions that share a device in turn; the
+skim's worker processes take over from these threads, see
+``pipeline.py``).
 
 A ``devices=`` list may repeat one device: a *virtual* mesh on one card or
 on the CPU (the counterpart of the JAX tests' virtual CPU devices).  Under
@@ -93,7 +95,11 @@ class Mesh:
 
         The threads share the interpreter lock, so work that is bound by
         the host's launches (the FT8 decode) does not scale this way
-        across cards; one process per card does (PERF.md, section 6)."""
+        across cards: the channel-sharded skim runs each card's positions
+        in a worker process instead (``parallel/workers.py``) wherever
+        this process's positions span two or more cards and no process
+        group is initialised.  Kernel-bound work, the time-sharded
+        channelizer, keeps these threads; it scales with them."""
         owners = self.owners(axis)
         by_dev: dict[torch.device, list[int]] = {}
         for p in self.local_positions(axis):

@@ -10,21 +10,116 @@ wideband IQ goes to every device once; every entry mixes the channels it
 owns from it and runs one ``decode_program`` pass over them, as the
 reference's ``_skim_program`` does, with no collectives.  Under a process
 group each process runs only its own entries and returns their rows.
+
+Where this process's positions span two or more distinct CUDA cards (and
+no process group is initialised) each card's positions run in a worker
+process of their own (:class:`~cwsl_digi_tpu_torch.parallel.workers.
+CardWorkers`), which one process needs to keep several cards busy: the
+decode is bound by host work that threads of one interpreter serialise.
+A virtual mesh that repeats one device, a CPU mesh and a process group's
+rank run in this process, as before.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
+from cwsl_digi_tpu_torch.dsp.channelizer import (BatchChannelizer,
+                                                 ChannelizerSpec)
 from cwsl_digi_tpu_torch.modes import ft8
 from cwsl_digi_tpu_torch.modes.base import DecodeResult
+from cwsl_digi_tpu_torch.modes.gfsk_engine import ModeSpec
 from cwsl_digi_tpu_torch.parallel.mesh import Mesh
+from cwsl_digi_tpu_torch.parallel.workers import CardWorkers
+
+
+def _kernel_modules() -> tuple:
+    """The kernel libraries the skim launches: the channelizer's and the
+    FT8 decode's (LDPC, sync search, GFSK, median)."""
+    from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, _median_kernels,
+                                           _sync_kernels)
+    from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
+
+    return (_kernels, ldpc_kernels, _sync_kernels, _gfsk_kernels,
+            _median_kernels)
+
+
+def build_skim_libraries() -> None:
+    """Build each kernel library of the skim, one nvcc each, started
+    together (a library already built for its source is kept); raises the
+    first failure."""
+    errors = []
+
+    def build(mod):
+        try:
+            mod.build_library()
+        except BaseException as e:       # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(m,))
+               for m in _kernel_modules()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def _launch_counts() -> dict[str, int]:
+    return {k: n for mod in _kernel_modules() for k, n in mod.launches.items()}
+
+
+class SkimShard:
+    """The skim's work on one device: a channelizer for each position's
+    channel block and one FT8 decoder.  In this process it serves
+    :meth:`run` per position; built by :func:`skim_worker` it serves a
+    worker's steps."""
+
+    def __init__(self, device: torch.device, fs: int,
+                 blocks: dict[int, list[float]], spec: ModeSpec) -> None:
+        self.device = torch.device(device)
+        self.decoder = ft8.FT8Decoder(spec=spec, device=self.device)
+        self.chans = {p: BatchChannelizer(fs, freqs, device=self.device)
+                      for p, freqs in blocks.items()}
+
+    def run(self, p: int, x: torch.Tensor) -> dict[str, np.ndarray]:
+        """Position ``p``'s rows from the window ``x`` on this device."""
+        audio = self.chans[p].process_window(x)
+        out = self.decoder.decode_arrays_device(audio)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def __call__(self, window: torch.Tensor) -> dict:
+        """A worker's step: every position's rows, and the kernel launches
+        the step made in this process."""
+        before = _launch_counts()
+        x = window.to(self.device)
+        rows = {p: self.run(p, x) for p in self.chans}
+        after = _launch_counts()
+        return {"rows": rows,
+                "launches": {k: after[k] - before[k] for k in after}}
+
+
+def skim_worker(device: torch.device, fs: int, blocks: dict[int, list[float]],
+                spec: ModeSpec, warm_len: int) -> SkimShard:
+    """A :class:`CardWorkers` build: the device's :class:`SkimShard`,
+    warmed up on ``warm_len`` samples of silence."""
+    shard = SkimShard(device, fs, blocks, spec)
+    if warm_len:
+        shard(torch.zeros(warm_len, dtype=torch.complex64))
+    return shard
 
 
 class ShardedSkimStep:
-    """Channel-sharded channelize+decode for one receiver's channel bank."""
+    """Channel-sharded channelize+decode for one receiver's channel bank.
+
+    ``workers`` is the pool (a worker a card), where the mesh takes one;
+    ``worker_launches`` the workers' kernel launches in the last step."""
 
     def __init__(
         self,
@@ -48,16 +143,31 @@ class ShardedSkimStep:
         self._local = mesh.local_positions(axis)
         owners = mesh.owners(axis)
         # the decoder's spec (the reference's default FT8Decoder() without
-        # one), built once on each device this process runs
-        spec = decoder.spec if decoder is not None else None
-        self._decoders = {}
-        self._chans = {}
+        # one), built once on each device (or worker) that runs positions
+        spec = decoder.spec if decoder is not None else ft8.SPEC
+        by_dev: dict[torch.device, list[int]] = {}
         for p in self._local:
-            dev = owners[p][0]
-            if dev not in self._decoders:
-                self._decoders[dev] = ft8.FT8Decoder(spec=spec, device=dev)
-            self._chans[p] = BatchChannelizer(
-                fs, freqs[self._blocks[p]], device=dev)
+            by_dev.setdefault(owners[p][0], []).append(p)
+        self._bs = ChannelizerSpec(fs, self.n_total).block_size
+        self.worker_launches: dict[str, int] = {}
+        self.workers: CardWorkers | None = None
+        self._shards: dict[torch.device, SkimShard] = {}
+
+        def blocks(ps):
+            return {p: freqs[self._blocks[p]] for p in ps}
+
+        # a worker process for each card where this process's positions
+        # span two or more, else a SkimShard a device in this process
+        n_cards = sum(d.type == "cuda" for d in by_dev)
+        if n_cards >= 2 and not dist.is_initialized():
+            build_skim_libraries()
+            warm = int(ft8.T_R * fs) // self._bs * self._bs
+            self.workers = CardWorkers(
+                list(by_dev), skim_worker,
+                [(fs, blocks(ps), spec, warm) for ps in by_dev.values()])
+        else:
+            for dev, ps in by_dev.items():
+                self._shards[dev] = SkimShard(dev, fs, blocks(ps), spec)
 
     @property
     def local_channels(self) -> list[int]:
@@ -74,26 +184,27 @@ class ShardedSkimStep:
         ``local_channels`` (each host reports the channels it owns)."""
         iq = iq.detach().cpu().numpy() if isinstance(iq, torch.Tensor) \
             else np.asarray(iq)
-        chan0 = next(iter(self._chans.values()), None)
-        if chan0 is None:
+        if not self._local:
             return {}
-        bs = chan0.spec.block_size
+        bs = self._bs
         # outputs depend on IQ up to their own block only: the reference's
         # floor(T/BS) outputs are those of the first floor(T/BS) blocks
         x = np.ascontiguousarray(iq[: iq.shape[0] // bs * bs], np.complex64)
-        on_dev: dict[torch.device, torch.Tensor] = {}
-        owners = self.mesh.owners(self.axis)
-        for p in self._local:
-            dev = owners[p][0]
-            if dev not in on_dev:
-                on_dev[dev] = torch.from_numpy(x).to(dev)
+        if self.workers is not None:
+            outs, launches = {}, {}
+            for r in self.workers.step(x):
+                outs.update(r["rows"])
+                for k, n in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            self.worker_launches = launches
+        else:
+            on_dev = {dev: torch.from_numpy(x).to(dev)
+                      for dev in self._shards}
 
-        def shard(p, dev):
-            audio = self._chans[p].process_window(on_dev[dev])
-            out = self._decoders[dev].decode_arrays_device(audio)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            def shard(p, dev):
+                return self._shards[dev].run(p, on_dev[dev])
 
-        outs = self.mesh.run(self.axis, shard)
+            outs = self.mesh.run(self.axis, shard)
         rows = [outs[p] for p in self._local]
         n_local = len(self.local_channels)
         return {k: np.concatenate([r[k] for r in rows])[:n_local]
@@ -107,3 +218,8 @@ class ShardedSkimStep:
         if not out:
             return []
         return ft8.results_from_arrays(out)
+
+    def close(self) -> None:
+        """Stop the worker processes, if this step has any."""
+        if self.workers is not None:
+            self.workers.close()

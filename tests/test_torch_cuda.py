@@ -28,7 +28,8 @@ base) against their plain versions
 and the NumPy models of ``tests/test_torch_qary_kernels.py`` (and no
 fallback; no spills; the JT65, Q65-30, WSPR and FT8 decoders launch
 them), and the parallel layer on a virtual mesh of the card against one
-on the CPU.
+on the CPU, and its worker processes (two on the card, one on every card
+where there are several) against the skim in one process.
 
 This file imports no JAX (the machine with the card has none), so it runs
 there without the suite's JAX conftest:
@@ -1220,10 +1221,9 @@ def test_time_shards_on_card_match_cpu(dev):
     torch.testing.assert_close(card.cpu(), host, rtol=0, atol=1e-4)
 
 
-def test_sharded_skim_on_card_matches_cpu(dev):
-    """The channel-sharded skim on a virtual 4-entry mesh of the card and
-    on one of the CPU (tests/test_parallel.py's window): the same decode
-    lists within the tolerances above, one launch an entry."""
+def _skim_iq() -> tuple[int, np.ndarray, np.ndarray]:
+    """tests/test_parallel.py's window: 8 channels at 48 kHz, one FT8
+    burst at 1.5 kHz in channel 5."""
     fs = 48_000
     freqs = np.linspace(-18_000, 10_000, 8)
     burst = gfsk_modulate_iq(ft8.encode_message("CQ W2AXR FN13"),
@@ -1234,7 +1234,14 @@ def test_sharded_skim_on_card_matches_cpu(dev):
     rng = np.random.default_rng(3)
     iq += 0.02 * (rng.standard_normal(len(iq))
                   + 1j * rng.standard_normal(len(iq)))
-    iq = iq.astype(np.complex64)
+    return fs, freqs, iq.astype(np.complex64)
+
+
+def test_sharded_skim_on_card_matches_cpu(dev):
+    """The channel-sharded skim on a virtual 4-entry mesh of the card and
+    on one of the CPU (tests/test_parallel.py's window): the same decode
+    lists within the tolerances above, one launch an entry."""
+    fs, freqs, iq = _skim_iq()
     results = {}
     for d in (dev, "cpu"):
         step = ShardedSkimStep(
@@ -1246,6 +1253,68 @@ def test_sharded_skim_on_card_matches_cpu(dev):
             assert _kernels.launches["channelize"] == before + 4
     assert [r.message for r in results[dev][5]] == ["CQ W2AXR FN13"]
     assert_same_batch_decodes(results[dev], results["cpu"])
+
+
+def _skim_decoder(d) -> ft8.FT8Decoder:
+    return ft8.FT8Decoder(top_k=16, bp_iters=20, device=d)
+
+
+def test_worker_skim_on_card_matches_in_process(dev):
+    """The skim's worker code in two worker processes on the card
+    (``chip_smoke.WorkerSkim``), a position each: every array bit for bit
+    the same 2-entry mesh's in this process, the workers' kernel launches
+    that skim's (one channelizer launch a worker), and the decodes those
+    of the 1-entry mesh (valid and payload identical, SNR, f and dt within
+    the tolerances above)."""
+    fs, freqs, iq = _skim_iq()
+    spec = _skim_decoder(dev).spec
+    stepw = chip_smoke.WorkerSkim(dev, 2, fs, freqs, spec, len(iq))
+    try:
+        assert stepw.pool.devices == [dev, dev]
+        got = stepw.step(iq)
+    finally:
+        stepw.pool.close()
+    before = chip_smoke._launch_totals()
+    want = ShardedSkimStep(fs, freqs, make_mesh(2, devices=[dev] * 2),
+                           decoder=_skim_decoder(dev)).step(iq)
+    torch.cuda.synchronize()
+    after = chip_smoke._launch_totals()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # the launches each side made (the workers count only the skim's
+    # libraries; this process counts every library)
+    assert {k: n for k, n in stepw.launches.items() if n} == \
+        {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    assert stepw.launches["channelize"] == 2
+    one = ShardedSkimStep(fs, freqs, make_mesh(1, devices=[dev]),
+                          decoder=_skim_decoder(dev)).step(iq)
+    assert chip_smoke.same_decodes(got, one)
+    assert [r.message for r in ft8.results_from_arrays(got)[5]] == \
+        ["CQ W2AXR FN13"]
+
+
+def test_worker_skim_on_every_card(dev):
+    """On every visible card (two or more), one process: the skim takes a
+    worker process a card, and its decodes are those of the 1-entry
+    mesh."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    fs, freqs, iq = _skim_iq()
+    step = ShardedSkimStep(fs, freqs, make_mesh(n),
+                           decoder=_skim_decoder(dev))
+    try:
+        assert step.workers is not None
+        assert step.workers.devices == [torch.device("cuda", i)
+                                        for i in range(n)]
+        got = step.step(iq)
+    finally:
+        step.close()
+    one = ShardedSkimStep(fs, freqs, make_mesh(1, devices=[dev]),
+                          decoder=_skim_decoder(dev)).step(iq)
+    assert chip_smoke.same_decodes(got, one)
+    assert [r.message for r in ft8.results_from_arrays(got)[5]] == \
+        ["CQ W2AXR FN13"]
 
 
 def test_window_client_sends_a_card_window(dev):

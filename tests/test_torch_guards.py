@@ -39,7 +39,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {"cwsl_digi_tpu_torch.entry", "cwsl_digi_tpu_torch.dsp.ssbd",
             "cwsl_digi_tpu_torch.utils.stringutils"} | {
         f"cwsl_digi_tpu_torch.parallel.{m}" for m in (
-            "mesh", "pipeline", "timeshard", "cluster")} <= set(mods)
+            "mesh", "pipeline", "timeshard", "cluster", "workers")} \
+        <= set(mods)
     code = (
         "import sys, importlib, time\n"
         "sys.modules['jax'] = None\n"
@@ -287,8 +288,10 @@ def _entry_points():
     from cwsl_digi_tpu_torch.modes import (base, fst4, ft4, ft8, gfsk_engine,
                                            js8, jt65, ldpc, q65, qra, wspr)
     from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
-    from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
+    from cwsl_digi_tpu_torch.parallel.pipeline import (ShardedSkimStep,
+                                                       skim_worker)
     from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
+    from cwsl_digi_tpu_torch.parallel.workers import CardWorkers
     from cwsl_digi_tpu_torch.modes.crc import ft8_crc_matrix
     from cwsl_digi_tpu_torch.runtime.app import App
     from cwsl_digi_tpu_torch.runtime.decoderpool import DecoderPool
@@ -328,6 +331,7 @@ def _entry_points():
                                                    make_mesh()),
         "TimeShardedChannelizer": lambda: TimeShardedChannelizer(
             48_000, [1000.0], make_mesh(axes=("t",))),
+        "CardWorkers": lambda: CardWorkers(None, skim_worker, []),
         "entry": lambda: entry(),
         "dryrun_multichip": lambda: dryrun_multichip(1),
     }
@@ -342,8 +346,8 @@ def _entry_points():
                                   "get_decoder_JT65", "get_decoder_Q65",
                                   "tables_to_torch", "App", "make_mesh",
                                   "make_mesh_cuda", "ShardedSkimStep",
-                                  "TimeShardedChannelizer", "entry",
-                                  "dryrun_multichip"])
+                                  "TimeShardedChannelizer", "CardWorkers",
+                                  "entry", "dryrun_multichip"])
 def test_entry_points_default_to_the_card(monkeypatch, name):
     """With no device given, every entry point asks for the card and raises
     where there is none; none falls back to the CPU."""

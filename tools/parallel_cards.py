@@ -3,11 +3,16 @@
     python3 tools/parallel_cards.py          # every visible CUDA card
     python3 tools/parallel_cards.py --cpu 4  # rehearsal: CPU entries, gloo
 
-1. ``threads``: in one process, the channel-sharded skim of the smoke's 64
-   FT8 dials (192 kHz, bursts in 8) on meshes of 1, 2 and all cards, one
-   host thread per card, each held to the 1-card mesh's decodes and timed
-   (median of 3 steps); then one 900 s window (4 channels) time-sharded
-   over the same meshes, held to the 1-card output and timed.
+1. ``one_process``: in one process, the channel-sharded skim of the
+   smoke's 64 FT8 dials (192 kHz, bursts in 8) on meshes of 1, 2 and all
+   cards, each held to the 1-card mesh's decodes and timed (median of the
+   steps); the 1-card mesh runs in this process, the others a worker
+   process a card (``parallel/workers.py``), whose start-up (spawn,
+   build, warm-up) is timed apart from the steps, and each step's wall
+   is split into the parent's write of the window, the slowest worker's
+   own time and the rest (the handover).  Then one 900 s window (4
+   channels) time-sharded over the same meshes (a host thread a card),
+   held to the 1-card output and timed.
 2. ``nccl``: one process per card under an NCCL process group of world
    size = the card count (``tcp://localhost``): the skim, each rank on its
    own card's rows (``local_channels`` must cover every channel once, the
@@ -15,9 +20,12 @@
    120 s window time-sharded one shard a rank, each rank's span held to
    its own card's whole-window channelizer.
 
-Prints the card line, one JSON line per part, then ``{"ok": true, ...}``.
-With ``--cpu N`` the entries are CPU devices (N of them; the skim runs
-once and the long windows are 15 s) and the process group is gloo.
+Prints the card line, one JSON line per part, a ``skim_walls_s`` line
+with the one-process walls beside the NCCL ranks' wall, then ``{"ok":
+true, ...}``.  With ``--cpu N`` the entries are CPU devices (N of them;
+a CPU mesh runs in this process, so the one-process part takes no pool
+there: ``tests/test_torch_workers.py`` covers it), the skim runs once,
+the long windows are 15 s and the process group is gloo.
 """
 
 from __future__ import annotations
@@ -60,8 +68,33 @@ def _long_iq(seconds: int) -> tuple[np.ndarray, np.ndarray]:
     return tfreqs, iq
 
 
-def threads_part(devices: list[torch.device], reps: int,
-                 long_s: int) -> dict:
+def _timed_step(step, iq, devices, times: dict) -> dict:
+    """One step, its wall appended to ``times["walls_s"]``; for a pool
+    also the parent's write of the window and the slowest worker's own
+    seconds (the rest of the wall is the handover: messages, the
+    results through the pipes)."""
+    _sync(devices)
+    t = time.monotonic()
+    res = step.step(iq)
+    times.setdefault("walls_s", []).append(time.monotonic() - t)
+    if step.workers is not None:
+        times.setdefault("write_s", []).append(step.workers.write_s)
+        times.setdefault("worker_s", []).append(max(step.workers.worker_s))
+    return res
+
+
+def _medians(times: dict) -> dict:
+    out = {k.replace("walls_s", "wall_s"): statistics.median(v)
+           for k, v in times.items()}
+    if "worker_s" in times:
+        out["handover_s"] = statistics.median(
+            w - a - b for w, a, b in zip(times["walls_s"], times["write_s"],
+                                         times["worker_s"]))
+    return out
+
+
+def one_process_part(devices: list[torch.device], reps: int,
+                     long_s: int) -> dict:
     from cwsl_digi_tpu_torch.parallel.mesh import make_mesh
     from cwsl_digi_tpu_torch.parallel.pipeline import ShardedSkimStep
     from cwsl_digi_tpu_torch.parallel.timeshard import TimeShardedChannelizer
@@ -71,15 +104,17 @@ def threads_part(devices: list[torch.device], reps: int,
     out: dict = {"skim": {}, "timeshard": {}}
     ref = None
     for k in counts:
-        mesh = make_mesh(k, devices=devices[:k])
-        step = ShardedSkimStep(smoke.FS, freqs, mesh)
-        step.step(iq)                                   # warm-up
-        walls = []
-        for _ in range(reps):
-            _sync(devices)
-            t = time.monotonic()
-            res = step.step(iq)
-            walls.append(time.monotonic() - t)
+        t = time.monotonic()
+        step = ShardedSkimStep(smoke.FS, freqs, make_mesh(
+            k, devices=devices[:k]))
+        start_s = time.monotonic() - t
+        times = {}
+        try:
+            step.step(iq)                               # warm-up
+            for _ in range(reps):
+                res = _timed_step(step, iq, devices, times)
+        finally:
+            step.close()
         got = smoke.skim_decodes(step, res)
         if got != want:
             raise AssertionError(f"skim on {k} entries decodes {got}")
@@ -87,10 +122,20 @@ def threads_part(devices: list[torch.device], reps: int,
             ref = res
         elif not smoke.same_decodes(res, ref):
             raise AssertionError(f"skim on {k} entries disagrees with 1")
-        out["skim"][k] = {"wall_s": statistics.median(walls),
-                          "walls_s": walls}
-        print(f"threads skim, {k} entries of {64 // k} channels: median "
-              f"{statistics.median(walls):.3f} s {walls}", flush=True)
+        pool = step.workers
+        out["skim"][k] = {
+            **_medians(times), **times,
+            "workers": None if pool is None else len(pool.devices),
+            "start_s": start_s,
+            "worker_start_s": None if pool is None else pool.start_s}
+        m = _medians(times)
+        print(f"one-process skim, {k} entries of {64 // k} channels "
+              f"({'in this process' if pool is None else 'a worker each'}):"
+              f" median {m['wall_s']:.4f} s {times['walls_s']}"
+              + ("" if pool is None else
+                 f" (write {m['write_s']:.4f} s, slowest worker "
+                 f"{m['worker_s']:.4f} s, handover {m['handover_s']:.4f} s)")
+              + f"; start-up {start_s:.2f} s", flush=True)
     tfreqs, iq_long = _long_iq(long_s)
     ref = None
     for k in counts:
@@ -237,7 +282,8 @@ def main() -> int:
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--reps", type=int, default=3, help=argparse.SUPPRESS)
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed steps a mesh on the cards (default 3)")
     ap.add_argument("--long-s", type=int, default=0, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.rank is not None:
@@ -253,12 +299,15 @@ def main() -> int:
             return 1
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
-        reps, long_s, long_s_nccl = 3, LONG_S, LONG_S_NCCL
+        reps, long_s, long_s_nccl = a.reps, LONG_S, LONG_S_NCCL
     t = time.monotonic()
-    print(json.dumps({"threads": threads_part(devices, reps, long_s)}),
-          flush=True)
-    print(json.dumps({"nccl": nccl_part(len(devices), a.cpu > 0, reps,
-                                        long_s_nccl)}), flush=True)
+    one = one_process_part(devices, reps, long_s)
+    print(json.dumps({"one_process": one}), flush=True)
+    nccl = nccl_part(len(devices), a.cpu > 0, reps, long_s_nccl)
+    print(json.dumps({"nccl": nccl}), flush=True)
+    print(json.dumps({"skim_walls_s": {
+        "one_process": {k: v["wall_s"] for k, v in one["skim"].items()},
+        "nccl_ranks": {nccl["world"]: nccl["skim_wall_s"]}}}), flush=True)
     print(f"wall {time.monotonic() - t:.1f} s")
     kind = "cpu" if a.cpu else torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {
