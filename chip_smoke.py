@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, and fails without CUDA;
-2. builds the port's seven kernel libraries from ``cwsl_digi_tpu_torch``,
+2. builds the port's eight kernel libraries from ``cwsl_digi_tpu_torch``,
    one nvcc each, started together: the channelizer
    (``dsp/csrc/channelizer.cu``), the LDPC kernels ``bp_minsum`` and
    ``osd`` (``modes/csrc/ldpc.cu``), the GFSK kernels
@@ -11,9 +11,11 @@
    the sync-search kernels ``sync_score``, ``sync_select`` and
    ``sync_refine`` (``modes/csrc/sync.cu``), the weak modes' kernels
    ``wspr_beam`` and ``rs_ee`` (``modes/csrc/weak.cu``), the q-ary
-   kernels ``qra_mp`` and ``qary_sync`` (``modes/csrc/qary.cu``) and the
-   median ``median_rows`` (``modes/csrc/median.cu``), printing each
-   ptxas report;
+   kernels ``qra_mp``, ``qary_sync`` and ``qary_symbols``
+   (``modes/csrc/qary.cu``), the median ``median_rows``
+   (``modes/csrc/median.cu``) and JT65's Chase kernels ``chase_erasures``
+   and ``chase_score`` (``modes/csrc/chase.cu``), printing each ptxas
+   report;
 3. holds the channelizer kernel against its plain PyTorch version on the
    card, at the FT8 path's 64 dials, the mixed-mode path's 5 lines, the
    weak-mode path's 3 lines and the bench's 256 channels (192 kHz, 15 s
@@ -131,6 +133,20 @@
    where a row's count is odd, ``torch.quantile`` where it is even and
    takes the input, ``torch.topk`` of the score map), and each
    kernel's registers and spills;
+4f. holds ``qary_symbols``, ``chase_erasures`` and ``chase_score``
+   against their plain versions on the card (phase
+   ``qary_decode_kernels``) on the inputs of the App's 64-window JT65 and
+   Q65-30 decodes of the weak replay's bursts and on planted edges (tied,
+   flat and NaN tone rows; tied, signed-zero, NaN and -inf margins at a
+   draw index past 2**32; trials duplicated in pairs): the tone gather,
+   top-4, sum and margin bit for bit, the erasure flags bit for bit (also
+   against the plain version on CPU copies), the Chase info and ok
+   identical and the score within 1e-5, printing the flags' differing
+   bits, the score error and the best trials changed (each only between
+   trials within 1e-5); the 64-window decode lists with the plain stages
+   equal the kernels'.  Then each kernel's device time at JT65's shapes
+   beside the plain version's, the bound and, for the gather,
+   ``torch.topk(e, 4)``, and each kernel's registers and spills;
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
@@ -200,11 +216,12 @@
     may be one never injected), the decode of each of the 15 modes at
     batch 1, the FT8 recall with 8 trials and the JT65 and Q65-30 host
     share at batch 2, and prints each section's line; it must launch all
-    thirteen kernels;
+    sixteen kernels;
 15. prints a ``{"kernels": [...]}`` line (``channelize``, ``bp_minsum``,
     ``osd``, ``subtract_known``, ``multisym_llrs``, ``sync_score``,
     ``sync_select``, ``sync_refine``, ``wspr_beam``, ``rs_ee``, ``qra_mp``,
-    ``median_rows``, ``qary_sync``, each with its launches in the App
+    ``median_rows``, ``qary_sync``, ``qary_symbols``, ``chase_erasures``,
+    ``chase_score``, each with its launches in the App
     phases 5-7, 11 and 14, which set every count to 0 before they start
     and read it after, and ``launch_gap_ms``, the launches of the FT8,
     mixed and weak App phases 5-7 (and, for the channelizer, of the
@@ -310,7 +327,28 @@ MP_FLIPS_MAX = 302
 MP_MODEL_STRIDE = 64     # the kernel against the NumPy model of its
                          # arithmetic, bit for bit, on every 64th word and
                          # every word whose flag moved
-ALL_KERNELS = HAND_KERNELS + WEAK_KERNELS + QARY_KERNELS
+# the q-ary decode's last op chains: the tone gather and top-4, JT65's Chase
+# erasure patterns and soft score (the RS decode between them is rs_ee)
+QARY_DECODE_KERNELS = ("qary_symbols", "chase_erasures", "chase_score")
+QARY_DECODE_REPLACES = {
+    "qary_symbols": "cwsl_digi_tpu/modes/qary_engine.py:123",
+    "chase_erasures": "cwsl_digi_tpu/modes/rs_device.py:245",
+    "chase_score": "cwsl_digi_tpu/modes/rs_device.py:274"}
+QARY_DECODE_SOURCES = {"qary_symbols": "qary.cu",
+                       "chase_erasures": "chase.cu",
+                       "chase_score": "chase.cu"}
+SCORE_TOL = 1e-5         # chase_score vs plain, the best trial's score
+                         # (the mean of 63 logs summed in another order);
+                         # info and ok identical, a changed best trial only
+                         # between trials whose plain scores lie this close
+THREEFRY_OPS = 85        # integer operations a stochastic flag: 2 + 20
+                         # rounds x 3 (add, rotate, xor) + 5 key injections
+                         # x 3, the index, the bits' float, the product and
+                         # the compare
+THREEFRY_ALU_OPS = 43    # of them the rotates, xors, shift and or, which
+                         # only the 64 INT32 lanes of an SM issue (an add
+                         # may also issue as IMAD on the 128 FP32 lanes)
+ALL_KERNELS = HAND_KERNELS + WEAK_KERNELS + QARY_KERNELS + QARY_DECODE_KERNELS
 # the GFSK engine's paths also take their SNR median through median_rows
 GFSK_PATH_KERNELS = HAND_KERNELS + ("median_rows",)
 TRIG_OPS = 20            # a range-reduced float32 sin or cos, counted as
@@ -2759,6 +2797,396 @@ def qary_kernels_phase(dev) -> dict:
             "shapes": shapes, "qsync_design": sync_design}
 
 
+def record_decode_inputs(dev, windows: int = 64) -> dict:
+    """The inputs the q-ary decoders hand the last three kernels on the
+    card in the App's 64-window decodes (or ``windows``) of the weak
+    replay's JT65 and Q65-30 bursts: each ``_symbol_energies`` call (JT65's 15-window device
+    batches, Q65-30's 30-window ones with the 64 energies), and JT65's Chase
+    stages, ``chase_erasures`` and ``chase_score`` (1,536 candidates in
+    chunks of 1,024 and 512 x 256 trials).  {"symbols": [(mode, spec,
+    power, t0, f0, data_syms)], "erasures": [args], "score": [args],
+    "lists": {mode: the decode list}}."""
+    from cwsl_digi_tpu_torch.modes import jt65, q65, qary_engine, rs_device
+
+    rec = {"symbols": [], "erasures": [], "score": [], "lists": {}}
+    label = {"mode": ""}
+    symbols = qary_engine._symbol_energies
+    erasures, score = rs_device.chase_erasures, rs_device.chase_score
+
+    def keep(args):
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def sym_rec(spec, power, t0, f0, data_syms):
+        rec["symbols"].append((label["mode"], spec) + keep(
+            (power, t0, f0, data_syms)))
+        return symbols(spec, power, t0, f0, data_syms)
+
+    def era_rec(*args):
+        rec["erasures"].append(keep(args))
+        return erasures(*args)
+
+    def score_rec(*args):
+        rec["score"].append(keep(args))
+        return score(*args)
+
+    qary_engine._symbol_energies = sym_rec
+    rs_device.chase_erasures, rs_device.chase_score = era_rec, score_rec
+    try:
+        for mode, make in (("JT65", jt65.JT65Decoder),
+                           ("Q65-30", q65.Q65Decoder)):
+            label["mode"] = mode
+            audio = torch.from_numpy(
+                _weak_windows(mode, windows, SEED + 63)).to(dev)
+            res = make(device=dev).decode(audio)
+            rec["lists"][mode] = [[r.message for r in w] for w in res]
+            print(f"q-ary decode kernels' {mode} inputs: "
+                  f"{sum(len(r) for r in res)} decodes in {len(res)} "
+                  "windows")
+            del audio
+    finally:
+        qary_engine._symbol_energies = symbols
+        rs_device.chase_erasures, rs_device.chase_score = erasures, score
+    return rec
+
+
+def symbols_vs_plain(spec, power, t0, f0, data_syms) -> dict:
+    """``qary_symbols`` (through ``qary_engine._symbol_energies``) against
+    ``_symbol_energies_plain`` on the same CUDA map: e (Q65), top_e,
+    top_tone, e_sum and margin bit for bit; and against the plain version
+    on CPU copies: all but the margin bit for bit (the CPU's log may round
+    another way), the margin's largest error printed.  One launch."""
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+    from cwsl_digi_tpu_torch.modes import qary_engine
+
+    names = ("e", "top_e", "top_tone", "e_sum", "margin")
+    before = qk.launches["qary_symbols"]
+    got = qary_engine._symbol_energies(spec, power, t0, f0, data_syms)
+    launched = qk.launches["qary_symbols"] - before
+    plain = qary_engine._symbol_energies_plain(spec, power, t0, f0,
+                                               data_syms)
+    cpu = qary_engine._symbol_energies_plain(
+        spec, power.cpu(), t0.cpu(), f0.cpu(), data_syms.cpu())
+    out = {"shape": list(power.shape), "candidates": list(t0.shape),
+           "launches": launched, "full_e": got[0] is not None}
+    for name, a, b, c in zip(names, got, plain, cpu):
+        if a is None:
+            continue
+        out[f"{name}_differ"] = (_floats_differ(a, b) if a.is_floating_point()
+                                 else int((a != b).sum()))
+        out[f"{name}_differ_cpu"] = _bits_differ(a, c)
+    out["margin_err_cpu"] = _abs_err(got[4], cpu[4])
+    out["tied_best_two"] = int((plain[1][..., 0] == plain[1][..., 1]).sum())
+    out["max_abs_err"] = _abs_err(got[3], cpu[3])
+    out["ok"] = launched == 1 and all(
+        v == 0 for k, v in out.items() if k.endswith("_differ")) and all(
+        out[f"{n}_differ_cpu"] == 0 for n in names[:4] if f"{n}_differ_cpu"
+        in out)
+    return out
+
+
+def planted_symbols(spec, power, t0, f0):
+    """A copy of a map with planted rows at the first candidate of each
+    window: its first data symbol's two best tones tied, its second's
+    tones all equal, its third holding a NaN tone and +inf."""
+    power = power.clone()
+    bins = f0[:, 0, None] + spec.os_f * (spec.tone_offset
+                                         + torch.arange(64, device=f0.device))
+    for b in range(power.shape[0]):
+        for s, kind in zip(spec.data_syms[:3], ("tie", "flat", "nan")):
+            h = int(t0[b, 0]) + spec.os_t * s
+            row = power[b, h, bins[b]]
+            if kind == "tie":
+                power[b, h, bins[b][[9, 3]]] = 2 * row.max()
+            elif kind == "flat":
+                power[b, h, bins[b]] = 1.5
+            else:
+                power[b, h, bins[b][[17, 40]]] = torch.tensor(
+                    [float("nan"), float("inf")], device=power.device)
+    return power
+
+
+def erasures_vs_plain(args) -> dict:
+    """``chase_erasures`` against ``chase_erasures_plain`` on the card and
+    on CPU copies: every flag identical.  One launch."""
+    from cwsl_digi_tpu_torch.modes import _chase_kernels as ck
+    from cwsl_digi_tpu_torch.modes import rs_device
+
+    nroots, n_trials, n_det, margin, seed, c0 = args
+    before = ck.launches["chase_erasures"]
+    era = rs_device.chase_erasures(*args)
+    launched = ck.launches["chase_erasures"] - before
+    plain = rs_device.chase_erasures_plain(*args)
+    cpu = rs_device.chase_erasures_plain(
+        nroots, n_trials, n_det, margin.cpu(),
+        seed.cpu() if isinstance(seed, torch.Tensor) else seed, c0)
+    out = {"shape": list(era.shape), "c0": c0, "launches": launched,
+           "era_bits_differ": int((era != plain).sum()),
+           "era_bits_differ_cpu": _bits_differ(era, cpu),
+           "erased_share": float(era.float().mean()), "max_abs_err": 0.0}
+    out["ok"] = (launched == 1 and out["era_bits_differ"] == 0
+                 and out["era_bits_differ_cpu"] == 0)
+    return out
+
+
+def score_vs_plain(args) -> dict:
+    """``chase_score`` against ``chase_score_plain`` on the same CUDA
+    trials: info and ok identical, the best scores within SCORE_TOL (-inf
+    alike), and a best trial other than the plain version's only where
+    their plain scores lie within SCORE_TOL.  One launch."""
+    from cwsl_digi_tpu_torch.modes import _chase_kernels as ck
+    from cwsl_digi_tpu_torch.modes import rs_device
+
+    k, accept, corrected, ok, era, top_e, top_tone, e_sum = args
+    before = ck.launches["chase_score"]
+    info, score, best_ok, trial = ck.chase_score(
+        corrected, ok, era, top_e, top_tone, e_sum, k, accept)
+    launched = ck.launches["chase_score"] - before
+    p_info, p_score, p_ok = rs_device.chase_score_plain(*args)
+    scores, _ = rs_device.chase_trial_scores_plain(
+        accept, corrected, ok, era, top_e, top_tone, e_sum)
+    p_trial = scores.argmax(dim=1)
+    bidx = torch.arange(len(trial), device=trial.device)
+    moved = trial != p_trial
+    apart = (scores[bidx, trial] - scores[bidx, p_trial]).abs()
+    fin = torch.isfinite(p_score)
+    out = {"shape": list(corrected.shape), "launches": launched,
+           "info_rows_differ": int((info != p_info).any(dim=1).sum()),
+           "ok_differ": int((best_ok != p_ok).sum()),
+           "finite_differ": int((torch.isfinite(score) != fin).sum()),
+           "max_abs_err": float((score - p_score).abs()[fin].max())
+           if fin.any() else 0.0,
+           "best_trials_changed": int(moved.sum()),
+           "changed_apart_max": float(apart[moved].max()) if moved.any()
+           else 0.0, "ok_count": int(p_ok.sum())}
+    out["ok"] = (launched == 1 and out["info_rows_differ"] == 0
+                 and out["ok_differ"] == 0 and out["finite_differ"] == 0
+                 and out["max_abs_err"] <= SCORE_TOL
+                 and out["changed_apart_max"] <= SCORE_TOL)
+    return out
+
+
+def planted_chase(args):
+    """Edge cases of the erasure flags from a recorded chunk's first 64
+    candidates: margins with ties, zeros of both signs, NaN and -inf (the
+    rank's order) at a chunk offset whose draw index passes 2**32."""
+    nroots, n_trials, n_det, margin, seed, _c0 = args
+    m = margin[:64].clone()
+    m[0, 5:25] = m[0, 5]
+    m[1] = 0.25
+    m[2, ::3] = 0.0
+    m[2, 1::3] = -0.0
+    m[3, [0, 7]] = float("nan")
+    m[3, 9] = float("-inf")
+    c0 = 2 ** 32 // ((n_trials - n_det) * margin.shape[1]) + 1
+    return (nroots, n_trials, n_det, m, seed, c0)
+
+
+def duplicate_trials(args):
+    """A recorded score chunk's first 64 candidates with each odd trial a
+    copy of the even one before it (corrected word, flag and erasures)."""
+    k, accept, corrected, ok, era, top_e, top_tone, e_sum = args
+    c = slice(0, 64)
+    corrected, ok, era = (x[c].clone() for x in (corrected, ok, era))
+    corrected[:, 1::2] = corrected[:, 0::2]
+    ok[:, 1::2] = ok[:, 0::2]
+    era[:, 1::2] = era[:, 0::2]
+    return (k, accept, corrected, ok, era, top_e[c], top_tone[c], e_sum[c])
+
+
+def symbols_bound_ms(spec, t0: torch.Tensor) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of the tone gather and top-4 of these
+    candidates: each of the 64 tones of a (candidate, data symbol) read
+    once, t0 / f0 and the rows read, top_e, top_tone, e_sum, margin (and
+    the 64 energies for Q65) written once, at the HBM rate; per row 63
+    adds, 4 x 63 compares and two logs (TRIG_OPS each) at FP32_OPS.  The
+    32-byte sectors the gather touches (os_f floats apart) are counted
+    beside it."""
+    rows = t0.numel() * len(spec.data_syms)
+    out_b = 16 + 32 + 4 + 4 + (4 * 64 if spec.full_e else 0)
+    n_bytes = rows * (64 * 4 + out_b) + t0.numel() * 16 \
+        + 4 * len(spec.data_syms)
+    ops = float(rows) * (63 + 4 * 63 + 2 * TRIG_OPS + 3)
+    tones_a_sector = max(1, 32 // (4 * spec.os_f))
+    sectors = rows * -(-64 // tones_a_sector)
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+            {"bytes": n_bytes, "rows": rows, "float_ops": ops,
+             "gather_sector_bytes": sectors * 32,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
+
+
+def erasures_bound_ms(args) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of a chunk's erasure flags: the margins
+    and tables read and the flags written once at the HBM rate; the
+    operations, THREEFRY_OPS a stochastic flag, a compare a deterministic
+    one and 2 n a symbol's rank, the larger of the rotates, xors and shifts
+    (THREEFRY_ALU_OPS a flag) at INT32_OPS and all of them at INT32_OPS +
+    FP32_OPS (the adds may issue on either kind of lane)."""
+    _nroots, n_trials, n_det, margin, _s, _c0 = args
+    c, n = margin.shape
+    n_bytes = c * n * 4 + c * n_trials * n + n * 4 \
+        + (n_trials - n_det) * 4 + 8
+    flags = float(c) * n * (n_trials - n_det)
+    ops = flags * THREEFRY_OPS + float(c) * n * (n_det + 2 * n)
+    ops_ms = max(flags * THREEFRY_ALU_OPS / INT32_OPS,
+                 ops / (INT32_OPS + FP32_OPS)) * 1e3
+    return (n_bytes / HBM_BYTES_S * 1e3, ops_ms,
+            {"bytes": n_bytes, "int_ops": ops,
+             "alu_ops": flags * THREEFRY_ALU_OPS,
+             "ops_ms_fma_rate": ops_ms,
+             "ops_ms_int32_lanes_only": ops / INT32_OPS * 1e3})
+
+
+def score_bound_ms(args) -> tuple[float, float, dict]:
+    """(bytes ms, ops ms, counts) of a chunk's soft score and selection:
+    the corrected words, flags and erasures, the candidates' top-4 rows and
+    sums read once, info, score, ok and trial written once at the HBM
+    rate; per symbol and trial 4 compares, a select and two adds, per
+    symbol 5 logs (TRIG_OPS each) at FP32_OPS."""
+    k, _accept, corrected, *_ = args
+    c, t, n = corrected.shape
+    n_bytes = 2 * c * t * n + c * t + c * n * (16 + 32 + 4) \
+        + c * (8 * k + 4 + 1 + 8)
+    ops = float(c) * (t * n * 7 + n * 5 * TRIG_OPS)
+    return (n_bytes / HBM_BYTES_S * 1e3, ops / FP32_OPS * 1e3,
+            {"bytes": n_bytes, "float_ops": ops,
+             "ops_ms_fma_rate": ops / FP32_FLOPS * 1e3})
+
+
+def qary_decode_kernels_phase(dev) -> dict:
+    """``qary_symbols``, ``chase_erasures`` and ``chase_score`` against
+    their plain versions on the card on the decoders' own inputs
+    (``record_decode_inputs``: the App's 64-window JT65 and Q65-30
+    decodes) and on planted edges (tied, flat and NaN tone rows; tied,
+    signed-zero, NaN and -inf margins at a chunk offset past 2**32 draws;
+    trials duplicated in pairs): the gather bit for bit, the flags bit for
+    bit (also against the plain version on CPU copies), the score's info
+    and ok identical, its score within SCORE_TOL, and each changed best
+    trial within SCORE_TOL of the plain one; then the same decodes with the
+    plain stages on the card give the same decode lists.  Then each
+    kernel's device time at JT65's shapes (the 15-window gather, the 1,024
+    candidate chunk) beside the plain version's, the bound and, for the
+    gather, ``torch.topk(e, 4)`` of its energies; each kernel's registers
+    and spills."""
+    from cwsl_digi_tpu_torch.modes import _chase_kernels as ck
+    from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
+    from cwsl_digi_tpu_torch.modes import jt65, q65, qary_engine, rs_device
+
+    rec = record_decode_inputs(dev)
+    checks = {}
+    for i, (mode, spec, power, t0, f0, ds) in enumerate(rec["symbols"]):
+        checks[f"qary_symbols {mode} {i}"] = symbols_vs_plain(
+            spec, power, t0, f0, ds)
+    for mode in ("JT65", "Q65-30"):
+        _, spec, power, t0, f0, ds = next(r for r in rec["symbols"]
+                                          if r[0] == mode)
+        checks[f"qary_symbols {mode} planted"] = symbols_vs_plain(
+            spec, planted_symbols(spec, power[:2], t0[:2], f0[:2]), t0[:2],
+            f0[:2], ds)
+    for i, args in enumerate(rec["erasures"]):
+        checks[f"chase_erasures {i}"] = erasures_vs_plain(args)
+    checks["chase_erasures planted"] = erasures_vs_plain(
+        planted_chase(rec["erasures"][0]))
+    for i, args in enumerate(rec["score"]):
+        checks[f"chase_score {i}"] = score_vs_plain(args)
+    checks["chase_score duplicated trials"] = score_vs_plain(
+        duplicate_trials(rec["score"][0]))
+    for name, c in checks.items():
+        print(f"q-ary decode kernels vs plain, {name}: {json.dumps(c)}")
+    bad = [name for name, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"q-ary decode kernels disagree with the "
+                             f"plain versions: {bad}")
+    era_bits = sum(c.get("era_bits_differ", 0)
+                   + c.get("era_bits_differ_cpu", 0) for c in checks.values())
+    changed = sum(c.get("best_trials_changed", 0) for c in checks.values())
+    score_err = max(c["max_abs_err"] for n, c in checks.items()
+                    if n.startswith("chase_score"))
+    print(f"q-ary decode kernels: era bits differing {era_bits}, chase "
+          f"score error {score_err:.3g} (tolerance {SCORE_TOL}), best "
+          f"trials changed {changed}")
+
+    # the same decodes with the plain stages on the card
+    stages = (qary_engine._symbol_energies, rs_device.chase_erasures,
+              rs_device.chase_score)
+    qary_engine._symbol_energies = qary_engine._symbol_energies_plain
+    rs_device.chase_erasures = rs_device.chase_erasures_plain
+    rs_device.chase_score = rs_device.chase_score_plain
+    try:
+        for mode, make in (("JT65", jt65.JT65Decoder),
+                           ("Q65-30", q65.Q65Decoder)):
+            audio = torch.from_numpy(
+                _weak_windows(mode, 64, SEED + 63)).to(dev)
+            res = make(device=dev).decode(audio)
+            same = [[r.message for r in w] for w in res] == rec["lists"][mode]
+            checks[f"{mode} decode lists, plain stages"] = {"ok": same}
+            print(f"q-ary decode kernels: {mode} 64-window decode lists "
+                  f"with the plain stages {'equal' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"{mode}: the plain stages' decode "
+                                     "lists differ from the kernels'")
+            del audio
+    finally:
+        (qary_engine._symbol_energies, rs_device.chase_erasures,
+         rs_device.chase_score) = stages
+
+    attrs = {**{k: v for k, v in qk.kernel_attrs(dev).items()
+                if k == "qary_symbols"}, **ck.kernel_attrs(dev)}
+    print(f"q-ary decode kernels' design: attributes {json.dumps(attrs)}")
+    _, jspec, jps, jt0, jf0, jds = next(r for r in rec["symbols"]
+                                        if r[0] == "JT65")
+    era_args, score_args = rec["erasures"][0], rec["score"][0]
+    runs = {"qary_symbols": (
+                lambda: qary_engine._symbol_energies(jspec, jps, jt0, jf0,
+                                                     jds),
+                lambda: qary_engine._symbol_energies_plain(jspec, jps, jt0,
+                                                           jf0, jds), 5, 3),
+            "chase_erasures": (
+                lambda: rs_device.chase_erasures(*era_args),
+                lambda: rs_device.chase_erasures_plain(*era_args), 5, 2),
+            "chase_score": (
+                lambda: rs_device.chase_score(*score_args),
+                lambda: rs_device.chase_score_plain(*score_args), 5, 2)}
+    bounds = {"qary_symbols": symbols_bound_ms(jspec, jt0),
+              "chase_erasures": erasures_bound_ms(era_args),
+              "chase_score": score_bound_ms(score_args)}
+    errs = {k: max(c["max_abs_err"] for n, c in checks.items()
+                   if n.startswith(k)) for k in QARY_DECODE_KERNELS}
+    out = stage_kernel_times(
+        runs, bounds, errs,
+        {"qary_symbols": list(jps.shape) + [list(jt0.shape)],
+         "chase_erasures": list(era_args[3].shape) + [era_args[1]],
+         "chase_score": list(score_args[2].shape)})
+    e = qary_engine._symbol_energies_plain(
+        dataclasses.replace(jspec, full_e=True), jps, jt0, jf0, jds)[0]
+    out["qary_symbols"]["library_ms"] = cuda_ms(
+        lambda: torch.topk(e, 4, dim=-1), 5)
+    del e
+    # the other shapes the decodes hand them
+    shapes = {}
+    _, qspec, qps, qt0, qf0, qds = next(r for r in rec["symbols"]
+                                        if r[0] == "Q65-30")
+    shapes["qary_symbols Q65-30"] = {
+        "shape": list(qps.shape), "ms": cuda_ms(
+            lambda: qary_engine._symbol_energies(qspec, qps, qt0, qf0, qds),
+            5), "bound_ms": max(symbols_bound_ms(qspec, qt0)[:2])}
+    for name, args, fn, bound in (
+            ("chase_erasures", rec["erasures"][-1], rs_device.chase_erasures,
+             erasures_bound_ms),
+            ("chase_score", rec["score"][-1], rs_device.chase_score,
+             score_bound_ms)):
+        shapes[f"{name} last chunk"] = {
+            "shape": list(args[3].shape if name == "chase_erasures"
+                          else args[2].shape),
+            "ms": cuda_ms(lambda: fn(*args), 5),
+            "bound_ms": max(bound(args)[:2])}
+    for key, v in shapes.items():
+        print(f"q-ary decode kernel at {key}: {json.dumps(v)}")
+    return {"kernels": out, "checks": checks, "attrs": attrs,
+            "shapes": shapes, "era_bits_differ": era_bits,
+            "best_trials_changed": changed}
+
+
 def _plan():
     """64 dials across the band and the bursts: (dial index, message,
     audio offset Hz, SNR dB in 2.5 kHz, dt s)."""
@@ -2909,13 +3337,13 @@ def _run_app(dev, ini: Path, n_windows, timeout_s: float,
 def _kernel_modules() -> tuple:
     """The port's kernel libraries, each with its ``launches`` dict."""
     from cwsl_digi_tpu_torch.dsp import _kernels
-    from cwsl_digi_tpu_torch.modes import (_gfsk_kernels, _median_kernels,
-                                           _qary_kernels, _sync_kernels,
-                                           _weak_kernels)
+    from cwsl_digi_tpu_torch.modes import (_chase_kernels, _gfsk_kernels,
+                                           _median_kernels, _qary_kernels,
+                                           _sync_kernels, _weak_kernels)
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 
     return (_kernels, ldpc_kernels, _gfsk_kernels, _sync_kernels,
-            _weak_kernels, _qary_kernels, _median_kernels)
+            _weak_kernels, _qary_kernels, _median_kernels, _chase_kernels)
 
 
 def _reset_launches() -> None:
@@ -2951,6 +3379,7 @@ def _require_launches(where: str, counts: dict, names) -> None:
 def _launchers() -> dict:
     """{kernel: (module, the function that launches and counts it)}."""
     from cwsl_digi_tpu_torch.dsp import _kernels as ch
+    from cwsl_digi_tpu_torch.modes import _chase_kernels as ck
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gk
     from cwsl_digi_tpu_torch.modes import _kernels as lk
     from cwsl_digi_tpu_torch.modes import _median_kernels as mk
@@ -2966,7 +3395,10 @@ def _launchers() -> dict:
             "sync_refine": (sk, "_refine_launch"),
             "wspr_beam": (wk, "wspr_beam"), "rs_ee": (wk, "rs_ee"),
             "qra_mp": (qk, "qra_mp"), "qary_sync": (qk, "qary_sync"),
-            "median_rows": (mk, "median_rows")}
+            "median_rows": (mk, "median_rows"),
+            "qary_symbols": (qk, "qary_symbols"),
+            "chase_erasures": (ck, "chase_erasures"),
+            "chase_score": (ck, "chase_score")}
 
 
 def _launch_work(name: str, args: tuple) -> int:
@@ -3349,12 +3781,14 @@ def _weak_plan():
 def weak_modes_phase(dev, workdir: Path) -> dict:
     """The port's App on the weak-mode replay (WSPR, JT65, Q65-30): WSPR's
     beam search runs ``wspr_beam`` and its OSD ``osd``, JT65's RS Chase
-    ``rs_ee``; none of the three has an LDPC code or runs the GFSK engine,
+    ``chase_erasures``, ``rs_ee`` and ``chase_score``, the q-ary demod
+    ``qary_sync`` and ``qary_symbols``; none of the three has an LDPC code or runs the GFSK engine,
     so ``bp_minsum``, ``subtract_known``, ``multisym_llrs`` and the sync
     kernels have no launch here."""
     return _replay_phase(dev, workdir, "weak-modes", WEAK_LINES,
                          _weak_plan(), SEED + 5,
-                         ("osd",) + WEAK_KERNELS + QARY_KERNELS)
+                         ("osd",) + WEAK_KERNELS + QARY_KERNELS
+                         + QARY_DECODE_KERNELS)
 
 
 # (mode, message, audio Hz, SNR dB, seed): the reference's long-period
@@ -4058,6 +4492,7 @@ def main() -> int:
     import cwsl_digi_tpu_torch  # noqa: F401  (fails outside the repo)
     from cwsl_digi_tpu_torch.device import cuda_device
     from cwsl_digi_tpu_torch.dsp import _kernels
+    from cwsl_digi_tpu_torch.modes import _chase_kernels as chase_kernels
     from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
     from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
     from cwsl_digi_tpu_torch.modes import _median_kernels as median_kernels
@@ -4071,7 +4506,7 @@ def main() -> int:
     build_libraries({"channelizer": _kernels, "ldpc": ldpc_kernels,
                      "gfsk": gfsk_kernels, "sync": sync_kernels,
                      "weak": weak_kernels, "qary": qary_kernels,
-                     "median": median_kernels})
+                     "median": median_kernels, "chase": chase_kernels})
 
     walls = {}
 
@@ -4107,6 +4542,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kqary = phase("qary_kernels", qary_kernels_phase, dev)
     torch.cuda.empty_cache()
+    kdecode = phase("qary_decode_kernels", qary_decode_kernels_phase, dev)
+    torch.cuda.empty_cache()
     # the launches the kernels line prices, by shape: the App phases and
     # (the channelizer's) the parallel phase
     LAUNCH_SHAPES.on = True
@@ -4139,6 +4576,8 @@ def main() -> int:
     print(json.dumps({"weak_kernels": kweak_modes}))
     print(json.dumps({"qary_kernels": {k: v for k, v in kqary.items()
                                        if k != "checks"}}))
+    print(json.dumps({"qary_decode_kernels": {
+        k: v for k, v in kdecode.items() if k != "checks"}}))
     print(json.dumps({"long_periods": lstats, "decode_walls": dstats,
                       "mixed_decode_batches": xstats["decode_batches"],
                       "weak_decode_batches": wstats["decode_batches"],
@@ -4180,6 +4619,8 @@ def main() -> int:
              for name, replaces in WEAK_REPLACES.items()]
     hand += [(name, replaces, kqary, QARY_SOURCES[name])
              for name, replaces in QARY_REPLACES.items()]
+    hand += [(name, replaces, kdecode, QARY_DECODE_SOURCES[name])
+             for name, replaces in QARY_DECODE_REPLACES.items()]
     for name, _, kphase, _ in hand:
         timed[name] = kphase["kernels"][name]
     priced = phase("launch_shapes", LAUNCH_SHAPES.price, timed)

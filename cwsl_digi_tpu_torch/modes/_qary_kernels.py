@@ -1,7 +1,8 @@
 """Build, bind and launch the hand-written kernels of the q-ary modes'
-device stages: Q65's GF(64) sum-product decode (``qra_mp``) and the q-ary
-sync correlation with its top-K (``qary_sync``).  The median of their maps
-is :mod:`._median_kernels`'s.
+device stages: Q65's GF(64) sum-product decode (``qra_mp``), the q-ary
+sync correlation with its top-K (``qary_sync``) and the data symbols' tone
+gather with its top-4 (``qary_symbols``).  The median of their maps is
+:mod:`._median_kernels`'s.
 
 ``csrc/qary.cu`` is compiled with ``nvcc`` for ``sm_90a`` and
 ``--fmad=false`` into a shared library with a plain C interface, at first
@@ -10,12 +11,14 @@ use, into ``build/`` beside this file, named by the source's hash
 Importing this module builds nothing: the CPU tests import it on machines
 with no ``nvcc``.
 
-``qra.QaryMPDecoder.decode`` calls :func:`qra_mp` on CUDA tensors and
-``qary_engine._qary_sync`` :func:`qary_sync`.  Every operand is checked
-before the library is loaded; they raise on anything the kernels do not
-take and when the library cannot be built or a launch is refused: no path
-here falls back to the plain versions (``QaryMPDecoder.decode_plain``,
-``qary_engine._qary_sync_plain``).  Neither syncs with the host.
+``qra.QaryMPDecoder.decode`` calls :func:`qra_mp` on CUDA tensors,
+``qary_engine._qary_sync`` :func:`qary_sync` and
+``qary_engine._symbol_energies`` :func:`qary_symbols`.  Every operand is
+checked before the library is loaded; they raise on anything the kernels
+do not take and when the library cannot be built or a launch is refused:
+no path here falls back to the plain versions
+(``QaryMPDecoder.decode_plain``, ``qary_engine._qary_sync_plain``,
+``qary_engine._symbol_energies_plain``).  None syncs with the host.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ SYNC_LIST_CAP = 4096      # candidates a window's merge holds
 SYNC_T_MAX = 128          # time offsets
 SYNC_S_MAX = 128          # sync symbols
 SYNC_K_MAX = 256          # top-K
+SYM_TONES = 64            # tones a symbol (qary_symbols takes no other)
 
 SRC = Path(__file__).parent / "csrc" / "qary.cu"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -49,7 +53,7 @@ EXTRA_FLAGS = ("--fmad=false",)
 
 # launches of each kernel since the last reset (one per wrapper call that
 # launches it)
-launches = {"qra_mp": 0, "qary_sync": 0}
+launches = {"qra_mp": 0, "qary_sync": 0, "qary_symbols": 0}
 
 _lock = threading.Lock()     # guards _lib and the counts
 _lib: ctypes.CDLL | None = None
@@ -84,6 +88,8 @@ def load_library() -> ctypes.CDLL:
             lib.qary_sync_launch.restype = i
             lib.qary_sync_occupancy.argtypes = [i, i, p]
             lib.qary_sync_occupancy.restype = i
+            lib.qary_symbols_launch.argtypes = [p] * 11
+            lib.qary_symbols_launch.restype = i
             lib.qary_kernel_attrs.argtypes = [i, p]
             lib.qary_kernel_attrs.restype = i
             limits = {"qary_mp_n_max": MP_N_MAX, "qary_mp_nc_max": MP_NC_MAX,
@@ -95,7 +101,8 @@ def load_library() -> ctypes.CDLL:
                       "qary_sync_list_cap": SYNC_LIST_CAP,
                       "qary_sync_t_max": SYNC_T_MAX,
                       "qary_sync_s_max": SYNC_S_MAX,
-                      "qary_sync_k_max": SYNC_K_MAX}
+                      "qary_sync_k_max": SYNC_K_MAX,
+                      "qary_symbols_tones": SYM_TONES}
             for name, want in limits.items():
                 getattr(lib, name).restype = i
                 if getattr(lib, name)() != want:
@@ -283,6 +290,67 @@ def qary_sync(power_sync: torch.Tensor, base: torch.Tensor,
     return top_val, top_idx
 
 
+def check_symbols(n_tones: int) -> None:
+    """Raise unless ``qary_symbols`` takes symbols of ``n_tones`` tones."""
+    if n_tones != SYM_TONES:
+        raise ValueError(f"n_tones={n_tones}: qary_symbols takes "
+                         f"{SYM_TONES} tones a symbol")
+
+
+def qary_symbols(power: torch.Tensor, t0: torch.Tensor, f0: torch.Tensor,
+                 rows: torch.Tensor, rows_max: int, n_t0: int, n_f0: int,
+                 os_f: int, tone0: int, full_e: bool
+                 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor]:
+    """Launch the tone gather and top-4 on PyTorch's current stream, a warp
+    a (window, candidate, data symbol): power [B, H, F] float32, t0 / f0
+    [B, K] int64 (t0 < n_t0, f0 < n_f0, as the sync search gives them),
+    rows [n] int32 (os_t x the data symbols, at most ``rows_max``); tone j
+    of symbol s is power[b, t0 + rows[s], f0 + tone0 + os_f j] for j < 64.
+    Returns (e [B, K, n, 64] float32 or None without ``full_e``, top_e
+    [B, K, n, 4] float32, top_tone [B, K, n, 4] int64, e_sum [B, K, n]
+    float32, margin [B, K, n] float32), as
+    ``qary_engine._symbol_energies_plain``.  One launch."""
+    if power.dim() != 3 or t0.dim() != 2 or rows.dim() != 1:
+        raise ValueError("power [B, H, F], t0 / f0 [B, K] and rows [n] must "
+                         "be 3-, 2- and 1-D")
+    b, h, f = power.shape
+    k, n = t0.shape[1], rows.shape[0]
+    if not (0 < b and 0 < k and 0 < n and b * k * n < 2 ** 31):
+        raise ValueError(f"{b} x {k} x {n} rows: the kernel takes 1 to "
+                         "2**31 - 1")
+    if not (0 < n_t0 and 0 <= rows_max and n_t0 - 1 + rows_max < h
+            and 0 < n_f0 and 0 < os_f and 0 <= tone0
+            and n_f0 - 1 + tone0 + (SYM_TONES - 1) * os_f < f):
+        raise ValueError(f"t0 < {n_t0} + rows up to {rows_max} of {h}, f0 < "
+                         f"{n_f0} + {tone0} + 63 x {os_f} of {f} bins: a "
+                         "tone would lie outside the map")
+    _check({"power": (power, torch.float32, (b, h, f)),
+            "t0": (t0, torch.int64, (b, k)), "f0": (f0, torch.int64, (b, k)),
+            "rows": (rows, torch.int32, (n,))})
+    dev = power.device
+    e = torch.empty((b, k, n, SYM_TONES) if full_e else (1,),
+                    dtype=torch.float32, device=dev)
+    top_e = torch.empty((b, k, n, 4), dtype=torch.float32, device=dev)
+    top_tone = torch.empty((b, k, n, 4), dtype=torch.int64, device=dev)
+    e_sum = torch.empty((b, k, n), dtype=torch.float32, device=dev)
+    margin = torch.empty((b, k, n), dtype=torch.float32, device=dev)
+    lib = load_library()
+    dims = (ctypes.c_int * 10)(b, h, f, k, n, n_t0, n_f0, os_f, tone0,
+                               int(full_e))
+    with torch.cuda.device(dev):
+        err = lib.qary_symbols_launch(
+            ctypes.addressof(dims), power.data_ptr(), t0.data_ptr(),
+            f0.data_ptr(), rows.data_ptr(), e.data_ptr(), top_e.data_ptr(),
+            top_tone.data_ptr(), e_sum.data_ptr(), margin.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qary_symbols kernel launch failed: CUDA error "
+                           f"{err} ({b} x {k} candidates, {n} symbols)")
+    _count("qary_symbols")
+    return (e if full_e else None), top_e, top_tone, e_sum, margin
+
+
 def sync_occupancy(device, k: int, lists: int) -> dict:
     """A ``qary_sync`` block's dynamic shared memory at top-``k`` and
     ``lists`` lists a window, and the blocks an SM of ``device`` holds at
@@ -323,7 +391,7 @@ def kernel_attrs(device) -> dict:
     ``cudaFuncGetAttributes`` gives them."""
     lib = load_library()
     out = {}
-    for which, name in enumerate(("qra_mp", "qary_sync")):
+    for which, name in enumerate(("qra_mp", "qary_sync", "qary_symbols")):
         vals = (ctypes.c_int * 4)()
         with torch.cuda.device(device):
             err = lib.qary_kernel_attrs(which, ctypes.addressof(vals))

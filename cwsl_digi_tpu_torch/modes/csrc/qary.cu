@@ -1,9 +1,16 @@
 // The q-ary modes' device stages (JT65, Q65-30): Q65's GF(64) sum-product
-// decode (qra_mp) and the q-ary sync correlation with its top-K
-// (qary_sync), each with no host sync.  The median of their maps, shared
-// with WSPR and the GFSK engine, is csrc/median.cu's.
+// decode (qra_mp), the q-ary sync correlation with its top-K (qary_sync)
+// and the data symbols' tone gather with its top-4 (qary_symbols), each
+// with no host sync.  The median of their maps, shared with WSPR and the
+// GFSK engine, is csrc/median.cu's.
 //
-// They replace two XLA programs of the JAX package:
+// qary_symbols replaces cwsl_digi_tpu/modes/qary_engine.py:123-135 (the
+// advanced-index gather of each candidate's data-symbol tone energies,
+// lax.top_k of 4, their sum and the log margin of the best two); its plain
+// version, modes/qary_engine.py:_symbol_energies_plain, gathers
+// [B, K, n, 64] energies, sorts every row and reduces it in ~10 launches.
+//
+// The first two replace two XLA programs of the JAX package:
 // cwsl_digi_tpu/modes/qra.py:268-349 (QaryMPDecoder.decode: a fori_loop of
 // 60 sum-product iterations over [B, 50, 4, 64] messages, each two
 // [64, 64] float32 matmuls for the Walsh-Hadamard transforms, gathers for
@@ -127,6 +134,29 @@
 //     copies), ~18-24 % in the strip's selection, and the last block
 //     ~8 % more in the merge.  64-bin strips (two bins a lane, 2 blocks an
 //     SM) were as fast or slower at every shape: not kept.
+//
+//   - qary_symbols reads 64 tones of each (window, candidate, data
+//     symbol), at a stride of os_f bins (4 at JT65 and Q65: a float a
+//     16-byte word, so 4x the bytes it uses cross the bus), and writes 4
+//     energies, 4 tones, the sum and the margin (and the 64 energies where
+//     Q65's message passing reads them).  At the App's 64 JT65 windows (24
+//     candidates, 63 symbols) it moves ~25 MB of power map (100 MB of
+//     sectors) and 11 MB out: bytes bound it (~0.01 ms at 3.35 TB/s, ~0.04
+//     ms for the sectors it touches).  A warp takes a row: lane l reads tones
+//     l and l + 32, sums its pair and the warp folds the 32 pair sums by
+//     halves (__shfl_xor_sync 16, 8, 4, 2, 1): the plain version's halving
+//     fold, bit for bit.  The top 4 are four rounds of a warp maximum of
+//     the keys (order key << 32 | 63 - tone), each lane offering the larger
+//     of its two unpicked keys: descending, NaN first, -0.0 equal to 0.0,
+//     the lower tone first on ties, as the plain version's stable sort.
+//     The margin is logf of the best two, each + 1e-30f, subtracted: the
+//     plain version's operations on the card.  A candidate outside the
+//     map (t0 or f0 past the sync search's range) writes NaN energies and
+//     tone -1.  On an H100 80GB HBM3 at 700 W (chip_smoke.py, phase
+//     qary_decode_kernels): 0.0163 ms at JT65's 15-window batch (360
+//     candidates; the plain version 0.64 ms, torch.topk of the gathered
+//     energies alone 0.086 ms), 0.0308 ms at Q65-30's 30 windows with the
+//     energies written; 32 registers, no shared memory.
 //
 // Built with --fmad=false and without fast math (IEEE divisions,
 // denormals kept), so the sums and products are the IEEE float operations
@@ -1188,6 +1218,99 @@ int sync_attr() {
     return 0;
 }
 
+// ---------------------------------------------------------------------------
+// qary_symbols
+
+constexpr int SYM_WARPS = 8;
+constexpr int SYM_THREADS = SYM_WARPS * 32;
+constexpr int SYM_TONES = 64;            // tones a symbol (the kernel's only)
+
+struct SymDims {
+    int B, H, F;          // windows, map rows, map bins
+    int K, n;             // candidates a window, data symbols
+    int n_t0, n_f0;       // t0 < n_t0, f0 < n_f0 (the sync search's range)
+    int os_f, tone0;      // bins a tone; bin of tone 0 past f0
+    int full_e;           // write the 64 energies
+};
+
+__device__ __forceinline__ u64 sym_key(float v, int tone) {
+    return (static_cast<u64>(order_key(v)) << 32)
+        | static_cast<u64>(SYM_TONES - 1 - tone);
+}
+
+__device__ __forceinline__ u64 warp_max_u64(u64 k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const u64 o = __shfl_xor_sync(FULL, k, off);
+        k = o > k ? o : k;
+    }
+    return k;
+}
+
+// A warp a row (window b, candidate k, data symbol s): power [B, H, F]
+// float32, t0 / f0 [B K] int64, rows [n] int32 (os_t x the data symbols);
+// e [B K n, 64] (full_e), top_e [B K n, 4], top_tone [B K n, 4] int64,
+// e_sum and margin [B K n].
+__global__ void __launch_bounds__(SYM_THREADS)
+k_qary_symbols(const float* __restrict__ power,
+               const int64_t* __restrict__ t0, const int64_t* __restrict__ f0,
+               const int* __restrict__ rows, SymDims d, float* __restrict__ e,
+               float* __restrict__ top_e, int64_t* __restrict__ top_tone,
+               float* __restrict__ e_sum, float* __restrict__ margin) {
+    const int lane = threadIdx.x & 31;
+    const long long n_rows = static_cast<long long>(d.B) * d.K * d.n;
+    const long long step = static_cast<long long>(gridDim.x) * SYM_WARPS;
+    for (long long row = static_cast<long long>(blockIdx.x) * SYM_WARPS
+             + (threadIdx.x >> 5);
+         row < n_rows; row += step) {
+        const long long cand = row / d.n;
+        const int s = static_cast<int>(row - cand * d.n);
+        const int b = static_cast<int>(cand / d.K);
+        const long long tt = t0[cand], ff = f0[cand];
+        float v0 = __int_as_float(0x7fc00000), v1 = v0;
+        const bool inside = tt >= 0 && tt < d.n_t0 && ff >= 0 && ff < d.n_f0;
+        if (inside) {
+            const float* p = power
+                + (static_cast<long long>(b) * d.H + tt + rows[s]) * d.F
+                + ff + d.tone0;
+            v0 = __ldg(p + static_cast<long long>(d.os_f) * lane);
+            v1 = __ldg(p + static_cast<long long>(d.os_f) * (lane + 32));
+        }
+        if (d.full_e) {
+            float* out = e + row * SYM_TONES;
+            out[lane] = v0;
+            out[lane + 32] = v1;
+        }
+        // the halving fold: pairs (l, l + 32), then 16, 8, 4, 2, 1 apart
+        float sum = v0 + v1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(FULL, sum, off);
+        u64 k0 = sym_key(v0, lane), k1 = sym_key(v1, lane + 32);
+        float best[4];
+        int tone[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const u64 top = warp_max_u64(k0 > k1 ? k0 : k1);
+            const int t = SYM_TONES - 1 - static_cast<int>(top & 63u);
+            tone[r] = inside ? t : -1;
+            best[r] = __shfl_sync(FULL, t < 32 ? v0 : v1, t & 31);
+            if (k0 == top) k0 = 0;       // 0 is below every order key
+            if (k1 == top) k1 = 0;
+        }
+        if (lane < 4) {     // (selects, so the arrays stay in registers)
+            top_e[row * 4 + lane] = lane == 0 ? best[0] : lane == 1 ? best[1]
+                : lane == 2 ? best[2] : best[3];
+            top_tone[row * 4 + lane] = lane == 0 ? tone[0] : lane == 1
+                ? tone[1] : lane == 2 ? tone[2] : tone[3];
+        }
+        if (lane == 0) {
+            e_sum[row] = sum;
+            margin[row] = logf(best[0] + TINY) - logf(best[1] + TINY);
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1204,6 +1327,7 @@ int qary_sync_list_cap() { return SYNC_LIST_CAP; }
 int qary_sync_t_max() { return SYNC_TMAX; }
 int qary_sync_s_max() { return SYNC_S_MAX; }
 int qary_sync_k_max() { return SYNC_K_MAX; }
+int qary_symbols_tones() { return SYM_TONES; }
 
 // Table bytes and dynamic shared memory bytes of qra_mp for a code of n
 // variables, nc checks of mr slots, max_col column slots and `edges` real
@@ -1298,6 +1422,45 @@ int qary_sync_launch(const int* dims, const void* ps, const void* base,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The tone gather and top-4 of B x K candidates' n data symbols: dims [10]
+// = B, H, F, K, n, n_t0, n_f0, os_f, tone0, full_e; power [B, H, F]
+// float32, t0 / f0 [B, K] int64, rows [n] int32 (os_t x the data symbols;
+// the wrapper checks that n_t0 - 1 + rows and n_f0 - 1 + tone0 + 63 os_f
+// stay inside the map); e [B, K, n, 64] float32 (written only with full_e),
+// top_e [B, K, n, 4] float32, top_tone [B, K, n, 4] int64, e_sum and margin
+// [B, K, n] float32, on `stream`, one launch.  Returns the cudaError_t.
+int qary_symbols_launch(const int* dims, const void* power, const void* t0,
+                        const void* f0, const void* rows, void* e,
+                        void* top_e, void* top_tone, void* e_sum,
+                        void* margin, void* stream) {
+    SymDims d;
+    d.B = dims[0];
+    d.H = dims[1];
+    d.F = dims[2];
+    d.K = dims[3];
+    d.n = dims[4];
+    d.n_t0 = dims[5];
+    d.n_f0 = dims[6];
+    d.os_f = dims[7];
+    d.tone0 = dims[8];
+    d.full_e = dims[9];
+    if (d.B < 1 || d.K < 1 || d.n < 1 || d.n_t0 < 1 || d.n_t0 > d.H
+        || d.n_f0 < 1 || d.os_f < 1 || d.tone0 < 0
+        || d.n_f0 - 1 + d.tone0 + (SYM_TONES - 1) * d.os_f >= d.F)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long rows_n = static_cast<long long>(d.B) * d.K * d.n;
+    long long blocks = (rows_n + SYM_WARPS - 1) / SYM_WARPS;
+    if (blocks > 2147483647LL) blocks = 2147483647LL;
+    k_qary_symbols<<<static_cast<unsigned>(blocks), SYM_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(power), static_cast<const int64_t*>(t0),
+        static_cast<const int64_t*>(f0), static_cast<const int*>(rows), d,
+        static_cast<float*>(e), static_cast<float*>(top_e),
+        static_cast<int64_t*>(top_tone), static_cast<float*>(e_sum),
+        static_cast<float*>(margin));
+    return static_cast<int>(cudaGetLastError());
+}
+
 // Dynamic shared memory bytes of a qary_sync block at top-k and L lists a
 // window, and the blocks an SM holds at it
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out [2].  Returns the
@@ -1314,12 +1477,14 @@ int qary_sync_occupancy(int k, int lists, int* out) {
 
 // A kernel's registers a thread, local (spilled) bytes a thread, static
 // shared bytes and threads a block at most (cudaFuncGetAttributes): which
-// 0 = qra_mp, 1 = qary_sync.  out [4].  Returns the cudaError_t.
+// 0 = qra_mp, 1 = qary_sync, 2 = qary_symbols.  out [4].  Returns the
+// cudaError_t.
 int qary_kernel_attrs(int which, int* out) {
     cudaFuncAttributes a;
     cudaError_t e = cudaErrorInvalidValue;
     if (which == 0) e = cudaFuncGetAttributes(&a, k_qra_mp);
     else if (which == 1) e = cudaFuncGetAttributes(&a, k_qary_sync);
+    else if (which == 2) e = cudaFuncGetAttributes(&a, k_qary_symbols);
     if (e != cudaSuccess) return static_cast<int>(e);
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);

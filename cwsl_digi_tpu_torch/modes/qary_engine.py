@@ -9,8 +9,9 @@ power spectrograms (one bf16-input DFT matmul over the kept bins, or two
 rffts where the DFT matrix would exceed ``DFT_MAT_BYTES_MAX``), sync-tone
 correlation over (t0, f0) and its top-K candidates (on a card one launch
 of the ``qary_sync`` kernel, ``_qary_kernels``), per-symbol tone-energy
-gather -> best/second-best values and margins, the SNR's noise median
-(``median_rows`` on a card).  Then either the batched RS
+gather -> top-4 values and tones, sums and margins (on a card one launch
+of the ``qary_symbols`` kernel), the SNR's noise median (``median_rows``
+on a card).  Then either the batched RS
 errors-and-erasures Chase on the device (JT65, ``modes/rs_device.py``), or
 the GF(64) sum-product decoder under several prior variants (Q65,
 ``modes/qra.py``), each ending in one small packed copy to the host.
@@ -29,13 +30,14 @@ import torch
 from cwsl_digi_tpu_torch.constants import WAVE_SR
 from cwsl_digi_tpu_torch.convert import tables_to_torch
 from cwsl_digi_tpu_torch.device import as_device
-from cwsl_digi_tpu_torch.modes import _qary_kernels
+from cwsl_digi_tpu_torch.modes import _chase_kernels, _qary_kernels
 from cwsl_digi_tpu_torch.modes.base import (DecodeResult, on_device_lock,
                                             window_batch)
 from cwsl_digi_tpu_torch.modes.gfsk_engine import (DEVICE_BYTES_BUDGET,
                                                    _bf16_matmul, _median_rows,
                                                    _top_k, device_batch_for)
-from cwsl_digi_tpu_torch.modes.rs_device import (kernel_tables_device,
+from cwsl_digi_tpu_torch.modes.rs_device import (chase_tables_device,
+                                                 kernel_tables_device,
                                                  rs_chase_program)
 
 
@@ -130,11 +132,8 @@ def qary_decode_program(spec: QarySpec, audio: torch.Tensor, tabs: dict
     t0 = top_idx // n_f0
     f0 = top_idx % n_f0
 
-    e, top_e, top_tone = _symbol_energies(spec, power, t0, f0,
-                                          tabs["data_syms"])
-    e_sum = e.sum(dim=-1)                                   # [B, K, n_data]
-    margin = (torch.log(top_e[..., 0] + 1e-30)
-              - torch.log(top_e[..., 1] + 1e-30))
+    e, top_e, top_tone, e_sum, margin = _symbol_energies(
+        spec, power, t0, f0, tabs["data_syms"])
 
     noise = _median_rows(power_sync)
     sig = top_val * base[:, :, 0] / len(spec.sync_syms)
@@ -153,7 +152,7 @@ def qary_decode_program(spec: QarySpec, audio: torch.Tensor, tabs: dict
         "f0_bin": f0 + fmin_bin,
         "snr": snr,
     }
-    if spec.full_e:
+    if e is not None:
         out["e"] = e              # [B, K, n_data, n_tones]
     return out
 
@@ -202,19 +201,30 @@ def _qary_sync(spec: QarySpec, power_sync: torch.Tensor, base: torch.Tensor
 
 
 def check_sync_kernel(spec: QarySpec) -> None:
-    """Raise unless the ``qary_sync`` kernel takes this mode's search."""
+    """Raise unless the ``qary_sync`` and ``qary_symbols`` kernels take this
+    mode's search and demod."""
     _qary_kernels.check_sync(spec.max_hops, len(spec.sync_syms), spec.top_k)
     if list(spec.sync_syms) != sorted(spec.sync_syms):
         raise ValueError("qary_sync takes the sync symbols ascending")
+    _qary_kernels.check_symbols(spec.n_tones)
 
 
-def _symbol_energies(spec: QarySpec, power: torch.Tensor, t0: torch.Tensor,
-                     f0: torch.Tensor, data_syms: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The data symbols' tone energies of each candidate (t0, f0 [B, K]):
-    e [B, K, n_data, n_tones] gathered from ``power``, and its top-4 tone
-    hypotheses (energies, tones) per symbol, the compact soft information
-    of the list decoders."""
+def _halving_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (a power of two long) in one fixed order:
+    the first half plus the second, halved again until one value is left
+    (the ``qary_symbols`` kernel's lane pairs and warp folds)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _symbol_energies_plain(spec: QarySpec, power: torch.Tensor,
+                           t0: torch.Tensor, f0: torch.Tensor,
+                           data_syms: torch.Tensor):
+    """:func:`_symbol_energies` in plain PyTorch: an advanced-index gather
+    of e [B, K, n_data, n_tones], a stable sort of every row for its top
+    4, the halving sum and the margin."""
     b = power.shape[0]
     dev = power.device
     sym_hops = t0[:, :, None] + spec.os_t * data_syms.to(
@@ -224,7 +234,42 @@ def _symbol_energies(spec: QarySpec, power: torch.Tensor, t0: torch.Tensor,
     bb = torch.arange(b, device=dev)[:, None, None, None]
     e = power[bb, sym_hops[:, :, :, None], tone_bins[:, :, None, :]]
     top_e, top_tone = _top_k(e, 4)                          # [B, K, n_data, 4]
-    return e, top_e, top_tone
+    e_sum = _halving_sum(e)                                 # [B, K, n_data]
+    margin = (torch.log(top_e[..., 0] + 1e-30)
+              - torch.log(top_e[..., 1] + 1e-30))
+    return (e if spec.full_e else None), top_e, top_tone, e_sum, margin
+
+
+@functools.lru_cache(maxsize=None)
+def _sym_rows(data_syms: tuple, os_t: int, device: torch.device
+              ) -> torch.Tensor:
+    """The data symbols' first rows (os_t x symbol), int32 on ``device``,
+    copied there once a mode and device."""
+    return torch.tensor([os_t * s for s in data_syms], dtype=torch.int32,
+                        device=device)
+
+
+def _symbol_energies(spec: QarySpec, power: torch.Tensor, t0: torch.Tensor,
+                     f0: torch.Tensor, data_syms: torch.Tensor):
+    """The data symbols' tone energies of each candidate (t0, f0 [B, K]):
+    (e [B, K, n_data, n_tones] gathered from ``power``, or None unless
+    ``spec.full_e``; its top-4 tone hypotheses, energies and tones, per
+    symbol, descending and the lower tone first on ties, the compact soft
+    information of the list decoders; e_sum [B, K, n_data], the energies'
+    sum in :func:`_halving_sum`'s order; margin, log(top_e0 + 1e-30) -
+    log(top_e1 + 1e-30)).  ``data_syms`` is ``spec.data_syms`` on the
+    device.  On a CUDA tensor one launch of the ``qary_symbols`` kernel
+    (``_qary_kernels``, which takes the rows from the spec, copied to the
+    card once; it raises where the kernel cannot run), on a CPU tensor
+    :func:`_symbol_energies_plain`."""
+    if power.device.type == "cpu":
+        return _symbol_energies_plain(spec, power, t0, f0, data_syms)
+    fmin_bin, fmax_bin, _ = _bin_range(spec)
+    rows = _sym_rows(tuple(spec.data_syms), spec.os_t, power.device)
+    return _qary_kernels.qary_symbols(
+        power.contiguous(), t0.contiguous(), f0.contiguous(), rows,
+        spec.os_t * max(spec.data_syms), spec.max_hops, fmax_bin - fmin_bin,
+        spec.os_f, spec.os_f * spec.tone_offset, spec.full_e)
 
 
 def _mp_priors(variants: tuple, e: torch.Tensor) -> torch.Tensor:
@@ -292,6 +337,9 @@ class QaryDecoder:
     tensor already on ``device``.
     """
 
+    # the Chase program's deterministic erasure tiers (rs_device.DET_TIERS)
+    CHASE_DET = 6
+
     def __init__(self, spec: QarySpec, rs, mode, unpack,
                  min_score: float = 1.5, soft_accept: float = 0.40,
                  mp=None, symbol_perm=None, value_demap=None,
@@ -332,10 +380,14 @@ class QaryDecoder:
             self._host["value_demap"] = self.value_demap
         self._tabs = tables_to_torch(self._host, self.device)
         if rs is not None and self.device.type == "cuda":
-            # the rs_ee kernel's tables, copied now and not in a decode
-            kernel_tables_device((len(spec.data_syms), rs.k,
-                                  getattr(rs, "fcr", 1)),
+            # trials the Chase kernels do not take are refused now; their
+            # tables and the rs_ee kernel's are copied now, not in a decode
+            n = len(spec.data_syms)
+            _chase_kernels.check_chase(n, device_trials, self.CHASE_DET)
+            kernel_tables_device((n, rs.k, getattr(rs, "fcr", 1)),
                                  self.device)
+            chase_tables_device(n, n - rs.k, device_trials - self.CHASE_DET,
+                                self.device)
 
     def tables(self) -> dict[str, torch.Tensor]:
         """Host tables the reference also builds (see ``convert.py``)."""
@@ -462,7 +514,7 @@ class QaryDecoder:
         seed = out["t0_hop"].sum() & 0x7FFFFFFF
         info, _chase_score, chase_ok = rs_chase_program(
             (n, self.rs.k, getattr(self.rs, "fcr", 1)),
-            self.device_trials, 6, self.soft_accept,
+            self.device_trials, self.CHASE_DET, self.soft_accept,
             syms.reshape(c, n), margin.reshape(c, n),
             top_e.reshape(c, n, -1), top_tone.reshape(c, n, -1),
             e_sum.reshape(c, n), seed)

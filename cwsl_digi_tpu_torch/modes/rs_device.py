@@ -19,7 +19,16 @@ energies and keeps the best accepted trial per candidate.
 - Validity is "the corrected word's syndromes are all zero".
 - The stochastic erasure patterns are the reference's own draws
   (``modes/threefry.py``), so the trial set, and with it the decode list,
-  is the reference's.
+  is the reference's: the flags are bit for bit the JAX package's ``u <
+  p``, with p's weights, depths and row sum computed as its compiled
+  program computes them (:func:`chase_base_p`, :func:`chase_depth`,
+  :func:`windowed_row_sum`).
+- On CUDA tensors the Chase program's other stages are hand kernels too
+  (``csrc/chase.cu``, ``_chase_kernels``): the erasure flags
+  (:func:`chase_erasures`) and the soft score with the best trial
+  (:func:`chase_score`), so a chunk is three launches and no host sync;
+  their plain versions (:func:`chase_erasures_plain`,
+  :func:`chase_score_plain`) run on CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import numpy as np
 import torch
 
 from cwsl_digi_tpu_torch.convert import tables_to_torch
-from cwsl_digi_tpu_torch.modes import _weak_kernels, threefry
+from cwsl_digi_tpu_torch.modes import (_chase_kernels, _weak_kernels,
+                                       threefry)
 
 PRIM_POLY = 0x43      # x^6 + x + 1
 GF_M = 6
@@ -295,17 +305,199 @@ def rs_ee_decode_plain(nk_fcr: tuple, recv: torch.Tensor, era: torch.Tensor
 # deterministic erasure tiers (the reference's host ERASURE_SCHEDULE) + the
 # stochastic Chase tiers' target erasure depths
 DET_TIERS = (0, 8, 16, 24, 32, 40)
+# the window of the erasure probabilities' row sum: the JAX package's
+# program (XLA on the CPU) sums a row of more than 32 in windows of 32, each
+# from its first value on, then the windows' sums in order
+SUM_WINDOW = 32
 
 
-def _linspace_f32(start: float, stop: float, num: int,
-                  device: torch.device) -> torch.Tensor:
-    """``jnp.linspace`` in float32: start*(1-step) + stop*step with step =
-    iota/(num-1), the last value exactly ``stop``."""
-    div = num - 1
-    step = torch.arange(div, dtype=torch.float32, device=device) / float(div)
-    start_t = torch.tensor(start, dtype=torch.float32, device=device)
-    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
-    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
+def chase_depth(nroots: int, n_sto: int) -> np.ndarray:
+    """The stochastic trials' target erasure depths, float32 [n_sto]:
+    ``jnp.linspace(nroots - 14, nroots - 2, n_sto)`` as the JAX package's
+    compiled program computes it, start * (1 - i * inv) + i * (stop * inv)
+    with inv = 1 / (n_sto - 1) in float32, the last value exactly stop."""
+    f32 = np.float32
+    start, stop = f32(nroots - 14.0), f32(nroots - 2.0)
+    if n_sto == 1:
+        return np.asarray([start], np.float32)
+    inv = f32(1.0) / f32(n_sto - 1)
+    i = np.arange(n_sto - 1, dtype=np.float32)
+    head = start * (f32(1.0) - i * inv) + i * (stop * inv)
+    return np.append(head, stop).astype(np.float32)
+
+
+def chase_base_p(n: int) -> np.ndarray:
+    """Each confidence rank's erasure weight, float32 [n]: 0.9 - 0.8 r / (n
+    - 1) as the JAX package's compiled program computes it, one fused
+    multiply-add of r and the folded constant 0.8 / (n - 1) (exact here in
+    float64: r has 6 bits and the constant 24)."""
+    c = np.float32(np.float32(0.8) / np.float32(n - 1))
+    r = np.arange(n, dtype=np.float64)
+    return (np.float64(np.float32(0.9)) - r * np.float64(c)).astype(
+        np.float32)
+
+
+def windowed_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis in :data:`SUM_WINDOW` order: each window
+    of 32 added from its first value on, then the windows' sums in order
+    (sequential float32 adds, so the result is the same on every
+    device)."""
+    total = None
+    for w0 in range(0, x.shape[-1], SUM_WINDOW):
+        acc = x[..., w0]
+        for i in range(w0 + 1, min(x.shape[-1], w0 + SUM_WINDOW)):
+            acc = acc + x[..., i]
+        total = acc if total is None else total + acc
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _chase_tables_cached(n: int, nroots: int, n_sto: int,
+                         device: torch.device
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.from_numpy(chase_base_p(n)).to(device),
+            torch.from_numpy(chase_depth(nroots, n_sto)).to(device))
+
+
+def chase_tables_device(n: int, nroots: int, n_sto: int,
+                        device: torch.device | str
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(:func:`chase_base_p`, :func:`chase_depth`) on ``device``, copied
+    there on the first call for these sizes and cached (call it before
+    capturing the Chase program in a CUDA graph; ``QaryDecoder`` does so
+    when it is built on a card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _chase_tables_cached(n, nroots, n_sto, device)
+
+
+def confidence_rank(margin: torch.Tensor) -> torch.Tensor:
+    """Each symbol's confidence rank in its row (0 = least confident): the
+    position in a stable ascending sort of ``margin`` [C, n] (NaN last,
+    equal margins in position order)."""
+    c, n = margin.shape
+    order = torch.argsort(margin, dim=1, stable=True)
+    return torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=margin.device).expand(c, n)
+        .contiguous())
+
+
+def chase_erasures_plain(nroots: int, n_trials: int, n_det: int,
+                         margin: torch.Tensor, seed, c0: int = 0
+                         ) -> torch.Tensor:
+    """:func:`chase_erasures` in plain PyTorch."""
+    c, n = margin.shape
+    dev = margin.device
+    rank = confidence_rank(margin)
+    det = (torch.stack([rank < f for f in DET_TIERS[:n_det]], dim=1)
+           if n_det else torch.zeros((c, 0, n), dtype=torch.bool, device=dev))
+    n_sto = n_trials - n_det
+    base_p, depth = chase_tables_device(n, nroots, n_sto, dev)
+    p = base_p[rank]                                         # [C, n]
+    ratio = depth[None, :] / windowed_row_sum(p)[:, None]    # [C, n_sto]
+    key = threefry.fold_in(threefry.prng_key(17, dev), seed)
+    u = threefry.uniform(key, (c, n_sto, n), offset=c0 * n_sto * n)
+    return torch.cat([det, u < p[:, None, :] * ratio[:, :, None]], dim=1)
+
+
+def chase_erasures(nroots: int, n_trials: int, n_det: int,
+                   margin: torch.Tensor, seed, c0: int = 0) -> torch.Tensor:
+    """The Chase trials' erasure flags era [C, T, n] bool of candidates
+    c0 .. c0 + C of a batch, from their per-symbol confidences margin [C,
+    n] float32 and ``seed`` (a 0-dim integer tensor, or an int; its low 32
+    bits are folded in).  Trials 0 .. n_det - 1 erase the ``DET_TIERS``
+    least confident symbols; trial n_det + s erases symbol i where u < p:
+    u the uniform of element (c0 + c, s, i) of the JAX package's one
+    ``jax.random.uniform(fold_in(PRNGKey(17), seed), (C_all, n_sto, n))``
+    draw, p = base_p[rank] x (depth[s] / the row's windowed sum of
+    base_p[rank]), bit for bit the JAX package's ``u < p``.  On a CUDA
+    tensor one launch of the ``chase_erasures`` kernel (``_chase_kernels``;
+    the seed stays on the card), on a CPU tensor
+    :func:`chase_erasures_plain`."""
+    if margin.device.type == "cpu":
+        return chase_erasures_plain(nroots, n_trials, n_det, margin, seed,
+                                    c0)
+    base_p, depth = chase_tables_device(margin.shape[1], nroots,
+                                        n_trials - n_det, margin.device)
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor(seed, dtype=torch.int64, device=margin.device)
+    return _chase_kernels.chase_erasures(
+        margin.contiguous(), seed.to(torch.int64), base_p, depth,
+        DET_TIERS[:n_det], n_trials, c0)
+
+
+def chase_trial_scores_plain(accept: float, corrected: torch.Tensor,
+                             ok: torch.Tensor, era: torch.Tensor,
+                             top_e: torch.Tensor, top_tone: torch.Tensor,
+                             e_sum: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every trial's soft score [C, T] (-inf where it fails) and whether it
+    passes [C, T]: the reference's vectorized score over [C, T, n, 4]
+    hits."""
+    n = corrected.shape[2]
+    # soft re-encode score (the reference's host _soft_score, vectorized):
+    # mean log(E[cw tone] / mean symbol energy), top-4 else residual floor
+    hit = corrected[:, :, :, None] == top_tone[:, None, :, :]
+    e_top = torch.where(hit, top_e[:, None], 0.0).sum(dim=-1)
+    floor = (e_sum - top_e.sum(dim=-1)) / (GF_Q - 4)
+    e_cw = torch.where(hit.any(dim=-1), e_top, floor[:, None, :])
+    mean_e = (e_sum / n)[:, None, :]
+    logr = torch.log((e_cw + 1e-30) / (mean_e + 1e-30))      # [C, T, n]
+    score = logr.mean(dim=-1)
+    # erased positions are the independent verification: a true codeword
+    # still carries signal energy there, a noise-forced one scores ~0 (see
+    # the reference)
+    n_era = era.sum(dim=-1).to(torch.float32)                # [C, T]
+    s_era = (logr * era).sum(dim=-1) / n_era.clamp(min=1.0)
+    ok = ok & ((n_era < 8) | (s_era >= 0.6 * accept))
+    return torch.where(ok, score, -torch.inf), ok
+
+
+def chase_score_plain(k: int, accept: float, corrected: torch.Tensor,
+                      ok: torch.Tensor, era: torch.Tensor,
+                      top_e: torch.Tensor, top_tone: torch.Tensor,
+                      e_sum: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`chase_score` in plain PyTorch: the trials' scores
+    (:func:`chase_trial_scores_plain`) and ``argmax``."""
+    score, ok = chase_trial_scores_plain(accept, corrected, ok, era, top_e,
+                                         top_tone, e_sum)
+    best = score.argmax(dim=1)                               # [C]
+    bidx = torch.arange(corrected.shape[0], device=corrected.device)
+    best_score = score[bidx, best]
+    info = corrected[bidx, best, :k].to(torch.int64)
+    # the all-zero word is a codeword of every RS code and wins on dead
+    # air; require real content
+    best_ok = (ok[bidx, best] & (best_score >= accept)
+               & (info != 0).any(dim=1))
+    return info, best_score, best_ok
+
+
+def chase_score(k: int, accept: float, corrected: torch.Tensor,
+                ok: torch.Tensor, era: torch.Tensor, top_e: torch.Tensor,
+                top_tone: torch.Tensor, e_sum: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The soft re-encode score of every decoded trial and the best trial
+    of each candidate: corrected [C, T, n] uint8 and ok [C, T] bool (the
+    RS decode's), era [C, T, n] bool, top_e [C, n, 4] float32, top_tone [C,
+    n, 4] int64, e_sum [C, n] float32.  A trial's score is the mean over
+    the symbols of log((E + 1e-30) / (e_sum / n + 1e-30)), E the top-4
+    energy of the corrected tone, else the residual floor (e_sum - the
+    top-4 sum) / 60; a trial with 8 or more erasures also needs the mean of
+    its erased symbols' terms >= 0.6 ``accept``.  Returns (info [C, k]
+    int64, best_score [C] float32, best_ok [C] bool): the best passing
+    trial (the lowest index on ties), its score (-inf where none passes)
+    and whether it reaches ``accept`` with an info word not all zero.  On
+    CUDA tensors one launch of the ``chase_score`` kernel
+    (``_chase_kernels``), on CPU tensors :func:`chase_score_plain`."""
+    if corrected.device.type == "cpu":
+        return chase_score_plain(k, accept, corrected, ok, era, top_e,
+                                 top_tone, e_sum)
+    return _chase_kernels.chase_score(
+        corrected.contiguous(), ok.contiguous(), era.contiguous(),
+        top_e.contiguous(), top_tone.contiguous(), e_sum.contiguous(), k,
+        accept)[:3]
 
 
 def rs_chase_program(nk_fcr: tuple, n_trials: int, n_det: int,
@@ -320,64 +512,24 @@ def rs_chase_program(nk_fcr: tuple, n_trials: int, n_det: int,
     the demod stage; ``seed`` a 0-dim integer tensor (or int) folded into
     the key of the stochastic patterns.  Returns (info [C, k], score [C],
     ok [C]): the best accepted trial per candidate.  Candidates are
-    decoded in chunks of at most ``TRIALS_PER_CALL`` trials; each chunk
-    draws its slice of the reference's one ``[C, n_sto, n]`` draw.
+    decoded in chunks of at most ``TRIALS_PER_CALL`` trials, each three
+    stages (:func:`chase_erasures`, :func:`rs_ee_trials`,
+    :func:`chase_score`; on a card three kernel launches, no host sync);
+    each chunk draws its slice of the reference's one ``[C, n_sto, n]``
+    draw.
     """
     n, k, _fcr = nk_fcr
-    nroots = n - k
     c = syms.shape[0]
-    dev = syms.device
-    # confidence rank per symbol (0 = least confident)
-    order = torch.argsort(margin, dim=1, stable=True)
-    rank = torch.empty_like(order).scatter_(
-        1, order, torch.arange(n, device=dev).expand(c, n).contiguous())
-
-    # erasure patterns: det tiers erase the f least-confident symbols,
-    # stochastic tiers draw biased random patterns at increasing depth
-    tiers = list(DET_TIERS[:n_det])
-    det = torch.stack([rank < f for f in tiers], dim=1)      # [C, D, n]
-    n_sto = n_trials - det.shape[1]
-    key = threefry.fold_in(threefry.prng_key(17, dev), seed)
-    # erasure probability decreasing with confidence rank; depth ramps
-    # from ~nroots-11 to ~nroots-2 expected erasures across trials
-    depth = _linspace_f32(nroots - 14.0, nroots - 2.0, n_sto, dev)
-    p = (0.9 - 0.8 * rank.to(torch.float32) / (n - 1))[:, None, :]
-    p = p * (depth[None, :, None] / p.sum(dim=2, keepdim=True))
-
     chunk = max(1, TRIALS_PER_CALL // n_trials)
     infos, scores, oks = [], [], []
     for c0 in range(0, c, chunk):
         sl = slice(c0, min(c, c0 + chunk))
-        cc = sl.stop - c0
-        u = threefry.uniform(key, (cc, n_sto, n), offset=c0 * n_sto * n)
-        era = torch.cat([det[sl], u < p[sl]], dim=1)         # [cc, T, n]
+        era = chase_erasures(n - k, n_trials, n_det, margin[sl], seed, c0)
         corrected, ok = rs_ee_trials(nk_fcr, syms[sl], era)  # uint8 words
-
-        # soft re-encode score (the reference's host _soft_score, vectorized): mean
-        # log(E[cw tone] / mean symbol energy), top-4 else residual floor
-        hit = corrected[:, :, :, None] == top_tone[sl, None, :, :]
-        e_top = torch.where(hit, top_e[sl, None], 0.0).sum(dim=-1)
-        floor = (e_sum[sl] - top_e[sl].sum(dim=-1)) / (GF_Q - 4)
-        e_cw = torch.where(hit.any(dim=-1), e_top, floor[:, None, :])
-        mean_e = (e_sum[sl] / n)[:, None, :]
-        logr = torch.log((e_cw + 1e-30) / (mean_e + 1e-30))  # [cc, T, n]
-        score = logr.mean(dim=-1)
-        # erased positions are the independent verification: a true
-        # codeword still carries signal energy there, a noise-forced one
-        # scores ~0 (see the reference)
-        n_era = era.sum(dim=-1).to(torch.float32)            # [cc, T]
-        s_era = (logr * era).sum(dim=-1) / n_era.clamp(min=1.0)
-        ok = ok & ((n_era < 8) | (s_era >= 0.6 * accept))
-        score = torch.where(ok, score, -torch.inf)
-
-        best = score.argmax(dim=1)                           # [cc]
-        bidx = torch.arange(cc, device=dev)
-        best_score = score[bidx, best]
-        info = corrected[bidx, best, :k].to(torch.int64)
-        # the all-zero word is a codeword of every RS code and wins on dead
-        # air; require real content
+        info, score, best_ok = chase_score(k, accept, corrected, ok, era,
+                                           top_e[sl], top_tone[sl],
+                                           e_sum[sl])
         infos.append(info)
-        scores.append(best_score)
-        oks.append(ok[bidx, best] & (best_score >= accept)
-                   & (info != 0).any(dim=1))
+        scores.append(score)
+        oks.append(best_ok)
     return torch.cat(infos), torch.cat(scores), torch.cat(oks)

@@ -18,7 +18,9 @@ draws exactly:
   mantissa of a float in [1, 2) and subtracts 1.
 
 The words live in int64 tensors masked to 32 bits (``torch.uint32`` lacks
-most operations on CUDA), so the same code runs on any device.
+most operations on CUDA), so the same code runs on any device.  This is
+the plain version: on a card the Chase program's ``chase_erasures`` kernel
+(``csrc/chase.cu``) hashes the same counters in uint32 arithmetic.
 """
 
 from __future__ import annotations

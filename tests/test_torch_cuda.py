@@ -27,7 +27,10 @@ no spills; the WSPR and JT65 decoders launch them), the q-ary kernels
 base) against their plain versions
 and the NumPy models of ``tests/test_torch_qary_kernels.py`` (and no
 fallback; no spills; the JT65, Q65-30, WSPR and FT8 decoders launch
-them), and the parallel layer on a virtual mesh of the card against one
+them), the q-ary decode's ``qary_symbols``, ``chase_erasures`` and
+``chase_score`` against their plain versions on a JT65 and a Q65-30
+decode's inputs and planted edges (and no fallback; no spills), and the
+parallel layer on a virtual mesh of the card against one
 on the CPU, and its worker processes (two on the card, one on every card
 where there are several) against the skim in one process.
 
@@ -53,6 +56,7 @@ import chip_smoke
 from cwsl_digi_tpu_torch.dsp import _kernels
 from cwsl_digi_tpu_torch.dsp.channelizer import BatchChannelizer
 from cwsl_digi_tpu_torch.constants import Mode
+from cwsl_digi_tpu_torch.modes import _chase_kernels as chase_kernels
 from cwsl_digi_tpu_torch.modes import _gfsk_kernels as gfsk_kernels
 from cwsl_digi_tpu_torch.modes import _kernels as ldpc_kernels
 from cwsl_digi_tpu_torch.modes import _median_kernels as median_kernels
@@ -1005,15 +1009,16 @@ def test_qary_kernels_raise_without_library_on_card(dev, monkeypatch,
 
 
 def test_qary_kernels_do_not_spill_on_card(dev):
-    """qra_mp, median_rows (each plan's kernels) and qary_sync keep every
-    value in registers; a qary_sync block at top-24 takes 53,536 B of
+    """qra_mp, median_rows (each plan's kernels), qary_sync and
+    qary_symbols keep every value in registers; a qary_sync block at top-24 takes 53,536 B of
     dynamic shared memory (its warps' rings) and an SM holds four;
     Q65's code, whose 152 edges' messages and channel rows take 55,040 B
     of shared memory a word, holds the design's MP_BLOCKS_SM (4) qra_mp
     blocks of 8 warps an SM."""
     attrs = {**qary_kernels.kernel_attrs(dev),
              **median_kernels.kernel_attrs(dev)}
-    assert sorted(attrs) == ["median_rows", "qary_sync", "qra_mp"]
+    assert sorted(attrs) == ["median_rows", "qary_symbols", "qary_sync",
+                             "qra_mp"]
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, attrs)
     plans = median_kernels.instance_attrs(dev)
@@ -1032,18 +1037,23 @@ def test_qary_kernels_do_not_spill_on_card(dev):
 
 
 def test_decoders_launch_the_qary_kernels_on_card(dev):
-    """A JT65 decode runs qary_sync and median_rows once each, a Q65-30
-    decode qary_sync once, median_rows twice (the SNR and the priors) and
-    qra_mp once, a WSPR and an FT8 decode median_rows; each decodes its
-    message."""
+    """A JT65 decode runs qary_sync, qary_symbols, median_rows,
+    chase_erasures and chase_score once each, a Q65-30 decode qary_sync
+    and qary_symbols once, median_rows twice (the SNR and the priors) and
+    qra_mp once and no Chase kernel, a WSPR and an FT8 decode median_rows;
+    each decodes its message."""
     rng = np.random.default_rng(18)
     cases = [
         (jt65.JT65Decoder(device=dev), jt65.synthesize("CQ W2AXR FN13",
                                                        1270.0), -15.0,
-         "CQ W2AXR FN13", {"qary_sync": 1, "median_rows": 1, "qra_mp": 0}),
+         "CQ W2AXR FN13", {"qary_sync": 1, "median_rows": 1, "qra_mp": 0,
+                           "qary_symbols": 1, "chase_erasures": 1,
+                           "chase_score": 1}),
         (q65.Q65Decoder(device=dev), q65.synthesize("CQ W2AXR FN13",
                                                     1200.0), -15.0,
-         "CQ W2AXR FN13", {"qary_sync": 1, "median_rows": 2, "qra_mp": 1}),
+         "CQ W2AXR FN13", {"qary_sync": 1, "median_rows": 2, "qra_mp": 1,
+                           "qary_symbols": 1, "chase_erasures": 0,
+                           "chase_score": 0}),
         (wspr.WSPRDecoder(device=dev), wspr.synthesize("K1ABC", "FN42", 37,
                                                        1500.0), -20.0,
          "K1ABC FN42 37", None),
@@ -1052,17 +1062,112 @@ def test_decoders_launch_the_qary_kernels_on_card(dev):
          "CQ K1ABC FN42", None)]
     for dec, clean, snr, msg, want in cases:
         win = add_noise_at_snr(clean, snr, 12_000, rng).astype(np.float32)
-        before = {**qary_kernels.launches, **median_kernels.launches}
+        before = {**qary_kernels.launches, **median_kernels.launches,
+                  **chase_kernels.launches}
         res = dec.decode(torch.from_numpy(win[None]).to(dev))
         torch.cuda.synchronize()
         assert msg in [r.message for r in res[0]], type(dec).__name__
-        after = {**qary_kernels.launches, **median_kernels.launches}
+        after = {**qary_kernels.launches, **median_kernels.launches,
+                 **chase_kernels.launches}
         counts = {k: after[k] - before[k] for k in before}
         if want is None:
             assert counts["median_rows"] >= 1 and counts["qra_mp"] == 0, \
                 counts
+            assert counts["qary_symbols"] == counts["chase_score"] == 0, \
+                counts
         else:
             assert counts == want, (type(dec).__name__, counts)
+
+
+@pytest.fixture(scope="module")
+def decode_inputs():
+    """The last three q-ary kernels' inputs of a 4-window JT65 and Q65-30
+    decode of the weak replay's bursts (``chip_smoke``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return chip_smoke.record_decode_inputs(torch.device("cuda", 0), 4)
+
+
+def test_qary_symbols_matches_plain_on_card(dev, decode_inputs):
+    """qary_symbols against the plain gather and top-4 on each recorded
+    JT65 and Q65-30 map and on planted rows (two best tones tied, a flat
+    row, NaN and +inf): e, top_e, top_tone, e_sum and margin bit for bit,
+    and all but the margin bit for bit the plain version on CPU copies."""
+    for mode, spec, power, t0, f0, ds in decode_inputs["symbols"]:
+        got = chip_smoke.symbols_vs_plain(spec, power, t0, f0, ds)
+        assert got["ok"] and got["full_e"] == (mode == "Q65-30"), got
+        got = chip_smoke.symbols_vs_plain(
+            spec, chip_smoke.planted_symbols(spec, power, t0, f0), t0, f0,
+            ds)
+        assert got["ok"] and got["tied_best_two"] >= 2 * len(t0), got
+    torch.cuda.synchronize()
+
+
+def test_chase_kernels_match_plain_on_card(dev, decode_inputs):
+    """chase_erasures bit for bit the plain flags (on the card and on CPU
+    copies), at the decode's chunk and with planted margins past 2**32
+    draws; chase_score's info and ok identical and its score within 1e-5
+    of the plain version's, also with every trial duplicated."""
+    for args in decode_inputs["erasures"]:
+        got = chip_smoke.erasures_vs_plain(args)
+        assert got["ok"] and 0.3 < got["erased_share"] < 0.9, got
+        got = chip_smoke.erasures_vs_plain(chip_smoke.planted_chase(args))
+        assert got["ok"], got
+    for args in decode_inputs["score"]:
+        got = chip_smoke.score_vs_plain(args)
+        assert got["ok"] and got["ok_count"] > 0, got
+        got = chip_smoke.score_vs_plain(chip_smoke.duplicate_trials(args))
+        assert got["ok"], got
+    torch.cuda.synchronize()
+
+
+def test_qary_decode_kernels_raise_without_library_on_card(dev, monkeypatch,
+                                                           tmp_path):
+    """With no nvcc and no built library, the tone gather and the Chase
+    stages on CUDA tensors raise; the plain versions never run and nothing
+    counts."""
+    for mod in (qary_kernels, chase_kernels):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(qary_kernels.kernel_build.shutil, "which",
+                        lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(qary_engine, "_symbol_energies_plain", plain)
+    for name in ("chase_erasures_plain", "chase_score_plain"):
+        monkeypatch.setattr(rs_device, name, plain)
+    before = {**qary_kernels.launches, **chase_kernels.launches}
+    spec = jt65.SPEC
+    power = torch.zeros((1, 1411, 2645), device=dev)
+    t0 = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    ds = torch.tensor(spec.data_syms, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        qary_engine._symbol_energies(spec, power, t0, t0, ds)
+    margin = torch.zeros((2, 63), device=dev)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rs_device.chase_erasures(51, 256, 6, margin, 5)
+    c = torch.zeros((2, 8, 63), dtype=torch.uint8, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rs_device.chase_score(
+            12, 0.4, c, torch.ones((2, 8), dtype=torch.bool, device=dev),
+            c.bool(), torch.ones((2, 63, 4), device=dev),
+            torch.zeros((2, 63, 4), dtype=torch.int64, device=dev),
+            torch.ones((2, 63), device=dev))
+    assert {**qary_kernels.launches, **chase_kernels.launches} == before
+
+
+def test_qary_decode_kernels_do_not_spill_on_card(dev):
+    """qary_symbols, chase_erasures (its tiers through shared memory, not a
+    parameter array indexed at run time) and chase_score keep every value
+    in registers, in under 6 KB of static shared memory."""
+    attrs = {**chase_kernels.kernel_attrs(dev),
+             "qary_symbols": qary_kernels.kernel_attrs(dev)["qary_symbols"]}
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, attrs)
+        assert a["static_smem_bytes"] < 6 * 1024, (name, attrs)
 
 
 def test_one_decode_at_a_time_on_the_card(dev):

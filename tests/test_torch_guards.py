@@ -95,7 +95,7 @@ _PORT_FILES = sorted(
        "tools/torch_wspr_calibrate.py", "tools/qra_mp_model.py",
        "tools/qra_mp_profile.py", "tools/qra_mp_variants.py",
        "tools/wspr_beam_profile.py", "tools/median_profile.py",
-       "tools/sync_rs_profile.py",
+       "tools/sync_rs_profile.py", "tools/torch_op_chains.py",
        "tests/test_torch_cuda.py", "tests/test_torch_parity.py",
        "tests/test_torch_device_lock.py"])
 

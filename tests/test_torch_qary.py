@@ -7,7 +7,14 @@ Each stage on the same seeded NumPy inputs, then whole decodes:
 - ``rs_ee_decode``: corrected words and ``ok`` flags identical on 2,000
   seeded words (errors and erasures inside and beyond capacity, noise);
 - ``rs_chase_program``: ``info`` and ``ok`` identical, score within 1e-5,
-  on demod outputs of a JAX JT65 decode;
+  on demod outputs of a JAX JT65 decode, also stage by stage: the plain
+  erasure flags bit for bit the JAX program's ``u < p`` (its weights, depths
+  and windowed row sums bit for bit), the plain score and selection on the
+  reference's flags;
+- the tone gather and top-4 (``_symbol_energies_plain``) on the decoders'
+  own power maps of both spectrogram branches, with planted tone ties:
+  energies, top-4 and tones bit for bit JAX's gather and ``lax.top_k``, the
+  sum and margin within float rounding;
 - ``qary_decode_program``: t0, f0 and the top tones identical; energies
   within 1e-4 relative on the rfft branch and within 2^-7 relative + 1e-5
   of the peak on the bf16 DFT branch;
@@ -190,6 +197,164 @@ def test_rs_chase_patterns_chunk_invariant(jt65_demod, monkeypatch):
     parts = rs_device.rs_chase_program((63, 12, 3), 256, 6, 0.4, *args, seed)
     for a, b in zip(whole, parts):
         assert torch.equal(a, b)
+
+
+@jax.jit
+def _jax_chase_flags(margin, seed):
+    """The JAX package's erasure flags (``rs_chase_program``'s lines
+    :245-262 for JT65's 256 trials, 6 deterministic), compiled as there."""
+    n, nroots, n_trials = 63, 51, 256
+    c = margin.shape[0]
+    order = jnp.argsort(margin, axis=1)
+    rank = jnp.zeros((c, n), jnp.int32).at[
+        jnp.arange(c)[:, None], order].set(jnp.arange(n, dtype=jnp.int32))
+    det = jnp.stack([rank < f for f in jrs.DET_TIERS[:6]], axis=1)
+    n_sto = n_trials - det.shape[1]
+    key = jax.random.fold_in(jax.random.PRNGKey(17), seed)
+    u = jax.random.uniform(key, (c, n_sto, n))
+    depth = jnp.linspace(nroots - 14.0, nroots - 2.0, n_sto)
+    p = (0.9 - 0.8 * rank.astype(jnp.float32) / (n - 1))[:, None, :]
+    psum = jnp.sum(p, axis=2, keepdims=True)
+    p = p * (depth[None, :, None] / psum)
+    return jnp.concatenate([det, u < p], axis=1), depth, psum[:, 0, 0]
+
+
+def _planted_margins(margin: np.ndarray) -> np.ndarray:
+    """The demod's margins with ties planted: equal margins inside a row,
+    a row of one value, zeros of both signs."""
+    m = margin.copy()
+    m[0, 5:25] = m[0, 5]
+    m[1] = 0.25
+    m[2, ::3] = 0.0
+    m[2, 1::3] = -0.0
+    return m
+
+
+def test_chase_erasures_match_jax_bitwise(jt65_demod):
+    """The plain erasure flags of the demod's candidates (ties planted),
+    whole and as the chunks the program draws (c0 > 0), bit for bit the
+    JAX program's ``u < p`` and deterministic tiers; its depths, rank
+    weights and windowed row sums are the compiled program's."""
+    _syms, margin, *_rest, seed = jt65_demod
+    margin = _planted_margins(margin)
+    want, depth, psum = (np.asarray(x) for x in
+                         _jax_chase_flags(jnp.asarray(margin), seed))
+    np.testing.assert_array_equal(rs_device.chase_depth(51, 250).view(
+        np.uint32), depth.view(np.uint32))
+    rank = rs_device.confidence_rank(torch.from_numpy(margin))
+    got_sum = rs_device.windowed_row_sum(
+        torch.from_numpy(rs_device.chase_base_p(63))[rank]).numpy()
+    np.testing.assert_array_equal(got_sum.view(np.uint32),
+                                  psum.view(np.uint32))
+    got = rs_device.chase_erasures_plain(51, 256, 6, torch.from_numpy(margin),
+                                         torch.tensor(seed))
+    np.testing.assert_array_equal(got.numpy(), want)
+    c0 = 5
+    part = rs_device.chase_erasures_plain(
+        51, 256, 6, torch.from_numpy(margin[c0 : c0 + 4]), seed, c0)
+    np.testing.assert_array_equal(part.numpy(), want[c0 : c0 + 4])
+
+
+def test_chase_weights_match_jax_on_every_order():
+    """The rank weights' row sum in the fixed window order equals the JAX
+    program's on 2,000 random confidence orders (the weights are one set;
+    only the order of the sum moves its last bit)."""
+    rng = np.random.default_rng(25)
+    margin = rng.standard_normal((2000, 63)).astype(np.float32)
+    _flags, _depth, psum = _jax_chase_flags(jnp.asarray(margin), 3)
+    rank = rs_device.confidence_rank(torch.from_numpy(margin))
+    got = rs_device.windowed_row_sum(
+        torch.from_numpy(rs_device.chase_base_p(63))[rank]).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  np.asarray(psum).view(np.uint32))
+    # the sum does move with the order: one fixed order is needed
+    assert len(np.unique(got)) > 1
+
+
+def test_chase_stages_match_jax(jt65_demod):
+    """The three plain stages on the demod's candidates: the flags, the RS
+    decode and the score with its selection give the JAX program's info
+    and ok, and its score within 1e-5."""
+    syms, margin, top_e, top_tone, e_sum, seed = jt65_demod
+    ij, sj, okj = jrs.rs_chase_program((63, 12, 3), 256, 6, 0.4, syms, margin,
+                                       top_e, top_tone, e_sum, seed)
+    era = rs_device.chase_erasures_plain(51, 256, 6, torch.from_numpy(margin),
+                                         seed)
+    corrected, ok = rs_device.rs_ee_trials_plain(
+        (63, 12, 3), torch.from_numpy(syms.astype(np.int64)), era)
+    ip, sp, okp = rs_device.chase_score_plain(
+        12, 0.4, corrected, ok, era, torch.from_numpy(top_e),
+        torch.from_numpy(top_tone.astype(np.int64)), torch.from_numpy(e_sum))
+    np.testing.assert_array_equal(okp.numpy(), np.asarray(okj))
+    np.testing.assert_array_equal(ip.numpy(), np.asarray(ij))
+    sj = np.asarray(sj)
+    fin = np.isfinite(sj)
+    np.testing.assert_array_equal(np.isfinite(sp.numpy()), fin)
+    np.testing.assert_allclose(sp.numpy()[fin], sj[fin], rtol=0, atol=1e-5)
+
+
+def _jax_symbols(spec, power, t0, f0):
+    """The JAX package's tone gather and top-4 (``qary_decode_program``'s
+    lines :123-135) on a given power map."""
+    data_syms = jnp.asarray(spec.data_syms, jnp.int32)
+    sym_hops = t0[:, :, None] + spec.os_t * data_syms[None, None, :]
+    tone_bins = (f0[:, :, None] + spec.os_f * (
+        spec.tone_offset + jnp.arange(spec.n_tones, dtype=jnp.int32))[
+            None, None, :])
+    bb = jnp.arange(power.shape[0])[:, None, None, None]
+    e = power[bb, sym_hops[:, :, :, None], tone_bins[:, :, None, :]]
+    top_e, top_tone = jax.lax.top_k(e, 4)
+    margin = (jnp.log(top_e[..., 0] + 1e-30)
+              - jnp.log(top_e[..., 1] + 1e-30))
+    return e, top_e, top_tone, jnp.sum(e, axis=-1), margin
+
+
+@pytest.mark.parametrize("branch", ["jt65-rfft", "q65-dft"])
+def test_symbol_energies_match_jax(branch, monkeypatch):
+    """The plain tone gather and top-4 on the power map and candidates the
+    decoder hands it (each spectrogram branch), with a planted tie of the
+    two best tones and a tie below them: e, top_e and top_tone bit for bit
+    JAX's, e_sum (the halving sum) within 2^-22 relative and the margin
+    within 1e-6 of JAX's."""
+    if branch == "jt65-rfft":
+        wins, pd = _jt65_windows()[:1], _Rfft(top_k=4, device="cpu")
+    else:
+        wins, pd = _q65_windows()[:1], q65.Q65Decoder(top_k=4, device="cpu")
+    assert pd.spectrogram_branch == branch.split("-")[1]
+    seen = []
+    energies = qary_engine._symbol_energies
+
+    def record(spec, power, t0, f0, data_syms):
+        seen.append((spec, power, t0, f0))
+        return energies(spec, power, t0, f0, data_syms)
+
+    monkeypatch.setattr(qary_engine, "_symbol_energies", record)
+    pd.decode_arrays(wins)
+    spec, power, t0, f0 = seen[0]
+    power = power.clone()
+    # plant: candidate 0's first data symbol gets tones 7 and 3 equal and
+    # largest, tones 20 and 40 equal below them
+    h = int(t0[0, 0]) + spec.os_t * spec.data_syms[0]
+    bins = int(f0[0, 0]) + spec.os_f * (spec.tone_offset + np.arange(64))
+    row = power[0, h, bins]
+    top = float(row.max()) * 2
+    power[0, h, bins[[3, 7]]] = top
+    power[0, h, bins[[20, 40]]] = top * 0.75
+    tabs = {"data_syms": torch.tensor(spec.data_syms, dtype=torch.int32)}
+    e, top_e, top_tone, e_sum, margin = qary_engine._symbol_energies_plain(
+        spec, power, t0, f0, tabs["data_syms"])
+    want = [np.asarray(x) for x in _jax_symbols(
+        spec, jnp.asarray(power.numpy()), jnp.asarray(t0.numpy()),
+        jnp.asarray(f0.numpy()))]
+    assert (e is not None) == spec.full_e
+    if e is not None:
+        np.testing.assert_array_equal(e.numpy(), want[0])
+    np.testing.assert_array_equal(top_e.numpy(), want[1])
+    np.testing.assert_array_equal(top_tone.numpy(), want[2])
+    assert top_tone[0, 0, 0].tolist() == [3, 7, 20, 40]
+    np.testing.assert_allclose(e_sum.numpy(), want[3], rtol=2.0 ** -22)
+    np.testing.assert_allclose(margin.numpy(), want[4], rtol=0, atol=1e-6)
+    assert margin[0, 0, 0] == 0.0
 
 
 # --------------------------------------------------------------------------

@@ -161,7 +161,11 @@ def _setup(mode: str, dev):
     if mode == "JT65":
         stages += [(qary_engine, "_median_rows", "SNR median (in demod)"),
                    (qary_engine, "rs_chase_program", "RS Chase"),
+                   (rs_device, "chase_erasures",
+                    "erasure patterns (in RS Chase)"),
                    (rs_device, "rs_ee_trials", "RS decode (in RS Chase)"),
+                   (rs_device, "chase_score",
+                    "soft score + best trial (in RS Chase)"),
                    (torch.fft, "rfft", "spectrogram rffts (in demod)")]
     else:
         stages += [(qary_engine, "_median_rows",
