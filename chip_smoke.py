@@ -138,7 +138,9 @@
    ``qary_decode_kernels``) on the inputs of the App's 64-window JT65 and
    Q65-30 decodes of the weak replay's bursts and on planted edges (tied,
    flat and NaN tone rows; tied, signed-zero, NaN and -inf margins at a
-   draw index past 2**32; trials duplicated in pairs): the tone gather,
+   draw index past 2**32; trials duplicated in pairs; trials whose slabs
+   are not 16-byte aligned, which ``chase_score`` copies byte by byte in
+   place of its TMA ring): the tone gather,
    top-4, sum and margin bit for bit, the erasure flags bit for bit (also
    against the plain version on CPU copies), the Chase info and ok
    identical and the score within 1e-5, printing the flags' differing
@@ -146,7 +148,10 @@
    trials within 1e-5); the 64-window decode lists with the plain stages
    equal the kernels'.  Then each kernel's device time at JT65's shapes
    beside the plain version's, the bound and, for the gather,
-   ``torch.topk(e, 4)``, and each kernel's registers and spills;
+   ``torch.topk(e, 4)``, each kernel's registers and spills, and the two
+   redesigns' layouts (``qary_symbols``' lanes and rows a warp, blocks an
+   SM and grid; ``chase_score``'s stage, ring, shared bytes, blocks an SM
+   and copy path);
 5. runs the port's App on a seeded 192 kHz file replay with 64 FT8
    decoder lines across the band and known bursts in 17 of them (SNR 0 to
    -18 dB, a crowded channel of 9 overlapping signals, an AP-covered CQ);
@@ -2994,6 +2999,26 @@ def duplicate_trials(args):
     return (k, accept, corrected, ok, era, top_e[c], top_tone[c], e_sum[c])
 
 
+def unaligned_trials(args, n_trials: int = 37, shift: int = 1):
+    """A recorded score chunk's first 64 candidates and first ``n_trials``
+    trials, each of the corrected words and the erasures a view ``shift``
+    bytes past a 16-byte boundary: a candidate's n_trials x n bytes and the
+    bases not 16-byte aligned, so ``chase_score`` stages them by the
+    block's byte copies, not the TMA unit."""
+    k, accept, corrected, ok, era, top_e, top_tone, e_sum = args
+    c = slice(0, 64)
+
+    def shifted(x):
+        x = x[c, :n_trials].contiguous()
+        buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+        view = buf[shift:shift + x.numel()].view(x.shape)
+        view.copy_(x)
+        return view
+
+    return (k, accept, shifted(corrected), ok[c, :n_trials].contiguous(),
+            shifted(era), top_e[c], top_tone[c], e_sum[c])
+
+
 def symbols_bound_ms(spec, t0: torch.Tensor) -> tuple[float, float, dict]:
     """(bytes ms, ops ms, counts) of the tone gather and top-4 of these
     candidates: each of the 64 tones of a (candidate, data symbol) read
@@ -3059,7 +3084,9 @@ def qary_decode_kernels_phase(dev) -> dict:
     (``record_decode_inputs``: the App's 64-window JT65 and Q65-30
     decodes) and on planted edges (tied, flat and NaN tone rows; tied,
     signed-zero, NaN and -inf margins at a chunk offset past 2**32 draws;
-    trials duplicated in pairs): the gather bit for bit, the flags bit for
+    trials duplicated in pairs; slabs off 16-byte alignment, which
+    ``chase_score`` copies byte by byte): the gather bit for bit, the flags
+    bit for
     bit (also against the plain version on CPU copies), the score's info
     and ok identical, its score within SCORE_TOL, and each changed best
     trial within SCORE_TOL of the plain one; then the same decodes with the
@@ -3067,7 +3094,9 @@ def qary_decode_kernels_phase(dev) -> dict:
     kernel's device time at JT65's shapes (the 15-window gather, the 1,024
     candidate chunk) beside the plain version's, the bound and, for the
     gather, ``torch.topk(e, 4)`` of its energies; each kernel's registers
-    and spills."""
+    and spills, and the layouts of ``qary_symbols`` (lanes and rows a
+    warp, blocks an SM, grid) and ``chase_score`` (stage, ring, shared
+    bytes, blocks an SM, copy path)."""
     from cwsl_digi_tpu_torch.modes import _chase_kernels as ck
     from cwsl_digi_tpu_torch.modes import _qary_kernels as qk
     from cwsl_digi_tpu_torch.modes import jt65, q65, qary_engine, rs_device
@@ -3091,6 +3120,9 @@ def qary_decode_kernels_phase(dev) -> dict:
         checks[f"chase_score {i}"] = score_vs_plain(args)
     checks["chase_score duplicated trials"] = score_vs_plain(
         duplicate_trials(rec["score"][0]))
+    # slabs that are not 16-byte aligned: the block's byte copies
+    checks["chase_score byte copies"] = score_vs_plain(
+        unaligned_trials(rec["score"][0]))
     for name, c in checks.items():
         print(f"q-ary decode kernels vs plain, {name}: {json.dumps(c)}")
     bad = [name for name, c in checks.items() if not c["ok"]]
@@ -3132,7 +3164,13 @@ def qary_decode_kernels_phase(dev) -> dict:
 
     attrs = {**{k: v for k, v in qk.kernel_attrs(dev).items()
                 if k == "qary_symbols"}, **ck.kernel_attrs(dev)}
-    print(f"q-ary decode kernels' design: attributes {json.dumps(attrs)}")
+    score_t, score_n = rec["score"][0][2].shape[1:]
+    design = {"qary_symbols": qk.symbols_design(dev),
+              "chase_score": {**ck.score_design(dev, score_t, score_n),
+                              "tma_path": ck.score_bulk(
+                                  rec["score"][0][2], rec["score"][0][4])}}
+    print(f"q-ary decode kernels' design: attributes {json.dumps(attrs)}, "
+          f"layout {json.dumps(design)}")
     _, jspec, jps, jt0, jf0, jds = next(r for r in rec["symbols"]
                                         if r[0] == "JT65")
     era_args, score_args = rec["erasures"][0], rec["score"][0]
@@ -3183,7 +3221,7 @@ def qary_decode_kernels_phase(dev) -> dict:
     for key, v in shapes.items():
         print(f"q-ary decode kernel at {key}: {json.dumps(v)}")
     return {"kernels": out, "checks": checks, "attrs": attrs,
-            "shapes": shapes, "era_bits_differ": era_bits,
+            "design": design, "shapes": shapes, "era_bits_differ": era_bits,
             "best_trials_changed": changed}
 
 

@@ -35,6 +35,10 @@ N_MAX = 64               # symbols a word
 T_MAX = 1024             # trials a candidate
 DET_MAX = 8              # deterministic trials
 SUM_WINDOW = 32          # the erasure weights' row sum's window
+SCORE_WARPS = 4          # chase_score: warps a block (a candidate)
+SCORE_LANES = 4          # lanes a trial
+SCORE_STAGE = 32         # trials a stage of its shared ring
+SCORE_RING = 2           # stages in flight
 
 SRC = Path(__file__).parent / "csrc" / "chase.cu"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -74,9 +78,17 @@ def load_library() -> ctypes.CDLL:
             lib.chase_score_launch.restype = i
             lib.chase_kernel_attrs.argtypes = [i, p]
             lib.chase_kernel_attrs.restype = i
+            lib.chase_score_design.argtypes = [i, i, p]
+            lib.chase_score_design.restype = i
+            lib.chase_score_bulk.argtypes = [p, p, i, i]
+            lib.chase_score_bulk.restype = i
             limits = {"chase_n_max": N_MAX, "chase_t_max": T_MAX,
                       "chase_det_max": DET_MAX,
-                      "chase_sum_window": SUM_WINDOW}
+                      "chase_sum_window": SUM_WINDOW,
+                      "chase_score_warps": SCORE_WARPS,
+                      "chase_score_lanes": SCORE_LANES,
+                      "chase_score_stage": SCORE_STAGE,
+                      "chase_score_ring": SCORE_RING}
             for name, want in limits.items():
                 getattr(lib, name).restype = i
                 if getattr(lib, name)() != want:
@@ -170,7 +182,10 @@ def chase_score(corrected: torch.Tensor, ok: torch.Tensor, era: torch.Tensor,
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """Launch the soft score and best-trial selection on PyTorch's current
-    stream, a block a candidate: corrected [C, T, n] uint8, ok [C, T] bool,
+    stream, a block a candidate, its trials' words and flags staged in
+    shared memory by the TMA unit where both slabs are 16-byte aligned
+    (:func:`score_bulk`), by the block's byte copies where not:
+    corrected [C, T, n] uint8, ok [C, T] bool,
     era [C, T, n] bool, top_e [C, n, 4] float32, top_tone [C, n, 4] int64,
     e_sum [C, n] float32.  Returns (info [C, k] int64, best_score [C]
     float32, best_ok [C] bool), as ``rs_device.chase_score_plain``, and
@@ -212,6 +227,30 @@ def chase_score(corrected: torch.Tensor, ok: torch.Tensor, era: torch.Tensor,
                            f"{err} ({c} candidates x {t} trials)")
     _count("chase_score")
     return info, best_score, best_ok, best_trial
+
+
+def score_bulk(corrected: torch.Tensor, era: torch.Tensor) -> bool:
+    """Whether ``chase_score`` stages these trials by the TMA unit (both
+    bases 16-byte aligned and a candidate's T x n bytes a multiple of 16),
+    as the library decides it."""
+    _c, t, n = corrected.shape
+    return bool(load_library().chase_score_bulk(
+        corrected.data_ptr(), era.data_ptr(), t, n))
+
+
+def score_design(device, n_trials: int, n: int) -> dict:
+    """``chase_score``'s layout for ``n_trials`` trials of ``n`` symbols on
+    ``device``: warps a block, trials a stage, ring slots, dynamic and
+    static shared bytes a block, blocks an SM."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = load_library().chase_score_design(n_trials, n,
+                                                ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"chase_score_design: CUDA error {err}")
+    return dict(zip(("warps_a_block", "trials_a_stage", "ring_slots",
+                     "dynamic_smem_bytes", "static_smem_bytes",
+                     "blocks_an_sm"), list(out)))
 
 
 def kernel_attrs(device) -> dict:

@@ -46,6 +46,7 @@ SYNC_T_MAX = 128          # time offsets
 SYNC_S_MAX = 128          # sync symbols
 SYNC_K_MAX = 256          # top-K
 SYM_TONES = 64            # tones a symbol (qary_symbols takes no other)
+SYM_GROUP = 8             # qary_symbols' lanes a row
 
 SRC = Path(__file__).parent / "csrc" / "qary.cu"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -90,6 +91,8 @@ def load_library() -> ctypes.CDLL:
             lib.qary_sync_occupancy.restype = i
             lib.qary_symbols_launch.argtypes = [p] * 11
             lib.qary_symbols_launch.restype = i
+            lib.qary_symbols_design.argtypes = [p]
+            lib.qary_symbols_design.restype = i
             lib.qary_kernel_attrs.argtypes = [i, p]
             lib.qary_kernel_attrs.restype = i
             limits = {"qary_mp_n_max": MP_N_MAX, "qary_mp_nc_max": MP_NC_MAX,
@@ -102,7 +105,8 @@ def load_library() -> ctypes.CDLL:
                       "qary_sync_t_max": SYNC_T_MAX,
                       "qary_sync_s_max": SYNC_S_MAX,
                       "qary_sync_k_max": SYNC_K_MAX,
-                      "qary_symbols_tones": SYM_TONES}
+                      "qary_symbols_tones": SYM_TONES,
+                      "qary_symbols_group": SYM_GROUP}
             for name, want in limits.items():
                 getattr(lib, name).restype = i
                 if getattr(lib, name)() != want:
@@ -302,8 +306,9 @@ def qary_symbols(power: torch.Tensor, t0: torch.Tensor, f0: torch.Tensor,
                  os_f: int, tone0: int, full_e: bool
                  ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor,
                             torch.Tensor, torch.Tensor]:
-    """Launch the tone gather and top-4 on PyTorch's current stream, a warp
-    a (window, candidate, data symbol): power [B, H, F] float32, t0 / f0
+    """Launch the tone gather and top-4 on PyTorch's current stream,
+    SYM_GROUP lanes a (window, candidate, data symbol), in a grid of the
+    blocks the card holds at once: power [B, H, F] float32, t0 / f0
     [B, K] int64 (t0 < n_t0, f0 < n_f0, as the sync search gives them),
     rows [n] int32 (os_t x the data symbols, at most ``rows_max``); tone j
     of symbol s is power[b, t0 + rows[s], f0 + tone0 + os_f j] for j < 64.
@@ -362,6 +367,18 @@ def sync_occupancy(device, k: int, lists: int) -> dict:
     if err != 0:
         raise RuntimeError(f"qary_sync_occupancy: CUDA error {err}")
     return {"dynamic_smem_bytes": out[0], "blocks_an_sm": out[1]}
+
+
+def symbols_design(device) -> dict:
+    """``qary_symbols``' layout on ``device``: lanes a row, rows a warp,
+    blocks an SM and the grid's cap (the blocks the card holds at once)."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = load_library().qary_symbols_design(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"qary_symbols_design: CUDA error {err}")
+    return dict(zip(("lanes_a_row", "rows_a_warp", "blocks_an_sm",
+                     "grid_cap"), list(out)))
 
 
 def mp_smem_bytes(n: int, edges: int) -> int:

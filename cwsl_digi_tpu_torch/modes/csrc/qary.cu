@@ -139,24 +139,37 @@
 //     symbol), at a stride of os_f bins (4 at JT65 and Q65: a float a
 //     16-byte word, so 4x the bytes it uses cross the bus), and writes 4
 //     energies, 4 tones, the sum and the margin (and the 64 energies where
-//     Q65's message passing reads them).  At the App's 64 JT65 windows (24
-//     candidates, 63 symbols) it moves ~25 MB of power map (100 MB of
-//     sectors) and 11 MB out: bytes bound it (~0.01 ms at 3.35 TB/s, ~0.04
-//     ms for the sectors it touches).  A warp takes a row: lane l reads tones
-//     l and l + 32, sums its pair and the warp folds the 32 pair sums by
-//     halves (__shfl_xor_sync 16, 8, 4, 2, 1): the plain version's halving
-//     fold, bit for bit.  The top 4 are four rounds of a warp maximum of
-//     the keys (order key << 32 | 63 - tone), each lane offering the larger
-//     of its two unpicked keys: descending, NaN first, -0.0 equal to 0.0,
-//     the lower tone first on ties, as the plain version's stable sort.
-//     The margin is logf of the best two, each + 1e-30f, subtracted: the
-//     plain version's operations on the card.  A candidate outside the
-//     map (t0 or f0 past the sync search's range) writes NaN energies and
-//     tone -1.  On an H100 80GB HBM3 at 700 W (chip_smoke.py, phase
-//     qary_decode_kernels): 0.0163 ms at JT65's 15-window batch (360
-//     candidates; the plain version 0.64 ms, torch.topk of the gathered
-//     energies alone 0.086 ms), 0.0308 ms at Q65-30's 30 windows with the
-//     energies written; 32 registers, no shared memory.
+//     Q65's message passing reads them).  At JT65's 15-window batch (360
+//     candidates, 22,680 rows) that is 7.1 MB, 0.0021 ms at 3.35 TB/s, and
+//     23.2 MB of the 32-byte sectors the gather touches, 0.0069 ms: bytes
+//     bound it.  8 lanes take a row, 4 rows a warp: lane l holds tones l +
+//     8 j and issues its 8 loads before it uses one (the candidate's t0, f0
+//     and row come in one round trip before them).  The sum folds tones 32,
+//     16 and 8 apart in the lane's registers and 4, 2, 1 apart by
+//     __shfl_xor_sync: the plain version's halving fold, bit for bit.  A
+//     tone's key is (order key << 32 | 63 - tone << 26 | the energy's sign
+//     and mantissa): descending, NaN first, -0.0 equal to 0.0, the lower
+//     tone first on ties, as the plain version's stable sort, and
+//     invertible, so the winners' energies are read back from their keys,
+//     NaN payloads and the sign of zero included.  A lane sorts its two
+//     fours and merges them, and the group merges the sorted lists in three
+//     butterfly steps (the larger of a[i] and b[3 - i], then two compare
+//     steps): 6 shuffles a row and 3/4 of one for the sum (the first port,
+//     a warp a row: ~50).  The margin is logf of the best two, each +
+//     1e-30f, subtracted.  A candidate outside the map writes NaN energies
+//     and tone -1.  The grid is the blocks the card holds at once (6 an SM
+//     or more, so at most 40 registers; it takes 32, and the card holds 8
+//     an SM, 1,056 blocks): JT65's batch in one wave of 709 blocks.  On an
+//     H100 80GB HBM3 at 700 W (tools/qary_chase_profile.py, in turns with
+//     the first port): 0.00977-0.01038 ms at JT65's batch (the first port
+//     0.01624-0.01686), 21 % of the byte bound and 69 % of the sectors',
+//     0.01614-0.01681 at Q65-30's 30 windows with the energies written
+//     (0.02968-0.03013); 4, 16 and 32 lanes a row 0.0103-0.0105,
+//     0.0130-0.0132 and 0.0212-0.0213 at JT65's.  Without the map's loads
+//     it still takes 0.0087-0.0089, and without the group's merge
+//     0.0086-0.0088: the launch, the t0 round trip and ~750 instructions a
+//     warp (the keys and the sorting networks on 64-bit keys) set the time,
+//     not the sectors.
 //
 // Built with --fmad=false and without fast math (IEEE divisions,
 // denormals kept), so the sums and products are the IEEE float operations
@@ -1224,6 +1237,9 @@ int sync_attr() {
 constexpr int SYM_WARPS = 8;
 constexpr int SYM_THREADS = SYM_WARPS * 32;
 constexpr int SYM_TONES = 64;            // tones a symbol (the kernel's only)
+constexpr int SYM_GROUP = 8;             // lanes a row
+constexpr int SYM_MIN_BLOCKS = 6;        // blocks an SM: JT65's 15-window
+                                         // batch in one wave on 132 SMs
 
 struct SymDims {
     int B, H, F;          // windows, map rows, map bins
@@ -1233,82 +1249,209 @@ struct SymDims {
     int full_e;           // write the 64 energies
 };
 
+// A tone's key: the energy's order key (NaN first, -0.0 equal to 0.0) in
+// the high word, 63 - tone in the low word's top 6 bits (the lower tone
+// first on ties), and below them the energy's sign and mantissa, which no
+// comparison reaches (a row's tones differ) but which make the key
+// invertible: sym_value gives the energy back bit for bit, NaN payloads and
+// the sign of zero included.
 __device__ __forceinline__ u64 sym_key(float v, int tone) {
-    return (static_cast<u64>(order_key(v)) << 32)
-        | static_cast<u64>(SYM_TONES - 1 - tone);
+    const uint32_t u = __float_as_uint(v);
+    // order_key in integer operations: flip a negative's bits, set a
+    // positive's sign; zeros of both signs as +0.0's key, NaN above all
+    uint32_t k = u ^ (static_cast<uint32_t>(static_cast<int>(u) >> 31)
+                      | 0x80000000u);
+    k = (u & 0x7fffffffu) == 0u ? 0x80000000u : k;
+    k = (u & 0x7fffffffu) > 0x7f800000u ? 0xffffffffu : k;
+    const uint32_t lo = (static_cast<uint32_t>(SYM_TONES - 1 - tone) << 26)
+        | ((u >> 8) & 0x800000u) | (u & 0x7fffffu);
+    return (static_cast<u64>(k) << 32) | lo;
 }
 
-__device__ __forceinline__ u64 warp_max_u64(u64 k) {
+__device__ __forceinline__ int sym_tone(u64 key) {
+    return SYM_TONES - 1 - static_cast<int>((key >> 26) & 63u);
+}
+
+__device__ __forceinline__ float sym_value(u64 key) {
+    const uint32_t hi = static_cast<uint32_t>(key >> 32);
+    const uint32_t lo = static_cast<uint32_t>(key);
+    const uint32_t sign = (lo & 0x800000u) << 8;
+    const uint32_t bits = hi == 0xffffffffu ? sign | 0x7f800000u
+            | (lo & 0x7fffffu)                           // NaN
+        : hi == 0x80000000u ? sign                        // zero
+        : (hi & 0x80000000u) ? hi & 0x7fffffffu : ~hi;
+    return __uint_as_float(bits);
+}
+
+// a >= b afterwards
+__device__ __forceinline__ void sym_cas(u64& a, u64& b) {
+    const u64 hi = a > b ? a : b;
+    b = a > b ? b : a;
+    a = hi;
+}
+
+// Sorts 4 keys descending.
+__device__ __forceinline__ void sym_sort4(u64* k) {
+    sym_cas(k[0], k[1]);
+    sym_cas(k[2], k[3]);
+    sym_cas(k[0], k[2]);
+    sym_cas(k[1], k[3]);
+    sym_cas(k[1], k[2]);
+}
+
+// The top 4 of two descending lists of 4 distinct keys, descending, into
+// a: the larger of a[i] and b[3 - i] is a bitonic sequence holding them,
+// which two compare steps sort.  Both lanes of a pair that merge each
+// other's lists get the same list.
+__device__ __forceinline__ void sym_merge4(u64* a, const u64* b) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const u64 o = __shfl_xor_sync(FULL, k, off);
-        k = o > k ? o : k;
-    }
-    return k;
+    for (int i = 0; i < 4; ++i) a[i] = a[i] > b[3 - i] ? a[i] : b[3 - i];
+    sym_cas(a[0], a[2]);
+    sym_cas(a[1], a[3]);
+    sym_cas(a[0], a[1]);
+    sym_cas(a[2], a[3]);
 }
 
-// A warp a row (window b, candidate k, data symbol s): power [B, H, F]
-// float32, t0 / f0 [B K] int64, rows [n] int32 (os_t x the data symbols);
-// e [B K n, 64] (full_e), top_e [B K n, 4], top_tone [B K n, 4] int64,
-// e_sum and margin [B K n].
-__global__ void __launch_bounds__(SYM_THREADS)
+// G lanes a row (window b, candidate k, data symbol s), 32 / G rows a warp,
+// a warp's rows consecutive: power [B, H, F] float32, t0 / f0 [B K] int64,
+// rows [n] int32 (os_t x the data symbols); e [B K n, 64] (full_e), top_e
+// [B K n, 4], top_tone [B K n, 4] int64, e_sum and margin [B K n].  Lane l
+// of a row's group holds tones l + G j (j < 64 / G): it issues all its
+// loads before it uses one, folds its tones 32, 16, ... apart in
+// registers and the group folds the rest by __shfl_xor_sync, the plain
+// version's halving order; it sorts its keys' top 4 and the group merges
+// the sorted lists in log2(G) butterfly steps, after which every lane of
+// the group holds the row's top 4 keys, each energy read back from its key.
+// The grid is the blocks the card holds at once, and a warp walks rows in a
+// grid-stride loop.
+__global__ void __launch_bounds__(SYM_THREADS, SYM_MIN_BLOCKS)
 k_qary_symbols(const float* __restrict__ power,
                const int64_t* __restrict__ t0, const int64_t* __restrict__ f0,
                const int* __restrict__ rows, SymDims d, float* __restrict__ e,
                float* __restrict__ top_e, int64_t* __restrict__ top_tone,
                float* __restrict__ e_sum, float* __restrict__ margin) {
-    const int lane = threadIdx.x & 31;
-    const long long n_rows = static_cast<long long>(d.B) * d.K * d.n;
-    const long long step = static_cast<long long>(gridDim.x) * SYM_WARPS;
-    for (long long row = static_cast<long long>(blockIdx.x) * SYM_WARPS
-             + (threadIdx.x >> 5);
-         row < n_rows; row += step) {
-        const long long cand = row / d.n;
+    constexpr int G = SYM_GROUP;
+    static_assert(G == 4 || G == 8 || G == 16 || G == 32,
+                  "4, 8, 16 or 32 lanes a row");
+    constexpr int T = SYM_TONES / G;     // tones a lane
+    constexpr int R = 32 / G;            // rows a warp
+    const int lane = threadIdx.x & 31, sub = lane & (G - 1);
+    const unsigned n_rows = static_cast<unsigned>(d.B) * d.K * d.n;
+    const unsigned step = gridDim.x * SYM_WARPS * R;
+    for (unsigned w0 = (blockIdx.x * SYM_WARPS + (threadIdx.x >> 5)) * R;
+         w0 < n_rows; w0 += step) {
+        const unsigned row = w0 + lane / G;
+        const bool live = row < n_rows;
+        const unsigned cand = live ? row / d.n : 0u;
         const int s = static_cast<int>(row - cand * d.n);
-        const int b = static_cast<int>(cand / d.K);
-        const long long tt = t0[cand], ff = f0[cand];
-        float v0 = __int_as_float(0x7fc00000), v1 = v0;
+        const unsigned b = cand / d.K;
+        long long tt = -1, ff = -1;
+        int hop = 0;
+        if (live) {                      // one round trip for the three
+            tt = t0[cand];
+            ff = f0[cand];
+            hop = rows[s];
+        }
         const bool inside = tt >= 0 && tt < d.n_t0 && ff >= 0 && ff < d.n_f0;
+        float v[T];
         if (inside) {
             const float* p = power
-                + (static_cast<long long>(b) * d.H + tt + rows[s]) * d.F
-                + ff + d.tone0;
-            v0 = __ldg(p + static_cast<long long>(d.os_f) * lane);
-            v1 = __ldg(p + static_cast<long long>(d.os_f) * (lane + 32));
-        }
-        if (d.full_e) {
-            float* out = e + row * SYM_TONES;
-            out[lane] = v0;
-            out[lane + 32] = v1;
-        }
-        // the halving fold: pairs (l, l + 32), then 16, 8, 4, 2, 1 apart
-        float sum = v0 + v1;
+                + (static_cast<long long>(b) * d.H + tt + hop) * d.F
+                + ff + d.tone0 + static_cast<long long>(d.os_f) * sub;
+            const long long stride = static_cast<long long>(d.os_f) * G;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+            for (int j = 0; j < T; ++j) v[j] = __ldg(p + stride * j);
+        } else {
+#pragma unroll
+            for (int j = 0; j < T; ++j) v[j] = __int_as_float(0x7fc00000);
+        }
+        if (d.full_e && live) {
+            float* out = e + static_cast<long long>(row) * SYM_TONES + sub;
+#pragma unroll
+            for (int j = 0; j < T; ++j) out[G * j] = v[j];
+        }
+        // the halving fold: tones 32, 16, ... apart in the lane's
+        // registers, then G / 2, ..., 1 apart across the group
+        float f[T];
+#pragma unroll
+        for (int j = 0; j < T; ++j) f[j] = v[j];
+#pragma unroll
+        for (int h = T / 2; h > 0; h >>= 1)
+#pragma unroll
+            for (int j = 0; j < h; ++j) f[j] = f[j] + f[j + h];
+        float sum = f[0];
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
             sum += __shfl_xor_sync(FULL, sum, off);
-        u64 k0 = sym_key(v0, lane), k1 = sym_key(v1, lane + 32);
-        float best[4];
-        int tone[4];
+        // the lane's top 4, then the group's
+        u64 top[4];
+        if constexpr (T == 2) {
+            const u64 k0 = sym_key(v[0], sub), k1 = sym_key(v[1], sub + G);
+            top[0] = k0 > k1 ? k0 : k1;
+            top[1] = k0 > k1 ? k1 : k0;
+            top[2] = top[3] = 0;         // 0 is below every order key
+        } else {                         // sorted fours, merged in pairs
+            u64 four[T >= 4 ? T / 4 : 1][4];  // (T 2 builds this too)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const u64 top = warp_max_u64(k0 > k1 ? k0 : k1);
-            const int t = SYM_TONES - 1 - static_cast<int>(top & 63u);
-            tone[r] = inside ? t : -1;
-            best[r] = __shfl_sync(FULL, t < 32 ? v0 : v1, t & 31);
-            if (k0 == top) k0 = 0;       // 0 is below every order key
-            if (k1 == top) k1 = 0;
+            for (int b = 0; b < T / 4; ++b) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    four[b][j] = sym_key(v[4 * b + j], sub + G * (4 * b + j));
+                sym_sort4(four[b]);
+            }
+#pragma unroll
+            for (int w = 1; w < T / 4; w *= 2)
+#pragma unroll
+                for (int b = 0; b < T / 4; b += 2 * w)
+                    sym_merge4(four[b], four[b + w]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) top[j] = four[0][j];
         }
-        if (lane < 4) {     // (selects, so the arrays stay in registers)
-            top_e[row * 4 + lane] = lane == 0 ? best[0] : lane == 1 ? best[1]
-                : lane == 2 ? best[2] : best[3];
-            top_tone[row * 4 + lane] = lane == 0 ? tone[0] : lane == 1
-                ? tone[1] : lane == 2 ? tone[2] : tone[3];
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) {
+            u64 other[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                other[j] = __shfl_xor_sync(FULL, top[j], off);
+            sym_merge4(top, other);
         }
-        if (lane == 0) {
+        if (live && sub < 4) {   // (selects, so the list stays in registers)
+            const u64 mine = sub == 0 ? top[0] : sub == 1 ? top[1]
+                : sub == 2 ? top[2] : top[3];
+            top_e[static_cast<long long>(row) * 4 + sub] = sym_value(mine);
+            top_tone[static_cast<long long>(row) * 4 + sub] =
+                inside ? sym_tone(mine) : -1;
+        }
+        // lane 0 of the group the best energy's log, lane 1 the second's
+        const float lg = logf(sym_value(sub == 0 ? top[0] : top[1]) + TINY);
+        const float lg1 = __shfl_down_sync(FULL, lg, 1);
+        if (live && sub == 0) {
             e_sum[row] = sum;
-            margin[row] = logf(best[0] + TINY) - logf(best[1] + TINY);
+            margin[row] = lg - lg1;
         }
     }
+}
+
+// The blocks of k_qary_symbols the current device holds at once (SMs x
+// blocks an SM), kept a device.  Returns the cudaError_t.
+int sym_resident(int* out) {
+    static int resident[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 0 || dev >= MAX_DEVICES)
+        return static_cast<int>(cudaErrorInvalidDevice);
+    if (resident[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, k_qary_symbols, SYM_THREADS, 0);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    *out = resident[dev];
+    return 0;
 }
 
 }  // namespace
@@ -1328,6 +1471,7 @@ int qary_sync_t_max() { return SYNC_TMAX; }
 int qary_sync_s_max() { return SYNC_S_MAX; }
 int qary_sync_k_max() { return SYNC_K_MAX; }
 int qary_symbols_tones() { return SYM_TONES; }
+int qary_symbols_group() { return SYM_GROUP; }
 
 // Table bytes and dynamic shared memory bytes of qra_mp for a code of n
 // variables, nc checks of mr slots, max_col column slots and `edges` real
@@ -1428,7 +1572,8 @@ int qary_sync_launch(const int* dims, const void* ps, const void* base,
 // the wrapper checks that n_t0 - 1 + rows and n_f0 - 1 + tone0 + 63 os_f
 // stay inside the map); e [B, K, n, 64] float32 (written only with full_e),
 // top_e [B, K, n, 4] float32, top_tone [B, K, n, 4] int64, e_sum and margin
-// [B, K, n] float32, on `stream`, one launch.  Returns the cudaError_t.
+// [B, K, n] float32, on `stream`, one launch of the blocks the card holds
+// at once.  Returns the cudaError_t.
 int qary_symbols_launch(const int* dims, const void* power, const void* t0,
                         const void* f0, const void* rows, void* e,
                         void* top_e, void* top_tone, void* e_sum,
@@ -1446,11 +1591,16 @@ int qary_symbols_launch(const int* dims, const void* power, const void* t0,
     d.full_e = dims[9];
     if (d.B < 1 || d.K < 1 || d.n < 1 || d.n_t0 < 1 || d.n_t0 > d.H
         || d.n_f0 < 1 || d.os_f < 1 || d.tone0 < 0
-        || d.n_f0 - 1 + d.tone0 + (SYM_TONES - 1) * d.os_f >= d.F)
+        || d.n_f0 - 1 + d.tone0 + (SYM_TONES - 1) * d.os_f >= d.F
+        || static_cast<long long>(d.B) * d.K * d.n > 2147483647LL)
         return static_cast<int>(cudaErrorInvalidValue);
+    int resident = 0;
+    const int err = sym_resident(&resident);
+    if (err != 0) return err;
     const long long rows_n = static_cast<long long>(d.B) * d.K * d.n;
-    long long blocks = (rows_n + SYM_WARPS - 1) / SYM_WARPS;
-    if (blocks > 2147483647LL) blocks = 2147483647LL;
+    const long long per_block = SYM_WARPS * (32 / SYM_GROUP);
+    long long blocks = (rows_n + per_block - 1) / per_block;
+    if (blocks > resident) blocks = resident;
     k_qary_symbols<<<static_cast<unsigned>(blocks), SYM_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(power), static_cast<const int64_t*>(t0),
@@ -1459,6 +1609,24 @@ int qary_symbols_launch(const int* dims, const void* power, const void* t0,
         static_cast<int64_t*>(top_tone), static_cast<float*>(e_sum),
         static_cast<float*>(margin));
     return static_cast<int>(cudaGetLastError());
+}
+
+// qary_symbols' layout on the current device: out [4] = lanes a row, rows
+// a warp, blocks an SM, the grid's cap (the blocks the card holds at
+// once).  Returns the cudaError_t.
+int qary_symbols_design(int* out) {
+    int resident = 0, sms = 0, dev = 0;
+    const int e = sym_resident(&resident);
+    if (e != 0) return e;
+    cudaError_t c = cudaGetDevice(&dev);
+    if (c == cudaSuccess)
+        c = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (c != cudaSuccess) return static_cast<int>(c);
+    out[0] = SYM_GROUP;
+    out[1] = 32 / SYM_GROUP;
+    out[2] = resident / sms;
+    out[3] = resident;
+    return 0;
 }
 
 // Dynamic shared memory bytes of a qary_sync block at top-k and L lists a

@@ -1121,6 +1121,21 @@ def test_chase_kernels_match_plain_on_card(dev, decode_inputs):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("n_trials,shift", [(37, 1), (256, 1), (37, 0),
+                                            (9, 3)])
+def test_chase_score_byte_copies_match_plain_on_card(dev, decode_inputs,
+                                                     n_trials, shift):
+    """chase_score where its slabs are not 16-byte aligned (a candidate's
+    T x n bytes or the bases), so the block copies them byte by byte: the
+    same contract against the plain version as the TMA path's."""
+    args = chip_smoke.unaligned_trials(decode_inputs["score"][0], n_trials,
+                                       shift)
+    assert not chase_kernels.score_bulk(args[2], args[4])
+    got = chip_smoke.score_vs_plain(args)
+    assert got["ok"], got
+    torch.cuda.synchronize()
+
+
 def test_qary_decode_kernels_raise_without_library_on_card(dev, monkeypatch,
                                                            tmp_path):
     """With no nvcc and no built library, the tone gather and the Chase
@@ -1162,12 +1177,23 @@ def test_qary_decode_kernels_raise_without_library_on_card(dev, monkeypatch,
 def test_qary_decode_kernels_do_not_spill_on_card(dev):
     """qary_symbols, chase_erasures (its tiers through shared memory, not a
     parameter array indexed at run time) and chase_score keep every value
-    in registers, in under 6 KB of static shared memory."""
+    in registers, in under 6 KB of static shared memory; chase_score's ring
+    and its tables take at most 27 KB of dynamic shared memory, 8 blocks
+    an SM or more; qary_symbols' grid takes JT65's batch in one wave."""
     attrs = {**chase_kernels.kernel_attrs(dev),
              "qary_symbols": qary_kernels.kernel_attrs(dev)["qary_symbols"]}
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, (name, attrs)
         assert a["static_smem_bytes"] < 6 * 1024, (name, attrs)
+    # chase_score's ring of trial stages and its symbols' tables: 8 blocks
+    # an SM or more, so a 1,024-candidate chunk runs in one wave on 132 SMs
+    design = chase_kernels.score_design(dev, 256, 63)
+    assert design["dynamic_smem_bytes"] <= 27 * 1024, design
+    assert design["blocks_an_sm"] >= 8, design
+    # qary_symbols: JT65's 15-window batch (22,680 rows) in one wave
+    sym = qary_kernels.symbols_design(dev)
+    assert sym["rows_a_warp"] == 32 // qary_kernels.SYM_GROUP, sym
+    assert sym["grid_cap"] * 8 * sym["rows_a_warp"] >= 22_680, sym
 
 
 def test_one_decode_at_a_time_on_the_card(dev):
